@@ -1,0 +1,147 @@
+"""Flat-npz pytree checkpoints, shared with the JAX package.
+
+The port of ``repro/checkpoint/io.py``, with no jax: one ``.npz`` entry per
+leaf, keyed by its path joined with ``::``; list entries are ``#i``; a
+packed (quantized) base leaf is a ``__quant__`` subtree.  Files written by
+either package load in the other.
+
+:func:`load_pytree` returns numpy leaves; :func:`params_from_numpy` places
+a numpy tree (a loaded checkpoint, or the JAX package's parameters and
+adapters as numpy arrays) on a device as tensors.
+"""
+from __future__ import annotations
+
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.lora import AdapterSet, adapter_rank
+from repro_torch.core.scaling import per_client_gammas
+from repro_torch.tree import tree_leaves
+
+_SEP = "::"
+_QUANT = "__quant__"
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+    elif isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            raise TypeError("bfloat16 tensors have no numpy dtype; cast to "
+                            "float32 before saving")
+        out[prefix[:-len(_SEP)]] = t.numpy()
+    else:
+        out[prefix[:-len(_SEP)]] = np.asarray(tree)  # lint: disable=R4 -- numpy/python leaves; the torch port holds no JAX tracers
+    return out
+
+
+def save_pytree(path: str, tree) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **_flatten(tree))
+
+
+def load_pytree(path: str):
+    """The tree saved at ``path``, with numpy leaves."""
+    with np.load(path) as data:
+        tree = {}
+        for key in data.files:
+            parts = key.split(_SEP)
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return _unlistify(tree)
+
+
+def _unlistify(node):
+    if isinstance(node, dict):
+        if _QUANT in node:
+            raise NotImplementedError(
+                "quantized base not yet ported to repro_torch (checkpoint "
+                "holds a packed __quant__ leaf)")
+        if node and all(k.startswith("#") for k in node):
+            return [_unlistify(node[f"#{i}"]) for i in range(len(node))]
+        return {k: _unlistify(v) for k, v in node.items()}
+    return node
+
+
+def params_from_numpy(tree, device="cuda", dtype=None):
+    """A tree of arrays (anything ``np.asarray`` takes) as tensors on
+    ``device``.  Floating leaves are cast to ``dtype`` when it is given;
+    integer leaves keep their type; string leaves stay numpy."""
+    device = resolve_device(device)
+
+    def conv(leaf):
+        arr = np.asarray(leaf)  # lint: disable=R4 -- concrete arrays (numpy, or JAX arrays handed over by tests); the torch port holds no JAX tracers
+        if arr.dtype.kind in "SUO":
+            return arr
+        if arr.dtype.kind == "f" and arr.dtype.itemsize == 2 \
+                and arr.dtype != np.float16:
+            arr = arr.astype(np.float32)    # bfloat16 (ml_dtypes) has no torch twin
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:         # e.g. a view of a JAX array
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return conv(node)
+
+    return walk(tree)
+
+
+def load_adapter_state(path: str, *, lora_cfg=None, n_clients: int = None,
+                       device="cuda", dtype=None):
+    """``(base_params, stacked AdapterSet)`` from a federated checkpoint
+    written by the JAX trainer (``repro/checkpoint/io.py:
+    save_federated_state``): the serving entry point, with no trainer
+    state.
+
+    Checkpoints with ``adapter_meta`` rebuild the trained AdapterSet
+    exactly (per-client gammas, rank mask, rank/alpha).  Older ones are
+    upgraded from ``lora_cfg`` (+ ``n_clients``, default: the checkpoint's
+    client dim): gamma = scaling(alpha, rank, N), as the JAX package does."""
+    t = load_pytree(path)
+    base = params_from_numpy(t["base"], device, dtype)
+    lora = params_from_numpy(t["lora"], device, dtype)
+    mask = t.get("rank_mask")
+    meta = t.get("adapter_meta")
+    n = tree_leaves(lora)[0].shape[0]
+    r_pad = adapter_rank(lora)
+    if meta is not None:
+        gammas = tuple(float(g) for g in np.asarray(meta["gammas"]).reshape(-1))
+        if len(gammas) == 1:
+            gammas = gammas * n
+        return base, AdapterSet(lora=lora, gamma=gammas, rank_mask=mask,
+                                rank=int(meta["rank"]),
+                                alpha=float(meta["alpha"]))
+    if lora_cfg is None:
+        raise ValueError(
+            f"checkpoint '{path}' predates adapter_meta — pass lora_cfg "
+            "(rank/alpha/scaling) to upgrade it to an AdapterSet")
+    warnings.warn(
+        f"legacy checkpoint '{path}': no adapter_meta; rebuilding gammas "
+        f"from lora_cfg ({lora_cfg.scaling}, alpha={lora_cfg.alpha})",
+        stacklevel=2)
+    ranks = (tuple(int(r) for r in np.asarray(mask).sum(axis=-1))
+             if mask is not None else (r_pad,) * n)
+    gammas = per_client_gammas(lora_cfg.scaling, lora_cfg.alpha, ranks,
+                               n_clients or n)
+    return base, AdapterSet(lora=lora, gamma=gammas, rank_mask=mask,
+                            rank=r_pad, alpha=lora_cfg.alpha)

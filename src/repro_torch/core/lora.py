@@ -1,0 +1,357 @@
+"""LoRA parameter trees and the adapter API, as far as serving needs them.
+
+The port of ``repro/core/lora.py``.  A LoRA tree has the same
+``{"stack": {"repeat": {"p0": ...}, "tail": ...}}`` shape as the base
+params, but each targeted projection leaf ``w (d_in, d_out)`` becomes
+``{"a": (r, d_in), "b": (d_out, r)}`` (with the leading layer dim of the
+repeated blocks, and a leading client or tenant dim where stacked).
+
+:class:`AdapterSet` carries the A/B tree with its scaling factor gamma, an
+optional rank mask and rank/alpha metadata; :meth:`AdapterSet.fold_gamma`
+is the one place gamma meets the weights.  :class:`AdapterBank` stacks K
+prepared sets for multi-tenant serving.
+
+Config values (gamma, rank masks) stay host numpy / python values, as in
+the JAX package; they become tensors only where they multiply a leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.hostcheck import check_adapter_ids
+from repro_torch.tree import tree_leaves, tree_map
+
+# which leaves inside each block subtree are adaptable, per target name
+_TARGET_LEAVES = {
+    "q": ("attn/q", "cross/q", "mlstm/q"),
+    "k": ("attn/k", "cross/k", "mlstm/k"),
+    "v": ("attn/v", "cross/v", "mlstm/v"),
+    "o": ("attn/o", "cross/o", "mlstm/o"),
+    "wx": ("rglru/wx",),
+    "wy": ("rglru/wy",),
+}
+
+
+def _targeted_paths(targets):
+    out = set()
+    for t in targets:
+        out.update(_TARGET_LEAVES.get(t, ()))
+    return out
+
+
+def init_lora(params, generator: torch.Generator, lora_cfg, *, targets=None):
+    """A LoRA tree for every targeted projection found in ``params``:
+    A ~ N(0, init_std^2) drawn from ``generator``, B = 0.  Leading stack
+    dims are kept, so repeated blocks get stacked adapters.  Leaves land on
+    the device and in the dtype of the weight they adapt."""
+    targets = _targeted_paths(targets or lora_cfg.targets)
+    r = lora_cfg.rank
+    std = lora_cfg.init_std
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                sub = walk(v, path + (k,))
+                if sub is not None:
+                    out[k] = sub
+            return out or None
+        if "/".join(path[-2:]) not in targets:
+            return None
+        lead = tuple(node.shape[:-2])          # stacked layer dims
+        d_in, d_out = node.shape[-2:]
+        a = torch.randn(lead + (r, d_in), generator=generator,
+                        device=generator.device, dtype=torch.float32) * std
+        b = torch.zeros(lead + (d_out, r), dtype=node.dtype,
+                        device=node.device)
+        return {"a": a.to(device=node.device, dtype=node.dtype), "b": b}
+
+    return walk(params, ()) or {}
+
+
+def merge_lora(params, lora, gamma):
+    """W0 + gamma * B A merged into the base weights (a new tree; the
+    inputs are not modified)."""
+    def merge_node(p_node, l_node):
+        if not isinstance(l_node, dict):
+            return p_node
+        if set(l_node) == {"a", "b"}:
+            delta = torch.einsum("...or,...ri->...io", l_node["b"],
+                                 l_node["a"]) * gamma
+            return p_node + delta.to(p_node.dtype)
+        if isinstance(p_node, dict):
+            return {k: merge_node(v, l_node.get(k)) for k, v in p_node.items()}
+        return p_node
+
+    return merge_node(params, lora)
+
+
+# ------------------------------------------------------- heterogeneous ranks
+
+def rank_mask(ranks, r_max: int = 0) -> np.ndarray:
+    """(N, r_max) float32 mask: row i is r_i ones then r_max - r_i zeros."""
+    ranks = tuple(int(r) for r in ranks)
+    if not ranks or any(r < 1 for r in ranks):
+        raise ValueError(f"per-client ranks must all be >= 1, got {ranks}")
+    r_max = r_max or max(ranks)
+    if max(ranks) > r_max:
+        raise ValueError(f"rank {max(ranks)} exceeds padded r_max={r_max}")
+    return (np.arange(r_max)[None, :]
+            < np.asarray(ranks)[:, None]).astype(np.float32)  # lint: disable=R4 -- a tuple of python ints; the torch port holds no JAX tracers
+
+
+def _walk_ab(tree, fn_a, fn_b):
+    """Apply fn_a / fn_b to the a / b leaves of every adapter node; other
+    entries of a node (a lazy bank's ``ids``) pass through."""
+    def walk(node):
+        if isinstance(node, dict):
+            if node and set(node) <= {"a", "b", "ids"} and (
+                    "a" in node or "b" in node):
+                out = dict(node)
+                if "a" in node:
+                    out["a"] = fn_a(node["a"])
+                if "b" in node:
+                    out["b"] = fn_b(node["b"])
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return walk(tree)
+
+
+def _like(x: torch.Tensor, values) -> torch.Tensor:
+    return torch.as_tensor(values, dtype=x.dtype, device=x.device)
+
+
+def apply_rank_mask(lora_stacked, mask):
+    """Zero the inactive rank rows of A / columns of B per client: leaves
+    carry a leading client dim (a (N, ..., r, d_in), b (N, ..., d_out, r));
+    ``mask`` is (N, r), numpy or a tensor."""
+    n, r = mask.shape
+
+    def fa(x):
+        return x * _like(x, mask.reshape((n,) + (1,) * (x.ndim - 3) + (r, 1)))
+
+    def fb(x):
+        return x * _like(x, mask.reshape((n,) + (1,) * (x.ndim - 2) + (r,)))
+
+    return _walk_ab(lora_stacked, fa, fb)
+
+
+def mask_rank_tree(lora, mask_row):
+    """Single-client :func:`apply_rank_mask`: ``mask_row`` (r,), numpy or
+    a tensor."""
+    return _walk_ab(lora, lambda x: x * _like(x, mask_row[:, None]),
+                    lambda x: x * _like(x, mask_row))
+
+
+def scale_lora_b(lora, scale: float):
+    """Every B matrix times ``scale``."""
+    return _walk_ab(lora, lambda a: a, lambda b: b * scale)
+
+
+def adapter_rank(lora) -> int:
+    """The (padded) rank of a LoRA tree, read off the first A leaf."""
+    for leaf in tree_leaves(lora):
+        return int(leaf.shape[-2])   # a: (..., r, d_in) comes first ("a"<"b")
+    return 0
+
+
+def pad_rank_tree(lora, r_max: int):
+    """Zero-pad every adapter to rank ``r_max`` (rows of A, columns of B).
+    Zero rank rows/columns add nothing to x A^T B^T, so padding is exact."""
+    def pad(x, axis):
+        extra = r_max - x.shape[axis]
+        if extra < 0:
+            raise ValueError(
+                f"adapter rank {x.shape[axis]} exceeds r_max={r_max}")
+        if extra == 0:
+            return x
+        shape = list(x.shape)
+        shape[axis] = extra
+        return torch.cat([x, x.new_zeros(shape)], dim=axis)
+    return _walk_ab(lora, lambda a: pad(a, a.ndim - 2),
+                    lambda b: pad(b, b.ndim - 1))
+
+
+# ----------------------------------------------------------- adapter API
+
+@dataclasses.dataclass(frozen=True)
+class AdapterSet:
+    """A/B tree + scaling factor + rank mask + metadata as one value.
+
+    ``gamma`` is a python float, or a (N,) float32 numpy array of
+    per-client/per-tenant factors on a stacked tree.  ``rank_mask`` is
+    ``(r,)`` for one client, ``(N, r)`` for a stacked tree, or ``None``
+    when every rank row is active.  ``batched`` marks a per-request set
+    from an :class:`AdapterBank`: either every leaf has a leading request
+    dim (``gather``) or the leaves stay bank-stacked ``(K, ...)`` and
+    ``ids`` (B,) maps batch rows to tenants (``requests``, the lazy form
+    whose gather happens in the BGMV kernel)."""
+    lora: Any
+    gamma: Any = 1.0
+    rank_mask: Any = None
+    rank: int = 0
+    alpha: float = 0.0
+    batched: bool = False
+    ids: Any = None          # (B,) int32 request->tenant map (lazy bank)
+
+    def __post_init__(self):
+        g = self.gamma
+        if isinstance(g, (tuple, list)):
+            gs = [float(x) for x in g]
+            # uniform gammas collapse to one float, as in the JAX package
+            g = gs[0] if all(x == gs[0] for x in gs) \
+                else np.asarray(gs, np.float32)
+        elif isinstance(g, (torch.Tensor, np.ndarray)):
+            g = np.asarray(g.detach().cpu() if isinstance(g, torch.Tensor)
+                           else g, np.float32)
+            if g.ndim == 0:
+                g = float(g)
+        else:
+            g = float(g)
+        object.__setattr__(self, "gamma", g)
+        m = self.rank_mask
+        if isinstance(m, torch.Tensor):
+            m = m.detach().cpu().numpy()
+        if m is not None:
+            m = np.asarray(m, np.float32)
+            # an all-ones mask masks nothing: canonicalize it to None
+            m = None if m.all() else m
+        object.__setattr__(self, "rank_mask", m)
+
+    @classmethod
+    def from_config(cls, lora_cfg, *, n_clients: int = 1, lora=None,
+                    rank_mask=None) -> "AdapterSet":
+        """AdapterSet for a :class:`LoRAConfig`; gamma =
+        scaling(alpha, r, N) is derived here."""
+        from repro_torch.core.scaling import scaling_factor
+        gamma = scaling_factor(lora_cfg.scaling, lora_cfg.alpha,
+                               lora_cfg.rank, n_clients)
+        return cls(lora=lora, gamma=gamma, rank_mask=rank_mask,
+                   rank=lora_cfg.rank, alpha=lora_cfg.alpha)
+
+    def masked(self) -> "AdapterSet":
+        """Zero the inactive rank rows of A / columns of B per the mask."""
+        if self.rank_mask is None:
+            return self
+        m = self.rank_mask
+        lora = (mask_rank_tree(self.lora, m) if m.ndim == 1
+                else apply_rank_mask(self.lora, m))
+        return dataclasses.replace(self, lora=lora)
+
+    def fold_gamma(self) -> "AdapterSet":
+        """Fold gamma into B: y = xW + (x A^T)(gamma B)^T.  The one place
+        gamma is folded; the result carries ``gamma=1.0``."""
+        g = self.gamma
+        if isinstance(g, float):
+            if g == 1.0:
+                return self
+            lora = scale_lora_b(self.lora, g)
+        else:
+            lora = _walk_ab(self.lora, lambda a: a, lambda x: x * _like(
+                x, g.reshape(g.shape + (1,) * (x.ndim - 1))))
+        return dataclasses.replace(self, lora=lora, gamma=1.0)
+
+    def prepared(self) -> "AdapterSet":
+        """Mask + fold: the form the model stack consumes."""
+        return self.masked().fold_gamma()
+
+    def merge(self, params):
+        """W0 + gamma * B A merged into the base weights."""
+        return merge_lora(params, self.prepared().lora, 1.0)
+
+
+def init_adapter_set(params, generator: torch.Generator, lora_cfg, *,
+                     n_clients: int = 1, targets=None) -> AdapterSet:
+    """Fresh AdapterSet for ``params`` with the scheme's scaling factor."""
+    return AdapterSet.from_config(
+        lora_cfg, n_clients=n_clients,
+        lora=init_lora(params, generator, lora_cfg, targets=targets))
+
+
+def as_adapter_set(adapters):
+    """None stays None; a raw (prepared) A/B dict is wrapped with scale 1."""
+    if adapters is None or isinstance(adapters, AdapterSet):
+        return adapters
+    return AdapterSet(lora=adapters)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterBank:
+    """K prepared adapter sets stacked for multi-tenant serving.
+
+    Registration folds each tenant's gamma into its B and zero-pads mixed
+    ranks to ``r_max`` under a (K, r_max) rank mask, so the bank is one
+    uniform stacked tree."""
+    lora: Any                                 # leaves (K,) + leaf shape
+    rank_mask: Any = None                     # (K, r_max) numpy or None
+    ranks: Tuple[int, ...] = ()               # per-tenant active ranks
+
+    @property
+    def size(self) -> int:
+        return tree_leaves(self.lora)[0].shape[0]
+
+    @property
+    def r_max(self) -> int:
+        return adapter_rank(self.lora)
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.lora)[0].device
+
+    @classmethod
+    def from_sets(cls, sets) -> "AdapterBank":
+        """Register K AdapterSets (possibly mixed-rank) as one bank."""
+        sets = [s.prepared() for s in sets]
+        ranks = tuple(adapter_rank(s.lora) for s in sets)
+        r_max = max(ranks)
+        padded = [pad_rank_tree(s.lora, r_max) for s in sets]
+        lora = tree_map(lambda *xs: torch.stack(xs), *padded)
+        return cls(lora=lora, rank_mask=rank_mask(ranks, r_max), ranks=ranks)
+
+    @classmethod
+    def from_adapter_set(cls, stacked: AdapterSet,
+                         ranks=None) -> "AdapterBank":
+        """Register a client-stacked AdapterSet (a restored federated
+        checkpoint: every client becomes a tenant)."""
+        prepared = stacked.prepared()
+        n = tree_leaves(prepared.lora)[0].shape[0]
+        r_pad = adapter_rank(prepared.lora)
+        if ranks is None:
+            if stacked.rank_mask is not None:
+                ranks = tuple(int(r) for r in stacked.rank_mask.sum(axis=-1))
+            else:
+                ranks = (r_pad,) * n
+        return cls(lora=prepared.lora, rank_mask=rank_mask(ranks, r_pad),
+                   ranks=tuple(int(r) for r in ranks))
+
+    def _ids(self, ids, what: str) -> torch.Tensor:
+        check_adapter_ids(ids, self.size, what=what)
+        return torch.as_tensor(ids, dtype=torch.int32, device=self.device)
+
+    def gather(self, ids) -> AdapterSet:
+        """Per-request adapters, materialized: every leaf gets a leading
+        request dim.  Gamma is already folded, so the set has scale 1."""
+        idx = self._ids(ids, "gather id").long()
+        lora = tree_map(lambda x: x.index_select(0, idx), self.lora)
+        return AdapterSet(lora=lora, gamma=1.0, rank=adapter_rank(lora),
+                          batched=True)
+
+    def requests(self, ids) -> AdapterSet:
+        """Per-request adapters, lazy: the bank leaves stay ``(K, ...)`` and
+        ``ids`` rides along, so each projection gathers its own rows (in
+        the BGMV kernel on the card)."""
+        return AdapterSet(lora=self.lora, gamma=1.0,
+                          rank=adapter_rank(self.lora), batched=True,
+                          ids=self._ids(ids, "request id"))
+
+    def adapter(self, k: int) -> AdapterSet:
+        """Tenant ``k`` as a plain single AdapterSet."""
+        mask = None if self.rank_mask is None else self.rank_mask[k]
+        return AdapterSet(lora=tree_map(lambda x: x[k], self.lora),
+                          gamma=1.0, rank_mask=mask,
+                          rank=int(self.ranks[k]) if self.ranks else 0)

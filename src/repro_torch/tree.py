@@ -1,0 +1,27 @@
+"""Nested-dict parameter trees: the port's stand-in for ``jax.tree``.
+
+Parameters, adapters and caches are plain nested dicts of tensors with the
+same keys as the JAX package's pytrees, so carrying weights across is a
+plain copy leaf by leaf (``checkpoint/io.params_from_numpy``)."""
+from __future__ import annotations
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf over nested dicts of equal structure;
+    ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in sorted-key order (the order ``jax.tree.leaves`` uses for
+    dicts), so "first leaf" means the same thing in both packages."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if tree is None:
+        return []
+    return [tree]
