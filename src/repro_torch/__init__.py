@@ -6,8 +6,11 @@ counterpart under ``src/repro/``.  This package imports torch and numpy,
 never jax and nothing of ``repro``.
 
 Ported so far: banked multi-tenant LoRA serving of dense decoders
-(``launch/serve.py``), with the two BGMV kernels (``kernels/bgmv.py``)
-written by hand in CUDA C++ for ``sm_90a``.
+(``launch/serve.py``), with the two BGMV kernels (``kernels/bgmv.py``), and
+synchronous federated LoRA training (``launch/train.py``,
+``core/federated.py``), with the fused LoRA matmul and its backward
+(``kernels/lora_matmul.py``); all six kernels are written by hand in CUDA
+C++ for ``sm_90a``.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing

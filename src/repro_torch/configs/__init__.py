@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LoRAConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (FederatedConfig, LoRAConfig,
+                                      ModelConfig, MoEConfig, OptimizerConfig)
 
 ARCHS = {
     "gemma-2b": "gemma_2b",
@@ -31,5 +32,5 @@ def get_config(arch: str, **kwargs) -> ModelConfig:
     return mod.config(**kwargs)
 
 
-__all__ = ["ARCHS", "NOT_YET_PORTED", "LoRAConfig", "ModelConfig",
-           "MoEConfig", "get_config"]
+__all__ = ["ARCHS", "NOT_YET_PORTED", "FederatedConfig", "LoRAConfig",
+           "ModelConfig", "MoEConfig", "OptimizerConfig", "get_config"]

@@ -1,4 +1,5 @@
-"""Configuration dataclasses for models and LoRA adapters.
+"""Configuration dataclasses for models, LoRA adapters, federated rounds and
+optimizers.
 
 A copy of the parts of ``repro/configs/base.py`` that the port reads.  The
 JAX config's ``use_pallas`` flag has no counterpart: here the device of the
@@ -115,3 +116,49 @@ class LoRAConfig:
     init_std: float = 0.02
     # heterogeneous clients: one rank per client (len == num_clients)
     ranks: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedConfig:
+    num_clients: int = 3
+    local_steps: int = 10
+    rounds: int = 100
+    aggregation: str = "fedsa"     # fedit | ffa | fedsa | rolora
+    partition: str = "iid"         # iid | dirichlet
+    dirichlet_alpha: float = 0.5
+    participation: float = 1.0     # fraction of clients sampled per round
+    # weight the server aggregate by per-client example counts
+    # (dataset.size_weights) instead of a plain client mean
+    weight_by_size: bool = False
+    # --- async buffered aggregation and fault injection (JAX package:
+    # repro/core/federated.py).  Not yet ported: any value other than the
+    # default raises.
+    buffer_size: Optional[int] = None
+    staleness_beta: float = 0.5
+    screen_updates: bool = True
+    screen_norm_mult: float = 10.0
+    faults: Optional[object] = None
+
+    def __post_init__(self):
+        defaults = {"buffer_size": None, "staleness_beta": 0.5,
+                    "screen_updates": True, "screen_norm_mult": 10.0,
+                    "faults": None}
+        for name, default in defaults.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"FederatedConfig.{name}={getattr(self, name)!r}: the "
+                    "async buffered engine and fault injection are not yet "
+                    "ported to repro_torch (only the synchronous engine is)")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sgd"              # sgd | adamw
+    lr: float = 5e-3
+    momentum: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    lr_schedule: str = "constant"     # constant | warmup_cosine | step
+    lr_schedule_kwargs: Optional[dict] = None

@@ -1,4 +1,4 @@
-"""LoRA parameter trees and the adapter API, as far as serving needs them.
+"""LoRA parameter trees and the adapter API for serving and training.
 
 The port of ``repro/core/lora.py``.  A LoRA tree has the same
 ``{"stack": {"repeat": {"p0": ...}, "tail": ...}}`` shape as the base
@@ -73,6 +73,31 @@ def init_lora(params, generator: torch.Generator, lora_cfg, *, targets=None):
     return walk(params, ()) or {}
 
 
+def lora_tree_for_model(model, generator: torch.Generator, lora_cfg, *,
+                        device="cuda"):
+    """LoRA tree from the model config alone, without drawing base weights
+    (the JAX package does this with ``eval_shape``): the targeted attention
+    projections of the dense stack, as zero-stride stand-ins that carry
+    only shape, dtype and device."""
+    from repro_torch import resolve_device
+    from repro_torch.models.transformer import stack_layout
+    cfg = model.cfg
+    dt = getattr(torch, cfg.param_dtype)
+    zero = torch.zeros((), dtype=dt, device=resolve_device(device))
+    d = cfg.d_model
+    proj = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
+            "o": (cfg.q_dim, d)}
+
+    def block(lead):
+        return {"attn": {k: zero.expand(lead + s) for k, s in proj.items()}}
+
+    repeats, tail = stack_layout(cfg.num_layers, cfg.block_pattern)
+    stack = {"repeat": {f"p{j}": block((repeats,))
+                        for j in range(len(cfg.block_pattern)) if repeats},
+             "tail": {f"t{i}": block(()) for i in range(len(tail))}}
+    return init_lora({"stack": stack}, generator, lora_cfg)
+
+
 def merge_lora(params, lora, gamma):
     """W0 + gamma * B A merged into the base weights (a new tree; the
     inputs are not modified)."""
@@ -88,6 +113,24 @@ def merge_lora(params, lora, gamma):
         return p_node
 
     return merge_node(params, lora)
+
+
+def num_lora_params(lora) -> int:
+    return sum(x.numel() for x in tree_leaves(lora))
+
+
+def split_ab(lora):
+    """Split a LoRA tree into (A-only tree, B-only tree) with the same
+    structure.  Nodes holding only one of the two matrices yield an empty
+    dict on the missing side."""
+    def pick(node, which):
+        if isinstance(node, dict):
+            if node and set(node) <= {"a", "b"}:
+                return {which: node[which]} if which in node else {}
+            return {k: pick(v, which) for k, v in node.items()}
+        return node
+
+    return pick(lora, "a"), pick(lora, "b")
 
 
 # ------------------------------------------------------- heterogeneous ranks
@@ -233,6 +276,48 @@ class AdapterSet:
                                lora_cfg.rank, n_clients)
         return cls(lora=lora, gamma=gamma, rank_mask=rank_mask,
                    rank=lora_cfg.rank, alpha=lora_cfg.alpha)
+
+    @classmethod
+    def stack(cls, sets) -> "AdapterSet":
+        """Stack K same-rank sets along a new leading dim (clients or
+        tenants).  Uniform gammas stay one float; mixed gammas become a
+        (K,) array.  Mixed ranks must be padded first
+        (:meth:`AdapterBank.from_sets` does that)."""
+        sets = list(sets)
+        if not sets:
+            raise ValueError("AdapterSet.stack needs at least one set")
+        ranks = {adapter_rank(s.lora) for s in sets}
+        if len(ranks) > 1:
+            raise ValueError(
+                f"AdapterSet.stack needs uniform ranks, got {sorted(ranks)}; "
+                "pad first (AdapterBank.from_sets does this)")
+        r = ranks.pop()
+        lora = tree_map(lambda *xs: torch.stack(xs), *[s.lora for s in sets])
+        mask = None
+        if any(s.rank_mask is not None for s in sets):
+            mask = np.stack([np.ones((r,), np.float32) if s.rank_mask is None
+                             else s.rank_mask for s in sets])
+        return cls(lora=lora, gamma=tuple(float(s.gamma) for s in sets),
+                   rank_mask=mask, rank=r, alpha=sets[0].alpha)
+
+    def unstack(self):
+        """The inverse of :meth:`stack`: K single-client sets."""
+        n = tree_leaves(self.lora)[0].shape[0]
+        return [self.client(i) for i in range(n)]
+
+    def client(self, i: int) -> "AdapterSet":
+        """Client ``i``'s slice of a client-stacked set (its own gamma_i and
+        rank-mask row included)."""
+        g = self.gamma
+        if not isinstance(g, float):
+            g = float(g[i])
+        m = None if self.rank_mask is None else self.rank_mask[i]
+        return dataclasses.replace(
+            self, lora=tree_map(lambda x: x[i], self.lora), gamma=g,
+            rank_mask=m, batched=False)
+
+    def num_params(self) -> int:
+        return num_lora_params(self.lora)
 
     def masked(self) -> "AdapterSet":
         """Zero the inactive rank rows of A / columns of B per the mask."""

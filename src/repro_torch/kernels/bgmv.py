@@ -35,7 +35,8 @@ design does about it):
   fp32 scratch (rank <= 512, small) that the main kernel reads.
 
 Each wrapper call adds one to its entry of :data:`launches` (the shrink
-pre-pass included), and nowhere else.
+pre-pass included), and nowhere else.  The kernels have no backward: on
+CUDA, a wrapper raises when grad mode is on and an operand requires grad.
 """
 from __future__ import annotations
 
@@ -128,6 +129,17 @@ def _check(x, w, a, b, ids, nreq: int):
     return ids.data_ptr()
 
 
+def _forward_only(name, *ts):
+    """The BGMV kernels have no backward: refuse operands autograd would
+    need gradients for, rather than return an output without a grad_fn."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the BGMV kernel has no backward, but an operand "
+            "requires grad; run it under torch.no_grad() or "
+            "torch.inference_mode(), or train a single adapter (the LoRA "
+            "matmul Function)")
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -146,6 +158,7 @@ def bgmv_matmul(x, w, a, b, ids=None):
     if not _route(x):
         return bgmv_matmul_plain(x, w, a, b, ids)
     from repro_torch.kernels.build import load
+    _forward_only("bgmv_matmul", x, w, a, b)
     nreq, s, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]
@@ -184,6 +197,7 @@ def bgmv_gemv(x, w, a, b, ids=None):
     if not _route(x):
         return bgmv_gemv_plain(x, w, a, b, ids)
     from repro_torch.kernels.build import load
+    _forward_only("bgmv_gemv", x, w, a, b)
     nreq, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``kernels/csrc/`` have a plain C interface; ``nvcc``
-compiles them for ``sm_90a`` into one shared library, loaded with
-``ctypes``.  The build happens at first use, into ``build/kernels/`` at the
-root of the checkout (listed in ``.gitignore``), and the library file is
-named by a hash of the sources and flags, so an edit rebuilds it.  There is
-no prebuilt library and no fallback: without ``nvcc`` the build raises.
+compiles each ``.cu`` file for ``sm_90a`` to an object, all of them at
+once in parallel, and links the objects into one shared library, loaded
+with ``ctypes``.  The build happens at first use, into ``build/kernels/``
+at the root of the checkout (listed in ``.gitignore``), and the library
+file is named by a hash of the sources and flags, so an edit rebuilds it.
+There is no prebuilt library and no fallback: without ``nvcc`` the build
+raises.
 """
 from __future__ import annotations
 
@@ -19,15 +21,23 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument types of each entry point, in the order of csrc/bgmv.cu
+_F = ctypes.c_float
+# argument types of each entry point, in the order of its csrc/*.cu file
 SIGNATURES = {
+    # csrc/bgmv.cu
     "bgmv_matmul_launch": (_P,) * 7 + (_I,) * 6 + (_P,),
     "bgmv_gemv_launch": (_P,) * 8 + (_I,) * 7 + (_P,),
+    # csrc/lora_matmul.cu
+    "lora_fwd_launch": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
+    "lora_bwd_dx_launch": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
+    "lora_bwd_da_launch": (_P,) * 3 + (_I,) * 3 + (_F, _I, _P),
+    "lora_bwd_db_launch": (_P,) * 3 + (_I,) * 3 + (_F, _I, _P),
 }
 
 _lib = None
@@ -41,7 +51,7 @@ def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(
-            "nvcc not found: the BGMV kernels build only where the CUDA "
+            "nvcc not found: the CUDA kernels build only where the CUDA "
             "toolkit is installed (PATH or /usr/local/cuda/bin)")
     return nvcc
 
@@ -52,29 +62,45 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libbgmv_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the sources unless the library for them exists.  The
-    compiler's report (registers, shared memory, spills per kernel) is kept
-    beside the library as ``<name>.log``."""
+    """Compile the sources unless the library for them exists: one nvcc
+    per ``.cu`` file, all started together, then one link.  The compiler's
+    report (registers, shared memory, spills per kernel) is kept beside the
+    library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp = os.path.join(tmpdir, out.name)
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
     return out
 
 

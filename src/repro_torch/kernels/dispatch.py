@@ -1,10 +1,13 @@
-"""Route LoRA-adapted projections to the BGMV kernels or their plain versions.
+"""Route LoRA-adapted projections to the hand-written kernels or their plain
+versions.
 
 The port of ``repro/kernels/dispatch.py:lora_linear``/``lora_linear_batched``.
 The JAX package picks a tier from the config's ``use_pallas`` and the
 backend; here the device of the activations decides:
 
-  cuda   the hand-written kernels of ``kernels/bgmv.py``
+  cuda   the hand-written kernels of ``kernels/bgmv.py`` (banked and
+         per-request adapters, forward only) and ``kernels/lora_matmul.py``
+         (a single adapter, forward and backward)
   cpu    the plain PyTorch versions beside them
 
 Nothing else is taken, and nothing falls back from one to the other.
@@ -21,12 +24,14 @@ import contextvars
 
 import torch
 
-from repro_torch.kernels import bgmv
+from repro_torch.kernels import bgmv, lora_matmul
 
 _plain = contextvars.ContextVar("repro_torch_plain_tier", default=False)
 
-# projections per route since the last reset_stats()
-stats = {"bgmv": 0, "plain": 0}
+# projections per route since the last reset_stats(): "bgmv" and "plain"
+# count batched projections (kernel / plain version), "lora_matmul" single
+# adapter projections on either tier
+stats = {"bgmv": 0, "plain": 0, "lora_matmul": 0}
 
 
 def reset_stats() -> None:
@@ -95,15 +100,32 @@ def lora_linear(x, w, lora=None, gamma: float = 0.0):
 
     ``lora`` is ``{"a": (r, d_in), "b": (d_out, r)}`` or None; ``x`` may
     have any number of leading dims.  Leaves with a leading request dim
-    (``a`` 3-D) take :func:`lora_linear_batched`.  A single adapter on CUDA
-    runs the BGMV matmul kernel as a bank of one: every row of x is one
-    request row of adapter 0."""
+    (``a`` 3-D) take :func:`lora_linear_batched`.  A single adapter takes
+    the fused LoRA matmul, as ``fused_lora_apply`` does in the JAX package:
+    where autograd needs its gradients, the
+    :class:`~repro_torch.kernels.lora_matmul.LoRAMatmul` Function (#5
+    forward, #6-#8 backward); otherwise the forward piece #5 alone.  Output
+    dtype is the promotion of x, w, a and b."""
     if lora is None:
         return x @ w
-    if lora["a"].ndim == 3:
+    a, b = lora["a"], lora["b"]
+    if a.ndim == 3:
         return lora_linear_batched(x, w, lora, gamma)
-    lead = x.shape[:-1]
-    x3 = x.reshape(1, -1, x.shape[-1])
-    one = {"a": lora["a"][None], "b": lora["b"][None]}
-    y = lora_linear_batched(x3, w, one, gamma)
-    return y.reshape(*lead, w.shape[-1])
+    stats["lora_matmul"] += 1
+    out_dtype = _result_type(x, w, a, b)
+    lead, n = x.shape[:-1], w.shape[-1]
+    x2, w, a, b = (t.to(out_dtype)
+                   for t in (x.reshape(-1, x.shape[-1]), w, a, b))
+    if 0 in (*x2.shape, n, a.shape[0]):
+        # nothing to launch a kernel on; the expression gives the shape
+        return (x2 @ w + gamma * ((x2 @ a.T) @ b.T)).reshape(*lead, n)
+    kernel = _use_kernel(x2)
+    x2, a, b = x2.contiguous(), a.contiguous(), b.contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x2, w, a, b)):
+        y = lora_matmul.LoRAMatmul.apply(x2, w.contiguous(), a, b,
+                                         float(gamma), kernel)
+    else:
+        fwd = lora_matmul.lora_fwd if kernel else lora_matmul.lora_fwd_plain
+        y = fwd(x2, w.contiguous(), a, b, float(gamma))[0].to(out_dtype)
+    return y.reshape(*lead, n)

@@ -1,5 +1,5 @@
 """Public model API: ``build_model(cfg)`` -> :class:`Model` with init /
-forward / init_cache / prefill / decode_step.
+forward / loss / init_cache / prefill / decode_step.
 
 The port of ``repro/models/api.py`` for dense decoders.  As in the JAX
 package the embedding is not scaled by sqrt(d_model), the head is tied
@@ -94,6 +94,28 @@ class Model:
                              positions=self._positions(tokens))
         x = apply_norm(cfg, x, params, "final")
         return self._head(params, x), aux
+
+    def loss(self, params, batch, adapters=None, *, chunked_ce=False):
+        """Next-token cross-entropy over the text segment (+ the aux loss,
+        0 for the dense block): returns (loss, {"ce", "aux"}), as the JAX
+        package's dense branch does.  The logsumexp runs in fp32 over the
+        padded vocabulary.  ``adapters``: None or an AdapterSet; gradients
+        reach its A/B leaves through the LoRA matmul Function.
+
+        The JAX package's sequence-chunked CE (``opts "chunked_ce"``) is not
+        ported yet; the encoder MLM loss waits with the encoder family."""
+        if chunked_ce:
+            raise NotImplementedError(
+                "the chunked cross-entropy is not yet ported to repro_torch")
+        tokens = batch["tokens"]
+        logits, aux = self.forward(params, batch, adapters=adapters)
+        s_text = tokens.shape[1]
+        lf = logits[:, -s_text:][:, :-1].float()
+        labels = tokens[:, 1:].long()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+        ce = (lse - ll).mean()
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype=None, *,

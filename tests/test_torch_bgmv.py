@@ -103,7 +103,7 @@ def test_dispatch_cpu_takes_plain_and_matches_jax(s, lazy):
     got = dispatch.lora_linear_batched(torch.from_numpy(x),
                                        torch.from_numpy(w), tl, 2.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert dispatch.stats == {"bgmv": 0, "plain": 1}
+    assert dispatch.stats == {"bgmv": 0, "plain": 1, "lora_matmul": 0}
     assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
 
 
