@@ -25,7 +25,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      per-round loss and grad-norm, the same run on the plain tier, a
      second kernel-tier run that must repeat bit for bit, ms/round and a
      profile of one client local step
-  7. result: a JSON line of per-kernel numbers, the nvidia-smi line, and
+  7. paged and quantized kernels vs plain: #13 (paged attention) at the
+     scheduled path's shapes, with window and softcap variants and a ragged
+     case with an idle slot; #3, #4 (quantized BGMV) and #11 (packed GEMM)
+     over int8 and int4 (group 64) gemma-2b projections at m = 4 and 512;
+     then their times beside the plain versions, one PyTorch call each and
+     the card's bound
+  8. scheduled serving path: repro_torch.launch.serve.serve_scheduled on
+     gemma-2b at full width over an fp32, an int8 and an int4 base (8
+     requests, two waves through 4 slots, one deadline), with the launch
+     counts of #13 and #1-#4, #11, the plain tier's tokens against
+     generate_banked wave by wave, the kernel tier's against the plain
+     tier's, ms per decode step and tokens/s; then a short run over a
+     LiveAdapterBank of 2 hot slots
+  9. result: a JSON line of per-kernel numbers, the nvidia-smi line, and
      the final {"ok": true, ...} line
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
@@ -34,6 +47,7 @@ result.
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -41,6 +55,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -50,10 +65,13 @@ from repro_torch.configs import (FederatedConfig, LoRAConfig,  # noqa: E402
                                  OptimizerConfig, get_config)
 from repro_torch.core import federated                      # noqa: E402
 from repro_torch.core.aggregation import get_strategy       # noqa: E402
-from repro_torch.core.lora import (AdapterBank, init_adapter_set,  # noqa: E402
-                                   split_ab)
+from repro_torch.core.lora import (AdapterBank, LiveAdapterBank,  # noqa: E402
+                                   init_adapter_set, split_ab)
+from repro_torch.core.quant import (quant_footprint, quantize,  # noqa: E402
+                                    quantize_tree)
 from repro_torch.data.synthetic import FederatedDataset     # noqa: E402
-from repro_torch.kernels import bgmv, build, dispatch, lora_matmul  # noqa: E402
+from repro_torch.kernels import (bgmv, build, dispatch,  # noqa: E402
+                                 lora_matmul, paged_attention)
 from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models.api import build_model              # noqa: E402
 from repro_torch.tree import tree_leaves                    # noqa: E402
@@ -64,24 +82,42 @@ L2_BYTES = 50 * 2 ** 20
 KERNEL_RTOL = 1e-4             # fp32 accumulation in both; only the order
                                # of the sums differs (bf16 inputs are
                                # upcast exactly, so the same bound holds)
+BF16_STEP = 2 ** -7            # a bf16 output (#13 over bf16 pools) may
+                               # round one bf16 step of |plain| apart: both
+                               # round fp32 values that differ in their
+                               # last bits
 LOGIT_ATOL = 1e-3              # teacher-forced logits, kernel vs plain tier
 # training path: kernel-tier vs plain-tier per-round loss and grad-norm.
 # Both run fp32 with the same data; only the order of the sums differs (the
 # kernels' tiles vs cuBLAS), and 24 SGD steps through 18 layers carry that
 # forward, so the bound is relative and well above fp32 rounding
 TRAIN_RTOL = 1e-3
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "bgmv_matmul": "src/repro_torch/kernels/csrc/bgmv.cu",
            "lora_fwd": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "lora_bwd_dx": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "lora_bwd_da": "src/repro_torch/kernels/csrc/lora_matmul.cu",
-           "lora_bwd_db": "src/repro_torch/kernels/csrc/lora_matmul.cu"}
+           "lora_bwd_db": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+           "paged_attention": CSRC + "paged_attention.cu",
+           "bgmv_matmul_quant": CSRC + "bgmv.cu",
+           "bgmv_gemv_quant": CSRC + "bgmv.cu",
+           "quant_matmul": CSRC + "lora_matmul.cu"}
 REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "bgmv_matmul": "src/repro/kernels/bgmv.py:59",
             "lora_fwd": "src/repro/kernels/lora_matmul.py:55",
             "lora_bwd_dx": "src/repro/kernels/lora_matmul.py:147",
             "lora_bwd_da": "src/repro/kernels/lora_matmul.py:201",
-            "lora_bwd_db": "src/repro/kernels/lora_matmul.py:230"}
+            "lora_bwd_db": "src/repro/kernels/lora_matmul.py:230",
+            "paged_attention": "src/repro/kernels/paged_attention.py:45",
+            "bgmv_matmul_quant": "src/repro/kernels/bgmv.py:224",
+            "bgmv_gemv_quant": "src/repro/kernels/bgmv.py:251",
+            "quant_matmul": "src/repro/kernels/lora_matmul.py:514"}
+# the row of each kernel's times that the kernels line reports
+ROW = {"bgmv_gemv": "q", "bgmv_matmul": "q", "lora_fwd": "q",
+       "lora_bwd_dx": "q", "lora_bwd_da": "q", "lora_bwd_db": "q",
+       "paged_attention": "path", "bgmv_matmul_quant": "int4 q m=512",
+       "bgmv_gemv_quant": "int4 q m=4", "quant_matmul": "int4 w_up m=4"}
 
 
 def phase(name):
@@ -288,43 +324,52 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def serving_model(cfg, device):
+    """gemma-2b at full width with seeded random weights and 4 SFed-LoRA
+    tenants (alpha 8, rank 8, B drawn at std 0.02), as run_path builds
+    them."""
+    model = build_model(cfg)
+    gen = torch.Generator(device).manual_seed(0)
+    params = model.init(gen, device)
+    lcfg = LoRAConfig(rank=8, alpha=8.0, scaling="sfedlora",
+                      targets=cfg.lora_targets)
+    sets = []
+    for _ in range(4):
+        s = init_adapter_set(params, gen, lcfg, n_clients=4)
+        sets.append(dataclasses.replace(s, lora=_nonzero_b(s.lora, gen, 0.02)))
+    return model, params, AdapterBank.from_sets(sets)
+
+
 def run_path(name, cfg, device, *, steps=32, plen=128):
     """generate_banked through the user's entry points.  ``cfg`` and
     ``device`` are arguments so the phase can be rehearsed on a CPU at a
     reduced size; the launch counts hold only on the card."""
     phase(f"path: generate_banked, {cfg.name} d_model {cfg.d_model}, fp32")
-    model = build_model(cfg)
-    gen = torch.Generator(device).manual_seed(0)
     t0 = time.monotonic()
-    params = model.init(gen, device)
-    n_tenants = 4
-    lcfg = LoRAConfig(rank=8, alpha=8.0, scaling="sfedlora",
-                      targets=cfg.lora_targets)
-    sets = []
-    for _ in range(n_tenants):
-        s = init_adapter_set(params, gen, lcfg, n_clients=n_tenants)
-        sets.append(dataclasses.replace(s, lora=_nonzero_b(s.lora, gen, 0.02)))
-    bank = AdapterBank.from_sets(sets)
+    model, params, bank = serving_model(cfg, device)
+    n_tenants = bank.size
     ids = torch.arange(n_tenants, device=device, dtype=torch.int32)
     prompt = torch.randint(0, cfg.vocab_size, (n_tenants, plen),
-                           generator=gen, device=device)
+                           generator=torch.Generator(device).manual_seed(1),
+                           device=device)
     max_len = plen + steps
     _sync(device)
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters, {n_tenants} tenants "
-          f"(gamma {sets[0].gamma:.4f} folded), init "
+          f"(gamma folded), init "
           f"{time.monotonic() - t0:.1f} s")
 
     # the counted run: counts to 0 just before, read just after
-    bgmv.reset_launches()
+    _reset_launches()
     dispatch.reset_stats()
     seq = serve.generate_banked(model, params, bank, ids, prompt, steps,
                                 max_len)
     _sync(device)
-    launches = dict(bgmv.launches)
+    launches = _launch_counts()
     n_adapted = len(cfg.lora_targets) * cfg.num_layers
-    expect = {"bgmv_matmul": n_adapted, "bgmv_gemv": n_adapted * (steps - 1)}
+    expect = dict.fromkeys(launches, 0)
+    expect.update(bgmv_matmul=n_adapted, bgmv_gemv=n_adapted * (steps - 1))
     print(f"launches: {launches} (expected {expect}: {n_adapted} per "
           f"prefill, {n_adapted} per decode step); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
@@ -646,23 +691,22 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
 
     # the counted run: counts to 0 just before, read just after
     tr1 = trainer()
-    lora_matmul.reset_launches()
-    bgmv.reset_launches()
+    _reset_launches()
     dispatch.reset_stats()
     ms1 = run(tr1)
     ppl = tr1.eval_perplexity()
     _sync(device)
-    launches = dict(lora_matmul.launches)
+    launches = _launch_counts()
     n_adapted = len(cfg.lora_targets) * cfg.num_layers
     per_run = n_adapted * clients * local_steps * rounds
-    expect = {k: per_run for k in LORA_KERNELS}
+    expect = dict.fromkeys(launches, 0)
+    expect.update({k: per_run for k in LORA_KERNELS})
     expect["lora_fwd"] += n_adapted                  # one eval forward
     print(f"launches: {launches} (expected {expect}: {n_adapted} each per "
           f"client local step x {clients * local_steps * rounds}, plus "
-          f"{n_adapted} of lora_fwd for the eval); bgmv {bgmv.launches}; "
-          f"dispatch {dispatch.stats}")
+          f"{n_adapted} of lora_fwd for the eval); dispatch "
+          f"{dispatch.stats}")
     assert launches == expect, (launches, expect)
-    assert not any(bgmv.launches.values()), bgmv.launches
     for h in tr1.history:
         print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
               f"{h['grad_norm']:.6e}")
@@ -729,26 +773,505 @@ def profile_local_step(model, tr):
     _print_profile("local step", *_profiled(step), 1, "step")
 
 
-# ------------------------------------------------------------------ main
+
+# -------------------------------- 8. paged and quantized kernels vs plain
+
+SCHED_KERNELS = ("paged_attention", "bgmv_matmul_quant", "bgmv_gemv_quant",
+                 "quant_matmul")
+QUANT_GROUP = 64
+# gemma-2b's eligible base projections: (k, n) of each
+PROJ = {"q": (2048, 2048), "k": (2048, 256), "v": (2048, 256),
+        "o": (2048, 2048), "w_up": (2048, 16384), "w_gate": (2048, 16384),
+        "w_down": (16384, 2048)}
+
+
+def _err(name, label, got, want):
+    """max |kernel - plain|, raising past KERNEL_RTOL * max(1, max|plain|),
+    plus BF16_STEP * |plain| element by element for a bf16 output."""
+    _sync(got.device)
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (name, label, got.shape, want.shape, got.dtype, want.dtype)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    scale = max(1.0, float(want.float().abs().max()))
+    bound = torch.full_like(diff, KERNEL_RTOL * scale)
+    if got.dtype == torch.bfloat16:
+        bound += BF16_STEP * want.float().abs()
+    print(f"{name:17s} {label:50s} max_abs_err={err:.3e} "
+          f"max_rel_err={err / scale:.3e}")
+    if not bool((diff <= bound).all()):
+        worst = int((diff - bound).argmax())
+        raise AssertionError(
+            f"{name} {label} disagrees with its plain version: "
+            f"{float(diff.flatten()[worst])} > "
+            f"{float(bound.flatten()[worst])} at element {worst}")
+    return err
+
+
+def _paged_case(gen, b, h, kh, hd, bs, mb, idle=0, dev="cuda"):
+    """One decode step's operands: request i owns mb pool blocks filled to a
+    staggered level (half, full, wrapped past the ring, one short of full);
+    ``idle`` trailing slots point every table entry at the null block 0, as
+    the scheduler leaves a free slot."""
+    live = b - idle
+    npool = 1 + live * mb
+    q = torch.randn(b, h, hd, generator=gen, device=dev)
+    kp = torch.randn(npool, bs, kh, hd, generator=gen, device=dev)
+    vp = torch.randn(npool, bs, kh, hd, generator=gen, device=dev)
+    table = torch.zeros(b, mb, dtype=torch.int32, device=dev)
+    table[:live] = torch.arange(1, npool, dtype=torch.int32,
+                                device=dev).reshape(live, mb)
+    pos_pool = torch.full((npool, bs), -1, dtype=torch.int32, device=dev)
+    vlen, qpos = mb * bs, []
+    for i in range(live):
+        filled = (vlen // 2, vlen, vlen + 3, vlen - 1)[i % 4]
+        pos = torch.arange(filled, device=dev)
+        vslot = pos % vlen
+        pos_pool[table[i, vslot // bs].long(), vslot % bs] = pos.int()
+        qpos.append(filled - 1)
+    pos_pool[0, 0] = 0                    # an idle slot's own write
+    qpos = torch.tensor(qpos + [0] * idle, dtype=torch.int32, device=dev)
+    return q, kp, vp, pos_pool, table, qpos
+
+
+def check_sched_kernels(block_size, ring, dev="cuda"):
+    """fp32 and bf16 builds of each kernel: #13 over fp32 and bf16 pools;
+    #3, #4 and #11 with fp32 and bf16 activations over a base packed from
+    fp32 weights (the only base their wrappers take)."""
+    phase("paged-attention #13 and quantized BGMV / GEMM #3, #4, #11 vs "
+          f"plain (tolerance: |kernel - plain| <= {KERNEL_RTOL} * max(1, "
+          f"max|plain|), + {BF16_STEP} * |plain| for a bf16 output)")
+    gen = torch.Generator(dev).manual_seed(5)
+    worst = {k: 0.0 for k in SCHED_KERNELS}
+    mb = -(-ring // block_size)
+    pa = paged_attention
+    for label, shape in ((f"B4 h8 kh1 hd256 bs{block_size} mb{mb}",
+                          (4, 8, 1, 256, block_size, mb, 0)),
+                         ("B3 h6 kh2 hd80 bs5 mb3 idle1",
+                          (3, 6, 2, 80, 5, 3, 1))):
+        q, kp, vp, *rest = _paged_case(gen, *shape, dev=dev)
+        for dt, window, softcap in itertools.product(
+                (torch.float32, torch.bfloat16), (None, 64), (None, 50.0)):
+            args = [t.to(dt) for t in (q, kp, vp)] + rest
+            got = pa.paged_attention(*args, window=window, softcap=softcap)
+            want = pa.paged_attention_plain(*args, window=window,
+                                            softcap=softcap)
+            worst["paged_attention"] = max(worst["paged_attention"], _err(
+                "paged_attention",
+                f"{label} {str(dt)[6:]} w={window} c={softcap}", got, want))
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for proj, (k, n) in list(PROJ.items()) + [("ragged", (70, 50))]:
+            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+            wq = quantize(w, bits, QUANT_GROUP)
+            del w
+            for m, dt in itertools.product(
+                    (4, 512) if proj != "ragged" else (5, 13),
+                    (torch.float32, torch.bfloat16)):
+                x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                worst["quant_matmul"] = max(worst["quant_matmul"], _err(
+                    "quant_matmul",
+                    f"{mode} {proj} m={m} k={k} n={n} {str(dt)[6:]}",
+                    lora_matmul.quant_matmul(x, wq),
+                    lora_matmul.quant_matmul_plain(x, wq)))
+            if proj not in ("q", "v", "ragged"):
+                continue
+            r = 9 if proj == "ragged" else 8
+            for s, dt in itertools.product((1, 3 if proj == "ragged" else 128),
+                                           (torch.float32, torch.bfloat16)):
+                x = torch.randn(4, s, k, generator=gen, device=dev).to(dt)
+                a = (torch.randn(4, r, k, generator=gen, device=dev)
+                     * 0.05).to(dt)
+                b = (torch.randn(4, n, r, generator=gen, device=dev)
+                     * 0.05).to(dt)
+                for ids in (torch.tensor([2, 0, 3, 1], dtype=torch.int32,
+                                         device=dev), None):
+                    lab = (f"{mode} {proj} B=4 s={s} k={k} n={n} r={r} "
+                           f"{str(dt)[6:]} "
+                           f"ids={'none' if ids is None else 'bank'}")
+                    if s == 1:
+                        kern, x1 = "bgmv_gemv_quant", x[:, 0].contiguous()
+                        got = bgmv.bgmv_gemv_quant(x1, wq, a, b, ids)
+                        want = bgmv.bgmv_gemv_quant_plain(x1, wq, a, b, ids)
+                    else:
+                        kern = "bgmv_matmul_quant"
+                        got = bgmv.bgmv_matmul_quant(x, wq, a, b, ids)
+                        want = bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids)
+                    worst[kern] = max(worst[kern], _err(kern, lab, got, want))
+    print(f"launches in this phase (not the path's): "
+          f"{dict(paged_attention.launches)} {dict(bgmv.launches)} "
+          f"quant_matmul {lora_matmul.launches['quant_matmul']}")
+    return worst
+
+
+def time_sched_kernels(block_size, ring, dev="cuda"):
+    """Times at the scheduled path's shapes (fp32 activations, B = 4, rank
+    8, int8 and int4 group 64): #3, #4 and #11 with the packed W rotated
+    over copies that together exceed L2 three times (a step reads each
+    layer's W once); #13 on one layer's pools, warm (18 layers of pools,
+    24 MB, fit in L2)."""
+    phase("paged / quantized kernel times (fp32 activations, B=4, r=8)")
+    gen = torch.Generator(dev).manual_seed(6)
+    rows = {}
+    mb = -(-ring // block_size)
+    q, kp, vp, pos_pool, table, qpos = _paged_case(gen, 4, 8, 1, 256,
+                                                   block_size, mb, dev=dev)
+    pa = paged_attention
+    args = [(q, kp, vp, pos_pool, table, qpos)] * 8
+    ms = _graph_ms(pa.paged_attention, args)
+    plain_ms = _graph_ms(pa.paged_attention_plain, args)
+    # the library call: SDPA over the already-gathered view, GQA expanded
+    kg, vg, pg = (t.reshape(4, mb * block_size, *t.shape[3:])
+                  for t in (kp[table.long()], vp[table.long()],
+                            pos_pool[table.long()]))
+    kh_ = kg.permute(0, 2, 1, 3).expand(4, 8, -1, -1).contiguous()
+    vh_ = vg.permute(0, 2, 1, 3).expand(4, 8, -1, -1).contiguous()
+    mask = ((pg >= 0) & (pg <= qpos[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _graph_ms(lambda q_, k_, v_, m_: sdpa(q_, k_, v_,
+                                                       attn_mask=m_),
+                           [(q[:, :, None], kh_, vh_, mask)] * 8)
+    eager_ms = _eager_ms(pa.paged_attention, args)
+    # the work this run's fill needs: pos of every table position; K and V
+    # rows (kh = 1) and q.k, p.v for the 8 query heads at the attendable
+    # ones only
+    n_pos, n_valid = pg.numel(), int(mask.sum())
+    nbytes = (q.nbytes * 2 + n_pos * 4 + n_valid * 2 * 256 * 4
+              + table.nbytes + qpos.nbytes)
+    flops = 2 * 2 * 8 * 256 * n_valid
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rows[("paged_attention", "path")] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, eager_ms=eager_ms)
+    print(f"paged_attention B=4 h=8 kh=1 hd=256 bs={block_size} mb={mb}: "
+          f"kernel {ms * 1e3:.2f} us, plain (gather + softmax) "
+          f"{plain_ms * 1e3:.2f} us, SDPA on the gathered view "
+          f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_valid} of {n_pos} "
+          f"positions attendable), eager call with host "
+          f"overhead {eager_ms * 1e3:.2f} us")
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for proj, (k, n) in PROJ.items():
+            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+            wq = quantize(w, bits, QUANT_GROUP)
+            wf = wq.dequantize()
+            del w
+            copies = max(2, math.ceil(3 * L2_BYTES / wq.nbytes))
+            wqs = [quantize(wf, bits, QUANT_GROUP) for _ in range(copies)]
+            wfs = [wf.clone() for _ in range(max(2, math.ceil(
+                3 * L2_BYTES / wf.nbytes)))]
+            for m in (4, 512):
+                x = torch.randn(m, k, generator=gen, device=dev)
+                specs = [("quant_matmul", lora_matmul.quant_matmul,
+                          lora_matmul.quant_matmul_plain,
+                          [(x, wi) for wi in wqs], 0, 2 * m * k * n)]
+                if proj in ("q", "v"):
+                    s = 1 if m == 4 else 128
+                    xb = x.reshape(4, s, k)
+                    a = torch.randn(4, 8, k, generator=gen,
+                                    device=dev) * 0.05
+                    b = torch.randn(4, n, 8, generator=gen,
+                                    device=dev) * 0.05
+                    name = "bgmv_gemv_quant" if s == 1 else \
+                        "bgmv_matmul_quant"
+                    xin = xb[:, 0].contiguous() if s == 1 else xb
+                    specs.append((name, getattr(bgmv, name),
+                                  getattr(bgmv, name + "_plain"),
+                                  [(xin, wi, a, b) for wi in wqs],
+                                  a.nbytes + b.nbytes,
+                                  2 * m * k * n + 2 * m * 8 * (k + n)))
+                for name, kfn, pfn, argsets, extra, flops in specs:
+                    ms = _graph_ms(kfn, argsets)
+                    plain_ms = _graph_ms(pfn, argsets)
+                    library_ms = _graph_ms(torch.matmul,
+                                           [(x, wi) for wi in wfs])
+                    eager_ms = _eager_ms(kfn, argsets)
+                    nbytes = x.nbytes + wq.nbytes + extra + m * n * 4
+                    bound_ms, bound_by = _bound(nbytes, flops)
+                    rows[(name, f"{mode} {proj} m={m}")] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms,
+                        eager_ms=eager_ms)
+                    print(f"{name:17s} {mode} {proj:6s} m={m:<3d} k={k} "
+                          f"n={n}: kernel {ms * 1e3:.2f} us, plain "
+                          f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 "
+                          f"W {library_ms * 1e3:.2f} us, bound "
+                          f"{bound_ms * 1e3:.2f} us ({bound_by}; "
+                          f"{nbytes / 1e6:.2f} MB packed, "
+                          f"{flops / 1e9:.3f} GFLOP), eager "
+                          f"{eager_ms * 1e3:.2f} us")
+            del wqs, wfs
+    return rows
+
+
+# ------------------------------------------- 9. scheduled serving path
+
+SCHED = dict(n_req=8, plen=128, steps=32, deadline=12, max_batch=4,
+             block_size=16, chunk=8)
+
+
+def _launch_counts():
+    out = dict(bgmv.launches)
+    out.update(lora_matmul.launches)
+    out.update(paged_attention.launches)
+    return out
+
+
+def _reset_launches():
+    bgmv.reset_launches()
+    lora_matmul.reset_launches()
+    paged_attention.reset_launches()
+
+
+def _forced_paged(model, params, bank, ids, prompts, toks, plain):
+    """Teacher-forced logits along the paged path for one wave: the prompt
+    through one prefill, then ``toks`` (the plain tier's tokens) through
+    decode steps, on the kernel tier or (``plain``) the plain tier.
+    Returns (b, steps, vocab) logits."""
+    b, plen = prompts.shape
+    steps = toks.shape[1]
+    bs = SCHED["block_size"]
+    mb = -(-(plen + steps) // bs)
+    dev = prompts.device
+    out = []
+    with torch.inference_mode(), (dispatch.plain_tier() if plain
+                                  else contextlib.nullcontext()):
+        base = serve._prepare_base(model, params)
+        adapters = serve._prepare_adapters(model, bank.requests(ids))
+        cache = model.init_paged_cache(1 + b * mb, bs, device=dev)
+        table = torch.arange(1, 1 + b * mb, dtype=torch.int32,
+                             device=dev).reshape(b, mb)
+        lg, cache = model.prefill(base, cache, prompts, adapters,
+                                  last_only=True, table=table)
+        out.append(lg[:, -1])
+        for t in range(steps - 1):
+            pos = torch.full((b,), plen + t, dtype=torch.long, device=dev)
+            lg, cache = model.decode_step(base, cache, toks[:, t:t + 1], pos,
+                                          adapters, table=table)
+            out.append(lg[:, -1])
+    return torch.stack(out, 1)[..., :model.cfg.vocab_size]
+
+
+def sched_path(name, model, params, bank, mode):
+    """serve_scheduled through the user's entry points, over an fp32 base
+    or one packed by ``quantize_tree`` (``mode`` int8 / int4, group 64).
+    Traffic: 8 requests of 128-token prompts and 32 greedy tokens, 4
+    tenants, the last with deadline_steps 12; max_batch 4, block 16, chunk
+    8, wait=False: two waves that recycle slots and blocks."""
+    cfg, device = model.cfg, tree_leaves(params)[0].device
+    sc = SCHED
+    phase(f"scheduled path: serve_scheduled, {cfg.name} d_model "
+          f"{cfg.d_model}, {mode} base, {sc['n_req']} requests x "
+          f"{sc['plen']}-token prompts x {sc['steps']} tokens")
+    base = params if mode == "fp32" else quantize_tree(params, mode,
+                                                       QUANT_GROUP)
+    fp, fq = quant_footprint(params), quant_footprint(base)
+    print(f"base GEMM weights: {fq['base_bytes'] / 1e9:.4f} GB {mode}, "
+          f"{fp['base_bytes'] / 1e9:.4f} GB fp32 "
+          f"({fp['base_bytes'] / fq['base_bytes']:.2f}x); whole tree "
+          f"{fq['total_bytes'] / 1e9:.4f} GB")
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab_size, (sc["n_req"], sc["plen"]))
+    ids = [i % bank.size for i in range(sc["n_req"])]
+    last = sc["n_req"] - 1
+
+    def requests():
+        return [serve.Request(rid=i, prompt=prompts[i].astype(np.int32),
+                              steps=sc["steps"], adapter_id=ids[i],
+                              deadline_steps=sc["deadline"] if i == last
+                              else None)
+                for i in range(sc["n_req"])]
+
+    def run():
+        return serve.serve_scheduled(
+            model, base, requests(), bank=bank, max_batch=sc["max_batch"],
+            block_size=sc["block_size"], chunk=sc["chunk"], wait=False)
+
+    calls = {"prefill": 0, "decode_step": 0, "prefill_s": 0.0}
+    orig = {k: getattr(model, k) for k in ("prefill", "decode_step")}
+
+    def counting(key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return orig[key](*a, **k)
+        return wrapped
+
+    # the counted run: counts to 0 just before, read just after
+    model.prefill, model.decode_step = (counting("prefill"),
+                                        counting("decode_step"))
+    _reset_launches()
+    dispatch.reset_stats()
+    serve.reset_timeout_meter()
+    done = run()
+    _sync(device)
+    launches = _launch_counts()
+    del model.prefill, model.decode_step
+    L = cfg.num_layers
+    n_ad = len(cfg.lora_targets) * L
+    n_un = (7 - len(cfg.lora_targets)) * L     # k, o, w_up, w_gate, w_down
+    groups, steps = calls["prefill"], calls["decode_step"]
+    chunks_per_wave = -(-(sc["steps"] - 1) // sc["chunk"])
+    assert groups == 2 and steps == 2 * chunks_per_wave * sc["chunk"], \
+        (groups, steps)
+    expect = {k: 0 for k in launches}
+    expect["paged_attention"] = L * steps
+    if mode == "fp32":
+        expect["bgmv_gemv"] = n_ad * steps
+        expect["bgmv_matmul"] = n_ad * groups
+    else:
+        expect["bgmv_gemv_quant"] = n_ad * steps
+        expect["bgmv_matmul_quant"] = n_ad * groups
+        expect["quant_matmul"] = n_un * (steps + groups)
+    print(f"{groups} admission groups, {steps} decode steps; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in expect.items() if v} }); dispatch "
+          f"{dispatch.stats}")
+    assert launches == expect, (launches, expect)
+    cut = done[last]
+    print(f"deadline request rid={last}: {len(cut.tokens)} tokens, "
+          f"timed_out={cut.timed_out}, timeouts meter {serve.timeouts}")
+    assert cut.timed_out and len(cut.tokens) == sc["deadline"]
+    assert serve.timeouts == 1
+    assert all(len(r.tokens) == sc["steps"] for r in done[:last])
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.tokens)
+
+    # the same traffic, timed: admissions' prefills timed on their own
+    def timed_prefill(*a, **k):
+        _sync(device)
+        t = time.monotonic()
+        out = orig["prefill"](*a, **k)
+        _sync(device)
+        calls["prefill_s"] += time.monotonic() - t
+        return out
+
+    model.prefill = timed_prefill
+    _sync(device)
+    t0 = time.monotonic()
+    run()
+    _sync(device)
+    wall = time.monotonic() - t0
+    del model.prefill
+    n_tok = sum(len(r.tokens) for r in done)
+    decode_ms = (wall - calls["prefill_s"]) * 1e3 / steps
+    print(f"scheduled path on {name} ({mode}): {wall:.3f} s for {n_tok} "
+          f"tokens, {n_tok / wall:.1f} tokens/s; admission prefills "
+          f"{calls['prefill_s'] * 1e3:.1f} ms for {groups} groups; decode "
+          f"{decode_ms:.2f} ms/step over {steps} steps of "
+          f"{sc['max_batch']} slots")
+
+    # the plain tier: no kernel, and each wave equals generate_banked on it
+    _reset_launches()
+    with dispatch.plain_tier():
+        plain = run()
+        waves = [serve.generate_banked(
+            model, base, bank, ids[w:w + 4],
+            torch.as_tensor(prompts[w:w + 4], device=device), sc["steps"],
+            sc["plen"] + sc["steps"])[:, sc["plen"]:].cpu().numpy()
+            for w in (0, 4)]
+    _sync(device)
+    assert not any(_launch_counts().values()), _launch_counts()
+    fixed = np.concatenate(waves)
+    for r in plain:
+        assert r.tokens == fixed[r.rid, :len(r.tokens)].tolist(), \
+            f"plain tier: request {r.rid} differs from generate_banked"
+    print("plain tier: each wave's tokens equal generate_banked on that wave "
+          "bit for bit (the deadline request: its first "
+          f"{sc['deadline']} tokens)")
+
+    # kernel tier vs plain tier: teacher-forced logits on the plain tokens
+    worst, ties = 0.0, []
+    for w in (0, 4):
+        p_t = torch.as_tensor(prompts[w:w + 4], device=device)
+        toks = torch.as_tensor(fixed[w:w + 4], device=device)
+        lk = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks, False)
+        lp = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks, True)
+        assert torch.equal(lp.argmax(-1).cpu(), toks.cpu()), \
+            "teacher-forced plain tier does not reproduce its tokens"
+        worst = max(worst, float((lk - lp).abs().max()))
+        for i in range(4):
+            r, want = done[w + i], fixed[w + i, :len(done[w + i].tokens)]
+            diff = [t for t, (a, b) in enumerate(zip(r.tokens, want))
+                    if a != b]
+            if diff:
+                top2 = lp[i, diff[0]].topk(2).values
+                ties.append((r.rid, diff[0], float(top2[0] - top2[1])))
+        del lk, lp
+    print(f"kernel vs plain tier: teacher-forced logits max |diff| "
+          f"{worst:.3e} (tolerance {LOGIT_ATOL}); requests whose tokens "
+          f"part: {len(ties)}")
+    for rid, t, margin in ties:
+        print(f"  near-tie: request {rid} parts at token {t}, plain-tier "
+              f"top-2 margin {margin:.3e}")
+        assert margin < LOGIT_ATOL, (rid, t, margin)
+    assert worst <= LOGIT_ATOL, worst
+    if device.type == "cuda":
+        # where the time goes: one wave's prefill and 8 decode steps
+        p_t = torch.as_tensor(prompts[:4], device=device)
+        toks = torch.as_tensor(fixed[:4, :9], device=device)
+        _print_profile(f"scheduled path ({mode}; teacher-forced prefill + 8 "
+                       "decode steps)", *_profiled(lambda: _forced_paged(
+                           model, base, bank, ids[:4], p_t, toks, False)),
+                       1, "prefill + 8 steps")
+    return launches, dict(ms_per_step=decode_ms, tokens_per_s=n_tok / wall)
+
+
+def live_bank_path(model, params, bank):
+    """A short scheduled run over a LiveAdapterBank of 2 device slots for
+    the 4 tenants: admission defers and promotes."""
+    phase("scheduled path over a LiveAdapterBank (2 hot slots, 4 tenants)")
+    live = LiveAdapterBank.from_bank(bank, hot_slots=2)
+    rng = np.random.default_rng(8)
+    reqs = [serve.Request(rid=i, prompt=rng.integers(
+        0, model.cfg.vocab_size, 16).astype(np.int32), steps=8,
+        adapter_id=i % bank.size) for i in range(4)]
+    done = serve.serve_scheduled(model, params, reqs, bank=live,
+                                 max_batch=4, block_size=16, chunk=4,
+                                 wait=False)
+    print(f"live bank: {[len(r.tokens) for r in done]} tokens, "
+          f"{live.promotions} promotions, {live.demotions} demotions")
+    assert all(len(r.tokens) == 8 for r in done) and live.promotions > 0
+
 
 # ------------------------------------------------------------------ main
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def main():
     smi, name = environment()
     build_kernels()
     worst = check_kernels()
     rows = time_kernels()
-    launches = run_path(name, get_config("gemma-2b"), torch.device("cuda"))
-    gc.collect()                      # free the serving path's weights
-    torch.cuda.empty_cache()
+    # each kernel's launches come from the counted run of its own path
+    fixed = run_path(name, get_config("gemma-2b"), torch.device("cuda"))
+    launches = {k: fixed[k] for k in ("bgmv_gemv", "bgmv_matmul")}
+    _free()                           # the serving path's weights
     worst.update(check_lora_kernels())
     rows.update(time_lora_kernels())
     train_launches, _ = train_path(name, get_config("gemma-2b"),
                                    torch.device("cuda"))
-    launches.update(train_launches)
+    launches.update({k: train_launches[k] for k in LORA_KERNELS})
+    _free()
+    ring = SCHED["plen"] + SCHED["steps"]
+    worst.update(check_sched_kernels(SCHED["block_size"], ring))
+    rows.update(time_sched_kernels(SCHED["block_size"], ring))
+    _free()
+    model, params, bank = serving_model(get_config("gemma-2b"),
+                                        torch.device("cuda"))
+    for mode in ("fp32", "int8", "int4"):
+        sched_launches, _ = sched_path(name, model, params, bank, mode)
+        _free()
+        # #13 from the fp32 run; #3, #4 and #11 from the int4 run
+        keep = (("paged_attention",) if mode == "fp32" else
+                ("bgmv_matmul_quant", "bgmv_gemv_quant", "quant_matmul")
+                if mode == "int4" else ())
+        launches.update({k: sched_launches[k] for k in keep})
+    live_bank_path(model, params, bank)
     kernels = []
-    for kern in ("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS:
-        row = rows[(kern, "q")]
+    for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
+                 + SCHED_KERNELS):
+        row = rows[(kern, ROW[kern])]
         kernels.append({
             "name": kern, "route": "cuda", "source": SOURCES[kern],
             "replaces": REPLACES[kern], "launches": launches[kern],

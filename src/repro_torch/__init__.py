@@ -6,11 +6,14 @@ counterpart under ``src/repro/``.  This package imports torch and numpy,
 never jax and nothing of ``repro``.
 
 Ported so far: banked multi-tenant LoRA serving of dense decoders
-(``launch/serve.py``), with the two BGMV kernels (``kernels/bgmv.py``), and
+(``launch/serve.py``), with the two BGMV kernels (``kernels/bgmv.py``);
 synchronous federated LoRA training (``launch/train.py``,
 ``core/federated.py``), with the fused LoRA matmul and its backward
-(``kernels/lora_matmul.py``); all six kernels are written by hand in CUDA
-C++ for ``sm_90a``.
+(``kernels/lora_matmul.py``); and continuous-batching serving over a paged
+KV pool (``serve_scheduled``, ``kernels/paged_attention.py``), optionally
+over a packed int8 / int4 frozen base (``core/quant.py``, the quantized
+BGMV kernels and the packed GEMM).  All ten kernels are written by hand in
+CUDA C++ for ``sm_90a``.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing

@@ -19,8 +19,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.lora import AdapterSet, adapter_rank
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.core.scaling import per_client_gammas
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 _SEP = "::"
 _QUANT = "__quant__"
@@ -34,6 +35,15 @@ def _flatten(tree, prefix=""):
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+    elif isinstance(tree, QuantizedLinear):
+        # packed base leaf: a sentinel subtree holding data, scales and the
+        # static fields, as the JAX package writes it
+        enc = {"data": tree.data, "scales": tree.scales,
+               "bits": np.asarray(tree.bits),
+               "group_size": np.asarray(tree.group_size),
+               "k": np.asarray(tree.k),
+               "out_dtype": np.asarray(tree.out_dtype)}
+        out.update(_flatten(enc, f"{prefix}{_QUANT}{_SEP}"))
     elif isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -51,7 +61,8 @@ def save_pytree(path: str, tree) -> None:
 
 
 def load_pytree(path: str):
-    """The tree saved at ``path``, with numpy leaves."""
+    """The tree saved at ``path``, with numpy leaves (a packed base leaf
+    comes back as a :class:`QuantizedLinear` over numpy arrays)."""
     with np.load(path) as data:
         tree = {}
         for key in data.files:
@@ -65,10 +76,11 @@ def load_pytree(path: str):
 
 def _unlistify(node):
     if isinstance(node, dict):
-        if _QUANT in node:
-            raise NotImplementedError(
-                "quantized base not yet ported to repro_torch (checkpoint "
-                "holds a packed __quant__ leaf)")
+        if set(node) == {_QUANT}:
+            q = node[_QUANT]
+            return QuantizedLinear(q["data"], q["scales"], int(q["bits"]),
+                                   int(q["group_size"]), int(q["k"]),
+                                   str(q["out_dtype"]))
         if node and all(k.startswith("#") for k in node):
             return [_unlistify(node[f"#{i}"]) for i in range(len(node))]
         return {k: _unlistify(v) for k, v in node.items()}
@@ -78,7 +90,8 @@ def _unlistify(node):
 def params_from_numpy(tree, device="cuda", dtype=None):
     """A tree of arrays (anything ``np.asarray`` takes) as tensors on
     ``device``.  Floating leaves are cast to ``dtype`` when it is given;
-    integer leaves keep their type; string leaves stay numpy."""
+    integer leaves keep their type; string leaves stay numpy.  A packed
+    :class:`QuantizedLinear` keeps its packed data and fp32 scales."""
     device = resolve_device(device)
 
     def conv(leaf):
@@ -101,6 +114,10 @@ def params_from_numpy(tree, device="cuda", dtype=None):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v) for v in node]
+        if isinstance(node, QuantizedLinear):
+            return tree_map(lambda t: (
+                t if isinstance(t, torch.Tensor)
+                else torch.from_numpy(np.array(t))).to(device), node)
         return conv(node)
 
     return walk(tree)
@@ -145,3 +162,21 @@ def load_adapter_state(path: str, *, lora_cfg=None, n_clients: int = None,
                                n_clients or n)
     return base, AdapterSet(lora=lora, gamma=gammas, rank_mask=mask,
                             rank=r_pad, alpha=lora_cfg.alpha)
+
+
+def publish_adapter_state(path: str, live, *, lora_cfg=None, clients=None):
+    """Stream a federated checkpoint's adapters into a live serving bank
+    (:class:`~repro_torch.core.lora.LiveAdapterBank`): every client in the
+    checkpoint (or just ``clients``) is published under its client index as
+    the tenant id; resident tenants swap on the device, the rest update the
+    host store.  Returns ``(base_params, n_published)`` so the caller can
+    check the base still matches what it serves."""
+    base, aset = load_adapter_state(path, lora_cfg=lora_cfg,
+                                    device=live.bank.device)
+    n_clients = tree_leaves(aset.lora)[0].shape[0]
+    clients = range(n_clients) if clients is None else clients
+    n = 0
+    for c in clients:
+        live.publish(int(c), aset.client(int(c)))
+        n += 1
+    return base, n

@@ -9,7 +9,8 @@ repeated blocks, and a leading client or tenant dim where stacked).
 :class:`AdapterSet` carries the A/B tree with its scaling factor gamma, an
 optional rank mask and rank/alpha metadata; :meth:`AdapterSet.fold_gamma`
 is the one place gamma meets the weights.  :class:`AdapterBank` stacks K
-prepared sets for multi-tenant serving.
+prepared sets for multi-tenant serving, and :class:`LiveAdapterBank` keeps a
+device-resident hot set of bank slots over a host-memory tenant store.
 
 Config values (gamma, rank masks) stay host numpy / python values, as in
 the JAX package; they become tensors only where they multiply a leaf.
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.hostcheck import check_adapter_ids
+from repro_torch.core.quant import QuantizedLinear, dequantize
 from repro_torch.tree import tree_leaves, tree_map
 
 # which leaves inside each block subtree are adaptable, per target name
@@ -107,6 +109,11 @@ def merge_lora(params, lora, gamma):
         if set(l_node) == {"a", "b"}:
             delta = torch.einsum("...or,...ri->...io", l_node["b"],
                                  l_node["a"]) * gamma
+            if isinstance(p_node, QuantizedLinear):
+                # W0 + gamma B A is not on W0's quantization grid: the
+                # merged weight leaves packed form (requantize_merged
+                # packs it again)
+                p_node = dequantize(p_node)
             return p_node + delta.to(p_node.dtype)
         if isinstance(p_node, dict):
             return {k: merge_node(v, l_node.get(k)) for k, v in p_node.items()}
@@ -371,10 +378,11 @@ class AdapterBank:
 
     Registration folds each tenant's gamma into its B and zero-pads mixed
     ranks to ``r_max`` under a (K, r_max) rank mask, so the bank is one
-    uniform stacked tree."""
+    uniform stacked tree.  ``version`` counts :meth:`publish` calls."""
     lora: Any                                 # leaves (K,) + leaf shape
     rank_mask: Any = None                     # (K, r_max) numpy or None
     ranks: Tuple[int, ...] = ()               # per-tenant active ranks
+    version: int = 0
 
     @property
     def size(self) -> int:
@@ -414,6 +422,58 @@ class AdapterBank:
         return cls(lora=prepared.lora, rank_mask=rank_mask(ranks, r_pad),
                    ranks=tuple(int(r) for r in ranks))
 
+    def publish(self, slot: int, aset: AdapterSet, *,
+                donate: bool = True) -> "AdapterBank":
+        """Replace tenant ``slot`` with ``aset``: the versioned bank update
+        that lets federated rounds re-publish adapters while serving
+        continues.
+
+        The new set is prepared (rank-masked, gamma folded into B) and
+        zero-padded to the bank's ``r_max``, so the stacked leaves keep
+        exactly their shapes and dtypes; a set whose rank exceeds ``r_max``
+        is rejected rather than reshaping the bank.  ``aset``'s leaves may
+        be tensors on any device or numpy arrays.
+
+        With ``donate=True`` (the default) the slot is copied in place into
+        this bank's leaves (the JAX package donates them): the returned
+        bank shares them and replaces ``self``.  ``donate=False`` copies
+        the leaves first and leaves this bank as it was."""
+        if not 0 <= int(slot) < self.size:
+            raise ValueError(f"slot {slot} out of range for a bank of "
+                             f"{self.size} tenants")
+        slot = int(slot)
+        dev = self.device
+        aset = dataclasses.replace(aset, lora=tree_map(
+            lambda x: torch.as_tensor(x, device=dev), aset.lora))
+        prepared = aset.prepared()
+        r = adapter_rank(prepared.lora)
+        r_max = self.r_max
+        if r > r_max:
+            raise ValueError(
+                f"published rank {r} exceeds the bank's r_max={r_max}: slot "
+                "shapes are padded-stable; rebuild the bank "
+                "(AdapterBank.from_sets) to grow the rank ceiling")
+        padded = pad_rank_tree(prepared.lora, r_max)
+        if _paths(padded) != _paths(self.lora):
+            raise ValueError(
+                "published adapter tree structure does not match the "
+                f"bank's: {_paths(padded)} vs {_paths(self.lora)}")
+        for bl, nl in zip(tree_leaves(self.lora), tree_leaves(padded)):
+            if tuple(bl.shape[1:]) != tuple(nl.shape):
+                raise ValueError(
+                    f"published adapter leaf shape {tuple(nl.shape)} does "
+                    f"not match the bank slot shape {tuple(bl.shape[1:])}")
+        lora = self.lora if donate else tree_map(torch.clone, self.lora)
+
+        def put(bank_leaf, new):
+            bank_leaf[slot].copy_(new)
+            return bank_leaf
+        lora = tree_map(put, lora, padded)
+        ranks = list(self.ranks or (r_max,) * self.size)
+        ranks[slot] = r
+        return AdapterBank(lora=lora, rank_mask=rank_mask(tuple(ranks), r_max),
+                           ranks=tuple(ranks), version=self.version + 1)
+
     def _ids(self, ids, what: str) -> torch.Tensor:
         check_adapter_ids(ids, self.size, what=what)
         return torch.as_tensor(ids, dtype=torch.int32, device=self.device)
@@ -440,3 +500,207 @@ class AdapterBank:
         return AdapterSet(lora=tree_map(lambda x: x[k], self.lora),
                           gamma=1.0, rank_mask=mask,
                           rank=int(self.ranks[k]) if self.ranks else 0)
+
+
+def _paths(tree, prefix=()):
+    """The sorted key paths of a nested dict's leaves."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+class LiveAdapterBank:
+    """An adapter bank larger than the device holds: a device-resident hot
+    set of ``hot_slots`` bank slots over a host-memory tenant store.
+
+    The port of ``repro/core/lora.py:LiveAdapterBank``.  The store holds
+    every tenant prepared (gamma folded, rank-masked) and zero-padded to
+    ``r_max`` as CPU tensors, so a promotion is a pure copy into a slot of
+    the device :class:`AdapterBank` (an in-place :meth:`AdapterBank.publish`).
+    A request for a non-resident tenant promotes it into a free or the
+    least-recently-used unpinned slot; the evictee's demotion is free,
+    because the store is always authoritative (:meth:`publish` writes the
+    store first, then swaps the device slot if the tenant is resident).
+
+    Recency is driven by the tenant ids flowing through
+    ``launch/serve.serve_scheduled`` (:meth:`acquire` at admission,
+    :meth:`touch` at every decode chunk); slots gathered by running
+    requests are pinned.  ``promotions``, ``demotions`` and ``swaps`` (in
+    place publishes of resident tenants) count lifecycle events."""
+
+    def __init__(self, *, bank: AdapterBank, store: dict, slot_tenant):
+        self.bank = bank
+        self.store = store                    # tenant -> {lora, rank, version}
+        self.slot_tenant = [int(t) for t in slot_tenant]
+        if len(self.slot_tenant) != bank.size:
+            raise ValueError("slot_tenant must name every device slot")
+        self.tenant_slot = {t: s for s, t in enumerate(self.slot_tenant)
+                            if t >= 0}
+        self._tick = 0
+        self._last_used = [0] * len(self.slot_tenant)
+        self.version = 0                      # global publish counter
+        self.promotions = 0
+        self.demotions = 0
+        self.swaps = 0
+
+    @property
+    def hot_slots(self) -> int:
+        return len(self.slot_tenant)
+
+    @property
+    def r_max(self) -> int:
+        return self.bank.r_max
+
+    @property
+    def tenants(self):
+        return sorted(self.store)
+
+    def has(self, tenant) -> bool:
+        return int(tenant) in self.store
+
+    def resident(self, tenant) -> bool:
+        return int(tenant) in self.tenant_slot
+
+    def tenant_version(self, tenant) -> int:
+        return self.store[int(tenant)]["version"]
+
+    @staticmethod
+    def _host(tree):
+        return tree_map(lambda x: torch.as_tensor(x).detach().to(
+            "cpu", copy=True), tree)
+
+    @classmethod
+    def from_sets(cls, sets, *, hot_slots: int, r_max: int = 0,
+                  device="cuda") -> "LiveAdapterBank":
+        """Register tenants 0..len(sets)-1; the first ``hot_slots`` start
+        resident on ``device``.  ``r_max`` (default: the largest rank seen)
+        is the bank's permanent rank ceiling."""
+        sets = list(sets)
+        if not sets:
+            raise ValueError("LiveAdapterBank needs at least one tenant")
+        prepared = [s.prepared() for s in sets]
+        ranks = [adapter_rank(p.lora) for p in prepared]
+        r_max = int(r_max) or max(ranks)
+        if max(ranks) > r_max:
+            raise ValueError(f"rank {max(ranks)} exceeds r_max={r_max}")
+        store = {t: {"lora": cls._host(pad_rank_tree(p.lora, r_max)),
+                     "rank": r, "version": 0}
+                 for t, (p, r) in enumerate(zip(prepared, ranks))}
+        return cls._build(store, hot_slots=hot_slots, r_max=r_max,
+                          device=device)
+
+    @classmethod
+    def from_bank(cls, bank: AdapterBank, *,
+                  hot_slots: int) -> "LiveAdapterBank":
+        """Wrap a static AdapterBank: every bank row becomes a store tenant
+        (row index = tenant id) and the first ``hot_slots`` start resident
+        on the bank's device (``--hot-slots`` on the serve CLI)."""
+        host = cls._host(bank.lora)
+        ranks = bank.ranks or (bank.r_max,) * bank.size
+        store = {t: {"lora": tree_map(lambda x, t=t: x[t], host),
+                     "rank": int(ranks[t]), "version": 0}
+                 for t in range(bank.size)}
+        return cls._build(store, hot_slots=hot_slots, r_max=bank.r_max,
+                          device=bank.device)
+
+    @classmethod
+    def _build(cls, store, *, hot_slots: int, r_max: int,
+               device) -> "LiveAdapterBank":
+        if hot_slots < 1:
+            raise ValueError(f"need >= 1 hot slot, got {hot_slots}")
+        tenants = sorted(store)
+        resident = tenants[:hot_slots]
+        template = store[tenants[0]]["lora"]
+        rows, slot_tenant, slot_ranks = [], [], []
+        for s in range(hot_slots):
+            if s < len(resident):
+                t = resident[s]
+                rows.append(store[t]["lora"])
+                slot_tenant.append(t)
+                slot_ranks.append(store[t]["rank"])
+            else:                      # spare slot: zeros (inert by padding)
+                rows.append(tree_map(torch.zeros_like, template))
+                slot_tenant.append(-1)
+                slot_ranks.append(r_max)
+        lora = tree_map(lambda *xs: torch.stack(xs).to(device), *rows)
+        bank = AdapterBank(lora=lora,
+                           rank_mask=rank_mask(tuple(slot_ranks), r_max),
+                           ranks=tuple(slot_ranks))
+        return cls(bank=bank, store=store, slot_tenant=slot_tenant)
+
+    def publish(self, tenant, aset: AdapterSet) -> int:
+        """Publish a new adapter version for ``tenant`` (a new tenant
+        registers on its first publish).  The host store is updated first;
+        a RESIDENT tenant's device slot is then swapped in place
+        (:meth:`AdapterBank.publish`): decode chunks already run finished
+        on the old adapters, the next chunk serves the new version.
+        Returns the tenant's new version number."""
+        tenant = int(tenant)
+        prepared = dataclasses.replace(
+            aset, lora=self._host(aset.lora)).prepared()
+        r = adapter_rank(prepared.lora)
+        if r > self.r_max:
+            raise ValueError(
+                f"tenant {tenant}: published rank {r} exceeds the bank's "
+                f"r_max={self.r_max}; shapes are padded-stable, rebuild the "
+                "live bank to grow the rank ceiling")
+        padded = self._host(pad_rank_tree(prepared.lora, self.r_max))
+        ver = (self.store[tenant]["version"] + 1 if tenant in self.store
+               else 0)
+        self.store[tenant] = {"lora": padded, "rank": r, "version": ver}
+        self.version += 1
+        s = self.tenant_slot.get(tenant)
+        if s is not None:
+            self.bank = self.bank.publish(s, AdapterSet(lora=padded))
+            self.swaps += 1
+        return ver
+
+    def touch(self, tenants) -> None:
+        """Advance the LRU clock for every resident tenant in ``tenants``
+        (the ids observed at each admission and decode chunk)."""
+        self._tick += 1
+        for t in tenants:
+            s = self.tenant_slot.get(int(t))
+            if s is not None:
+                self._last_used[s] = self._tick
+
+    def acquire(self, tenants, pinned=()):
+        """Device slots for ``tenants``, promoting non-resident ones from
+        the store into free or least-recently-used slots; ``pinned`` slots
+        (gathered by still-running requests) are never evicted.  Returns
+        {tenant: slot}, or None when the distinct tenants cannot all be
+        made resident without evicting a pinned slot (the caller defers
+        admission to a later boundary)."""
+        want = list(dict.fromkeys(int(t) for t in tenants))
+        for t in want:
+            if t not in self.store:
+                raise KeyError(f"unknown tenant {t}: store holds "
+                               f"{self.tenants}")
+        keep = {int(p) for p in pinned}
+        keep |= {self.tenant_slot[t] for t in want if t in self.tenant_slot}
+        missing = [t for t in want if t not in self.tenant_slot]
+        free = [s for s in range(self.hot_slots)
+                if self.slot_tenant[s] < 0 and s not in keep]
+        victims = sorted((s for s in range(self.hot_slots)
+                          if self.slot_tenant[s] >= 0 and s not in keep),
+                         key=lambda s: self._last_used[s])
+        if len(missing) > len(free) + len(victims):
+            return None
+        for t in missing:
+            s = free.pop(0) if free else victims.pop(0)
+            self._promote(t, s)
+        self.touch(want)
+        return {t: self.tenant_slot[t] for t in want}
+
+    def _promote(self, tenant: int, slot: int) -> None:
+        old = self.slot_tenant[slot]
+        if old >= 0:
+            # demotion is free: the store already holds the evictee
+            del self.tenant_slot[old]
+            self.demotions += 1
+        rec = self.store[tenant]
+        self.bank = self.bank.publish(slot, AdapterSet(lora=rec["lora"]))
+        self.slot_tenant[slot] = tenant
+        self.tenant_slot[tenant] = slot
+        self.promotions += 1

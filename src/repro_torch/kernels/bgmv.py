@@ -6,7 +6,10 @@ stacked :class:`~repro_torch.core.lora.AdapterBank`:
     y[i] = x[i] @ W + (x[i] @ A[ids[i]]^T) @ B[ids[i]]^T
 
 ``bgmv_matmul`` takes x (B, s, k) (prefill), ``bgmv_gemv`` x (B, k) (one
-decode token per request).  Both return fp32.  The bank is gamma-free:
+decode token per request).  ``bgmv_matmul_quant`` and ``bgmv_gemv_quant``
+are the same over a packed frozen base W (a
+:class:`~repro_torch.core.quant.QuantizedLinear`, int8 or int4).  All
+return fp32.  The bank is gamma-free:
 registration folds each tenant's scale into its B.  ``ids=None`` is the
 identity map (row i <-> adapter i), the layout of a bank already gathered
 per request; it needs no range check.
@@ -30,7 +33,15 @@ design does about it):
   per 8 requests beyond) instead of once per request as in the TPU grid,
   and the k range is split over blocks so that enough loads are in
   flight; a second kernel adds the partial sums in a fixed order.
-* Both: the TPU kernel carries p = x A^T in VMEM across its sequential
+* ``bgmv_matmul_quant`` and ``bgmv_gemv_quant`` replace
+  ``_bgmv_kernel_q`` and ``_bgmv_gemv_kernel_q``: the two kernels above
+  with the W-tile load replaced by a dequantizing load (one template body
+  per kernel, instantiated for an fp, an int8 and an int4 W loader).  They
+  move 4x (int8) or 8x (int4) fewer W bytes than fp32, which is what bounds
+  the decode form.  Each W element is formed as ``dequantize`` forms it
+  (one fp32 product), so kernel and plain version differ only in the order
+  of their sums.
+* All: the TPU kernel carries p = x A^T in VMEM across its sequential
   grid.  GPU blocks run in no order, so a shrink pre-pass writes p to an
   fp32 scratch (rank <= 512, small) that the main kernel reads.
 
@@ -42,12 +53,14 @@ from __future__ import annotations
 
 import torch
 
-# kernel launches per wrapper since the last reset_launches()
-launches = {"bgmv_matmul": 0, "bgmv_gemv": 0}
+from repro_torch.core.quant import QuantizedLinear
+from repro_torch.kernels.common import (DTYPES, check_packed, forward_only,
+                                        gemv_split, num_sms, raise_on, route,
+                                        stream)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GEMV_COLS, _GEMV_WARPS, _GEMV_MAXB = 32, 8, 8    # csrc/bgmv.cu constants
-_sm_counts = {}
+# kernel launches per wrapper since the last reset_launches()
+launches = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
+            "bgmv_gemv_quant": 0}
 
 
 def reset_launches() -> None:
@@ -76,22 +89,35 @@ def bgmv_gemv_plain(x, w, a, b, ids=None):
     return bgmv_matmul_plain(x[:, None, :], w, a, b, ids)[:, 0]
 
 
+def bgmv_matmul_quant_plain(x, wq, a, b, ids=None):
+    """Plain version of :func:`bgmv_matmul_quant`: dequantize, then
+    :func:`bgmv_matmul_plain`."""
+    return bgmv_matmul_plain(x, wq.dequantize(), a, b, ids)
+
+
+def bgmv_gemv_quant_plain(x, wq, a, b, ids=None):
+    """Plain version of :func:`bgmv_gemv_quant`."""
+    return bgmv_gemv_plain(x, wq.dequantize(), a, b, ids)
+
+
 # ------------------------------------------------------------------ wrappers
-
-def _route(x) -> bool:
-    """True: launch the kernel.  False: the plain version."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"bgmv takes CUDA or CPU tensors, got {x.device}")
-
 
 def _check(x, w, a, b, ids, nreq: int):
     """Everything the kernels assume, checked before any pointer leaves
-    Python: device, dtype, shape, contiguity, id range."""
+    Python: device, dtype, shape, contiguity, id range.  ``w`` is a tensor
+    of x's dtype or a packed QuantizedLinear whose layout the caller has
+    checked (``common.check_packed``)."""
     dev = x.device
-    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
+    dense = [("x", x), ("a", a), ("b", b)]
+    if isinstance(w, QuantizedLinear):
+        for name, t in (("W data", w.data), ("W scales", w.scales)):
+            if t.device != dev or t.ndim != 2 or not t.is_contiguous():
+                raise ValueError(f"bgmv: {name} must be a contiguous matrix "
+                                 f"on {dev}, got {tuple(t.shape)} on "
+                                 f"{t.device}")
+    else:
+        dense.append(("w", w))
+    for name, t in dense:
         if t.device != dev:
             raise ValueError(f"bgmv: {name} on {t.device}, x on {dev}")
         if t.dtype != x.dtype:
@@ -99,7 +125,7 @@ def _check(x, w, a, b, ids, nreq: int):
                             "all four operands must share one dtype")
         if not t.is_contiguous():
             raise ValueError(f"bgmv: {name} must be contiguous")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in DTYPES:
         raise TypeError(f"bgmv kernels take float32 or bfloat16, got "
                         f"{x.dtype}")
     k, n = w.shape
@@ -129,36 +155,15 @@ def _check(x, w, a, b, ids, nreq: int):
     return ids.data_ptr()
 
 
-def _forward_only(name, *ts):
-    """The BGMV kernels have no backward: refuse operands autograd would
-    need gradients for, rather than return an output without a grad_fn."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(
-            f"{name}: the BGMV kernel has no backward, but an operand "
-            "requires grad; run it under torch.no_grad() or "
-            "torch.inference_mode(), or train a single adapter (the LoRA "
-            "matmul Function)")
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
 def bgmv_matmul(x, w, a, b, ids=None):
     """y[i] = x[i] @ W + (x[i] @ A[ids[i]]^T) @ B[ids[i]]^T.
 
     x (B, s, k), w (k, n), a (K, r, k), b (K, n, r), ids (B,) int32 or
     None.  Returns (B, s, n) fp32."""
-    if not _route(x):
+    if not route(x, "bgmv"):
         return bgmv_matmul_plain(x, w, a, b, ids)
     from repro_torch.kernels.build import load
-    _forward_only("bgmv_matmul", x, w, a, b)
+    forward_only("bgmv_matmul", x, w, a, b)
     nreq, s, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]
@@ -166,42 +171,23 @@ def bgmv_matmul(x, w, a, b, ids=None):
     out = torch.empty(nreq, s, n, dtype=torch.float32, device=x.device)
     err = load().bgmv_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), ids_ptr,
-        p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, _DTYPES[x.dtype],
-        _stream(x))
-    _raise_on(err, "bgmv_matmul")
+        p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, DTYPES[x.dtype],
+        stream(x))
+    raise_on(err, "bgmv_matmul")
     launches["bgmv_matmul"] += 1
     return out
 
 
-def gemv_split(nreq: int, k: int, n: int, num_sms: int):
-    """(ksplit, kchunk) for the GEMV kernel: split k so that about four
-    blocks per SM are in flight, with at least one row per warp."""
-    tiles = -(-n // _GEMV_COLS) * -(-nreq // _GEMV_MAXB)
-    want = -(-4 * num_sms // tiles)
-    ksplit = max(1, min(want, -(-k // _GEMV_WARPS), 65535))
-    kchunk = -(-k // ksplit)
-    return -(-k // kchunk), kchunk
-
-
-def _num_sms(device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _sm_counts[idx]
-
-
 def bgmv_gemv(x, w, a, b, ids=None):
     """Single-token form: x (B, k) -> (B, n) fp32."""
-    if not _route(x):
+    if not route(x, "bgmv"):
         return bgmv_gemv_plain(x, w, a, b, ids)
     from repro_torch.kernels.build import load
-    _forward_only("bgmv_gemv", x, w, a, b)
+    forward_only("bgmv_gemv", x, w, a, b)
     nreq, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]
-    ksplit, kchunk = gemv_split(nreq, k, n, _num_sms(x.device))
+    ksplit, kchunk = gemv_split(nreq, k, n, num_sms(x.device))
     p = torch.empty(nreq, r, dtype=torch.float32, device=x.device)
     partial = torch.empty(ksplit, nreq, n, dtype=torch.float32,
                           device=x.device)
@@ -209,7 +195,58 @@ def bgmv_gemv(x, w, a, b, ids=None):
     err = load().bgmv_gemv_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), ids_ptr,
         p.data_ptr(), partial.data_ptr(), out.data_ptr(), nreq, k, n, r,
-        ksplit, kchunk, _DTYPES[x.dtype], _stream(x))
-    _raise_on(err, "bgmv_gemv")
+        ksplit, kchunk, DTYPES[x.dtype], stream(x))
+    raise_on(err, "bgmv_gemv")
     launches["bgmv_gemv"] += 1
+    return out
+
+
+def _quant_args(wq):
+    return (wq.data.data_ptr(), wq.scales.data_ptr())
+
+
+def bgmv_matmul_quant(x, wq, a, b, ids=None):
+    """Kernel #3: :func:`bgmv_matmul` over a packed base ``wq`` (logical
+    (k, n)).  Returns (B, s, n) fp32."""
+    if not route(x, "bgmv"):
+        return bgmv_matmul_quant_plain(x, wq, a, b, ids)
+    from repro_torch.kernels.build import load
+    forward_only("bgmv_matmul_quant", x, a, b)
+    group = check_packed(wq, "bgmv_matmul_quant")
+    nreq, s, k = x.shape
+    ids_ptr = _check(x, wq, a, b, ids, nreq)
+    n, r = wq.shape[1], a.shape[1]
+    p = torch.empty(nreq * s, r, dtype=torch.float32, device=x.device)
+    out = torch.empty(nreq, s, n, dtype=torch.float32, device=x.device)
+    err = load().bgmv_matmul_quant_launch(
+        x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
+        p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, wq.bits, group,
+        DTYPES[x.dtype], stream(x))
+    raise_on(err, "bgmv_matmul_quant")
+    launches["bgmv_matmul_quant"] += 1
+    return out
+
+
+def bgmv_gemv_quant(x, wq, a, b, ids=None):
+    """Kernel #4: :func:`bgmv_gemv` over a packed base ``wq``: x (B, k) ->
+    (B, n) fp32."""
+    if not route(x, "bgmv"):
+        return bgmv_gemv_quant_plain(x, wq, a, b, ids)
+    from repro_torch.kernels.build import load
+    forward_only("bgmv_gemv_quant", x, a, b)
+    group = check_packed(wq, "bgmv_gemv_quant")
+    nreq, k = x.shape
+    ids_ptr = _check(x, wq, a, b, ids, nreq)
+    n, r = wq.shape[1], a.shape[1]
+    ksplit, kchunk = gemv_split(nreq, k, n, num_sms(x.device))
+    p = torch.empty(nreq, r, dtype=torch.float32, device=x.device)
+    partial = torch.empty(ksplit, nreq, n, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(nreq, n, dtype=torch.float32, device=x.device)
+    err = load().bgmv_gemv_quant_launch(
+        x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
+        p.data_ptr(), partial.data_ptr(), out.data_ptr(), nreq, k, n, r,
+        ksplit, kchunk, wq.bits, group, DTYPES[x.dtype], stream(x))
+    raise_on(err, "bgmv_gemv_quant")
+    launches["bgmv_gemv_quant"] += 1
     return out

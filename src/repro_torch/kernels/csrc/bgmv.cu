@@ -1,19 +1,25 @@
 // Multi-adapter BGMV kernels for banked LoRA serving, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/bgmv.py:
-//   bgmv_matmul_launch  <- _bgmv_kernel      (bgmv_matmul, prefill)
-//   bgmv_gemv_launch    <- _bgmv_gemv_kernel (bgmv_gemv, decode)
-// Both compute, for request row i served with tenant ids[i],
+//   bgmv_matmul_launch        <- _bgmv_kernel        (bgmv_matmul, prefill)
+//   bgmv_gemv_launch          <- _bgmv_gemv_kernel   (bgmv_gemv, decode)
+//   bgmv_matmul_quant_launch  <- _bgmv_kernel_q      (bgmv_matmul_quant)
+//   bgmv_gemv_quant_launch    <- _bgmv_gemv_kernel_q (bgmv_gemv_quant)
+// All compute, for request row i served with tenant ids[i],
 //   y[i] = x[i] W + (x[i] A[ids[i]]^T) B[ids[i]]^T
-// with x (B, s, k) or (B, k), W (k, n), A (K, r, k), B (K, n, r); inputs
-// fp32 or bf16 (all four the same type), fp32 FMA accumulation, fp32
-// output.  ids == nullptr means the identity map (row i <-> adapter i).
+// with x (B, s, k) or (B, k), W (k, n), A (K, r, k), B (K, n, r); x, A and
+// B fp32 or bf16 (all three the same type), W of that type too or packed
+// int8 / int4 (core/quant.py's layout, dequantized element by element as
+// the kernel loads it: loaders.cuh); fp32 FMA accumulation, fp32 output.
+// ids == nullptr means the identity map (row i <-> adapter i).  The packed
+// and the fp forms are one kernel body each, templated on the W loader.
 //
 // The TPU kernel carries p = x A^T in VMEM from the n == 0 sweep to later
 // n-blocks; GPU blocks run in no order, so a pre-pass (shrink_kernel)
 // writes p to an fp32 scratch (B*s, r) that the main kernels read.
 //
-// Ragged edges are masked in the kernels: no shape needs padding.
+// Ragged edges are masked in the kernels: no shape needs padding (a packed
+// int4 W may hold kq > k rows; rows >= k are never read).
 // Plain C interface, bound with ctypes (kernels/build.py, kernels/bgmv.py).
 // Each entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -21,13 +27,22 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "gemv.cuh"
+#include "loaders.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using repro_kernels::DenseW;
+using repro_kernels::gemv_partial_kernel;
+using repro_kernels::Int4W;
+using repro_kernels::Int8W;
+using repro_kernels::kGvCols;
+using repro_kernels::kGvMaxB;
+using repro_kernels::kGvWarps;
+using repro_kernels::log2_group;
+using repro_kernels::to_f;
 
 // ------------------------------------------------------------- shrink
 // p[row, j] = sum_k x[row, k] * A[id(row), j, k], one warp per (row, j):
@@ -62,13 +77,14 @@ shrink_kernel(const T* __restrict__ x, const T* __restrict__ a,
 // output tile reads its W tile once for every request in it.  Classic
 // shared-memory tiling: 64 x 64 output tile, k in steps of 16, 256
 // threads, 4 x 4 outputs per thread (rows ty + 16 i, cols tx + 16 j, so
-// shared-memory reads are broadcasts or conflict-free).  The epilogue adds
-// p[row] . B[id(row), col] (rank r <= 512, read from L2).
+// shared-memory reads are broadcasts or conflict-free).  The W tile comes
+// through the loader WL (fp, or dequantized as it is loaded).  The
+// epilogue adds p[row] . B[id(row), col] (rank r <= 512, read from L2).
 constexpr int kMmBM = 64, kMmBN = 64, kMmBK = 16, kMmThreads = 256;
 
-template <typename T>
+template <typename T, typename WL>
 __global__ void __launch_bounds__(kMmThreads)
-matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
+matmul_kernel(const T* __restrict__ x, const WL wl,
               const T* __restrict__ bm, const int* __restrict__ ids,
               const float* __restrict__ p, float* __restrict__ out, int m_rows,
               int s, int k, int n, int r) {
@@ -97,8 +113,7 @@ matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int idx = tid + t * kMmThreads;
       const int kk = idx / kMmBN, nn = idx % kMmBN;
       const int gk = k0 + kk, gn = n0 + nn;
-      ws[kk][nn] = (gk < k && gn < n)
-                       ? to_f(w[static_cast<size_t>(gk) * n + gn]) : 0.f;
+      ws[kk][nn] = (gk < k && gn < n) ? wl(gk, gn) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -136,56 +151,10 @@ matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // --------------------------------------------------------------- gemv
-// Decode form, bound by reading W.  A block owns 32 columns (lane = column,
-// so each warp reads 128 contiguous bytes of a W row) and a k-slice of
-// kchunk rows split over its 8 warps, and accumulates up to kGvMaxB = 8
-// requests per W element: W is read once per decode step for a batch of up
-// to 8 (gridDim.z takes each further 8), where the TPU grid (B, nn, nk)
-// re-reads it per request.  Splitting k over
-// gridDim.y puts enough blocks in flight to fill the card's memory
-// pipeline; the ksplit partial sums go to scratch and finalize_kernel adds
-// them in a fixed order (deterministic), then adds the rank-r term.
-constexpr int kGvCols = 32, kGvWarps = 8, kGvMaxB = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kGvCols * kGvWarps)
-gemv_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    float* __restrict__ partial, int nb, int k, int n,
-                    int kchunk) {
-  __shared__ float red[kGvWarps][kGvMaxB][kGvCols];
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int col = blockIdx.x * kGvCols + lane;
-  const int b0 = blockIdx.z * kGvMaxB;
-  const int nbb = min(kGvMaxB, nb - b0);
-  const int k0 = blockIdx.y * kchunk;
-  const int k1 = min(k, k0 + kchunk);
-  float acc[kGvMaxB];
-#pragma unroll
-  for (int b = 0; b < kGvMaxB; ++b) acc[b] = 0.f;
-  if (col < n) {
-#pragma unroll 4
-    for (int kk = k0 + warp; kk < k1; kk += kGvWarps) {
-      const float wv = to_f(w[static_cast<size_t>(kk) * n + col]);
-#pragma unroll
-      for (int b = 0; b < kGvMaxB; ++b)
-        if (b < nbb)
-          acc[b] = fmaf(to_f(x[static_cast<size_t>(b0 + b) * k + kk]), wv,
-                        acc[b]);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < kGvMaxB; ++b) red[warp][b][lane] = acc[b];
-  __syncthreads();
-  if (warp == 0 && col < n) {
-    for (int b = 0; b < nbb; ++b) {
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < kGvWarps; ++q) sum += red[q][b][lane];
-      partial[(static_cast<size_t>(blockIdx.y) * nb + b0 + b) * n + col] = sum;
-    }
-  }
-}
-
+// Decode form: the split-k partial sums of x W come from gemv.cuh's
+// gemv_partial_kernel (shared with the packed GEMM's decode form), and
+// finalize_kernel adds them in a fixed order (deterministic), then adds the
+// rank-r term.
 template <typename T>
 __global__ void finalize_kernel(const float* __restrict__ partial,
                                 const float* __restrict__ p,
@@ -207,8 +176,8 @@ __global__ void finalize_kernel(const float* __restrict__ partial,
   out[idx] = acc + lora;
 }
 
-template <typename T>
-int matmul_launch(const void* x, const void* w, const void* a, const void* b,
+template <typename T, typename WL>
+int matmul_launch(const void* x, const WL wl, const void* a, const void* b,
                   const int* ids, float* p, float* out, int nreq, int s, int k,
                   int n, int r, cudaStream_t st) {
   const int rows = nreq * s;
@@ -218,15 +187,15 @@ int matmul_launch(const void* x, const void* w, const void* a, const void* b,
       r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  matmul_kernel<T><<<dim3((n + kMmBN - 1) / kMmBN, (rows + kMmBM - 1) / kMmBM),
-                     kMmThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), ids, p, out, rows, s, k, n, r);
+  matmul_kernel<T, WL>
+      <<<dim3((n + kMmBN - 1) / kMmBN, (rows + kMmBM - 1) / kMmBM), kMmThreads,
+         0, st>>>(static_cast<const T*>(x), wl, static_cast<const T*>(b), ids,
+                  p, out, rows, s, k, n, r);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int gemv_launch(const void* x, const void* w, const void* a, const void* b,
+template <typename T, typename WL>
+int gemv_launch(const void* x, const WL wl, const void* a, const void* b,
                 const int* ids, float* p, float* partial, float* out, int nreq,
                 int k, int n, int r, int ksplit, int kchunk, cudaStream_t st) {
   shrink_kernel<T><<<dim3(nreq, (r + kShrinkWarps - 1) / kShrinkWarps),
@@ -235,17 +204,48 @@ int gemv_launch(const void* x, const void* w, const void* a, const void* b,
       r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gemv_partial_kernel<T>
+  gemv_partial_kernel<T, WL>
       <<<dim3((n + kGvCols - 1) / kGvCols, ksplit, (nreq + kGvMaxB - 1) / kGvMaxB),
-         dim3(kGvCols, kGvWarps), 0, st>>>(static_cast<const T*>(x),
-                                           static_cast<const T*>(w), partial,
-                                           nreq, k, n, kchunk);
+         dim3(kGvCols, kGvWarps), 0, st>>>(static_cast<const T*>(x), wl,
+                                           partial, nreq, k, n, kchunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int total = nreq * n;
   finalize_kernel<T><<<(total + 255) / 256, 256, 0, st>>>(
       partial, p, static_cast<const T*>(b), ids, out, nreq, n, r, ksplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The packed forms: the same launches with an int8 or int4 W loader.
+template <typename T>
+int matmul_quant(const void* x, const void* wd, const float* ws, const void* a,
+                 const void* b, const int* ids, float* p, float* out, int nreq,
+                 int s, int k, int n, int r, int bits, int group,
+                 cudaStream_t st) {
+  if (bits == 8)
+    return matmul_launch<T>(x, Int8W{static_cast<const int8_t*>(wd), ws, n},
+                            a, b, ids, p, out, nreq, s, k, n, r, st);
+  if (bits == 4)
+    return matmul_launch<T>(
+        x, Int4W{static_cast<const uint8_t*>(wd), ws, n, log2_group(group)}, a,
+        b, ids, p, out, nreq, s, k, n, r, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int gemv_quant(const void* x, const void* wd, const float* ws, const void* a,
+               const void* b, const int* ids, float* p, float* partial,
+               float* out, int nreq, int k, int n, int r, int ksplit,
+               int kchunk, int bits, int group, cudaStream_t st) {
+  if (bits == 8)
+    return gemv_launch<T>(x, Int8W{static_cast<const int8_t*>(wd), ws, n}, a,
+                          b, ids, p, partial, out, nreq, k, n, r, ksplit,
+                          kchunk, st);
+  if (bits == 4)
+    return gemv_launch<T>(
+        x, Int4W{static_cast<const uint8_t*>(wd), ws, n, log2_group(group)}, a,
+        b, ids, p, partial, out, nreq, k, n, r, ksplit, kchunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -260,10 +260,13 @@ int bgmv_matmul_launch(const void* x, const void* w, const void* a,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return matmul_launch<float>(x, w, a, b, ids, p, out, nreq, s, k, n, r, st);
+    return matmul_launch<float>(
+        x, DenseW<float>{static_cast<const float*>(w), n}, a, b, ids, p, out,
+        nreq, s, k, n, r, st);
   if (dtype == 1)
-    return matmul_launch<__nv_bfloat16>(x, w, a, b, ids, p, out, nreq, s, k, n,
-                                        r, st);
+    return matmul_launch<__nv_bfloat16>(
+        x, DenseW<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), n}, a,
+        b, ids, p, out, nreq, s, k, n, r, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -275,11 +278,46 @@ int bgmv_gemv_launch(const void* x, const void* w, const void* a,
                      int kchunk, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return gemv_launch<float>(x, w, a, b, ids, p, partial, out, nreq, k, n, r,
-                              ksplit, kchunk, st);
+    return gemv_launch<float>(
+        x, DenseW<float>{static_cast<const float*>(w), n}, a, b, ids, p,
+        partial, out, nreq, k, n, r, ksplit, kchunk, st);
   if (dtype == 1)
-    return gemv_launch<__nv_bfloat16>(x, w, a, b, ids, p, partial, out, nreq, k,
-                                      n, r, ksplit, kchunk, st);
+    return gemv_launch<__nv_bfloat16>(
+        x, DenseW<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), n}, a,
+        b, ids, p, partial, out, nreq, k, n, r, ksplit, kchunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Packed W: wd int8 (k, n) with ws (1, n) when bits == 8; uint8 (kq/2, n)
+// with ws (kq/group, n) when bits == 4.  x, a, b of dtype as above.
+int bgmv_matmul_quant_launch(const void* x, const void* wd, const float* ws,
+                             const void* a, const void* b, const int* ids,
+                             float* p, float* out, int nreq, int s, int k,
+                             int n, int r, int bits, int group, int dtype,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return matmul_quant<float>(x, wd, ws, a, b, ids, p, out, nreq, s, k, n, r,
+                               bits, group, st);
+  if (dtype == 1)
+    return matmul_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, out, nreq, s,
+                                       k, n, r, bits, group, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int bgmv_gemv_quant_launch(const void* x, const void* wd, const float* ws,
+                           const void* a, const void* b, const int* ids,
+                           float* p, float* partial, float* out, int nreq,
+                           int k, int n, int r, int ksplit, int kchunk,
+                           int bits, int group, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gemv_quant<float>(x, wd, ws, a, b, ids, p, partial, out, nreq, k, n,
+                             r, ksplit, kchunk, bits, group, st);
+  if (dtype == 1)
+    return gemv_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, partial, out,
+                                     nreq, k, n, r, ksplit, kchunk, bits,
+                                     group, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

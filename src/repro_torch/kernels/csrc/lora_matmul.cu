@@ -8,6 +8,8 @@
 //                                         q  = g B (residual)
 //   lora_bwd_da_launch <- _bwd_da_kernel  dA = gamma q^T x
 //   lora_bwd_db_launch <- _bwd_db_kernel  dB = gamma g^T p
+// and the base-only GEMM over a packed frozen base (core/quant.py),
+//   quant_matmul_launch <- _qmm_kernel    y  = x dequant(W)
 // with x (m, k), W (k, n), A (r, k), B (n, r), g (m, n), p and q (m, r).
 // x, W, A, B and g are fp32 or bf16 (one type for all); p and q are fp32;
 // accumulation is fp32 FMA on the CUDA cores (no TF32), outputs are fp32.
@@ -38,13 +40,21 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "gemv.cuh"
+#include "loaders.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using repro_kernels::gemv_partial_kernel;
+using repro_kernels::Int4W;
+using repro_kernels::Int8W;
+using repro_kernels::kGvCols;
+using repro_kernels::kGvMaxB;
+using repro_kernels::kGvWarps;
+using repro_kernels::log2_group;
+using repro_kernels::to_f;
 
 // --------------------------------------------------------- rank pre-passes
 // p[row, j] = sum_k x[row, k] A[j, k]: both rows are contiguous along k, so
@@ -132,6 +142,26 @@ __device__ __forceinline__ void load_slab(float (*s)[kW + 1],
   }
 }
 
+// acc[i][j] += sum_kk ls[kk][ty + 16 i] rs[kk][tx + 16 j] over one staged
+// pair of slabs.
+__device__ __forceinline__ void fma_slab(float (&acc)[4][4],
+                                         float (*ls)[kBM + 1],
+                                         float (*rs)[kBN + 1], int tx,
+                                         int ty) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    float lv[4], rv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lv[i] = ls[kk][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) rv[j] = rs[kk][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lv[i], rv[j], acc[i][j]);
+  }
+}
+
 template <bool kLTC, bool kRTC, typename LT, typename RT>
 __device__ __forceinline__ void contract(float (&acc)[4][4],
                                          float (*ls)[kBM + 1],
@@ -146,18 +176,7 @@ __device__ __forceinline__ void contract(float (&acc)[4][4],
     load_slab<kBM, kLTC>(ls, l, ldl, i0, ni, t0, nt, tid);
     load_slab<kBN, kRTC>(rs, r, ldr, j0, nj, t0, nt, tid);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float lv[4], rv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) lv[i] = ls[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rv[j] = rs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lv[i], rv[j], acc[i][j]);
-    }
+    fma_slab(acc, ls, rs, tx, ty);
     __syncthreads();
   }
 }
@@ -192,6 +211,54 @@ tile_kernel(const LT* __restrict__ l, int ldl, const RT* __restrict__ r,
       if (gj < nj)
         out[static_cast<size_t>(gi) * nj + gj] =
             scale * acc[i][j] + gamma * acc2[i][j];
+    }
+  }
+}
+
+// --------------------------------------------------------- packed GEMM
+// y = x dequant(W) over a packed frozen base: the tile above with no rank
+// term, its W slab loaded through the int8 / int4 loader (loaders.cuh),
+// which forms each fp32 element as core/quant.dequantize does.  The TPU
+// kernel accumulates over a sequential k grid; here the k loop is inside
+// the block, so no reduction crosses blocks.  x's columns (and W's rows)
+// are masked at the logical k, below the padded kq of an int4 W.
+// It serves m > 8 rows (admission prefills); decode shapes take the GEMV
+// form below.
+template <typename T, typename WL>
+__global__ void __launch_bounds__(kThreads)
+qmm_kernel(const T* __restrict__ x, const WL wl, float* __restrict__ y,
+           int m, int k, int n) {
+  __shared__ float xs[kBK][kBM + 1];
+  __shared__ float ws[kBK][kBN + 1];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int t0 = 0; t0 < k; t0 += kBK) {
+    load_slab<kBM, true>(xs, x, k, i0, m, t0, k, tid);
+#pragma unroll
+    for (int e = 0; e < (kBN * kBK) / kThreads; ++e) {
+      const int idx = tid + e * kThreads;
+      const int w = idx % kBN, tt = idx / kBN;
+      const int gt = t0 + tt, gj = j0 + w;
+      ws[tt][w] = (gt < k && gj < n) ? wl(gt, gj) : 0.f;
+    }
+    __syncthreads();
+    fma_slab(acc, xs, ws, tx, ty);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = i0 + ty + 16 * i;
+    if (gi >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gj = j0 + tx + 16 * j;
+      if (gj < n) y[static_cast<size_t>(gi) * n + gj] = acc[i][j];
     }
   }
 }
@@ -256,6 +323,55 @@ int bwd_db(const void* g, const float* p, float* db, int m, int n, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// y[i] = sum over ks of partial[ks][i], in a fixed order.
+__global__ void sum_partials_kernel(const float* __restrict__ partial,
+                                    float* __restrict__ y, int total,
+                                    int ksplit) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  float acc = 0.f;
+  for (int q = 0; q < ksplit; ++q)
+    acc += partial[static_cast<size_t>(q) * total + idx];
+  y[idx] = acc;
+}
+
+// Decode form (m <= kGvMaxB rows): the tile above would loop over all of k
+// in 16-row steps for every output tile, bound by that loop's latency
+// (about 3 ms for an int4 w_down at m = 4 on an H100, PERF.md); the split-k
+// GEMV of gemv.cuh reads each packed W element once and spreads k over
+// blocks, then sum_partials_kernel adds the ksplit partials.
+template <typename T, typename WL>
+int qmm_launch(const T* x, const WL wl, float* partial, float* y, int m,
+               int k, int n, int ksplit, int kchunk, cudaStream_t st) {
+  if (m > kGvMaxB) {
+    qmm_kernel<T, WL><<<tile_grid(m, n), kThreads, 0, st>>>(x, wl, y, m, k, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  gemv_partial_kernel<T, WL>
+      <<<dim3((n + kGvCols - 1) / kGvCols, ksplit, 1), dim3(kGvCols, kGvWarps),
+         0, st>>>(x, wl, partial, m, k, n, kchunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_partials_kernel<<<(m * n + 255) / 256, 256, 0, st>>>(partial, y, m * n,
+                                                           ksplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int qmm(const void* x, const void* wd, const float* ws, float* partial,
+        float* y, int m, int k, int n, int ksplit, int kchunk, int bits,
+        int group, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  if (bits == 8)
+    return qmm_launch<T>(xt, Int8W{static_cast<const int8_t*>(wd), ws, n},
+                         partial, y, m, k, n, ksplit, kchunk, st);
+  if (bits == 4)
+    return qmm_launch<T>(
+        xt, Int4W{static_cast<const uint8_t*>(wd), ws, n, log2_group(group)},
+        partial, y, m, k, n, ksplit, kchunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -299,6 +415,25 @@ int lora_bwd_db_launch(const void* g, const float* p, float* db, int m, int n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_db<float>(g, p, db, m, n, r, gamma, st);
   if (dtype == 1) return bwd_db<__nv_bfloat16>(g, p, db, m, n, r, gamma, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x (m, k) of dtype; W packed: wd int8 (k, n) with ws (1, n) when
+// bits == 8, uint8 (kq/2, n) with ws (kq/group, n) when bits == 4;
+// y: (m, n) fp32.  When m <= 8 (the decode form) partial is a
+// (ksplit, m, n) fp32 scratch and the k range splits into ksplit chunks of
+// kchunk; otherwise partial, ksplit and kchunk are unused.
+int quant_matmul_launch(const void* x, const void* wd, const float* ws,
+                        float* partial, float* y, int m, int k, int n,
+                        int ksplit, int kchunk, int bits, int group, int dtype,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return qmm<float>(x, wd, ws, partial, y, m, k, n, ksplit, kchunk, bits,
+                      group, st);
+  if (dtype == 1)
+    return qmm<__nv_bfloat16>(x, wd, ws, partial, y, m, k, n, ksplit, kchunk,
+                              bits, group, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

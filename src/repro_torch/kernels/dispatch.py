@@ -14,8 +14,21 @@ Nothing else is taken, and nothing falls back from one to the other.
 :func:`plain_tier` runs the plain versions on CUDA tensors too, so a run on
 the card can be held against them (``chip_smoke.py``).
 
-Base-only projections (no adapter) are one ``torch.matmul`` on every
-device, as the JAX package leaves them to XLA.
+Base-only projections (no adapter) over an fp base are one ``torch.matmul``
+on every device, as the JAX package leaves them to XLA.
+
+A packed frozen base (:class:`~repro_torch.core.quant.QuantizedLinear`):
+
+  banked adapters   kernel #4 (``bgmv_gemv_quant``) when s == 1, else #3
+                    (``bgmv_matmul_quant``)
+  no adapter        kernel #11 (``lora_matmul.quant_matmul``)
+  single adapter    kernel #9 (the fused LoRA matmul over a packed base) is
+                    not ported yet: raises on CUDA
+  cpu / plain tier  dequantize, then the fp expressions above
+
+The serving engine dequantizes a packed base once per generation on the
+plain tier (``launch/serve._prepare_base``), so the per-projection
+dequantization here serves direct callers only.
 """
 from __future__ import annotations
 
@@ -24,14 +37,17 @@ import contextvars
 
 import torch
 
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels import bgmv, lora_matmul
 
 _plain = contextvars.ContextVar("repro_torch_plain_tier", default=False)
 
-# projections per route since the last reset_stats(): "bgmv" and "plain"
-# count batched projections (kernel / plain version), "lora_matmul" single
-# adapter projections on either tier
-stats = {"bgmv": 0, "plain": 0, "lora_matmul": 0}
+# calls per route since the last reset_stats(): "bgmv" and "plain" count
+# batched projections (kernel / plain version), "lora_matmul" single
+# adapter projections on either tier, "quant" projections over a packed
+# base that a kernel (#3, #4, #11) serves, "paged" decode attentions that
+# kernel #13 serves (models/attention.attention_decode_paged)
+stats = {"bgmv": 0, "plain": 0, "lora_matmul": 0, "quant": 0, "paged": 0}
 
 
 def reset_stats() -> None:
@@ -50,6 +66,8 @@ def plain_tier():
 
 
 def _use_kernel(x) -> bool:
+    """True where a tensor on x's device takes the kernels: CUDA, outside
+    :func:`plain_tier`."""
     if x.device.type == "cpu" or _plain.get():
         return False
     if x.device.type == "cuda":
@@ -82,17 +100,39 @@ def lora_linear_batched(x, w, lora, gamma: float = 1.0):
     if float(gamma) != 1.0:
         b = b * gamma
     out_dtype = _result_type(x, w, a, b)
+    packed = isinstance(w, QuantizedLinear)
     empty = 0 in (*x.shape, w.shape[-1], a.shape[-2])
     if empty or not _use_kernel(x):
         # plain version (an empty operand has nothing to launch a kernel on)
         stats["plain"] += 1
-        return bgmv.bgmv_matmul_plain(x, w, a, b, ids).to(out_dtype)
+        wf = w.dequantize() if packed else w
+        return bgmv.bgmv_matmul_plain(x, wf, a, b, ids).to(out_dtype)
     stats["bgmv"] += 1
-    x, w, a, b = (t.to(out_dtype) for t in (x, w, a, b))
-    x = x.contiguous()
+    x, a, b = (t.to(out_dtype).contiguous() for t in (x, a, b))
+    if packed:
+        stats["quant"] += 1
+        if x.shape[1] == 1:
+            return bgmv.bgmv_gemv_quant(x[:, 0], w, a, b,
+                                        ids)[:, None, :].to(out_dtype)
+        return bgmv.bgmv_matmul_quant(x, w, a, b, ids).to(out_dtype)
+    w = w.to(out_dtype)
     if x.shape[1] == 1:
         return bgmv.bgmv_gemv(x[:, 0], w, a, b, ids)[:, None, :].to(out_dtype)
     return bgmv.bgmv_matmul(x, w, a, b, ids).to(out_dtype)
+
+
+def quant_linear(x, wq):
+    """y = x dequant(W) for a packed base ``wq`` and no adapter: kernel #11
+    on the card, ``x @ dequantize(W)`` on the CPU and the plain tier.  ``x``
+    may have any number of leading dims; the output dtype is the promotion
+    of x and the weight's fp dtype."""
+    if 0 in (*x.shape, wq.shape[-1]) or not _use_kernel(x):
+        return x @ wq.dequantize()
+    stats["quant"] += 1
+    out_dtype = _result_type(x, wq)
+    lead, n = x.shape[:-1], wq.shape[-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(out_dtype).contiguous()
+    return lora_matmul.quant_matmul(x2, wq).to(out_dtype).reshape(*lead, n)
 
 
 def lora_linear(x, w, lora=None, gamma: float = 0.0):
@@ -106,11 +146,21 @@ def lora_linear(x, w, lora=None, gamma: float = 0.0):
     :class:`~repro_torch.kernels.lora_matmul.LoRAMatmul` Function (#5
     forward, #6-#8 backward); otherwise the forward piece #5 alone.  Output
     dtype is the promotion of x, w, a and b."""
+    packed = isinstance(w, QuantizedLinear)
     if lora is None:
-        return x @ w
+        return quant_linear(x, w) if packed else x @ w
     a, b = lora["a"], lora["b"]
     if a.ndim == 3:
         return lora_linear_batched(x, w, lora, gamma)
+    if packed:
+        if _use_kernel(x):
+            raise NotImplementedError(
+                "a single adapter over a packed base needs kernel #9 (the "
+                "fused LoRA matmul over a packed W, repro/kernels/"
+                "lora_matmul.py:_fwd_kernel_q), which is not yet ported to "
+                "repro_torch; serve through an AdapterBank or merge the "
+                "adapter")
+        w = w.dequantize()
     stats["lora_matmul"] += 1
     out_dtype = _result_type(x, w, a, b)
     lead, n = x.shape[:-1], w.shape[-1]

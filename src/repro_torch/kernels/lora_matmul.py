@@ -13,7 +13,10 @@ version:
   lora_bwd_da  (#7)  dA = gamma q^T x
   lora_bwd_db  (#8)  dB = gamma g^T p
 
-All return fp32.  dW is never computed: the base is frozen.
+All return fp32.  dW is never computed: the base is frozen.  Beside them,
+the base-only GEMM over a packed frozen base:
+
+  quant_matmul (#11) y = x dequant(W)                     -> y
 
 Tier rule: a CUDA tensor launches the kernel; a CPU tensor takes the plain
 version; anything else raises.  There is no fallback from the kernel to the
@@ -42,6 +45,18 @@ design does about it):
   loops over all m itself, in a fixed order: no atomics, so a training run
   repeats bit for bit.  Small (2 m r k operations); bound by the latency
   of that loop.
+* ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``): for
+  m > 8 rows (admission prefills, bound by operations) the #5 tile with no
+  rank term and a W slab that is dequantized as it is loaded (int8 per
+  channel or int4 per group, ``csrc/loaders.cuh``), with the k loop inside
+  the block, so no reduction crosses blocks.  At decode shapes (m <= 8) it
+  is bound by the packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x
+  16384 / 2 = 16.8 MB, about 5 us at 3.35 TB/s), and the tile's k loop
+  over 60 empty rows was bound by its latency instead (PERF.md); there it
+  takes the split-k GEMV body of the BGMV decode kernel
+  (``csrc/gemv.cuh``), which reads each packed element once, and a
+  fixed-order pass adds the k-split partials.  Forward only: its backward
+  (#12) is not ported yet, so on CUDA it raises when x requires grad.
 
 Each kernel wrapper adds one to its entry of :data:`launches` where it
 launches its kernel (the rank pre-pass included), and nowhere else.
@@ -50,11 +65,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import (DTYPES, GEMV_MAX_ROWS, check_packed,
+                                        gemv_split, num_sms, raise_on, route,
+                                        stream)
+
 # kernel launches per wrapper since the last reset_launches()
 launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
-            "lora_bwd_db": 0}
+            "lora_bwd_db": 0, "quant_matmul": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535 * 64          # rows of one operand a tile grid covers
 
 
@@ -96,27 +114,26 @@ def lora_bwd_db_plain(g, p, gamma: float):
     return gamma * (_acc(g).T @ _acc(p))
 
 
+def quant_matmul_plain(x, wq):
+    """Plain version of :func:`quant_matmul`: x @ dequantize(W) in fp32."""
+    return _acc(x) @ _acc(wq.dequantize())
+
+
 # ------------------------------------------------------------------ wrappers
 
-def _route(t) -> bool:
-    """True: launch the kernel.  False: the plain version."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"lora_matmul takes CUDA or CPU tensors, got {t.device}")
-
-
-def _check(name, ops, fp32=None):
+def _check(name, ops, fp32=None, packed=None):
     """Everything the kernels assume, checked before any pointer leaves
     Python: device, dtype, contiguity, nonempty 2-D operands.  ``ops`` share
-    one dtype (fp32 or bf16); ``fp32`` operands (residuals) are fp32."""
+    one dtype (fp32 or bf16); ``fp32`` operands (residuals) are fp32;
+    ``packed`` operands (a packed W's data and scales, whose dtypes
+    ``common.check_packed`` checks) keep their own."""
     first = next(iter(ops.values()))
     dev, dt = first.device, first.dtype
-    if dt not in _DTYPES:
+    if dt not in DTYPES:
         raise TypeError(f"{name}: kernels take float32 or bfloat16, got {dt}")
     checks = [(label, t, dt) for label, t in ops.items()]
     checks += [(label, t, torch.float32) for label, t in (fp32 or {}).items()]
+    checks += [(label, t, t.dtype) for label, t in (packed or {}).items()]
     for label, t, want in checks:
         if t.device != dev:
             raise ValueError(f"{name}: {label} on {t.device}, not {dev}")
@@ -142,19 +159,9 @@ def _shapes(name, x_or_g, w, a, b):
     return m, k, n, r
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
-
-
 def lora_fwd(x, w, a, b, gamma: float):
     """Kernel #5: (y (m, n) fp32, p = x A^T (m, r) fp32)."""
-    if not _route(x):
+    if not route(x, "lora_matmul"):
         return lora_fwd_plain(x, w, a, b, gamma)
     from repro_torch.kernels.build import load
     _check("lora_fwd", {"x": x, "w": w, "a": a, "b": b})
@@ -166,15 +173,15 @@ def lora_fwd(x, w, a, b, gamma: float):
     y = torch.empty(m, n, dtype=torch.float32, device=x.device)
     err = load().lora_fwd_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), p.data_ptr(),
-        y.data_ptr(), m, k, n, r, float(gamma), _DTYPES[x.dtype], _stream(x))
-    _raise_on(err, "lora_fwd")
+        y.data_ptr(), m, k, n, r, float(gamma), DTYPES[x.dtype], stream(x))
+    raise_on(err, "lora_fwd")
     launches["lora_fwd"] += 1
     return y, p
 
 
 def lora_bwd_dx(g, w, a, b, gamma: float):
     """Kernel #6: (dx (m, k) fp32, q = g B (m, r) fp32)."""
-    if not _route(g):
+    if not route(g, "lora_matmul"):
         return lora_bwd_dx_plain(g, w, a, b, gamma)
     from repro_torch.kernels.build import load
     _check("lora_bwd_dx", {"g": g, "w": w, "a": a, "b": b})
@@ -186,8 +193,8 @@ def lora_bwd_dx(g, w, a, b, gamma: float):
     dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
     err = load().lora_bwd_dx_launch(
         g.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), q.data_ptr(),
-        dx.data_ptr(), m, k, n, r, float(gamma), _DTYPES[g.dtype], _stream(g))
-    _raise_on(err, "lora_bwd_dx")
+        dx.data_ptr(), m, k, n, r, float(gamma), DTYPES[g.dtype], stream(g))
+    raise_on(err, "lora_bwd_dx")
     launches["lora_bwd_dx"] += 1
     return dx, q
 
@@ -195,7 +202,7 @@ def lora_bwd_dx(g, w, a, b, gamma: float):
 def lora_bwd_da(q, x, gamma: float):
     """Kernel #7: dA = gamma q^T x, (r, k) fp32, reduced over m in a fixed
     order."""
-    if not _route(x):
+    if not route(x, "lora_matmul"):
         return lora_bwd_da_plain(q, x, gamma)
     from repro_torch.kernels.build import load
     _check("lora_bwd_da", {"x": x}, fp32={"q": q})
@@ -206,8 +213,8 @@ def lora_bwd_da(q, x, gamma: float):
     da = torch.empty(r, k, dtype=torch.float32, device=x.device)
     err = load().lora_bwd_da_launch(
         q.data_ptr(), x.data_ptr(), da.data_ptr(), m, k, r, float(gamma),
-        _DTYPES[x.dtype], _stream(x))
-    _raise_on(err, "lora_bwd_da")
+        DTYPES[x.dtype], stream(x))
+    raise_on(err, "lora_bwd_da")
     launches["lora_bwd_da"] += 1
     return da
 
@@ -215,7 +222,7 @@ def lora_bwd_da(q, x, gamma: float):
 def lora_bwd_db(g, p, gamma: float):
     """Kernel #8: dB = gamma g^T p, (n, r) fp32, reduced over m in a fixed
     order."""
-    if not _route(g):
+    if not route(g, "lora_matmul"):
         return lora_bwd_db_plain(g, p, gamma)
     from repro_torch.kernels.build import load
     _check("lora_bwd_db", {"g": g}, fp32={"p": p})
@@ -226,8 +233,8 @@ def lora_bwd_db(g, p, gamma: float):
     db = torch.empty(n, r, dtype=torch.float32, device=g.device)
     err = load().lora_bwd_db_launch(
         g.data_ptr(), p.data_ptr(), db.data_ptr(), m, n, r, float(gamma),
-        _DTYPES[g.dtype], _stream(g))
-    _raise_on(err, "lora_bwd_db")
+        DTYPES[g.dtype], stream(g))
+    raise_on(err, "lora_bwd_db")
     launches["lora_bwd_db"] += 1
     return db
 
@@ -278,3 +285,38 @@ class LoRAMatmul(torch.autograd.Function):
         return (dx.to(x.dtype) if need[0] else None, None,
                 da.to(a.dtype) if need[2] else None,
                 db.to(b.dtype) if need[3] else None, None, None)
+
+
+def quant_matmul(x, wq):
+    """Kernel #11: y = x dequant(W), x (m, k), ``wq`` a packed
+    :class:`~repro_torch.core.quant.QuantizedLinear` of logical shape
+    (k, n).  Returns (m, n) fp32."""
+    if not route(x, "lora_matmul"):
+        return quant_matmul_plain(x, wq)
+    from repro_torch.kernels.build import load
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            "quant_matmul: the packed-base GEMM has no backward yet (kernel "
+            "#12, _qmm_dx_kernel, is not yet ported), but x requires grad; "
+            "run it under torch.no_grad() or torch.inference_mode()")
+    group = check_packed(wq, "quant_matmul")
+    _check("quant_matmul", {"x": x}, packed={"W data": wq.data,
+                                             "W scales": wq.scales})
+    (m, k), n = x.shape, wq.shape[1]
+    if wq.k != k:
+        raise ValueError(f"quant_matmul: x {tuple(x.shape)} vs W "
+                         f"{tuple(wq.shape)}")
+    y = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    ksplit = kchunk = 0
+    partial = None
+    if m <= GEMV_MAX_ROWS:           # the decode form: split-k GEMV
+        ksplit, kchunk = gemv_split(m, k, n, num_sms(x.device))
+        partial = torch.empty(ksplit, m, n, dtype=torch.float32,
+                              device=x.device)
+    err = load().quant_matmul_launch(
+        x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
+        None if partial is None else partial.data_ptr(), y.data_ptr(), m, k,
+        n, ksplit, kchunk, wq.bits, group, DTYPES[x.dtype], stream(x))
+    raise_on(err, "quant_matmul")
+    launches["quant_matmul"] += 1
+    return y

@@ -15,8 +15,10 @@ from repro_torch.core.lora import as_adapter_set
 from repro_torch.models.layers import apply_norm, norm_params
 from repro_torch.models.transformer import (apply_stack, banked_scan_layout,
                                             batched_scan_layout,
-                                            decode_stack, init_stack,
-                                            init_stack_cache, prefill_stack)
+                                            decode_stack,
+                                            init_paged_stack_cache,
+                                            init_stack, init_stack_cache,
+                                            prefill_stack)
 from repro_torch.tree import tree_map
 
 
@@ -124,31 +126,50 @@ class Model:
         return init_stack_cache(self.cfg, batch, max_len, dtype,
                                 device=resolve_device(device))
 
+    def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
+                         *, device="cuda"):
+        """Paged serving cache: per-layer KV pools of ``num_blocks`` x
+        ``block_size`` slots, shared by every request through per-request
+        block tables.  Block 0 is reserved as the null block idle slots
+        write into (see ``launch/serve.BlockPool``).  The JAX package's
+        ``batch`` argument sizes per-slot state the dense block does not
+        have, so it is left out here."""
+        dtype = dtype or getattr(torch, self.cfg.dtype)
+        return init_paged_stack_cache(self.cfg, num_blocks, block_size,
+                                      dtype, device=resolve_device(device))
+
     def prefill(self, params, cache, tokens, adapters=None, *,
-                last_only=False):
+                last_only=False, table=None):
         """Whole-prompt forward that fills a fresh cache in one pass:
         tokens (b, p) -> (logits (b, p, V), cache).  ``last_only=True``
         projects only the last position through the head (logits
         (b, 1, V)).  The cache is left as ``p`` decode steps would leave it
-        (updated in place and returned)."""
+        (updated in place and returned).  A paged cache
+        (:meth:`init_paged_cache`) also needs the requests' block ``table``
+        (b, blocks_per_req) int32."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         x, _, cache = prefill_stack(
             cfg, params["stack"], cache, x, self._positions(tokens),
-            adapters=self._stack_adapters(as_adapter_set(adapters)))
+            adapters=self._stack_adapters(as_adapter_set(adapters)),
+            table=table)
         x = apply_norm(cfg, x, params, "final")
         if last_only:
             x = x[:, -1:]
         return self._head(params, x), cache
 
-    def decode_step(self, params, cache, token, pos, adapters=None):
+    def decode_step(self, params, cache, token, pos, adapters=None, *,
+                    table=None):
         """One token: token (b, 1), pos (b,) absolute positions.  Returns
-        (logits (b, 1, V), cache); the cache is updated in place."""
+        (logits (b, 1, V), cache); the cache is updated in place.  A paged
+        cache also needs the requests' block ``table`` (b, blocks_per_req)
+        int32."""
         cfg = self.cfg
         x = self._embed(params, token)
         x, cache = decode_stack(
             cfg, params["stack"], cache, x, pos,
-            adapters=self._stack_adapters(as_adapter_set(adapters)))
+            adapters=self._stack_adapters(as_adapter_set(adapters)),
+            table=table)
         x = apply_norm(cfg, x, params, "final")
         return self._head(params, x), cache
 

@@ -1,5 +1,5 @@
 """GQA/MQA attention: full-sequence, prompt prefill and one-token decode
-against a ring-buffer KV cache.
+against a ring-buffer KV cache or a paged KV pool.
 
 The port of the dense path of ``repro/models/attention.py``.  Scores and
 softmax run in fp32; masked scores are set to ``-1e30`` (not ``-inf``), so
@@ -11,8 +11,12 @@ updated cache is also returned, so callers read like the JAX code.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import apply_rope, linear, rms_norm
 
 NEG_INF = -1e30
@@ -224,5 +228,145 @@ def attention_decode(cfg, params, x, cache, pos, *, adapters=None):
     mask = make_mask(pos[:, None], cache["pos"], causal=True,
                      window=cfg.attn_window, valid_kv=cache["pos"] >= 0)
     out = attention_core(cfg, q, cache["k"], cache["v"], mask)
+    y = linear(out.reshape(b, 1, -1), params["o"], (adapters or {}).get("o"))
+    return y, cache
+
+
+# ----------------------------------------------------------------- paged KV
+#
+# The paged layout replaces the per-request ring buffer (batch, size, kh, hd)
+# with a SHARED block pool (num_blocks, block_size, kh, hd) plus a per-request
+# block table (b, blocks_per_req) int32 mapping virtual block j of request i
+# to a pool block.  A request's view of the pool is a virtual ring of
+# vlen = blocks_per_req * block_size slots: the token at absolute position p
+# lands in virtual slot p % vlen, i.e. pool block table[i, (p % vlen) //
+# block_size] at offset (p % vlen) % block_size.  That is the ring formula
+# with vlen in place of size, so gathering a request's blocks back into
+# (b, vlen, kh, hd) reproduces the ring layout element for element: when
+# block_size divides the ring size the paged decode on the plain tier is
+# bit-identical to the ring decode (tests/test_torch_paged.py).
+#
+# Block 0 is the NULL block: the scheduler points idle batch slots' table
+# rows at it, so their (discarded) decode writes land in a block no live
+# request ever owns.  The pos pool doubles as the validity mask (entry >= 0
+# == written), exactly like the ring cache's pos array.
+#
+# As with the ring cache, the pools are updated in place and returned.
+
+
+def init_paged_kv_cache(cfg, num_blocks: int, block_size: int, dtype, *,
+                        device):
+    """Per-layer shared pool.  How many blocks a request owns is the block
+    TABLE's width, not a pool property."""
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k_pool": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+            "pos_pool": torch.full((num_blocks, block_size), -1,
+                                   dtype=torch.int32, device=device)}
+
+
+def paged_gather(cache, table):
+    """Each request's virtual ring view of the pool: (k (b, vlen, kh, hd),
+    v (b, vlen, kh, hd), pos (b, vlen))."""
+    b, mb = table.shape
+    bs, kh, hd = cache["k_pool"].shape[1:]
+    idx = table.long()
+    k = cache["k_pool"][idx].reshape(b, mb * bs, kh, hd)
+    v = cache["v_pool"][idx].reshape(b, mb * bs, kh, hd)
+    pos = cache["pos_pool"][idx].reshape(b, mb * bs)
+    return k, v, pos
+
+
+def _paged_slots(table, positions, bs):
+    """(pool block, offset) of each position's virtual-ring slot."""
+    vslot = positions.long() % (table.shape[1] * bs)
+    blk = torch.gather(table.long(), 1, vslot // bs)
+    return blk, vslot % bs
+
+
+class PagedDecode(NamedTuple):
+    """One decode step's paged operands, the same for every layer (each
+    layer has its own pools, so the same block ids name disjoint memory):
+    the block ``table`` (b, blocks_per_req) int32, each request's new-token
+    pool block ``blk`` (b,) and ``off``-set (b,), and ``qpos`` (b,) int32,
+    the query position kernel #13 takes.  Built once per step by
+    :func:`paged_decode_index`."""
+    table: torch.Tensor
+    blk: torch.Tensor
+    off: torch.Tensor
+    qpos: torch.Tensor
+
+
+def paged_decode_index(table, pos, block_size: int) -> PagedDecode:
+    """The :class:`PagedDecode` of a step at absolute positions ``pos``
+    (b,)."""
+    blk, off = _paged_slots(table, pos[:, None], block_size)
+    return PagedDecode(table, blk[:, 0], off[:, 0], pos.to(torch.int32))
+
+
+def fill_paged_kv_cache(cache, k, v, positions, table):
+    """Paged counterpart of :func:`fill_kv_cache`: write a whole prompt's
+    K/V rows into each request's pool blocks at the virtual-ring slots the
+    token-by-token decode would have used.  On overflow only the last
+    ``vlen`` positions land, the survivors of sequential ring writes.  In
+    place; returns ``cache``."""
+    bs = cache["k_pool"].shape[1]
+    vlen = table.shape[1] * bs
+    if k.shape[1] > vlen:
+        k, v, positions = k[:, -vlen:], v[:, -vlen:], positions[:, -vlen:]
+    blk, off = _paged_slots(table, positions, bs)
+    cache["k_pool"][blk, off] = k.to(cache["k_pool"].dtype)
+    cache["v_pool"][blk, off] = v.to(cache["v_pool"].dtype)
+    cache["pos_pool"][blk, off] = positions.to(torch.int32)
+    return cache
+
+
+def attention_prefill_paged(cfg, params, x, cache, positions, table, *,
+                            adapters=None):
+    """Whole-prompt attention that fills the requests' POOL blocks.  The
+    attention itself is over the prompt's own K/V (the arithmetic of
+    :func:`attention_prefill`); only the cache writes differ."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, params, x, adapters=adapters,
+                           positions=positions, kv_positions=positions)
+    fill_paged_kv_cache(cache, k, v, positions, table)
+    out = _attend(cfg, q, k, v, positions, positions, causal=True,
+                  window=cfg.attn_window)
+    y = linear(out.reshape(b, s, -1), params["o"], (adapters or {}).get("o"))
+    return y, cache
+
+
+def attention_decode_paged(cfg, params, x, cache, step, pos, *,
+                           adapters=None):
+    """One-token decode against the block pool.  x (b, 1, d); ``step`` the
+    step's :class:`PagedDecode` (built once for all layers); pos (b,)
+    absolute positions.  Returns (out (b, 1, d), cache); the pools are
+    updated in place.
+
+    On the CPU, and on CUDA under ``dispatch.plain_tier()``, the request's
+    blocks are gathered back into the ring layout and the ring's mask and
+    attention run on them (the JAX reference tier's expression, which keeps
+    scheduled tokens bit-identical to the fixed-batch engine).  On CUDA,
+    kernel #13 (``kernels/paged_attention.py``) streams the pool blocks
+    through the table and never materializes the gather."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, params, x, adapters=adapters,
+                           positions=pos[:, None], kv_positions=pos[:, None])
+    blk, off = step.blk, step.off
+    cache["k_pool"][blk, off] = k[:, 0].to(cache["k_pool"].dtype)
+    cache["v_pool"][blk, off] = v[:, 0].to(cache["v_pool"].dtype)
+    cache["pos_pool"][blk, off] = step.qpos
+    if dispatch._use_kernel(x):
+        dispatch.stats["paged"] += 1
+        out = paged_attention(
+            q[:, 0].contiguous(), cache["k_pool"], cache["v_pool"],
+            cache["pos_pool"], step.table, step.qpos,
+            window=cfg.attn_window,
+            softcap=cfg.attn_logit_softcap)[:, None]
+    else:
+        kg, vg, pg = paged_gather(cache, step.table)
+        mask = make_mask(pos[:, None], pg, causal=True,
+                         window=cfg.attn_window, valid_kv=pg >= 0)
+        out = attention_core(cfg, q, kg, vg, mask)
     y = linear(out.reshape(b, 1, -1), params["o"], (adapters or {}).get("o"))
     return y, cache

@@ -14,6 +14,8 @@ from repro.kernels import dispatch as jdispatch              # noqa: E402
 from repro_torch.kernels import bgmv, dispatch               # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)     # the JAX BGMV tests' own bound
+NO_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
+               "bgmv_gemv_quant": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -63,7 +65,7 @@ def test_bgmv_matmul_plain_matches_jax_kernel(B, s, k, n, K, r, ranks):
     got = bgmv.bgmv_matmul(*_t(x, w, a, b, ids))
     assert got.dtype == torch.float32 and got.shape == (B, s, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
+    assert bgmv.launches == NO_LAUNCHES
 
 
 @pytest.mark.parametrize("B,k,n,K,r,ranks", GEMV_SHAPES)
@@ -75,7 +77,7 @@ def test_bgmv_gemv_plain_matches_jax_kernel(B, k, n, K, r, ranks):
     got = bgmv.bgmv_gemv(*_t(x[:, 0], w, a, b, ids))
     assert got.shape == (B, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
+    assert bgmv.launches == NO_LAUNCHES
 
 
 def test_ids_none_is_the_identity_map():
@@ -103,8 +105,9 @@ def test_dispatch_cpu_takes_plain_and_matches_jax(s, lazy):
     got = dispatch.lora_linear_batched(torch.from_numpy(x),
                                        torch.from_numpy(w), tl, 2.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert dispatch.stats == {"bgmv": 0, "plain": 1, "lora_matmul": 0}
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
+    assert dispatch.stats == {"bgmv": 0, "plain": 1, "lora_matmul": 0,
+                              "quant": 0, "paged": 0}
+    assert bgmv.launches == NO_LAUNCHES
 
 
 def test_dispatch_single_adapter_matches_jax():
@@ -135,7 +138,7 @@ def test_dispatch_output_dtype_is_result_type(xdt, wdt, want):
     y = dispatch.lora_linear_batched(torch.from_numpy(x).to(xdt),
                                      torch.from_numpy(w).to(wdt), lora)
     assert y.dtype == want
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
+    assert bgmv.launches == NO_LAUNCHES
 
 
 def test_dispatch_rejects_other_devices():

@@ -17,10 +17,15 @@ jnp = jax.numpy
 
 from repro.kernels import dispatch as jdispatch                # noqa: E402
 from repro.kernels import lora_matmul as jlm                   # noqa: E402
-from repro_torch.kernels import bgmv, dispatch, lora_matmul    # noqa: E402
+from repro_torch.kernels import bgmv, common, dispatch         # noqa: E402
+from repro_torch.kernels import lora_matmul                    # noqa: E402
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+NO_LORA_LAUNCHES = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
+                    "lora_bwd_db": 0, "quant_matmul": 0}
+NO_BGMV_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
+                    "bgmv_gemv_quant": 0}
 
 
 @pytest.fixture(autouse=True)
@@ -158,8 +163,9 @@ def test_single_adapter_goes_through_the_function():
     assert y.shape == (2, 7, 40)
     fn = y.grad_fn.next_functions[0][0]          # under the reshape
     assert "LoRAMatmul" in type(fn).__name__
-    assert dispatch.stats == {"bgmv": 0, "plain": 0, "lora_matmul": 1}
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}
+    assert dispatch.stats == {"bgmv": 0, "plain": 0, "lora_matmul": 1,
+                              "quant": 0, "paged": 0}
+    assert bgmv.launches == NO_BGMV_LAUNCHES
     want = jdispatch.lora_linear(jnp.asarray(x), jnp.asarray(w),
                                  {"a": jnp.asarray(a), "b": jnp.asarray(b)},
                                  1.5)
@@ -174,7 +180,8 @@ def test_kernel_route_wires_the_four_pieces(monkeypatch):
     run), the Function calls the four kernel wrappers once each per
     projection and backward, and a no-grad call runs the forward piece
     alone."""
-    calls = {k: 0 for k in lora_matmul.launches}
+    calls = dict.fromkeys(("lora_fwd", "lora_bwd_dx", "lora_bwd_da",
+                           "lora_bwd_db"), 0)
     for name in calls:
         orig = getattr(lora_matmul, name)
 
@@ -191,7 +198,8 @@ def test_kernel_route_wires_the_four_pieces(monkeypatch):
     with torch.no_grad():
         dispatch.lora_linear(x, w, lora, 1.0)
     assert calls["lora_fwd"] == 2 and calls["lora_bwd_dx"] == 1
-    assert lora_matmul.launches == {k: 0 for k in calls}   # CPU: no kernel
+    # CPU: no kernel
+    assert lora_matmul.launches == NO_LORA_LAUNCHES
 
 
 def test_plain_tier_on_cpu_launches_nothing():
@@ -200,7 +208,7 @@ def test_plain_tier_on_cpu_launches_nothing():
         y = dispatch.lora_linear(x, w, {"a": a, "b": b}, 2.0)
     want, _ = lora_matmul.lora_fwd_plain(x, w, a, b, 2.0)
     torch.testing.assert_close(y, want, rtol=0, atol=0)
-    assert lora_matmul.launches == {k: 0 for k in lora_matmul.launches}
+    assert lora_matmul.launches == NO_LORA_LAUNCHES
 
 
 def test_bgmv_refuses_operands_that_need_grad():
@@ -208,10 +216,10 @@ def test_bgmv_refuses_operands_that_need_grad():
     under autograd instead of returning an output without a grad_fn."""
     t = torch.zeros(2, 3, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        bgmv._forward_only("bgmv_matmul", torch.zeros(2), t)
+        common.forward_only("bgmv_matmul", torch.zeros(2), t)
     with torch.no_grad():
-        bgmv._forward_only("bgmv_matmul", torch.zeros(2), t)
-    bgmv._forward_only("bgmv_matmul", torch.zeros(2), t.detach())
+        common.forward_only("bgmv_matmul", torch.zeros(2), t)
+    common.forward_only("bgmv_matmul", torch.zeros(2), t.detach())
 
 
 # ------------------------------------------------------------ wrapper checks

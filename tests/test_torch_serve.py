@@ -1,7 +1,8 @@
 """repro_torch serving against the JAX package: greedy ``generate_banked``
 emits the JAX engine's tokens from the same weights, the CLI runs (and
-refuses what is not ported), the scaling factors are exactly the JAX
-package's, and checkpoints move both ways through the flat-npz format."""
+refuses the architectures that are not ported), the scaling factors are
+exactly the JAX package's, and checkpoints move both ways through the
+flat-npz format."""
 import dataclasses
 
 import numpy as np
@@ -26,6 +27,7 @@ from repro_torch.checkpoint import io as tio                   # noqa: E402
 from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.core import lora as tlora                     # noqa: E402
 from repro_torch.core import scaling as tscaling               # noqa: E402
+from repro_torch.core.quant import apply_quant_flag            # noqa: E402
 from repro_torch.kernels import bgmv                           # noqa: E402
 from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
@@ -69,7 +71,8 @@ def test_generate_banked_tokens_match_jax_and_hostloop(served):
     bgmv.reset_launches()
     got = tserve.generate_banked(tm, tp, tbank, ids, torch.from_numpy(prompt),
                                  8, 14)
-    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0}   # CPU: plain
+    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0,   # CPU: plain
+                             "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 0}
     np.testing.assert_array_equal(got.numpy(), want)
     host = tserve.generate_hostloop(tm, tp, torch.from_numpy(prompt), 8, 14,
                                     adapters=tbank.requests(ids))
@@ -99,12 +102,35 @@ def test_cli_runs_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arrival-trace", "poisson:2:4"], ["--quant", "int8"],
-    ["--hot-slots", "2"], ["--deadline-steps", "4"],
-    ["--arch", "qwen3-8b"]])
+    ["--arch", "qwen3-8b"], ["--arch", "recurrentgemma-9b"],
+    ["--arch", "qwen2-moe-a2.7b"], ["--arch", "whisper-medium"],
+    ["--arch", "xlstm-1.3b"]])
 def test_cli_unported_flags_raise(flags):
+    """--arch values whose block kinds the port does not run yet raise."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tserve.main(_CLI + flags)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--arrival-trace", "poisson:50:5"],
+    ["--arrival-trace", "poisson:50:5", "--hot-slots", "2",
+     "--deadline-steps", "1", "--max-batch", "2"],
+    ["--arrival-trace", "poisson:50:5", "--quant", "int4",
+     "--quant-group", "32", "--block-size", "2", "--chunk", "1"],
+    ["--quant", "int8"], ["--quant", "int4", "--merge", "1"]])
+def test_cli_scheduled_and_quant_run_on_cpu(extra, capsys):
+    """The flags the continuous-batching and packed-base slice enabled:
+    each CLI run completes on the CPU and prints the JAX CLI's summary."""
+    out = tserve.main(_CLI + extra)
+    text = capsys.readouterr().out
+    if "--arrival-trace" in extra:
+        deadline = "--deadline-steps" in extra
+        assert [len(r.tokens) for r in out] == [1 if deadline else 2] * 5
+        assert "scheduled serve: 5 requests, 4 tenants" in text
+        assert ("timeouts=5" in text) == deadline
+        assert ("promotions" in text) == ("--hot-slots" in extra)
+    else:
+        assert tuple(out.shape) == (2, 6) and "ms/token on cpu" in text
 
 
 def test_cli_cuda_without_cuda_raises():
@@ -148,12 +174,19 @@ def test_npz_roundtrip_both_ways(tmp_path):
 
 
 def test_quantized_checkpoint_raises(tmp_path):
+    """A packed checkpoint written by the JAX package loads into the port
+    with its bytes; restoring it under a different --quant raises."""
     from repro.core.quant import quantize
     w = jnp.asarray(np.random.default_rng(0).standard_normal((8, 4)),
                     jnp.float32)
-    jio.save_pytree(str(tmp_path / "q.npz"), {"w": quantize(w, bits=8)})
-    with pytest.raises(NotImplementedError, match="quantized base"):
-        tio.load_pytree(str(tmp_path / "q.npz"))
+    jq = quantize(w, bits=8)
+    jio.save_pytree(str(tmp_path / "q.npz"), {"w": jq})
+    got = tio.load_pytree(str(tmp_path / "q.npz"))["w"]
+    np.testing.assert_array_equal(got.data, np.asarray(jq.data))
+    np.testing.assert_array_equal(got.scales, np.asarray(jq.scales))
+    assert (got.bits, got.k) == (8, 8)
+    with pytest.raises(ValueError, match="--quant int8"):
+        apply_quant_flag({"attn": {"q": got}}, "int4")
 
 
 def test_jax_federated_checkpoint_serves_through_port(tmp_path):

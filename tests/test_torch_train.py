@@ -299,7 +299,8 @@ def test_trainer_trajectory_matches_jax(small, method):
     # every adapted projection of every local step took the Function
     n_proj = 2 * small[1].num_layers
     assert dispatch.stats == {"bgmv": 0, "plain": 0, "lora_matmul":
-                              n_proj * N_CLIENTS * 2 * ROUNDS}
+                              n_proj * N_CLIENTS * 2 * ROUNDS, "quant": 0,
+                              "paged": 0}
     _assert_same_run(jtr, ttr)
     b_max = max(float(t.abs().max()) for t in tree_leaves(
         tlora.split_ab(ttr.lora)[1]))
