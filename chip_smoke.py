@@ -38,7 +38,19 @@ Phases, in order; any failure raises and the exit code is not 0:
      generate_banked wave by wave, the kernel tier's against the plain
      tier's, ms per decode step and tokens/s; then a short run over a
      LiveAdapterBank of 2 hot slots
-  9. result: a JSON line of per-kernel numbers, the nvidia-smi line, and
+  9. packed training kernels vs plain: #9, #10 (the LoRA matmul forward
+     and dx over a packed W) and #12 (the packed GEMM's dx) over int8 and
+     int4 (group 64) gemma-2b projections at m = 512 and a ragged case,
+     fp32 and bf16 activations; a base packed from bf16 weights through
+     all six packed kernels (#3, #4, #9-#12); then the times of #9, #10 and
+     #12 beside their plain versions, one torch.matmul on the dequantized
+     W and the card's bound
+ 10. training path over a packed base: the FederatedTrainer of phase 6 over
+     an int8 and an int4 base (#9, #10, #7, #8 at q and v; #11 and #12 at
+     k, o and the MLP), with the launch counts, a bit-identical repeat,
+     save / resume bit for bit, the plain tier, ms/round and (int4) a
+     profile of one client local step
+ 11. result: a JSON line of per-kernel numbers, the nvidia-smi line, and
      the final {"ok": true, ...} line
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
@@ -102,7 +114,10 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "paged_attention": CSRC + "paged_attention.cu",
            "bgmv_matmul_quant": CSRC + "bgmv.cu",
            "bgmv_gemv_quant": CSRC + "bgmv.cu",
-           "quant_matmul": CSRC + "lora_matmul.cu"}
+           "quant_matmul": CSRC + "lora_matmul.cu",
+           "lora_fwd_quant": CSRC + "lora_matmul.cu",
+           "lora_bwd_dx_quant": CSRC + "lora_matmul.cu",
+           "quant_matmul_dx": CSRC + "lora_matmul.cu"}
 REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "bgmv_matmul": "src/repro/kernels/bgmv.py:59",
             "lora_fwd": "src/repro/kernels/lora_matmul.py:55",
@@ -112,12 +127,17 @@ REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "paged_attention": "src/repro/kernels/paged_attention.py:45",
             "bgmv_matmul_quant": "src/repro/kernels/bgmv.py:224",
             "bgmv_gemv_quant": "src/repro/kernels/bgmv.py:251",
-            "quant_matmul": "src/repro/kernels/lora_matmul.py:514"}
+            "quant_matmul": "src/repro/kernels/lora_matmul.py:514",
+            "lora_fwd_quant": "src/repro/kernels/lora_matmul.py:345",
+            "lora_bwd_dx_quant": "src/repro/kernels/lora_matmul.py:414",
+            "quant_matmul_dx": "src/repro/kernels/lora_matmul.py:544"}
 # the row of each kernel's times that the kernels line reports
 ROW = {"bgmv_gemv": "q", "bgmv_matmul": "q", "lora_fwd": "q",
        "lora_bwd_dx": "q", "lora_bwd_da": "q", "lora_bwd_db": "q",
        "paged_attention": "path", "bgmv_matmul_quant": "int4 q m=512",
-       "bgmv_gemv_quant": "int4 q m=4", "quant_matmul": "int4 w_up m=4"}
+       "bgmv_gemv_quant": "int4 q m=4", "quant_matmul": "int4 w_up m=4",
+       "lora_fwd_quant": "int4 q", "lora_bwd_dx_quant": "int4 q",
+       "quant_matmul_dx": "int4 w_up"}
 
 
 def phase(name):
@@ -505,12 +525,15 @@ def _print_profile(label, wall, events, per, unit):
 # ------------------------------------------ 5. LoRA matmul kernels vs plain
 
 LORA_KERNELS = ("lora_fwd", "lora_bwd_dx", "lora_bwd_da", "lora_bwd_db")
+# the packed training path's adapted projections: #9, #10, #7, #8
+QTRAIN_PATH_KERNELS = ("lora_fwd_quant", "lora_bwd_dx_quant", "lora_bwd_da",
+                       "lora_bwd_db")
+QTRAIN_KERNELS = ("lora_fwd_quant", "lora_bwd_dx_quant", "quant_matmul_dx")
 
 
-def _lora_operands(gen, m, k, n, r, dtype):
+def _lora_operands(gen, m, k, n, r, dtype, dev="cuda"):
     """x, W, A, B and an output cotangent g, as the training path has them
     (B nonzero)."""
-    dev = "cuda"
     x = torch.randn(m, k, generator=gen, device=dev)
     w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
     a = torch.randn(r, k, generator=gen, device=dev) * 0.05
@@ -644,22 +667,30 @@ def time_lora_kernels():
 
 # ------------------------------------------------------- 6. training path
 
-def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
-               batch=4, seq=128, rounds=3):
+def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
+               local_steps=2, batch=4, seq=128, rounds=3):
     """FederatedTrainer through the user's entry points (as
-    ``repro_torch.launch.train`` builds it).  ``cfg`` and ``device`` are
-    arguments so the phase can be rehearsed on a CPU at a reduced size; the
-    launch counts hold only on the card."""
+    ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
+    int8 / int4, group 64) one packed by ``quantize_tree``.  ``cfg`` and
+    ``device`` are arguments so the phase can be rehearsed on a CPU at a
+    reduced size; the launch counts hold only on the card.  Over a packed
+    base it also checks save / resume: a trainer restored from a checkpoint
+    written after round ``rounds - 1`` repeats the last round bit for bit."""
+    base_name = quant or "fp32"
     phase(f"training path: FederatedTrainer, {cfg.name} d_model "
-          f"{cfg.d_model}, fp32, N={clients}, fedsa + sfedlora, rank {rank}")
+          f"{cfg.d_model}, {base_name} base, fp32 activations, N={clients}, "
+          f"fedsa + sfedlora, rank {rank}")
     model = build_model(cfg)
     t0 = time.monotonic()
     params = model.init(torch.Generator(device).manual_seed(0), device)
+    if quant is not None:
+        params = quantize_tree(params, quant, QUANT_GROUP)
     lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
                       targets=cfg.lora_targets)
     fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
                            rounds=rounds, aggregation="fedsa")
     ocfg = OptimizerConfig(name="sgd", lr=5e-3)
+    ckpt = ROOT / "build" / f"chip_smoke_{base_name}.npz"
 
     def trainer():
         ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
@@ -672,7 +703,7 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
         return max(float(t.abs().max())
                    for t in tree_leaves(split_ab(tr.lora)[1]))
 
-    def run(tr):
+    def run(tr, save=False):
         ms = []
         for i in range(rounds):
             _sync(device)
@@ -682,12 +713,19 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
             ms.append((time.monotonic() - t) * 1e3)
             if i == 0:
                 assert b_max(tr) > 0, "B is still zero after round 1"
+            if save and i == rounds - 2:
+                tr.save(str(ckpt))         # outside the timed rounds
         return ms
 
     _sync(device)
     print(f"init {time.monotonic() - t0:.1f} s; gamma = alpha*sqrt(N/r) = "
           f"{trainer().gamma:.4f}; {clients} clients x {local_steps} local "
           f"steps x batch {batch} x seq {seq} per round, {rounds} rounds")
+    if quant is not None:
+        fq = quant_footprint(params)
+        print(f"base GEMM weights: {fq['base_bytes'] / 1e9:.4f} GB {quant} "
+              f"({fq['base_fp_bytes'] / 1e9:.4f} GB fp32); whole tree "
+              f"{fq['total_bytes'] / 1e9:.4f} GB")
 
     # the counted run: counts to 0 just before, read just after
     tr1 = trainer()
@@ -698,14 +736,26 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
     _sync(device)
     launches = _launch_counts()
     n_adapted = len(cfg.lora_targets) * cfg.num_layers
-    per_run = n_adapted * clients * local_steps * rounds
+    steps = clients * local_steps * rounds
     expect = dict.fromkeys(launches, 0)
-    expect.update({k: per_run for k in LORA_KERNELS})
-    expect["lora_fwd"] += n_adapted                  # one eval forward
-    print(f"launches: {launches} (expected {expect}: {n_adapted} each per "
-          f"client local step x {clients * local_steps * rounds}, plus "
-          f"{n_adapted} of lora_fwd for the eval); dispatch "
-          f"{dispatch.stats}")
+    if quant is None:
+        expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+        expect["lora_fwd"] += n_adapted                  # one eval forward
+        per_step = f"{n_adapted} of each of #5-#8"
+    else:
+        # k, o, w_gate, w_up, w_down; layer 0's k has an input without grad
+        n_base = (7 - len(cfg.lora_targets)) * cfg.num_layers
+        expect.update({k: n_adapted * steps for k in QTRAIN_PATH_KERNELS})
+        expect["quant_matmul"] = n_base * steps
+        expect["quant_matmul_dx"] = (n_base - 1) * steps
+        expect["lora_fwd_quant"] += n_adapted            # one eval forward
+        expect["quant_matmul"] += n_base
+        per_step = (f"{n_adapted} of each of #9, #10, #7, #8, {n_base} of "
+                    f"#11 and {n_base - 1} of #12")
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected { {k: v for k, v in expect.items() if v} }: "
+          f"{per_step} per client local step x {steps}, plus the eval "
+          f"forward); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
     for h in tr1.history:
         print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
@@ -715,9 +765,10 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
           f"perplexity {ppl:.3f}")
     assert math.isfinite(ppl)
 
-    # the same run again: bit for bit
+    # the same run again: bit for bit (over a packed base it also writes
+    # the checkpoint after round rounds - 1)
     tr2 = trainer()
-    ms2 = run(tr2)
+    ms2 = run(tr2, save=quant is not None)
     same = all(h1["loss"] == h2["loss"] and h1["grad_norm"] == h2["grad_norm"]
                for h1, h2 in zip(tr1.history, tr2.history))
     same = same and all(torch.equal(t1, t2) for t1, t2 in
@@ -726,12 +777,34 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
           f"{'bit-identical' if same else 'DIFFER'}")
     assert same, "two kernel-tier runs differ"
 
+    if quant is not None:
+        # resume: a fresh trainer restored from the checkpoint repeats the
+        # last round of the uninterrupted run bit for bit
+        t = time.monotonic()
+        tr4 = trainer()
+        tr4.restore(str(ckpt))
+        mb = ckpt.stat().st_size / 1e6
+        ckpt.unlink()
+        _sync(device)
+        restore_s = time.monotonic() - t
+        tr4.run_round()
+        same = (tr4.round_idx == rounds
+                and tr4.history[-1] == tr2.history[-1]
+                and all(torch.equal(t1, t2) for t1, t2 in
+                        zip(tree_leaves(tr4.lora), tree_leaves(tr2.lora))))
+        print(f"resume: checkpoint after round {rounds - 1} ({mb:.1f} MB), "
+              f"restored in {restore_s:.1f} s; round {rounds} "
+              f"{'bit-identical' if same else 'DIFFERS'} to the "
+              f"uninterrupted run (loss {tr4.history[-1]['loss']:.8g})")
+        assert same, "the resumed round differs from the uninterrupted one"
+        del tr4
+
     # the plain tier on the same device
-    lora_matmul.reset_launches()
+    _reset_launches()
     with dispatch.plain_tier():
         tr3 = trainer()
         run(tr3)
-    assert not any(lora_matmul.launches.values()), lora_matmul.launches
+    assert not any(_launch_counts().values()), _launch_counts()
     worst = 0.0
     for hk, hp in zip(tr1.history, tr3.history):
         for key in ("loss", "grad_norm"):
@@ -747,17 +820,18 @@ def train_path(name, cfg, device, *, clients=4, rank=64, local_steps=2,
           f"(max |B| {b_max(tr3):.3e})")
     assert worst <= TRAIN_RTOL
 
-    print(f"training path on {name}: ms/round {[round(t, 1) for t in ms1]} "
-          f"(first run), {[round(t, 1) for t in ms2]} (second run); "
+    print(f"training path on {name} ({base_name} base): ms/round "
+          f"{[round(t, 1) for t in ms1]} (first run), "
+          f"{[round(t, 1) for t in ms2]} (second run); "
           f"{clients * local_steps} client local steps per round")
-    if device.type == "cuda":
+    if device.type == "cuda" and quant in (None, "int4"):
         profile_local_step(model, tr2)
     return launches, ms2
 
 
 def profile_local_step(model, tr):
     """torch.profiler over one client local step (forward, backward through
-    #5-#8, optimizer update) after a warm-up step."""
+    the LoRA matmul kernels, optimizer update) after a warm-up step."""
     phase("where the time goes (torch.profiler; one client local step)")
     local = federated._make_client_local(model, get_strategy("fedsa"),
                                          tr.opt_cfg)
@@ -1231,6 +1305,160 @@ def live_bank_path(model, params, bank):
     assert all(len(r.tokens) == 8 for r in done) and live.promotions > 0
 
 
+# --------------------------------- 9. packed training kernels vs plain
+
+def _qtrain_calls(x, wq, a, b, g, gamma=1.5):
+    """{kernel: (kernel wrapper call, plain version call)} for #9, #10 and
+    #12 over the packed W ``wq``."""
+    lm = lora_matmul
+    return {
+        "lora_fwd_quant": (lambda: lm.lora_fwd_quant(x, wq, a, b, gamma),
+                           lambda: lm.lora_fwd_quant_plain(x, wq, a, b,
+                                                           gamma)),
+        "lora_bwd_dx_quant": (
+            lambda: lm.lora_bwd_dx_quant(g, wq, a, b, gamma),
+            lambda: lm.lora_bwd_dx_quant_plain(g, wq, a, b, gamma)),
+        "quant_matmul_dx": (lambda: lm.quant_matmul_dx(g, wq),
+                            lambda: lm.quant_matmul_dx_plain(g, wq)),
+    }
+
+
+def _check_pair(name, label, got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(_err(name, label, gt, wt) for gt, wt in zip(got, want))
+
+
+def check_qtrain_kernels(dev="cuda"):
+    """#9, #10 and #12 over int8 and int4 (group 64) gemma-2b projections
+    at the training path's m = 512 (#9 and #10 at the adapted q and v, #12
+    at every base projection), with fp32 and bf16 activations, and a ragged
+    case (m 50, k 100: an int4 W holds kq = 128 rows; n 30, r 3).  Then a
+    base packed from bf16 weights through all six packed kernels (#3, #4,
+    #9, #10, #11, #12), whose loaders round each product to bf16."""
+    phase("packed training kernels #9, #10, #12 vs plain (tolerance: "
+          f"|kernel - plain| <= {KERNEL_RTOL} * max(1, max|plain|))")
+    gen = torch.Generator(dev).manual_seed(9)
+    worst = {k: 0.0 for k in QTRAIN_KERNELS}
+    cases = [(p, 512, k, n, 64) for p, (k, n) in PROJ.items()]
+    cases.append(("ragged", 50, 100, 30, 3))
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for label, m, k, n, r in cases:
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for dt in (torch.float32, torch.bfloat16):
+                x, _, a, b, g = _lora_operands(gen, m, k, n, r, dt, dev)
+                calls = _qtrain_calls(x, wq, a, b, g)
+                if label not in ("q", "v", "ragged"):
+                    calls = {"quant_matmul_dx": calls["quant_matmul_dx"]}
+                for kern, (kfn, pfn) in calls.items():
+                    worst[kern] = max(worst[kern], _check_pair(
+                        kern, f"{mode} {label} m={m} k={k} n={n} r={r} "
+                        f"{str(dt)[6:]}", kfn(), pfn()))
+    # a base packed from bf16 weights, at the q shape: m = 512 and the
+    # decode forms' m = 4
+    k, n, r = PROJ["q"][0], PROJ["q"][1], 8
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        wq = quantize((torch.randn(k, n, generator=gen, device=dev)
+                       * k ** -0.5).bfloat16(), bits, QUANT_GROUP)
+        assert wq.out_dtype == "bfloat16"
+        x, _, a, b, g = _lora_operands(gen, 512, k, n, r, torch.float32,
+                                       dev)
+        bank_a = torch.randn(4, r, k, generator=gen, device=dev) * 0.05
+        bank_b = torch.randn(4, n, r, generator=gen, device=dev) * 0.05
+        x3 = x.reshape(4, 128, k)
+        x4 = x[:4].contiguous()
+        lab = f"bf16-packed {mode} q"
+        pairs = dict(_qtrain_calls(x, wq, a, b, g))
+        pairs["quant_matmul m=512"] = (
+            lambda: lora_matmul.quant_matmul(x, wq),
+            lambda: lora_matmul.quant_matmul_plain(x, wq))
+        pairs["quant_matmul m=4"] = (
+            lambda: lora_matmul.quant_matmul(x4, wq),
+            lambda: lora_matmul.quant_matmul_plain(x4, wq))
+        pairs["bgmv_matmul_quant"] = (
+            lambda: bgmv.bgmv_matmul_quant(x3, wq, bank_a, bank_b),
+            lambda: bgmv.bgmv_matmul_quant_plain(x3, wq, bank_a, bank_b))
+        pairs["bgmv_gemv_quant"] = (
+            lambda: bgmv.bgmv_gemv_quant(x4, wq, bank_a, bank_b),
+            lambda: bgmv.bgmv_gemv_quant_plain(x4, wq, bank_a, bank_b))
+        for kern, (kfn, pfn) in pairs.items():
+            err = _check_pair(kern, lab, kfn(), pfn())
+            if kern in worst:
+                worst[kern] = max(worst[kern], err)
+    print(f"launches in this phase (not the path's): "
+          f"{ {k: v for k, v in _launch_counts().items() if v} }")
+    return worst
+
+
+def time_qtrain_kernels(dev="cuda"):
+    """Times at the training path's shapes (fp32 activations, m = 4 x 128 =
+    512, r = 64, gamma 1, int8 and int4 group 64): #9 and #10 at q and v,
+    #12 at k, o, w_up and w_down, the packed W rotated over copies that
+    together exceed L2 three times (a local step reads each layer's W once
+    per pass).  The library call is one torch.matmul on the dequantized
+    fp32 W: x @ W for #9, g @ W^T for #10 and #12."""
+    phase("packed training kernel times (fp32 activations, m=512, r=64)")
+    gen = torch.Generator(dev).manual_seed(10)
+    lm = lora_matmul
+    rows = {}
+    m, r, f4 = 512, 64, 4
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for proj in ("q", "v", "k", "o", "w_up", "w_down"):
+            k, n = PROJ[proj]
+            wf = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP).dequantize()
+            wq0 = quantize(wf, bits, QUANT_GROUP)
+            wqs = [quantize(wf, bits, QUANT_GROUP) for _ in range(max(
+                2, math.ceil(3 * L2_BYTES / wq0.nbytes)))]
+            wfs = [wf.clone() for _ in range(max(
+                2, math.ceil(3 * L2_BYTES / wf.nbytes)))]
+            x, _, a, b, g = _lora_operands(gen, m, k, n, r, torch.float32,
+                                           dev)
+            spec = {"quant_matmul_dx": (
+                lm.quant_matmul_dx, lm.quant_matmul_dx_plain,
+                lambda g_, w_: torch.matmul(g_, w_.t()),
+                [(g, wi) for wi in wqs], [(g, wi) for wi in wfs],
+                g.nbytes + wq0.nbytes + m * k * f4, 2 * m * n * k)}
+            if proj in ("q", "v"):
+                spec["lora_fwd_quant"] = (
+                    lm.lora_fwd_quant, lm.lora_fwd_quant_plain, torch.matmul,
+                    [(x, wi, a, b, 1.0) for wi in wqs],
+                    [(x, wi) for wi in wfs],
+                    x.nbytes + wq0.nbytes + a.nbytes + b.nbytes
+                    + (m * n + m * r) * f4,
+                    2 * m * k * n + 2 * m * k * r + 2 * m * r * n)
+                spec["lora_bwd_dx_quant"] = (
+                    lm.lora_bwd_dx_quant, lm.lora_bwd_dx_quant_plain,
+                    lambda g_, w_: torch.matmul(g_, w_.t()),
+                    [(g, wi, a, b, 1.0) for wi in wqs],
+                    [(g, wi) for wi in wfs],
+                    g.nbytes + wq0.nbytes + a.nbytes + b.nbytes
+                    + (m * k + m * r) * f4,
+                    2 * m * n * k + 2 * m * n * r + 2 * m * r * k)
+            for kern, (kfn, pfn, lfn, args, largs, nbytes, flops) in \
+                    spec.items():
+                ms = _graph_ms(kfn, args)
+                plain_ms = _graph_ms(pfn, args)
+                library_ms = _graph_ms(lfn, largs)
+                eager_ms = _eager_ms(kfn, args)
+                bound_ms, bound_by = _bound(nbytes, flops)
+                rows[(kern, f"{mode} {proj}")] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms,
+                    eager_ms=eager_ms)
+                print(f"{kern:17s} {mode} {proj:6s} m={m} k={k} n={n} "
+                      f"r={r}: kernel {ms * 1e3:.2f} us, plain "
+                      f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 W "
+                      f"{library_ms * 1e3:.2f} us, bound "
+                      f"{bound_ms * 1e3:.2f} us ({bound_by}; "
+                      f"{nbytes / 1e6:.2f} MB packed, {flops / 1e9:.3f} "
+                      f"GFLOP; {flops / ms / 1e9:.2f} TFLOP/s), eager "
+                      f"{eager_ms * 1e3:.2f} us")
+            del wqs, wfs
+    return rows
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -1268,9 +1496,20 @@ def main():
                 if mode == "int4" else ())
         launches.update({k: sched_launches[k] for k in keep})
     live_bank_path(model, params, bank)
+    del model, params, bank
+    _free()
+    worst.update(check_qtrain_kernels())
+    rows.update(time_qtrain_kernels())
+    _free()
+    for mode in ("int8", "int4"):
+        qtrain_launches, _ = train_path(name, get_config("gemma-2b"),
+                                        torch.device("cuda"), quant=mode)
+        _free()
+        if mode == "int4":
+            launches.update({k: qtrain_launches[k] for k in QTRAIN_KERNELS})
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
-                 + SCHED_KERNELS):
+                 + SCHED_KERNELS + QTRAIN_KERNELS):
         row = rows[(kern, ROW[kern])]
         kernels.append({
             "name": kern, "route": "cuda", "source": SOURCES[kern],

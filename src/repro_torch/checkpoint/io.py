@@ -7,7 +7,10 @@ either package load in the other.
 
 :func:`load_pytree` returns numpy leaves; :func:`params_from_numpy` places
 a numpy tree (a loaded checkpoint, or the JAX package's parameters and
-adapters as numpy arrays) on a device as tensors.
+adapters as numpy arrays) on a device as tensors.  A federated run's state
+goes through :func:`save_federated_state` / :func:`load_federated_state`
+under the JAX package's keys, plus ``generator_state`` (the port's
+participation generator), which the JAX package ignores.
 """
 from __future__ import annotations
 
@@ -121,6 +124,46 @@ def params_from_numpy(tree, device="cuda", dtype=None):
         return conv(node)
 
     return walk(tree)
+
+
+def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
+                         *, generator_state=None, data_state: str = None,
+                         partition_state: str = None,
+                         adapter_meta: dict = None):
+    """Checkpoint one federated run under the JAX package's keys (``base``,
+    ``lora``, ``opt``, ``round``, ``data_state``, ``partition_state``,
+    ``adapter_meta``), so ``repro.checkpoint.io.load_federated_state`` reads
+    the file.
+
+    ``generator_state`` (``torch.Generator.get_state()`` of the trainer's
+    participation generator) and ``data_state`` (the host dataset's
+    serialized RNG streams) make a restored run continue bit for bit.  The
+    JAX package keeps a ``prng_key`` in its place, whose ``jax.random``
+    stream the port cannot continue (:meth:`FederatedTrainer.restore`)."""
+    # leaves that are not tensors (the round, the state strings, the
+    # metadata) become numpy arrays in _flatten, as the JAX package stores
+    # them
+    tree = {"base": base, "lora": lora, "opt": opt_state, "round": round_idx,
+            "generator_state": generator_state, "data_state": data_state,
+            "partition_state": partition_state, "adapter_meta": adapter_meta}
+    tree = {k: v for k, v in tree.items() if v is not None}
+    save_pytree(path, tree)
+
+
+def load_federated_state(path: str):
+    """(base, lora, opt, round, state) of a file written by either package:
+    numpy trees, the round as an int, and ``state`` a dict of what a resumed
+    run reads, where the file has it: "generator_state" (the port's
+    participation generator), "prng_key" (the JAX trainer's key data),
+    "rank_mask", and the dataset's "data_state" and "partition_state" as
+    strings."""
+    t = load_pytree(path)
+    state = {k: np.asarray(t[k])
+             for k in ("generator_state", "prng_key", "rank_mask") if k in t}
+    for key in ("data_state", "partition_state"):
+        if key in t:
+            state[key] = str(np.asarray(t[key]))
+    return t["base"], t["lora"], t.get("opt", {}), int(t["round"]), state
 
 
 def load_adapter_state(path: str, *, lora_cfg=None, n_clients: int = None,

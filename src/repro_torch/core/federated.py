@@ -15,9 +15,12 @@ The scaling factor gamma = scaling_factor(scheme, alpha, r, N) is folded
 into B inside the loss (``AdapterSet.prepared``), so autograd takes the
 gradient through that multiply and the kernels see gamma 1.0, as in JAX.
 
+The frozen base may be packed (``core/quant.quantize_tree``): every
+projection over it goes through the packed kernels on CUDA (#9-#12 with #7
+and #8) and dequantizes on the CPU.
+
 Not yet ported, and raising: ``data_mode="device"``, meshes, the watchdog,
-the async buffered engine and faults, heterogeneous ranks, ``save`` and
-``restore``.
+the async buffered engine and faults, heterogeneous ranks.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint.io import params_from_numpy
+from repro_torch.checkpoint.io import (load_federated_state,
+                                       params_from_numpy,
+                                       save_federated_state)
 from repro_torch.core.aggregation import get_strategy
 from repro_torch.core.lora import AdapterSet, init_lora
 from repro_torch.core.scaling import scaling_factor
@@ -155,10 +160,15 @@ class FederatedTrainer:
     JAX package's ``init_lora`` draw carried across; drawn from the seed
     when None.  All clients start from it (FedSA init: the same A, B = 0).
 
-    Randomness: base and adapter init draw from ``torch.Generator``s seeded
-    with ``seed``; participation sampling from one seeded with
-    ``seed + 31337``.  The numbers differ from ``jax.random``'s, so parity
-    runs inject the JAX draws (``lora_init=``, ``run_round(weights=)``).
+    Randomness: base and adapter init draw, in that order, from one
+    ``torch.Generator`` seeded with ``seed``; participation sampling from
+    one seeded with ``seed + 31337``.  The numbers differ from
+    ``jax.random``'s, so parity runs inject the JAX draws (``lora_init=``,
+    ``run_round(weights=)``).
+
+    ``save`` / ``restore`` checkpoint the state in the JAX package's file
+    format (``checkpoint/io.save_federated_state``): a restored run
+    continues bit for bit.
     """
 
     def __init__(self, model, dataset, *, lora_cfg, fed_cfg, opt_cfg,
@@ -298,10 +308,68 @@ class FederatedTrainer:
     # ----------------------------------------------------------- checkpoint
 
     def save(self, path: str) -> None:
-        _not_yet("FederatedTrainer.save (trainer state checkpoints)")
+        """Checkpoint the base (packed leaves as packed), the client-stacked
+        adapters and optimizer state, the round index, the participation
+        generator's state, the dataset's RNG streams and partition, and the
+        AdapterSet's metadata (``adapter_meta``: gammas, alpha, rank, ranks,
+        scaling), under the JAX package's keys."""
+        n = self.fed_cfg.num_clients
+        meta = {"gammas": np.asarray(self.gammas, np.float32),
+                "alpha": float(self.lora_cfg.alpha),
+                "rank": int(self.lora_cfg.rank),
+                "ranks": np.asarray((self.lora_cfg.rank,) * n, np.int64),
+                "scaling": self.lora_cfg.scaling}
+        save_federated_state(
+            path, self.base, self.lora, self.opt_state, self.round_idx,
+            generator_state=self._part_gen.get_state(),
+            data_state=self.dataset.rng_state(),
+            partition_state=self.dataset.partition_state(),
+            adapter_meta=meta)
 
     def restore(self, path: str) -> None:
-        _not_yet("FederatedTrainer.restore (trainer state checkpoints)")
+        """Load a checkpoint written by :meth:`save` or by the JAX trainer.
+
+        The data partition is restored (and checked against the dataset's
+        seed-derived tables, which raises on a mismatch), as the JAX
+        trainer does.  A file with a per-client rank mask raises:
+        heterogeneous ranks are not ported.  The port's participation
+        generator resumes from its saved state; a JAX-written file carries a
+        ``jax.random`` key instead, whose stream the port cannot continue,
+        so it restores only at participation 1.0, where no round draws from
+        it."""
+        base, lora, opt, rnd, state = load_federated_state(path)
+        if "rank_mask" in state:
+            raise ValueError(
+                "checkpoint per-client rank mask does not match this "
+                "trainer's configured ranks (heterogeneous ranks are not yet "
+                "ported to repro_torch)")
+        gen_state = state.get("generator_state")
+        if gen_state is None and self.fed_cfg.participation < 1.0:
+            raise ValueError(
+                f"checkpoint '{path}' has no participation generator state "
+                + ("(it was written by the JAX trainer, whose jax.random key "
+                   "repro_torch cannot continue) " if "prng_key" in state
+                   else "")
+                + f"but participation is {self.fed_cfg.participation} < 1, "
+                "so the resumed rounds could not sample the clients the "
+                "uninterrupted run would")
+        if "partition_state" in state:
+            self.dataset.set_partition_state(state["partition_state"])
+            if self.client_weights is not None:
+                self.client_weights = torch.as_tensor(
+                    np.asarray(self.dataset.size_weights, np.float32),
+                    device=self.device)
+        self.base = params_from_numpy(base, self.device)
+        self.lora = params_from_numpy(lora, self.device)
+        self.opt_state = params_from_numpy(opt, self.device)
+        self.round_idx = rnd
+        # drop history from beyond the restored round, so consumers never
+        # mix two timelines
+        self.history = [h for h in self.history if h["round"] <= rnd]
+        if gen_state is not None:
+            self._part_gen.set_state(torch.from_numpy(gen_state))
+        if "data_state" in state:
+            self.dataset.set_rng_state(state["data_state"])
 
 
 def _is_numpy_tree(tree) -> bool:

@@ -39,8 +39,8 @@ design does about it):
   per kernel, instantiated for an fp, an int8 and an int4 W loader).  They
   move 4x (int8) or 8x (int4) fewer W bytes than fp32, which is what bounds
   the decode form.  Each W element is formed as ``dequantize`` forms it
-  (one fp32 product), so kernel and plain version differ only in the order
-  of their sums.
+  (one fp32 product, rounded to bf16 for a base packed from bf16 weights),
+  so kernel and plain version differ only in the order of their sums.
 * All: the TPU kernel carries p = x A^T in VMEM across its sequential
   grid.  GPU blocks run in no order, so a shrink pre-pass writes p to an
   fp32 scratch (rank <= 512, small) that the main kernel reads.
@@ -212,7 +212,7 @@ def bgmv_matmul_quant(x, wq, a, b, ids=None):
         return bgmv_matmul_quant_plain(x, wq, a, b, ids)
     from repro_torch.kernels.build import load
     forward_only("bgmv_matmul_quant", x, a, b)
-    group = check_packed(wq, "bgmv_matmul_quant")
+    group, bf16w = check_packed(wq, "bgmv_matmul_quant")
     nreq, s, k = x.shape
     ids_ptr = _check(x, wq, a, b, ids, nreq)
     n, r = wq.shape[1], a.shape[1]
@@ -221,7 +221,7 @@ def bgmv_matmul_quant(x, wq, a, b, ids=None):
     err = load().bgmv_matmul_quant_launch(
         x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
         p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, wq.bits, group,
-        DTYPES[x.dtype], stream(x))
+        bf16w, DTYPES[x.dtype], stream(x))
     raise_on(err, "bgmv_matmul_quant")
     launches["bgmv_matmul_quant"] += 1
     return out
@@ -234,7 +234,7 @@ def bgmv_gemv_quant(x, wq, a, b, ids=None):
         return bgmv_gemv_quant_plain(x, wq, a, b, ids)
     from repro_torch.kernels.build import load
     forward_only("bgmv_gemv_quant", x, a, b)
-    group = check_packed(wq, "bgmv_gemv_quant")
+    group, bf16w = check_packed(wq, "bgmv_gemv_quant")
     nreq, k = x.shape
     ids_ptr = _check(x, wq, a, b, ids, nreq)
     n, r = wq.shape[1], a.shape[1]
@@ -246,7 +246,7 @@ def bgmv_gemv_quant(x, wq, a, b, ids=None):
     err = load().bgmv_gemv_quant_launch(
         x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
         p.data_ptr(), partial.data_ptr(), out.data_ptr(), nreq, k, n, r,
-        ksplit, kchunk, wq.bits, group, DTYPES[x.dtype], stream(x))
+        ksplit, kchunk, wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
     raise_on(err, "bgmv_gemv_quant")
     launches["bgmv_gemv_quant"] += 1
     return out

@@ -52,19 +52,19 @@ def raise_on(err: int, name: str):
                            f"{err}")
 
 
-def check_packed(wq, name: str) -> int:
+def check_packed(wq, name: str):
     """Raise unless the packed W ``wq`` (a QuantizedLinear) has the byte
-    layout the kernels read and dequantizes to fp32; return the group size
-    they index scales with (0 for int8).  The kernels form each element as
-    one fp32 product, which is what ``dequantize`` gives an fp32 base; a
-    base packed from bf16 weights dequantizes to that product rounded to
-    bf16, which no kernel forms yet."""
-    if wq.out_dtype != "float32":
+    layout the kernels read and dequantizes to fp32 or bf16; return
+    ``(group, bf16w)``: the group size they index scales with (0 for int8)
+    and the flag (1 or 0) that makes their loaders round each fp32 product
+    ``float(q) * scale`` to bf16, as ``dequantize`` does for a base packed
+    from bf16 weights (``csrc/loaders.cuh``)."""
+    if wq.out_dtype not in ("float32", "bfloat16"):
         raise TypeError(
-            f"{name}: the kernels take a base packed from float32 weights; "
-            f"this one dequantizes to {wq.out_dtype}, whose rounding no "
-            "kernel forms yet")
-    return wq.check_layout(f"{name} W")
+            f"{name}: the kernels take a base packed from float32 or "
+            f"bfloat16 weights; this one dequantizes to {wq.out_dtype}")
+    return (wq.check_layout(f"{name} W"),
+            int(wq.out_dtype == "bfloat16"))
 
 
 def gemv_split(nreq: int, k: int, n: int, num_sms: int):

@@ -10,7 +10,8 @@
 // with x (B, s, k) or (B, k), W (k, n), A (K, r, k), B (K, n, r); x, A and
 // B fp32 or bf16 (all three the same type), W of that type too or packed
 // int8 / int4 (core/quant.py's layout, dequantized element by element as
-// the kernel loads it: loaders.cuh); fp32 FMA accumulation, fp32 output.
+// the kernel loads it, rounded to bf16 for a base packed from bf16
+// weights: loaders.cuh); fp32 FMA accumulation, fp32 output.
 // ids == nullptr means the identity map (row i <-> adapter i).  The packed
 // and the fp forms are one kernel body each, templated on the W loader.
 //
@@ -36,13 +37,11 @@ namespace {
 
 using repro_kernels::DenseW;
 using repro_kernels::gemv_partial_kernel;
-using repro_kernels::Int4W;
-using repro_kernels::Int8W;
 using repro_kernels::kGvCols;
 using repro_kernels::kGvMaxB;
 using repro_kernels::kGvWarps;
-using repro_kernels::log2_group;
 using repro_kernels::to_f;
+using repro_kernels::with_packed_w;
 
 // ------------------------------------------------------------- shrink
 // p[row, j] = sum_k x[row, k] * A[id(row), j, k], one warp per (row, j):
@@ -220,32 +219,22 @@ int gemv_launch(const void* x, const WL wl, const void* a, const void* b,
 template <typename T>
 int matmul_quant(const void* x, const void* wd, const float* ws, const void* a,
                  const void* b, const int* ids, float* p, float* out, int nreq,
-                 int s, int k, int n, int r, int bits, int group,
+                 int s, int k, int n, int r, int bits, int group, int bf16w,
                  cudaStream_t st) {
-  if (bits == 8)
-    return matmul_launch<T>(x, Int8W{static_cast<const int8_t*>(wd), ws, n},
-                            a, b, ids, p, out, nreq, s, k, n, r, st);
-  if (bits == 4)
-    return matmul_launch<T>(
-        x, Int4W{static_cast<const uint8_t*>(wd), ws, n, log2_group(group)}, a,
-        b, ids, p, out, nreq, s, k, n, r, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
+    return matmul_launch<T>(x, wl, a, b, ids, p, out, nreq, s, k, n, r, st);
+  });
 }
 
 template <typename T>
 int gemv_quant(const void* x, const void* wd, const float* ws, const void* a,
                const void* b, const int* ids, float* p, float* partial,
                float* out, int nreq, int k, int n, int r, int ksplit,
-               int kchunk, int bits, int group, cudaStream_t st) {
-  if (bits == 8)
-    return gemv_launch<T>(x, Int8W{static_cast<const int8_t*>(wd), ws, n}, a,
-                          b, ids, p, partial, out, nreq, k, n, r, ksplit,
-                          kchunk, st);
-  if (bits == 4)
-    return gemv_launch<T>(
-        x, Int4W{static_cast<const uint8_t*>(wd), ws, n, log2_group(group)}, a,
-        b, ids, p, partial, out, nreq, k, n, r, ksplit, kchunk, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+               int kchunk, int bits, int group, int bf16w, cudaStream_t st) {
+  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
+    return gemv_launch<T>(x, wl, a, b, ids, p, partial, out, nreq, k, n, r,
+                          ksplit, kchunk, st);
+  });
 }
 
 }  // namespace
@@ -289,19 +278,21 @@ int bgmv_gemv_launch(const void* x, const void* w, const void* a,
 }
 
 // Packed W: wd int8 (k, n) with ws (1, n) when bits == 8; uint8 (kq/2, n)
-// with ws (kq/group, n) when bits == 4.  x, a, b of dtype as above.
+// with ws (kq/group, n) when bits == 4; bf16w = 1 for a base packed from
+// bf16 weights (each element rounded to bf16, loaders.cuh).  x, a, b of
+// dtype as above.
 int bgmv_matmul_quant_launch(const void* x, const void* wd, const float* ws,
                              const void* a, const void* b, const int* ids,
                              float* p, float* out, int nreq, int s, int k,
-                             int n, int r, int bits, int group, int dtype,
-                             void* stream) {
+                             int n, int r, int bits, int group, int bf16w,
+                             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return matmul_quant<float>(x, wd, ws, a, b, ids, p, out, nreq, s, k, n, r,
-                               bits, group, st);
+                               bits, group, bf16w, st);
   if (dtype == 1)
     return matmul_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, out, nreq, s,
-                                       k, n, r, bits, group, st);
+                                       k, n, r, bits, group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -309,15 +300,16 @@ int bgmv_gemv_quant_launch(const void* x, const void* wd, const float* ws,
                            const void* a, const void* b, const int* ids,
                            float* p, float* partial, float* out, int nreq,
                            int k, int n, int r, int ksplit, int kchunk,
-                           int bits, int group, int dtype, void* stream) {
+                           int bits, int group, int bf16w, int dtype,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return gemv_quant<float>(x, wd, ws, a, b, ids, p, partial, out, nreq, k, n,
-                             r, ksplit, kchunk, bits, group, st);
+                             r, ksplit, kchunk, bits, group, bf16w, st);
   if (dtype == 1)
     return gemv_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, partial, out,
                                      nreq, k, n, r, ksplit, kchunk, bits,
-                                     group, st);
+                                     group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,7 +7,8 @@ backend; here the device of the activations decides:
 
   cuda   the hand-written kernels of ``kernels/bgmv.py`` (banked and
          per-request adapters, forward only) and ``kernels/lora_matmul.py``
-         (a single adapter, forward and backward)
+         (a single adapter, and a packed base with no adapter, forward and
+         backward)
   cpu    the plain PyTorch versions beside them
 
 Nothing else is taken, and nothing falls back from one to the other.
@@ -21,9 +22,11 @@ A packed frozen base (:class:`~repro_torch.core.quant.QuantizedLinear`):
 
   banked adapters   kernel #4 (``bgmv_gemv_quant``) when s == 1, else #3
                     (``bgmv_matmul_quant``)
-  no adapter        kernel #11 (``lora_matmul.quant_matmul``)
-  single adapter    kernel #9 (the fused LoRA matmul over a packed base) is
-                    not ported yet: raises on CUDA
+  no adapter        the ``QuantMatmul`` Function (#11 forward, #12
+                    backward) where x requires grad, else #11 alone
+  single adapter    the ``LoRAMatmulQuant`` Function (#9 forward; #10, #7
+                    and #8 backward) where autograd needs its gradients,
+                    else #9 alone, as ``fused_lora_apply_quant`` does
   cpu / plain tier  dequantize, then the fp expressions above
 
 The serving engine dequantizes a packed base once per generation on the
@@ -45,7 +48,7 @@ _plain = contextvars.ContextVar("repro_torch_plain_tier", default=False)
 # calls per route since the last reset_stats(): "bgmv" and "plain" count
 # batched projections (kernel / plain version), "lora_matmul" single
 # adapter projections on either tier, "quant" projections over a packed
-# base that a kernel (#3, #4, #11) serves, "paged" decode attentions that
+# base that a kernel (#3, #4, #9, #11) serves, "paged" decode attentions that
 # kernel #13 serves (models/attention.attention_decode_paged)
 stats = {"bgmv": 0, "plain": 0, "lora_matmul": 0, "quant": 0, "paged": 0}
 
@@ -122,17 +125,24 @@ def lora_linear_batched(x, w, lora, gamma: float = 1.0):
 
 
 def quant_linear(x, wq):
-    """y = x dequant(W) for a packed base ``wq`` and no adapter: kernel #11
-    on the card, ``x @ dequantize(W)`` on the CPU and the plain tier.  ``x``
-    may have any number of leading dims; the output dtype is the promotion
-    of x and the weight's fp dtype."""
+    """y = x dequant(W) for a packed base ``wq`` and no adapter: on the card
+    the :class:`~repro_torch.kernels.lora_matmul.QuantMatmul` Function (#11,
+    backward #12) where x requires grad, else #11 alone; ``x @
+    dequantize(W)`` on the CPU and the plain tier.  ``x`` may have any
+    number of leading dims; the output dtype is the promotion of x and the
+    weight's fp dtype."""
     if 0 in (*x.shape, wq.shape[-1]) or not _use_kernel(x):
         return x @ wq.dequantize()
     stats["quant"] += 1
     out_dtype = _result_type(x, wq)
     lead, n = x.shape[:-1], wq.shape[-1]
     x2 = x.reshape(-1, x.shape[-1]).to(out_dtype).contiguous()
-    return lora_matmul.quant_matmul(x2, wq).to(out_dtype).reshape(*lead, n)
+    if torch.is_grad_enabled() and x2.requires_grad:
+        y = lora_matmul.QuantMatmul.apply(x2, wq.data, wq.scales,
+                                          lora_matmul.packed_meta(wq), True)
+    else:
+        y = lora_matmul.quant_matmul(x2, wq)
+    return y.to(out_dtype).reshape(*lead, n)
 
 
 def lora_linear(x, w, lora=None, gamma: float = 0.0):
@@ -141,41 +151,48 @@ def lora_linear(x, w, lora=None, gamma: float = 0.0):
     ``lora`` is ``{"a": (r, d_in), "b": (d_out, r)}`` or None; ``x`` may
     have any number of leading dims.  Leaves with a leading request dim
     (``a`` 3-D) take :func:`lora_linear_batched`.  A single adapter takes
-    the fused LoRA matmul, as ``fused_lora_apply`` does in the JAX package:
-    where autograd needs its gradients, the
+    the fused LoRA matmul, as ``fused_lora_apply`` and
+    ``fused_lora_apply_quant`` do in the JAX package: where autograd needs
+    its gradients, the
     :class:`~repro_torch.kernels.lora_matmul.LoRAMatmul` Function (#5
-    forward, #6-#8 backward); otherwise the forward piece #5 alone.  Output
-    dtype is the promotion of x, w, a and b."""
+    forward, #6-#8 backward), or over a packed W on the card
+    :class:`~repro_torch.kernels.lora_matmul.LoRAMatmulQuant` (#9; #10, #7,
+    #8); otherwise the forward piece #5 or #9 alone.  Output dtype is the
+    promotion of x, w, a and b."""
     packed = isinstance(w, QuantizedLinear)
     if lora is None:
         return quant_linear(x, w) if packed else x @ w
     a, b = lora["a"], lora["b"]
     if a.ndim == 3:
         return lora_linear_batched(x, w, lora, gamma)
-    if packed:
-        if _use_kernel(x):
-            raise NotImplementedError(
-                "a single adapter over a packed base needs kernel #9 (the "
-                "fused LoRA matmul over a packed W, repro/kernels/"
-                "lora_matmul.py:_fwd_kernel_q), which is not yet ported to "
-                "repro_torch; serve through an AdapterBank or merge the "
-                "adapter")
-        w = w.dequantize()
+    kernel = _use_kernel(x)
+    if packed and not kernel:
+        w, packed = w.dequantize(), False
     stats["lora_matmul"] += 1
     out_dtype = _result_type(x, w, a, b)
     lead, n = x.shape[:-1], w.shape[-1]
-    x2, w, a, b = (t.to(out_dtype)
-                   for t in (x.reshape(-1, x.shape[-1]), w, a, b))
+    x2, a, b = (t.to(out_dtype) for t in (x.reshape(-1, x.shape[-1]), a, b))
     if 0 in (*x2.shape, n, a.shape[0]):
         # nothing to launch a kernel on; the expression gives the shape
-        return (x2 @ w + gamma * ((x2 @ a.T) @ b.T)).reshape(*lead, n)
-    kernel = _use_kernel(x2)
+        wf = (w.dequantize() if packed else w).to(out_dtype)
+        return (x2 @ wf + gamma * ((x2 @ a.T) @ b.T)).reshape(*lead, n)
     x2, a, b = x2.contiguous(), a.contiguous(), b.contiguous()
+    lm = lora_matmul
+    if packed:
+        stats["quant"] += 1
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (x2, a, b)):
+            y = lm.LoRAMatmulQuant.apply(x2, w.data, w.scales, a, b,
+                                         lm.packed_meta(w), float(gamma),
+                                         True)
+        else:
+            y = lm.lora_fwd_quant(x2, w, a, b, float(gamma))[0].to(out_dtype)
+        return y.reshape(*lead, n)
+    w = w.to(out_dtype).contiguous()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x2, w, a, b)):
-        y = lora_matmul.LoRAMatmul.apply(x2, w.contiguous(), a, b,
-                                         float(gamma), kernel)
+        y = lm.LoRAMatmul.apply(x2, w, a, b, float(gamma), kernel)
     else:
-        fwd = lora_matmul.lora_fwd if kernel else lora_matmul.lora_fwd_plain
-        y = fwd(x2, w.contiguous(), a, b, float(gamma))[0].to(out_dtype)
+        fwd = lm.lora_fwd if kernel else lm.lora_fwd_plain
+        y = fwd(x2, w, a, b, float(gamma))[0].to(out_dtype)
     return y.reshape(*lead, n)

@@ -1,28 +1,34 @@
-"""Fused LoRA matmul with its backward: CUDA kernels, plain versions and the
-autograd Function that wires them.
+"""Fused LoRA matmul with its backward, over an fp or a packed frozen base:
+CUDA kernels, plain versions and the autograd Functions that wire them.
 
     y = x W + gamma (x A^T) B^T        x (m, k), W (k, n), A (r, k), B (n, r)
 
-The port of ``repro/kernels/lora_matmul.py:lora_matmul_vjp``, the
-``jax.custom_vjp`` the JAX package trains through.  Four pieces, each a
-hand-written kernel in ``csrc/lora_matmul.cu`` beside its plain PyTorch
-version:
+The port of ``repro/kernels/lora_matmul.py``'s ``jax.custom_vjp``s that the
+JAX package trains through: ``lora_matmul_vjp`` (an fp W),
+``lora_matmul_quant_vjp`` (a packed W) and ``quant_matmul_vjp`` (a packed W
+and no adapter).  Each piece is a hand-written kernel in
+``csrc/lora_matmul.cu`` beside its plain PyTorch version:
 
-  lora_fwd     (#5)  y = x W + gamma p B^T, p = x A^T     -> (y, p)
-  lora_bwd_dx  (#6)  dx = g W^T + gamma q A, q = g B      -> (dx, q)
-  lora_bwd_da  (#7)  dA = gamma q^T x
-  lora_bwd_db  (#8)  dB = gamma g^T p
+  lora_fwd          (#5)  y = x W + gamma p B^T, p = x A^T   -> (y, p)
+  lora_bwd_dx       (#6)  dx = g W^T + gamma q A, q = g B    -> (dx, q)
+  lora_bwd_da       (#7)  dA = gamma q^T x
+  lora_bwd_db       (#8)  dB = gamma g^T p
+  lora_fwd_quant    (#9)  #5 over a packed W                 -> (y, p)
+  lora_bwd_dx_quant (#10) #6 over a packed W                 -> (dx, q)
+  quant_matmul      (#11) y = x dequant(W)
+  quant_matmul_dx   (#12) dx = g dequant(W)^T
 
-All return fp32.  dW is never computed: the base is frozen.  Beside them,
-the base-only GEMM over a packed frozen base:
-
-  quant_matmul (#11) y = x dequant(W)                     -> y
+All return fp32.  dW is never computed: the base is frozen.  A packed W is
+a :class:`~repro_torch.core.quant.QuantizedLinear` (int8 per channel or
+int4 per group, packed from fp32 or bf16 weights); every packed kernel
+dequantizes each W element as it loads it, as ``dequantize`` forms it.
 
 Tier rule: a CUDA tensor launches the kernel; a CPU tensor takes the plain
 version; anything else raises.  There is no fallback from the kernel to the
-plain version.  :class:`LoRAMatmul` runs the same wiring of residuals and
-pieces on either tier, so the CPU tests exercise exactly what the card
-runs.
+plain version.  :class:`LoRAMatmul` (#5; #6-#8), :class:`LoRAMatmulQuant`
+(#9; #10, #7, #8) and :class:`QuantMatmul` (#11; #12) run the same wiring
+of residuals and pieces on either tier, so the CPU tests exercise exactly
+what the card runs.
 
 Kernel notes (what they replace, what bounds them on an H100, what the
 design does about it):
@@ -41,22 +47,34 @@ design does about it):
   over n and read W by rows.  Bound by operations like the forward.
 * ``lora_bwd_da`` and ``lora_bwd_db`` replace ``_bwd_da_kernel`` (``:201``)
   and ``_bwd_db_kernel`` (``:230``), which accumulate over m in an output
-  block the TPU grid revisits.  Here each block owns an output tile and
-  loops over all m itself, in a fixed order: no atomics, so a training run
-  repeats bit for bit.  Small (2 m r k operations); bound by the latency
-  of that loop.
+  block the TPU grid revisits.  Small (2 m r k operations) with few output
+  tiles (32 for dA at q), so a block that walked all m would be bound by
+  that loop's latency: the m loop is split into chunks, one block per
+  (output tile, chunk), about two blocks per SM, and a second pass adds
+  the chunks' partial sums in a fixed order.  No atomics, so a training
+  run repeats bit for bit.
+* ``lora_fwd_quant`` and ``lora_bwd_dx_quant`` replace ``_fwd_kernel_q``
+  (``:345``, ``_fwd_call_q``) and ``_bwd_dx_kernel_q`` (``:414``,
+  ``_bwd_dx_call_q``): the tiles of #5 and #6 with W read through a
+  dequantizing loader (``csrc/loaders.cuh``), by column for the forward and
+  by row for dx, after the same p / q pre-passes (the TPU kernels build them
+  in their first sweep).  Bound by operations like #5 and #6 (the packed W's
+  fewer bytes lower a bound that was not binding); the loader adds integer
+  work and a scale load per staged element.  An int4 W may hold kq > k
+  rows: x's columns, W's rows and dx's columns are masked at the logical k.
 * ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``): for
-  m > 8 rows (admission prefills, bound by operations) the #5 tile with no
-  rank term and a W slab that is dequantized as it is loaded (int8 per
-  channel or int4 per group, ``csrc/loaders.cuh``), with the k loop inside
-  the block, so no reduction crosses blocks.  At decode shapes (m <= 8) it
-  is bound by the packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x
-  16384 / 2 = 16.8 MB, about 5 us at 3.35 TB/s), and the tile's k loop
-  over 60 empty rows was bound by its latency instead (PERF.md); there it
-  takes the split-k GEMV body of the BGMV decode kernel
-  (``csrc/gemv.cuh``), which reads each packed element once, and a
-  fixed-order pass adds the k-split partials.  Forward only: its backward
-  (#12) is not ported yet, so on CUDA it raises when x requires grad.
+  m > 8 rows (prefills, training; bound by operations) the forward tile of
+  #9 with no rank term.  At decode shapes (m <= 8) it is bound by the
+  packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x 16384 / 2 = 16.8 MB,
+  about 5 us at 3.35 TB/s), and the tile's k loop over 60 empty rows was
+  bound by its latency instead (PERF.md); there it takes the split-k GEMV
+  body of the BGMV decode kernel (``csrc/gemv.cuh``), which reads each
+  packed element once, and a fixed-order pass adds the k-split partials.
+* ``quant_matmul_dx`` replaces ``_qmm_dx_kernel`` (``:544``,
+  ``_qmm_dx_call``): the dx tile of #10 with no rank term, bound by
+  operations (2 m n k; 2 x 512 x 2048 x 16384 at the MLP's projections).
+  Training runs it at m = 512 only, so it has no GEMV form; it is right at
+  any m.
 
 Each kernel wrapper adds one to its entry of :data:`launches` where it
 launches its kernel (the rank pre-pass included), and nowhere else.
@@ -65,15 +83,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels.common import (DTYPES, GEMV_MAX_ROWS, check_packed,
                                         gemv_split, num_sms, raise_on, route,
                                         stream)
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
-            "lora_bwd_db": 0, "quant_matmul": 0}
+            "lora_bwd_db": 0, "lora_fwd_quant": 0, "lora_bwd_dx_quant": 0,
+            "quant_matmul": 0, "quant_matmul_dx": 0}
 
 _MAX_GRID_Y = 65535 * 64          # rows of one operand a tile grid covers
+_TILE, _SLAB = 64, 16             # the tile kernel's output tile and k step
 
 
 def reset_launches() -> None:
@@ -114,9 +135,27 @@ def lora_bwd_db_plain(g, p, gamma: float):
     return gamma * (_acc(g).T @ _acc(p))
 
 
+def lora_fwd_quant_plain(x, wq, a, b, gamma: float):
+    """Plain version of :func:`lora_fwd_quant`: :func:`lora_fwd_plain` over
+    ``dequantize(W)``."""
+    return lora_fwd_plain(x, wq.dequantize(), a, b, gamma)
+
+
+def lora_bwd_dx_quant_plain(g, wq, a, b, gamma: float):
+    """Plain version of :func:`lora_bwd_dx_quant`: :func:`lora_bwd_dx_plain`
+    over ``dequantize(W)``."""
+    return lora_bwd_dx_plain(g, wq.dequantize(), a, b, gamma)
+
+
 def quant_matmul_plain(x, wq):
     """Plain version of :func:`quant_matmul`: x @ dequantize(W) in fp32."""
     return _acc(x) @ _acc(wq.dequantize())
+
+
+def quant_matmul_dx_plain(g, wq):
+    """Plain version of :func:`quant_matmul_dx`: g @ dequantize(W)^T in
+    fp32."""
+    return _acc(g) @ _acc(wq.dequantize()).T
 
 
 # ------------------------------------------------------------------ wrappers
@@ -199,6 +238,31 @@ def lora_bwd_dx(g, w, a, b, gamma: float):
     return dx, q
 
 
+def _m_split(m: int, ni: int, nj: int, device):
+    """(msplit, mchunk) for #7 / #8 over an (ni, nj) output: split the m
+    loop so that about two blocks per SM are in flight, in chunks of whole
+    k steps."""
+    tiles = -(-ni // _TILE) * -(-nj // _TILE)
+    want = max(1, min(-(-2 * num_sms(device) // tiles), -(-m // _SLAB)))
+    mchunk = -(-m // want)
+    mchunk = -(-mchunk // _SLAB) * _SLAB
+    return -(-m // mchunk), mchunk
+
+
+def _m_split_out(m: int, ni: int, nj: int, device):
+    """(out (ni, nj) fp32, partial scratch (msplit, ni, nj) fp32 or None,
+    msplit, mchunk) for #7 / #8 with the m split of :func:`_m_split`."""
+    msplit, mchunk = _m_split(m, ni, nj, device)
+    out = torch.empty(ni, nj, dtype=torch.float32, device=device)
+    partial = (torch.empty(msplit, ni, nj, dtype=torch.float32, device=device)
+               if msplit > 1 else None)
+    return out, partial, msplit, mchunk
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def lora_bwd_da(q, x, gamma: float):
     """Kernel #7: dA = gamma q^T x, (r, k) fp32, reduced over m in a fixed
     order."""
@@ -210,10 +274,10 @@ def lora_bwd_da(q, x, gamma: float):
     if q.shape[0] != m:
         raise ValueError(f"lora_bwd_da: q {tuple(q.shape)} vs x "
                          f"{tuple(x.shape)}")
-    da = torch.empty(r, k, dtype=torch.float32, device=x.device)
+    da, partial, msplit, mchunk = _m_split_out(m, r, k, x.device)
     err = load().lora_bwd_da_launch(
-        q.data_ptr(), x.data_ptr(), da.data_ptr(), m, k, r, float(gamma),
-        DTYPES[x.dtype], stream(x))
+        q.data_ptr(), x.data_ptr(), _ptr(partial), da.data_ptr(), m, k, r,
+        msplit, mchunk, float(gamma), DTYPES[x.dtype], stream(x))
     raise_on(err, "lora_bwd_da")
     launches["lora_bwd_da"] += 1
     return da
@@ -230,13 +294,117 @@ def lora_bwd_db(g, p, gamma: float):
     if p.shape[0] != m:
         raise ValueError(f"lora_bwd_db: p {tuple(p.shape)} vs g "
                          f"{tuple(g.shape)}")
-    db = torch.empty(n, r, dtype=torch.float32, device=g.device)
+    db, partial, msplit, mchunk = _m_split_out(m, n, r, g.device)
     err = load().lora_bwd_db_launch(
-        g.data_ptr(), p.data_ptr(), db.data_ptr(), m, n, r, float(gamma),
-        DTYPES[g.dtype], stream(g))
+        g.data_ptr(), p.data_ptr(), _ptr(partial), db.data_ptr(), m, n, r,
+        msplit, mchunk, float(gamma), DTYPES[g.dtype], stream(g))
     raise_on(err, "lora_bwd_db")
     launches["lora_bwd_db"] += 1
     return db
+
+
+def _check_quant(name, ops, wq):
+    """:func:`_check` of ``ops`` and of a packed W's data and scales, after
+    its layout and dtype (``common.check_packed``).  Returns (group, bf16w)
+    for the C entry point."""
+    group, bf16w = check_packed(wq, name)
+    _check(name, ops, packed={"W data": wq.data, "W scales": wq.scales})
+    return group, bf16w
+
+
+def lora_fwd_quant(x, wq, a, b, gamma: float):
+    """Kernel #9: :func:`lora_fwd` over a packed W ``wq`` (a
+    :class:`~repro_torch.core.quant.QuantizedLinear` of logical shape (k,
+    n)): (y (m, n) fp32, p = x A^T (m, r) fp32)."""
+    if not route(x, "lora_matmul"):
+        return lora_fwd_quant_plain(x, wq, a, b, gamma)
+    from repro_torch.kernels.build import load
+    group, bf16w = _check_quant("lora_fwd_quant", {"x": x, "a": a, "b": b},
+                                wq)
+    m, k, n, r = _shapes("lora_fwd_quant", x, wq, a, b)
+    if x.shape[1] != k:
+        raise ValueError(f"lora_fwd_quant: x {tuple(x.shape)} vs W "
+                         f"{tuple(wq.shape)}")
+    p = torch.empty(m, r, dtype=torch.float32, device=x.device)
+    y = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    err = load().lora_fwd_quant_launch(
+        x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(), a.data_ptr(),
+        b.data_ptr(), p.data_ptr(), y.data_ptr(), m, k, n, r, float(gamma),
+        wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
+    raise_on(err, "lora_fwd_quant")
+    launches["lora_fwd_quant"] += 1
+    return y, p
+
+
+def lora_bwd_dx_quant(g, wq, a, b, gamma: float):
+    """Kernel #10: :func:`lora_bwd_dx` over a packed W: (dx (m, k) fp32,
+    q = g B (m, r) fp32)."""
+    if not route(g, "lora_matmul"):
+        return lora_bwd_dx_quant_plain(g, wq, a, b, gamma)
+    from repro_torch.kernels.build import load
+    group, bf16w = _check_quant("lora_bwd_dx_quant",
+                                {"g": g, "a": a, "b": b}, wq)
+    m, k, n, r = _shapes("lora_bwd_dx_quant", g, wq, a, b)
+    if g.shape[1] != n:
+        raise ValueError(f"lora_bwd_dx_quant: g {tuple(g.shape)} vs W "
+                         f"{tuple(wq.shape)}")
+    q = torch.empty(m, r, dtype=torch.float32, device=g.device)
+    dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
+    err = load().lora_bwd_dx_quant_launch(
+        g.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(), a.data_ptr(),
+        b.data_ptr(), q.data_ptr(), dx.data_ptr(), m, k, n, r, float(gamma),
+        wq.bits, group, bf16w, DTYPES[g.dtype], stream(g))
+    raise_on(err, "lora_bwd_dx_quant")
+    launches["lora_bwd_dx_quant"] += 1
+    return dx, q
+
+
+def quant_matmul(x, wq):
+    """Kernel #11: y = x dequant(W), x (m, k), ``wq`` a packed W of logical
+    shape (k, n).  Returns (m, n) fp32."""
+    if not route(x, "lora_matmul"):
+        return quant_matmul_plain(x, wq)
+    from repro_torch.kernels.build import load
+    group, bf16w = _check_quant("quant_matmul", {"x": x}, wq)
+    (m, k), n = x.shape, wq.shape[1]
+    if wq.k != k:
+        raise ValueError(f"quant_matmul: x {tuple(x.shape)} vs W "
+                         f"{tuple(wq.shape)}")
+    y = torch.empty(m, n, dtype=torch.float32, device=x.device)
+    ksplit = kchunk = 0
+    partial = None
+    if m <= GEMV_MAX_ROWS:           # the decode form: split-k GEMV
+        ksplit, kchunk = gemv_split(m, k, n, num_sms(x.device))
+        partial = torch.empty(ksplit, m, n, dtype=torch.float32,
+                              device=x.device)
+    err = load().quant_matmul_launch(
+        x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
+        _ptr(partial), y.data_ptr(), m, k,
+        n, ksplit, kchunk, wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
+    raise_on(err, "quant_matmul")
+    launches["quant_matmul"] += 1
+    return y
+
+
+def quant_matmul_dx(g, wq):
+    """Kernel #12: dx = g dequant(W)^T, g (m, n), ``wq`` a packed W of
+    logical shape (k, n).  Returns (m, k) fp32."""
+    if not route(g, "lora_matmul"):
+        return quant_matmul_dx_plain(g, wq)
+    from repro_torch.kernels.build import load
+    group, bf16w = _check_quant("quant_matmul_dx", {"g": g}, wq)
+    (m, n), k = g.shape, wq.k
+    if wq.shape[1] != n:
+        raise ValueError(f"quant_matmul_dx: g {tuple(g.shape)} vs W "
+                         f"{tuple(wq.shape)}")
+    dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
+    err = load().quant_matmul_dx_launch(
+        g.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
+        dx.data_ptr(), m, k, n, wq.bits, group, bf16w, DTYPES[g.dtype],
+        stream(g))
+    raise_on(err, "quant_matmul_dx")
+    launches["quant_matmul_dx"] += 1
+    return dx
 
 
 # ---------------------------------------------------------------- autograd
@@ -270,53 +438,89 @@ class LoRAMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, a, b, p = ctx.saved_tensors
-        gamma = ctx.gamma
-        if ctx.kernel:
-            dx_fn, da_fn, db_fn = lora_bwd_dx, lora_bwd_da, lora_bwd_db
-        else:
-            dx_fn, da_fn, db_fn = (lora_bwd_dx_plain, lora_bwd_da_plain,
-                                   lora_bwd_db_plain)
-        g = g.to(x.dtype).contiguous()
-        dx, q = dx_fn(g, ctx.w, a, b, gamma)
-        da = da_fn(q, x, gamma)
-        db = db_fn(g, p, gamma)
+        dx, da, db = _lora_grads(
+            ctx, g, lora_bwd_dx if ctx.kernel else lora_bwd_dx_plain)
         need = ctx.needs_input_grad
-        return (dx.to(x.dtype) if need[0] else None, None,
-                da.to(a.dtype) if need[2] else None,
-                db.to(b.dtype) if need[3] else None, None, None)
+        return (dx if need[0] else None, None, da if need[2] else None,
+                db if need[3] else None, None, None)
 
 
-def quant_matmul(x, wq):
-    """Kernel #11: y = x dequant(W), x (m, k), ``wq`` a packed
-    :class:`~repro_torch.core.quant.QuantizedLinear` of logical shape
-    (k, n).  Returns (m, n) fp32."""
-    if not route(x, "lora_matmul"):
-        return quant_matmul_plain(x, wq)
-    from repro_torch.kernels.build import load
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            "quant_matmul: the packed-base GEMM has no backward yet (kernel "
-            "#12, _qmm_dx_kernel, is not yet ported), but x requires grad; "
-            "run it under torch.no_grad() or torch.inference_mode()")
-    group = check_packed(wq, "quant_matmul")
-    _check("quant_matmul", {"x": x}, packed={"W data": wq.data,
-                                             "W scales": wq.scales})
-    (m, k), n = x.shape, wq.shape[1]
-    if wq.k != k:
-        raise ValueError(f"quant_matmul: x {tuple(x.shape)} vs W "
-                         f"{tuple(wq.shape)}")
-    y = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    ksplit = kchunk = 0
-    partial = None
-    if m <= GEMV_MAX_ROWS:           # the decode form: split-k GEMV
-        ksplit, kchunk = gemv_split(m, k, n, num_sms(x.device))
-        partial = torch.empty(ksplit, m, n, dtype=torch.float32,
-                              device=x.device)
-    err = load().quant_matmul_launch(
-        x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
-        None if partial is None else partial.data_ptr(), y.data_ptr(), m, k,
-        n, ksplit, kchunk, wq.bits, group, DTYPES[x.dtype], stream(x))
-    raise_on(err, "quant_matmul")
-    launches["quant_matmul"] += 1
-    return y
+def _lora_grads(ctx, g, dx_fn):
+    """The backward wiring both LoRA Functions share: ``dx_fn`` (#6 or #10,
+    or its plain version) gives dx and the residual q, then #7 and #8 (or
+    their plain versions) give dA and dB; each in its operand's dtype."""
+    x, a, b, p = ctx.saved_tensors
+    da_fn, db_fn = ((lora_bwd_da, lora_bwd_db) if ctx.kernel
+                    else (lora_bwd_da_plain, lora_bwd_db_plain))
+    g = g.to(x.dtype).contiguous()
+    dx, q = dx_fn(g, ctx.w, a, b, ctx.gamma)
+    return (dx.to(x.dtype), da_fn(q, x, ctx.gamma).to(a.dtype),
+            db_fn(g, p, ctx.gamma).to(b.dtype))
+
+
+def packed_meta(wq):
+    """The static fields of a packed W, which the Functions below take
+    beside its data and scales tensors (a QuantizedLinear is not a tensor,
+    so autograd could not see through it)."""
+    return (wq.bits, wq.group_size, wq.k, wq.out_dtype)
+
+
+def _frozen_scales(name, ws):
+    if ws.requires_grad:
+        raise ValueError(
+            f"{name} never computes gradients of the packed base (it is "
+            "frozen); pass scales that do not require grad")
+
+
+class LoRAMatmulQuant(torch.autograd.Function):
+    """:class:`LoRAMatmul` over a packed W: the port of ``_vjp_op_q``.
+
+    ``apply(x, wd, ws, a, b, meta, gamma, kernel)``: ``wd`` and ``ws`` the
+    packed W's data and scales, ``meta`` its :func:`packed_meta`, the rest
+    as in :class:`LoRAMatmul`.  Forward runs #9 and saves x, A, B and the
+    residual p.  Backward runs #10 (whose q #7 needs), then #7 and #8; dx
+    only where x needs it.  No gradient reaches the packed data or scales:
+    scales that require grad raise."""
+
+    @staticmethod
+    def forward(ctx, x, wd, ws, a, b, meta, gamma, kernel):
+        _frozen_scales("LoRAMatmulQuant", ws)
+        wq = QuantizedLinear(wd, ws, *meta)
+        fwd = lora_fwd_quant if kernel else lora_fwd_quant_plain
+        y, p = fwd(x, wq, a, b, gamma)
+        ctx.save_for_backward(x, a, b, p)
+        ctx.w = wq
+        ctx.gamma, ctx.kernel = gamma, kernel
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, da, db = _lora_grads(
+            ctx, g,
+            lora_bwd_dx_quant if ctx.kernel else lora_bwd_dx_quant_plain)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, None, None,
+                da if need[3] else None, db if need[4] else None, None, None,
+                None)
+
+
+class QuantMatmul(torch.autograd.Function):
+    """y = x dequant(W) with the gradient of x: the port of ``_qmm_op``.
+
+    ``apply(x, wd, ws, meta, kernel)``: forward #11 (its tile, or its GEMV
+    form for m <= 8), backward #12.  No gradient reaches the packed data or
+    scales: scales that require grad raise."""
+
+    @staticmethod
+    def forward(ctx, x, wd, ws, meta, kernel):
+        _frozen_scales("QuantMatmul", ws)
+        wq = QuantizedLinear(wd, ws, *meta)
+        ctx.wq, ctx.kernel, ctx.dtype = wq, kernel, x.dtype
+        y = (quant_matmul if kernel else quant_matmul_plain)(x, wq)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx_fn = quant_matmul_dx if ctx.kernel else quant_matmul_dx_plain
+        dx = dx_fn(g.to(ctx.dtype).contiguous(), ctx.wq)
+        return dx.to(ctx.dtype), None, None, None, None

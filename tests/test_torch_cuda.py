@@ -38,6 +38,11 @@ def _operands(m, k, n, r, dtype, seed=0):
             for a in arrs]
 
 
+def _launches(**counts):
+    """lora_matmul's launch counts: ``counts``, every other kernel 0."""
+    return {k: counts.get(k, 0) for k in lora_matmul.launches}
+
+
 def _assert_close(got, want, dtype=torch.float32):
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
     got, want = got.float(), want.float()
@@ -66,8 +71,8 @@ def test_lora_kernels_match_plain(card, m, k, n, r, dtype):
                       (da, lm.lora_bwd_da_plain(q_want, x, 1.5)),
                       (db, lm.lora_bwd_db_plain(g, p_want, 1.5))):
         _assert_close(got, want)
-    assert lm.launches == {"lora_fwd": 1, "lora_bwd_dx": 1, "lora_bwd_da": 1,
-                           "lora_bwd_db": 1, "quant_matmul": 0}
+    assert lm.launches == _launches(lora_fwd=1, lora_bwd_dx=1, lora_bwd_da=1,
+                                    lora_bwd_db=1)
 
 
 @pytest.mark.cuda
@@ -97,9 +102,8 @@ def test_loss_gradients_reach_adapters(card):
                                  adapters=AdapterSet(lora=leaves, gamma=2.0))
             grads[plain] = torch.autograd.grad(loss, tree_leaves(leaves))
         n = 0 if plain else 2 * cfg.num_layers
-        assert lora_matmul.launches == {"lora_fwd": n, "lora_bwd_dx": n,
-                                        "lora_bwd_da": n, "lora_bwd_db": n,
-                                        "quant_matmul": 0}
+        assert lora_matmul.launches == _launches(
+            lora_fwd=n, lora_bwd_dx=n, lora_bwd_da=n, lora_bwd_db=n)
     for got, want in zip(grads[False], grads[True]):
         assert float(got.abs().max()) > 0
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-5)
@@ -208,26 +212,129 @@ def test_bgmv_quant_matches_plain(card, bits, s, k, n, r, with_ids, dtype):
 
 
 @pytest.mark.cuda
-def test_quant_kernels_raise_where_unported(card):
-    """Forward only: #11 raises under autograd (its backward #12 is not
-    ported), a single adapter over a packed base raises (#9), and a base
-    packed from bf16 weights raises in #3, #4 and #11."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n,r", [(512, 2048, 2048, 64),
+                                     (512, 2048, 256, 64), (50, 100, 30, 3),
+                                     (3, 100, 30, 3)])
+def test_packed_training_kernels_match_plain(card, bits, m, k, n, r, dtype):
+    """#9, #10 and #12 against their plain versions at the training path's
+    q and v shapes, a ragged one (k = 100: an int4 W holds 128 rows, the
+    last 28 masked) and at m = 3, with fp32 and bf16 activations."""
+    lm = lora_matmul
+    x, _, a, b, g = _operands(m, k, n, r, getattr(torch, dtype), seed=3)
+    wq = _packed(k, n, bits, seed=4)
+    y, p = lm.lora_fwd_quant(x, wq, a, b, 1.5)
+    y_want, p_want = lm.lora_fwd_quant_plain(x, wq, a, b, 1.5)
+    dx, q = lm.lora_bwd_dx_quant(g, wq, a, b, 1.5)
+    dx_want, q_want = lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5)
+    dx0 = lm.quant_matmul_dx(g, wq)
+    torch.cuda.synchronize()
+    for got, want in ((y, y_want), (p, p_want), (dx, dx_want), (q, q_want),
+                      (dx0, lm.quant_matmul_dx_plain(g, wq))):
+        _assert_close(got, want)
+    assert lm.launches == _launches(lora_fwd_quant=1, lora_bwd_dx_quant=1,
+                                    quant_matmul_dx=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_loss_gradients_over_packed_base_reach_adapters(card, mode):
+    """Over a packed base the loss's gradients reach A and B through #9,
+    #10, #7, #8, #11 and #12 and match the plain tier's, which
+    dequantizes."""
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import AdapterSet, init_lora
+    from repro_torch.core.quant import quantize_tree
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("gemma-2b").reduced()
+    model = build_model(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    lora = init_lora(params, gen, LoRAConfig(rank=8))
+    lora = tree_map(lambda t: t + 0.02 * torch.randn(
+        t.shape, generator=gen, device="cuda"), lora)
+    base = quantize_tree(params, mode, 64)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                         device="cuda")
+    grads = {}
+    for plain in (False, True):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+        lora_matmul.reset_launches()
+        with dispatch.plain_tier() if plain else torch.enable_grad():
+            loss, _ = model.loss(base, {"tokens": toks},
+                                 adapters=AdapterSet(lora=leaves, gamma=2.0))
+            grads[plain] = torch.autograd.grad(loss, tree_leaves(leaves))
+        n = 0 if plain else 2 * cfg.num_layers
+        u = 0 if plain else 5 * cfg.num_layers
+        assert lora_matmul.launches == _launches(
+            lora_fwd_quant=n, lora_bwd_dx_quant=n, lora_bwd_da=n,
+            lora_bwd_db=n, quant_matmul=u, quant_matmul_dx=max(0, u - 1))
+    for got, want in zip(grads[False], grads[True]):
+        assert float(got.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_bf16_packed_base_through_the_six_packed_kernels(card, bits):
+    """A base packed from bf16 weights dequantizes to each fp32 product
+    rounded to bf16; #3, #4, #9, #10, #11 and #12 form the same elements
+    and agree with their plain versions (fp32 activations)."""
+    lm = lora_matmul
+    k, n, r = 100, 48, 4
+    wq = quantize(torch.randn(k, n, device="cuda", dtype=torch.bfloat16), bits,
+                  64)
+    x, _, a, b, g = _operands(24, k, n, r, torch.float32, seed=6)
+    bank_a, bank_b = a[None].expand(4, r, k).contiguous(), \
+        b[None].expand(4, n, r).contiguous()
+    pairs = [(lm.lora_fwd_quant(x, wq, a, b, 1.5),
+              lm.lora_fwd_quant_plain(x, wq, a, b, 1.5)),
+             (lm.lora_bwd_dx_quant(g, wq, a, b, 1.5),
+              lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5)),
+             (lm.quant_matmul(x, wq), lm.quant_matmul_plain(x, wq)),
+             (lm.quant_matmul(x[:4], wq), lm.quant_matmul_plain(x[:4], wq)),
+             (lm.quant_matmul_dx(g, wq), lm.quant_matmul_dx_plain(g, wq)),
+             (bgmv.bgmv_matmul_quant(x.reshape(4, 6, k), wq, bank_a, bank_b),
+              bgmv.bgmv_matmul_quant_plain(x.reshape(4, 6, k), wq, bank_a,
+                                           bank_b)),
+             (bgmv.bgmv_gemv_quant(x[:4], wq, bank_a, bank_b),
+              bgmv.bgmv_gemv_quant_plain(x[:4], wq, bank_a, bank_b))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for gt, wt in zip(got, want):
+            _assert_close(gt, wt)
+    assert sum(lm.launches.values()) == 5
+    assert sum(bgmv.launches.values()) == 2
+
+
+@pytest.mark.cuda
+def test_quant_kernels_raise_where_refused(card):
+    """What stays refused: the quantized BGMV kernels under autograd (they
+    have no backward), and a base packed from weights of a dtype whose
+    rounding no loader forms (float16)."""
     wq = _packed(64, 32, 4)
-    x = torch.randn(3, 64, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="#12"):
-        lora_matmul.quant_matmul(x, wq)
-    wq16 = quantize(torch.randn(64, 32, device="cuda", dtype=torch.bfloat16),
+    x = torch.randn(3, 64, device="cuda")
+    a = torch.zeros(3, 4, 64, device="cuda", requires_grad=True)
+    b = torch.zeros(3, 32, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        bgmv.bgmv_gemv_quant(x, wq, a, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bgmv.bgmv_matmul_quant(x[None], wq, a[:1], b[:1])
+    wq16 = quantize(torch.randn(64, 32, device="cuda", dtype=torch.float16),
                     4, 64)
-    a, b = torch.zeros(3, 4, 64, device="cuda"), torch.zeros(3, 32, 4,
+    a2, b2 = torch.zeros(4, 64, device="cuda"), torch.zeros(32, 4,
                                                              device="cuda")
     with torch.no_grad():
         for call in (lambda: lora_matmul.quant_matmul(x, wq16),
-                     lambda: bgmv.bgmv_gemv_quant(x, wq16, a, b),
-                     lambda: bgmv.bgmv_matmul_quant(x[None], wq16, a[:1],
-                                                    b[:1])):
-            with pytest.raises(TypeError, match="float32 weights"):
+                     lambda: lora_matmul.quant_matmul_dx(x[:, :32], wq16),
+                     lambda: lora_matmul.lora_fwd_quant(x, wq16, a2, b2, 1.0),
+                     lambda: bgmv.bgmv_gemv_quant(x, wq16, a.detach(), b),
+                     lambda: bgmv.bgmv_matmul_quant(x[None], wq16,
+                                                    a.detach()[:1], b[:1])):
+            with pytest.raises(TypeError, match="float16"):
                 call()
-    lora = {"a": torch.randn(4, 64, device="cuda"),
-            "b": torch.randn(32, 4, device="cuda")}
-    with pytest.raises(NotImplementedError, match="#9"):
-        dispatch.lora_linear(x.detach(), wq, lora, 1.0)
+    assert not any(lora_matmul.launches.values())

@@ -23,7 +23,9 @@ from repro_torch.kernels import lora_matmul                    # noqa: E402
 FWD_TOL = dict(rtol=2e-5, atol=2e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 NO_LORA_LAUNCHES = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
-                    "lora_bwd_db": 0, "quant_matmul": 0}
+                    "lora_bwd_db": 0, "lora_fwd_quant": 0,
+                    "lora_bwd_dx_quant": 0, "quant_matmul": 0,
+                    "quant_matmul_dx": 0}
 NO_BGMV_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
                     "bgmv_gemv_quant": 0}
 
@@ -245,3 +247,20 @@ def test_wrapper_checks_residuals_are_fp32():
                            fp32={"q": torch.zeros(6, 4).bfloat16()})
     lora_matmul._check("lora_bwd_da", {"x": x.bfloat16()},
                        fp32={"q": torch.zeros(6, 4)})
+
+
+@pytest.mark.parametrize("m, ni, nj, want", [
+    (512, 64, 2048, (8, 64)),      # dA at gemma-2b's q: 32 tiles
+    (512, 2048, 64, (8, 64)),      # dB at q
+    (512, 256, 64, (32, 16)),      # dB at v: 4 tiles, one step per chunk
+    (50, 3, 70, (4, 16)),          # ragged: the last chunk is short
+    (10, 64, 64, (1, 16)),         # fewer rows than one step
+    (4096, 2048, 2048, (1, 4096)),  # enough tiles: no split
+])
+def test_m_split_covers_m_in_whole_steps(monkeypatch, m, ni, nj, want):
+    """#7 / #8 split their m loop into chunks of whole 16-row steps, about
+    two blocks per SM (132 SMs here), none of them empty."""
+    monkeypatch.setattr(lora_matmul, "num_sms", lambda device: 132)
+    msplit, mchunk = lora_matmul._m_split(m, ni, nj, "cuda")
+    assert (msplit, mchunk) == want
+    assert mchunk % 16 == 0 and (msplit - 1) * mchunk < m <= msplit * mchunk

@@ -10,8 +10,8 @@
     ``requantize_merged`` and ``quant_footprint`` behave as the JAX ones.
   * Banked ``generate_banked`` and scheduled tokens over an int8 and an int4
     base equal the JAX reference tier's (which dequantizes up front).
-  * The dispatcher routes packed weights to the quantized kernels, and
-    refuses a single adapter over a packed base on the kernel tier (#9).
+  * The dispatcher routes packed weights to the quantized kernels (#3, #4,
+    #9, #11); what check_packed tells them per ``out_dtype``.
 """
 import dataclasses
 
@@ -93,16 +93,20 @@ def test_check_layout_rejects_bad_bytes():
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_kernels_take_only_a_base_packed_from_fp32(bits):
-    """The quantized kernels form each W element as one fp32 product, which
-    is ``dequantize`` of an fp32 base; a base packed from bf16 weights
-    dequantizes to that product rounded to bf16, so their wrappers refuse
-    it before any launch."""
+    """What the packed kernels are told per ``out_dtype``: the group size
+    they index scales with (0 for int8) and the flag that makes their
+    loaders round each fp32 product to bf16, set for a base packed from
+    bf16 weights, which ``dequantize`` rounds so; any other dtype is
+    refused before a launch."""
     from repro_torch.kernels.common import check_packed
     w = torch.randn(70, 8)
+    group = 0 if bits == 8 else 64
     assert check_packed(tquant.quantize(w, bits, 64), "quant_matmul") == \
-        (0 if bits == 8 else 64)
-    with pytest.raises(TypeError, match="bfloat16"):
-        check_packed(tquant.quantize(w.bfloat16(), bits, 64), "quant_matmul")
+        (group, 0)
+    assert check_packed(tquant.quantize(w.bfloat16(), bits, 64),
+                        "quant_matmul") == (group, 1)
+    with pytest.raises(TypeError, match="float16"):
+        check_packed(tquant.quantize(w.half(), bits, 64), "quant_matmul")
 
 
 def _kernel_operands(bits, k, seed=4):
@@ -289,7 +293,8 @@ def test_dispatch_routes_packed_weights(monkeypatch):
     """With the kernel routes taken (dispatch._use_kernel forced true; the
     wrappers run their plain versions on CPU tensors): no adapter -> #11,
     banked s == 1 -> #4, banked s > 1 -> #3, each counted in
-    stats["quant"]; a single adapter over a packed base raises (#9)."""
+    stats["quant"]; a single adapter over a packed base -> #9 under no grad
+    (its training route is in ``tests/test_torch_quant_train.py``)."""
     rng = np.random.default_rng(1)
     w = torch.from_numpy((rng.standard_normal((40, 24)) * 0.1).astype(
         np.float32))
@@ -320,6 +325,10 @@ def test_dispatch_routes_packed_weights(monkeypatch):
     for key in plain:
         torch.testing.assert_close(got[key], plain[key], rtol=TOL, atol=TOL)
     torch.testing.assert_close(plain["none"], x @ wq.dequantize())
-    with pytest.raises(NotImplementedError, match="#9"):
-        dispatch.lora_linear(x, wq, {"a": lora["a"][0], "b": lora["b"][0]},
-                             1.0)
+    single = {"a": lora["a"][0], "b": lora["b"][0]}
+    spy(lora_matmul, "lora_fwd_quant")
+    got1 = dispatch.lora_linear(x, wq, single, 1.0)
+    assert calls[-1] == "lora_fwd_quant" and dispatch.stats["quant"] == 4
+    torch.testing.assert_close(
+        got1, x @ wq.dequantize() + (x @ single["a"].T) @ single["b"].T,
+        rtol=TOL, atol=TOL)

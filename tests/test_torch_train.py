@@ -388,11 +388,6 @@ def test_trainer_rejects_unported_modes(small):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfed.FederatedTrainer(model, ds, **{
             **kw, "lora_cfg": tbase.LoRAConfig(ranks=(4, 8))})
-    tr = tfed.FederatedTrainer(model, ds, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tr.save("x.npz")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tr.restore("x.npz")
 
 
 # ---------------------------------------------------------------------- CLI
@@ -411,9 +406,9 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ranks", "4,8"], ["--mesh", "4x2"], ["--quant", "int8"],
+    ["--ranks", "4,8"], ["--mesh", "4x2"],
     ["--faults", "dropout=0.1"], ["--buffer", "2"], ["--watchdog", "2"],
-    ["--data-mode", "device"], ["--save", "x.npz"], ["--resume", "x.npz"],
+    ["--data-mode", "device"],
     ["--strategy", "flora"], ["--arch", "qwen3-8b"],
 ], ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flags):
