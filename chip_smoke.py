@@ -50,8 +50,27 @@ Phases, in order; any failure raises and the exit code is not 0:
      k, o and the MLP), with the launch counts, a bit-identical repeat,
      save / resume bit for bit, the plain tier, ms/round and (int4) a
      profile of one client local step
- 11. result: a JSON line of per-kernel numbers, the nvidia-smi line, and
-     the final {"ok": true, ...} line
+ 11. RG-LRU scan and flash attention vs plain: #15 at the RG-LRU
+     prefill's (4, 128, 4096), the kernel bench's (4, 2048, 256) and a
+     ragged (3, 100, 1000); #14 at recurrentgemma-9b's local attention
+     (s = t = 4096, 16 heads on one kv head, d 256, causal, window 2048),
+     gemma-2b's (s = t = 2048, 8 heads, causal) and a non-causal cross shape
+     (s 512, t 2048); fp32 and bf16, the tolerances of tests/test_kernels.py;
+     then their times beside the plain versions, SDPA (#14) and the card's
+     bound
+ 12. kernel API path: repro_torch.kernels.ops (flash_mha at both attention
+     shapes, rglru_scan_op, fused_lora_matmul), with the launch counts of
+     #14, #15 and #5 and the outputs against the plain versions
+ 13. hybrid serving path: recurrentgemma-9b at full width and depth (fp32,
+     seeded random weights, the 4 SFed-LoRA tenants of phase 4 at q, v, wx,
+     wy) through generate_banked (26 launches of #15 and 76 of #2 per
+     prefill, 76 of #1 per decode step, teacher-forced logits against the
+     plain tier, ms/token, a profile) and serve_scheduled (the traffic of
+     phase 8 over an fp32 base: #15 per admission group, #13 per decode
+     step, plain tier against generate_banked wave by wave, kernel tier
+     against plain tier)
+ 14. result: a JSON line of per-kernel numbers, the script's time, the
+     nvidia-smi line, and the final {"ok": true, ...} line
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -83,9 +102,11 @@ from repro_torch.core.quant import (quant_footprint, quantize,  # noqa: E402
                                     quantize_tree)
 from repro_torch.data.synthetic import FederatedDataset     # noqa: E402
 from repro_torch.kernels import (bgmv, build, dispatch,  # noqa: E402
-                                 lora_matmul, paged_attention)
+                                 flash_attention, lora_matmul, ops,
+                                 paged_attention, rglru_scan)
 from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models.api import build_model              # noqa: E402
+from repro_torch.models.transformer import stack_layout     # noqa: E402
 from repro_torch.tree import tree_leaves                    # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -98,6 +119,7 @@ BF16_STEP = 2 ** -7            # a bf16 output (#13 over bf16 pools) may
                                # round one bf16 step of |plain| apart: both
                                # round fp32 values that differ in their
                                # last bits
+BF16_ATOL = 1e-3               # beside BF16_STEP, for outputs near zero
 LOGIT_ATOL = 1e-3              # teacher-forced logits, kernel vs plain tier
 # training path: kernel-tier vs plain-tier per-round loss and grad-norm.
 # Both run fp32 with the same data; only the order of the sums differs (the
@@ -117,7 +139,9 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "quant_matmul": CSRC + "lora_matmul.cu",
            "lora_fwd_quant": CSRC + "lora_matmul.cu",
            "lora_bwd_dx_quant": CSRC + "lora_matmul.cu",
-           "quant_matmul_dx": CSRC + "lora_matmul.cu"}
+           "quant_matmul_dx": CSRC + "lora_matmul.cu",
+           "rglru_scan": CSRC + "rglru_scan.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "bgmv_matmul": "src/repro/kernels/bgmv.py:59",
             "lora_fwd": "src/repro/kernels/lora_matmul.py:55",
@@ -130,14 +154,17 @@ REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "quant_matmul": "src/repro/kernels/lora_matmul.py:514",
             "lora_fwd_quant": "src/repro/kernels/lora_matmul.py:345",
             "lora_bwd_dx_quant": "src/repro/kernels/lora_matmul.py:414",
-            "quant_matmul_dx": "src/repro/kernels/lora_matmul.py:544"}
+            "quant_matmul_dx": "src/repro/kernels/lora_matmul.py:544",
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:21",
+            "flash_attention": "src/repro/kernels/flash_attention.py:22"}
 # the row of each kernel's times that the kernels line reports
 ROW = {"bgmv_gemv": "q", "bgmv_matmul": "q", "lora_fwd": "q",
        "lora_bwd_dx": "q", "lora_bwd_da": "q", "lora_bwd_db": "q",
        "paged_attention": "path", "bgmv_matmul_quant": "int4 q m=512",
        "bgmv_gemv_quant": "int4 q m=4", "quant_matmul": "int4 w_up m=4",
        "lora_fwd_quant": "int4 q", "lora_bwd_dx_quant": "int4 q",
-       "quant_matmul_dx": "int4 w_up"}
+       "quant_matmul_dx": "int4 w_up", "rglru_scan": "path",
+       "flash_attention": "recurrentgemma-9b"}
 
 
 def phase(name):
@@ -360,6 +387,22 @@ def serving_model(cfg, device):
     return model, params, AdapterBank.from_sets(sets)
 
 
+def _layer_kinds(cfg):
+    """The block kind of every layer, in stack order."""
+    repeats, tail = stack_layout(cfg.num_layers, cfg.block_pattern)
+    return tuple(cfg.block_pattern) * repeats + tuple(tail)
+
+
+def _n_adapted(bank):
+    """Adapted projections per token of the stack: one per layer for each
+    LoRA pair (a, b) the bank holds, a repeat leaf (K, repeats, ...)
+    standing for its repeats (gemma-2b: 18 x q, v; recurrentgemma-9b: 12 x
+    q, v plus 26 x wx, wy)."""
+    stack = bank.lora["stack"]
+    return (sum(x.shape[1] for x in tree_leaves(stack.get("repeat", {})))
+            + len(tree_leaves(stack.get("tail", {})))) // 2
+
+
 def run_path(name, cfg, device, *, steps=32, plen=128):
     """generate_banked through the user's entry points.  ``cfg`` and
     ``device`` are arguments so the phase can be rehearsed on a CPU at a
@@ -387,11 +430,15 @@ def run_path(name, cfg, device, *, steps=32, plen=128):
                                 max_len)
     _sync(device)
     launches = _launch_counts()
-    n_adapted = len(cfg.lora_targets) * cfg.num_layers
+    n_adapted = _n_adapted(bank)
+    n_rglru = _layer_kinds(cfg).count("rglru")
     expect = dict.fromkeys(launches, 0)
-    expect.update(bgmv_matmul=n_adapted, bgmv_gemv=n_adapted * (steps - 1))
-    print(f"launches: {launches} (expected {expect}: {n_adapted} per "
-          f"prefill, {n_adapted} per decode step); dispatch {dispatch.stats}")
+    expect.update(bgmv_matmul=n_adapted, bgmv_gemv=n_adapted * (steps - 1),
+                  rglru_scan=n_rglru)
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected { {k: v for k, v in expect.items() if v} }: "
+          f"{n_adapted} of #2 and {n_rglru} of #15 per prefill, "
+          f"{n_adapted} of #1 per decode step); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
     assert tuple(seq.shape) == (n_tenants, plen + steps)
     new = seq[:, plen:]
@@ -1083,17 +1130,20 @@ SCHED = dict(n_req=8, plen=128, steps=32, deadline=12, max_batch=4,
              block_size=16, chunk=8)
 
 
+KERNEL_MODULES = (bgmv, lora_matmul, paged_attention, rglru_scan,
+                  flash_attention)
+
+
 def _launch_counts():
-    out = dict(bgmv.launches)
-    out.update(lora_matmul.launches)
-    out.update(paged_attention.launches)
+    out = {}
+    for mod in KERNEL_MODULES:
+        out.update(mod.launches)
     return out
 
 
 def _reset_launches():
-    bgmv.reset_launches()
-    lora_matmul.reset_launches()
-    paged_attention.reset_launches()
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
 
 
 def _forced_paged(model, params, bank, ids, prompts, toks, plain):
@@ -1111,7 +1161,7 @@ def _forced_paged(model, params, bank, ids, prompts, toks, plain):
                                   else contextlib.nullcontext()):
         base = serve._prepare_base(model, params)
         adapters = serve._prepare_adapters(model, bank.requests(ids))
-        cache = model.init_paged_cache(1 + b * mb, bs, device=dev)
+        cache = model.init_paged_cache(1 + b * mb, bs, b, device=dev)
         table = torch.arange(1, 1 + b * mb, dtype=torch.int32,
                              device=dev).reshape(b, mb)
         lg, cache = model.prefill(base, cache, prompts, adapters,
@@ -1179,15 +1229,17 @@ def sched_path(name, model, params, bank, mode):
     _sync(device)
     launches = _launch_counts()
     del model.prefill, model.decode_step
-    L = cfg.num_layers
-    n_ad = len(cfg.lora_targets) * L
-    n_un = (7 - len(cfg.lora_targets)) * L     # k, o, w_up, w_gate, w_down
+    kinds = _layer_kinds(cfg)
+    n_ad = _n_adapted(bank)
+    # dense stacks: k, o, w_up, w_gate, w_down of every layer
+    n_un = (7 - len(cfg.lora_targets)) * cfg.num_layers
     groups, steps = calls["prefill"], calls["decode_step"]
     chunks_per_wave = -(-(sc["steps"] - 1) // sc["chunk"])
     assert groups == 2 and steps == 2 * chunks_per_wave * sc["chunk"], \
         (groups, steps)
     expect = {k: 0 for k in launches}
-    expect["paged_attention"] = L * steps
+    expect["paged_attention"] = kinds.count("attn") * steps
+    expect["rglru_scan"] = kinds.count("rglru") * groups
     if mode == "fp32":
         expect["bgmv_gemv"] = n_ad * steps
         expect["bgmv_matmul"] = n_ad * groups
@@ -1459,6 +1511,235 @@ def time_qtrain_kernels(dev="cuda"):
     return rows
 
 
+# ------------------------- 11. RG-LRU scan #15 and flash attention #14
+
+SCAN_FLASH = ("rglru_scan", "flash_attention")
+# tests/test_kernels.py:89 (#14) and :124 (#15): |kernel - plain| <= tol *
+# |plain| + 5 tol
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
+# (bt, s, d) of #15: the RG-LRU prefill of the hybrid path (batch 4, a
+# 128-token prompt, rglru_d_state 4096), benchmarks/kernels_bench.py's, and
+# a ragged one
+SCAN_SHAPES = {"path": (4, 128, 4096), "bench": (4, 2048, 256),
+               "ragged": (3, 100, 1000)}
+# (b, s, t, h, kh, d, causal, window) of ops.flash_mha
+FLASH_SHAPES = {
+    "recurrentgemma-9b": (1, 4096, 4096, 16, 1, 256, True, 2048),
+    "gemma-2b": (1, 2048, 2048, 8, 1, 256, True, None),
+    "cross": (1, 512, 2048, 8, 1, 256, False, None)}
+
+
+def _allclose(name, label, got, want, tol):
+    """max |kernel - plain|, raising past tol * |plain| + 5 tol element by
+    element (the assert_allclose of tests/test_kernels.py) and, for a bf16
+    output, past BF16_STEP * |plain| + BF16_ATOL as well: the first bound's
+    floor is several times a typical attention output, so alone it would
+    pass zeros or an ignored window."""
+    _sync(got.device)
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (name, label, got.shape, want.shape, got.dtype, want.dtype)
+    diff = (got.float() - want.float()).abs()
+    bound = tol * want.float().abs() + 5 * tol
+    note = f"tolerance {tol} * |plain| + {5 * tol:g}"
+    if got.dtype == torch.bfloat16:
+        bound = torch.minimum(bound, BF16_STEP * want.float().abs()
+                              + BF16_ATOL)
+        note += f", and {BF16_STEP} * |plain| + {BF16_ATOL:g}"
+    err = float(diff.max())
+    print(f"{name:16s} {label:44s} max_abs_err={err:.3e} ({note})"
+          + (" bit-identical" if torch.equal(got, want) else ""))
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             f"version: max |diff| {err}")
+    return err
+
+
+def _scan_operands(gen, shape, dtype, dev="cuda"):
+    """a in [0.5, 0.999) and b ~ N(0, 0.25), as tests/test_kernels.py."""
+    a = 0.5 + 0.499 * torch.rand(shape, generator=gen, device=dev)
+    b = torch.randn(shape, generator=gen, device=dev) * 0.5
+    return a.to(dtype), b.to(dtype)
+
+
+def _flash_operands(gen, shape, dtype, dev="cuda"):
+    """Folded q (b h, s, d), k and v (b kh, t, d) of a FLASH_SHAPES row."""
+    b, s, t, h, kh, d, _, _ = shape
+    q = torch.randn(b * h, s, d, generator=gen, device=dev)
+    k = torch.randn(b * kh, t, d, generator=gen, device=dev)
+    v = torch.randn(b * kh, t, d, generator=gen, device=dev)
+    return [x.to(dtype) for x in (q, k, v)]
+
+
+def check_scan_flash(dev="cuda"):
+    phase("RG-LRU scan #15 and flash attention #14 vs plain (fp32 and "
+          "bf16)")
+    gen = torch.Generator(dev).manual_seed(11)
+    worst = dict.fromkeys(SCAN_FLASH, 0.0)
+    for label, shape in SCAN_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = _scan_operands(gen, shape, dt, dev)
+            worst["rglru_scan"] = max(worst["rglru_scan"], _allclose(
+                "rglru_scan", f"{label} {shape} {str(dt)[6:]}",
+                rglru_scan.rglru_scan(a, b),
+                rglru_scan.rglru_scan_plain(a, b), SCAN_TOL[dt]))
+    fa = flash_attention
+    for label, shape in FLASH_SHAPES.items():
+        causal, window = shape[6], shape[7]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_operands(gen, shape, dt, dev)
+            worst["flash_attention"] = max(worst["flash_attention"], _allclose(
+                "flash_attention",
+                f"{label} s={shape[1]} t={shape[2]} h={shape[3]} "
+                f"d={shape[5]} {str(dt)[6:]}",
+                fa.flash_attention(q, k, v, causal=causal, window=window),
+                fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window), FLASH_TOL[dt]))
+            del q, k, v
+    print(f"launches in this phase (not the path's): "
+          f"{dict(rglru_scan.launches)} {dict(flash_attention.launches)}")
+    return worst
+
+
+def time_scan_flash():
+    """fp32 times: #15 at the path's and the bench's shapes over 6 input
+    copies (150 MB, three times L2, as a prefill finds them cold); #14 at
+    the two attention shapes (bound by operations, so inputs stay warm)
+    beside SDPA on the expanded heads (``is_causal``, or a band mask for
+    the window)."""
+    phase("RG-LRU scan and flash attention times (fp32)")
+    gen = torch.Generator("cuda").manual_seed(12)
+    rows = {}
+    for label in ("path", "bench"):
+        shape = SCAN_SHAPES[label]
+        args = [_scan_operands(gen, shape, torch.float32) for _ in range(6)]
+        ms = _graph_ms(rglru_scan.rglru_scan, args)
+        plain_ms = _graph_ms(rglru_scan.rglru_scan_plain, args[:2], reps=2)
+        a = args[0][0]
+        nbytes = 3 * a.nbytes
+        bound_ms, bound_by = _bound(nbytes, 2 * a.numel())
+        rows[("rglru_scan", label)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        print(f"rglru_scan {label} {shape}: kernel {ms * 1e3:.2f} us, plain "
+              f"(a loop of {shape[1]} steps) {plain_ms * 1e3:.2f} us, no "
+              f"single library call, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}; {nbytes / 1e6:.2f} MB)")
+        del args
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa = flash_attention
+    for label in ("recurrentgemma-9b", "gemma-2b"):
+        b, s, t, h, kh, d, causal, window = FLASH_SHAPES[label]
+        q, k, v = _flash_operands(gen, FLASH_SHAPES[label], torch.float32)
+        args = [(q, k, v)] * 2
+        kw = dict(causal=causal, window=window)
+        ms = _graph_ms(lambda *x: fa.flash_attention(*x, **kw), args)
+        plain_ms = _graph_ms(lambda *x: fa.flash_attention_plain(*x, **kw),
+                             args[:1], reps=2)
+        mask = fa.band_mask(s, t, causal=causal, window=window,
+                            device=q.device)
+        qh = q.reshape(b, h, s, d)
+        kx = k.reshape(b, kh, t, d).repeat_interleave(h // kh, dim=1)
+        vx = v.reshape(b, kh, t, d).repeat_interleave(h // kh, dim=1)
+        if window is None:
+            library_ms = _graph_ms(
+                lambda *x: sdpa(*x, is_causal=causal), [(qh, kx, vx)] * 2)
+        else:
+            library_ms = _graph_ms(
+                lambda *x: sdpa(*x, attn_mask=mask), [(qh, kx, vx)] * 2)
+        pairs = int(mask.sum())
+        flops = 4 * b * h * pairs * d
+        nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rows[("flash_attention", label)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+        print(f"flash_attention {label} b={b} s={s} t={t} h={h} kh={kh} "
+              f"d={d} causal={causal} window={window}: kernel "
+              f"{ms * 1e3:.2f} us, plain (whole score matrix) "
+              f"{plain_ms * 1e3:.2f} us, SDPA on the expanded heads "
+              f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}; {pairs} attended pairs per head, "
+              f"{flops / 1e9:.2f} GFLOP; {flops / ms / 1e9:.2f} TFLOP/s)")
+        del q, k, v, qh, kx, vx, args
+        _free()
+    return rows
+
+
+# ------------------------------------------------- 12. kernel API path
+
+def ops_path(dev="cuda"):
+    """The public kernel API through its entry points: ``flash_mha`` at
+    recurrentgemma-9b's and gemma-2b's attention shapes (b, s, h, d heads;
+    one kv head), ``rglru_scan_op`` at the RG-LRU prefill's shape and
+    ``fused_lora_matmul`` at gemma-2b's q projection of 4 x 128 rows, fp32.
+    Inputs are drawn first; the counts go to 0 just before the calls and
+    are read just after, then each output is held against its plain
+    version."""
+    phase("kernel API path: repro_torch.kernels.ops")
+    gen = torch.Generator(dev).manual_seed(13)
+    inputs = {}
+    for label in ("recurrentgemma-9b", "gemma-2b"):
+        b, s, t, h, kh, d, causal, window = FLASH_SHAPES[label]
+        inputs[label] = [torch.randn(b, n, hh, d, generator=gen, device=dev)
+                         for n, hh in ((s, h), (t, kh), (t, kh))]
+    a, bb = _scan_operands(gen, SCAN_SHAPES["path"], torch.float32, dev)
+    x, w, la, lb, _ = _lora_operands(gen, 512, 2048, 2048, 8, torch.float32,
+                                     dev)
+    x = x.reshape(4, 128, 2048)
+    _reset_launches()
+    outs = {}
+    with torch.inference_mode():
+        for label, (q, k, v) in inputs.items():
+            causal, window = FLASH_SHAPES[label][6:]
+            outs[label] = ops.flash_mha(q, k, v, causal=causal,
+                                        window=window)
+        outs["scan"] = ops.rglru_scan_op(a, bb)
+        outs["lora"] = ops.fused_lora_matmul(x, w, la, lb, 2.0)
+    _sync(torch.device(dev))
+    launches = _launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=2, rglru_scan=1, lora_fwd=1)
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected { {k: v for k, v in expect.items() if v} })")
+    assert launches == expect, (launches, expect)
+    fa = flash_attention
+    for label, (q, k, v) in inputs.items():
+        b, s, t, h, kh, d, causal, window = FLASH_SHAPES[label]
+        want = fa.flash_attention_plain(
+            *(y.transpose(1, 2).reshape(-1, y.shape[1], d)
+              for y in (q, k, v)), causal=causal, window=window)
+        got = outs[label].transpose(1, 2).reshape(b * h, s, d)
+        assert outs[label].shape == (b, s, h, d) and bool(got.isfinite().all())
+        _allclose("ops.flash_mha", label, got.contiguous(), want,
+                  FLASH_TOL[torch.float32])
+    _allclose("ops.rglru_scan_op", str(SCAN_SHAPES["path"]), outs["scan"],
+              rglru_scan.rglru_scan_plain(a, bb), SCAN_TOL[torch.float32])
+    want = lora_matmul.lora_fwd_plain(x.reshape(512, 2048), w, la, lb,
+                                      2.0)[0].reshape(4, 128, 2048)
+    err = float((outs["lora"] - want).abs().max())
+    print(f"ops.fused_lora_matmul (4, 128, 2048) x (2048, 2048), r 8: "
+          f"max_abs_err={err:.3e} (tolerance {KERNEL_RTOL} * max(1, "
+          f"max|plain|))")
+    assert err <= KERNEL_RTOL * max(1.0, float(want.abs().max()))
+    return launches
+
+
+# ------------------------------------------------ 13. hybrid serving path
+
+def hybrid_path(name):
+    """recurrentgemma-9b at full width and depth through generate_banked
+    and serve_scheduled (fp32 base), the model freed after each."""
+    cfg = get_config("recurrentgemma-9b")
+    fixed = run_path(name, cfg, torch.device("cuda"))
+    _free()
+    model, params, bank = serving_model(cfg, torch.device("cuda"))
+    sched, _ = sched_path(name, model, params, bank, "fp32")
+    del model, params, bank
+    _free()
+    return fixed, sched
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -1467,6 +1748,7 @@ def _free():
 
 
 def main():
+    t_start = time.monotonic()
     smi, name = environment()
     build_kernels()
     worst = check_kernels()
@@ -1507,9 +1789,16 @@ def main():
         _free()
         if mode == "int4":
             launches.update({k: qtrain_launches[k] for k in QTRAIN_KERNELS})
+    worst.update(check_scan_flash())
+    rows.update(time_scan_flash())
+    _free()
+    launches["flash_attention"] = ops_path()["flash_attention"]
+    _free()
+    hybrid_fixed, _ = hybrid_path(name)
+    launches["rglru_scan"] = hybrid_fixed["rglru_scan"]
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
-                 + SCHED_KERNELS + QTRAIN_KERNELS):
+                 + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH):
         row = rows[(kern, ROW[kern])]
         kernels.append({
             "name": kern, "route": "cuda", "source": SOURCES[kern],
@@ -1517,7 +1806,8 @@ def main():
             "max_abs_err": worst[kern], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    print()
+    print(f"\nchip_smoke.py: {time.monotonic() - t_start:.1f} s from start "
+          "to result, the kernels' build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

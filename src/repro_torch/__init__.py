@@ -9,11 +9,15 @@ Ported so far: banked multi-tenant LoRA serving of dense decoders
 (``launch/serve.py``), with the two BGMV kernels (``kernels/bgmv.py``);
 synchronous federated LoRA training (``launch/train.py``,
 ``core/federated.py``), with the fused LoRA matmul and its backward
-(``kernels/lora_matmul.py``); and continuous-batching serving over a paged
-KV pool (``serve_scheduled``, ``kernels/paged_attention.py``), optionally
+(``kernels/lora_matmul.py``); continuous-batching serving over a paged KV
+pool (``serve_scheduled``, ``kernels/paged_attention.py``), optionally
 over a packed int8 / int4 frozen base (``core/quant.py``, the quantized
-BGMV kernels and the packed GEMM).  All ten kernels are written by hand in
-CUDA C++ for ``sm_90a``.
+BGMV kernels and the packed GEMM); serving of the RG-LRU hybrid family
+(recurrentgemma-9b, ``models/rglru.py``), whose prefill recurrence runs
+the scan kernel (``kernels/rglru_scan.py``); and the public kernel API
+(``kernels/ops.py``), with flash attention (``kernels/flash_attention.py``)
+behind it.  All fifteen kernels are written by hand in CUDA C++ for
+``sm_90a``.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing

@@ -11,13 +11,14 @@ from repro_torch.configs.base import (FederatedConfig, LoRAConfig,
 
 ARCHS = {
     "gemma-2b": "gemma_2b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # the JAX package's other architectures (repro/configs/__init__.py)
 NOT_YET_PORTED = (
-    "mistral-nemo-12b", "paligemma-3b", "recurrentgemma-9b",
-    "whisper-medium", "xlstm-1.3b", "qwen3-8b", "qwen2-moe-a2.7b",
-    "granite-moe-1b-a400m", "stablelm-1.6b", "llama2-7b", "roberta-large",
+    "mistral-nemo-12b", "paligemma-3b", "whisper-medium", "xlstm-1.3b",
+    "qwen3-8b", "qwen2-moe-a2.7b", "granite-moe-1b-a400m", "stablelm-1.6b",
+    "llama2-7b", "roberta-large",
 )
 
 

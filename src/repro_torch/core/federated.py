@@ -186,6 +186,9 @@ class FederatedTrainer:
             _not_yet("the collapse watchdog")
         if lora_cfg.ranks is not None:
             _not_yet("heterogeneous per-client ranks (lora_cfg.ranks)")
+        if model.cfg.family != "dense":
+            _not_yet(f"training the '{model.cfg.family}' family (the "
+                     "RG-LRU scan kernel has no backward yet)")
         self.device = resolve_device(device)
         self.model = model
         self.dataset = dataset

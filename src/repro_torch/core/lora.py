@@ -78,25 +78,28 @@ def init_lora(params, generator: torch.Generator, lora_cfg, *, targets=None):
 def lora_tree_for_model(model, generator: torch.Generator, lora_cfg, *,
                         device="cuda"):
     """LoRA tree from the model config alone, without drawing base weights
-    (the JAX package does this with ``eval_shape``): the targeted attention
-    projections of the dense stack, as zero-stride stand-ins that carry
-    only shape, dtype and device."""
+    (the JAX package does this with ``eval_shape``): the targeted
+    projections of every block (attention q/k/v/o, RG-LRU wx/wy), as
+    zero-stride stand-ins that carry only shape, dtype and device."""
     from repro_torch import resolve_device
     from repro_torch.models.transformer import stack_layout
     cfg = model.cfg
     dt = getattr(torch, cfg.param_dtype)
     zero = torch.zeros((), dtype=dt, device=resolve_device(device))
-    d = cfg.d_model
-    proj = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
-            "o": (cfg.q_dim, d)}
+    d, dr = cfg.d_model, cfg.rglru_d_state or cfg.d_model
+    proj = {"attn": {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim),
+                     "v": (d, cfg.kv_dim), "o": (cfg.q_dim, d)},
+            "rglru": {"wx": (d, dr), "wy": (d, dr)}}
 
-    def block(lead):
-        return {"attn": {k: zero.expand(lead + s) for k, s in proj.items()}}
+    def block(kind, lead):
+        return {kind: {k: zero.expand(lead + s)
+                       for k, s in proj[kind].items()}}
 
     repeats, tail = stack_layout(cfg.num_layers, cfg.block_pattern)
-    stack = {"repeat": {f"p{j}": block((repeats,))
-                        for j in range(len(cfg.block_pattern)) if repeats},
-             "tail": {f"t{i}": block(()) for i in range(len(tail))}}
+    stack = {"repeat": {f"p{j}": block(kind, (repeats,))
+                        for j, kind in enumerate(cfg.block_pattern)
+                        if repeats},
+             "tail": {f"t{i}": block(kind, ()) for i, kind in enumerate(tail)}}
     return init_lora({"stack": stack}, generator, lora_cfg)
 
 

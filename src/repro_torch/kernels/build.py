@@ -47,6 +47,10 @@ SIGNATURES = {
     "quant_matmul_dx_launch": (_P,) * 4 + (_I,) * 7 + (_P,),
     # csrc/paged_attention.cu
     "paged_attention_launch": (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _P),
+    # csrc/rglru_scan.cu
+    "rglru_scan_launch": (_P,) * 3 + (_I,) * 4 + (_P,),
+    # csrc/flash_attention.cu
+    "flash_attention_launch": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
 }
 
 _lib = None

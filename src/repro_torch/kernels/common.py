@@ -1,7 +1,7 @@
 """Wrapper plumbing shared by the kernel modules (``bgmv``, ``lora_matmul``,
-``paged_attention``): the tier rule, the dtype codes the C entry points
-take, the caller's stream, launch-error reporting, the forward-only guard,
-and the k split of the split-k GEMV body (``csrc/gemv.cuh``) that #1, #4
+``paged_attention``, ``rglru_scan``, ``flash_attention``): the tier rule,
+the dtype codes the C entry points take, the caller's stream, launch-error
+reporting, the forward-only guard, and the k split of the split-k GEMV body (``csrc/gemv.cuh``) that #1, #4
 and #11's decode form share.
 
 Nothing here builds or loads a kernel; ``kernels/build.py`` does that at
@@ -31,9 +31,9 @@ def route(t, name: str) -> bool:
 
 
 def forward_only(name, *ts):
-    """Forward-only kernels (BGMV, paged attention, the packed GEMM):
-    refuse operands autograd would need gradients for, rather than return
-    an output without a grad_fn."""
+    """Forward-only kernels (BGMV, paged attention, the packed GEMM, the
+    RG-LRU scan, flash attention): refuse operands autograd would need
+    gradients for, rather than return an output without a grad_fn."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: the kernel has no backward, but an operand requires "

@@ -4,8 +4,11 @@ a stream of requests through the continuous-batching scheduler.
 The port of ``repro/launch/serve.py``.  A fixed-batch generation is one
 ``model.prefill`` over the whole prompt, which fills the KV cache, then an
 eager decode loop of ``model.decode_step``.  Every adapted projection (q
-and v by default) runs the BGMV kernels of ``kernels/bgmv.py`` on the card:
-the matmul form in the prefill, the GEMV form in each decode step.
+and v by default; q, v, wx and wy for recurrentgemma-9b) runs the BGMV
+kernels of ``kernels/bgmv.py`` on the card: the matmul form in the
+prefill, the GEMV form in each decode step.  The RG-LRU blocks of the
+hybrid family run their prefill recurrence through the scan kernel of
+``kernels/rglru_scan.py``.
 
 ``serve_scheduled`` serves a stream: KV state lives in shared paged pools
 (``Model.init_paged_cache``) handed out block by block by a
@@ -23,6 +26,7 @@ slots, and ``--deadline-steps D`` caps each request's tokens.
   # fresh random adapters on the card (B is zero-initialised, so the
   # adapters start as a no-op, as in the JAX package):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
 
   # a Poisson request stream over an int4 base, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -55,7 +59,9 @@ from repro_torch.core.quant import (apply_quant_flag, dequantize_tree,
                                     has_quantized, requantize_merged)
 from repro_torch.kernels import dispatch
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import reset_paged_blocks
+from repro_torch.models.transformer import (merge_paged_cache,
+                                            paged_prefill_view,
+                                            reset_paged_blocks)
 from repro_torch.tree import tree_leaves, tree_map
 
 # requests evicted at a chunk boundary for exceeding their deadline_steps
@@ -195,7 +201,10 @@ def generate_hostloop(model, params, prompt, steps: int, max_len: int,
 #     sync per chunk.  Between chunks the host admits arrived requests into
 #     free slots and evicts finished ones.
 #   * Admission is one prefill per same-length newcomer group, written
-#     straight into the engine pools through the newcomers' table rows.
+#     straight into the engine pools through the newcomers' table rows; the
+#     per-slot state of recurrent blocks starts fresh for the group and is
+#     scattered into the newcomers' slots (transformer.paged_prefill_view /
+#     merge_paged_cache), one code path for dense and hybrid stacks.
 #
 # With every request present at the start and uniform shapes, the admission
 # group IS the fixed engine's batch and each chunk step runs the fixed
@@ -270,16 +279,22 @@ class Request:
     timed_out: bool = False
 
 
-def _paged_admit(m, params, cache, prompts, table_rows, blocks, adapters):
+def _paged_admit(m, params, cache, prompts, table_rows, slots, blocks,
+                 adapters):
     """Admission: invalidate the newcomers' (possibly recycled) blocks,
-    prefill the same-length group straight into the engine pools through
-    its table rows, and return each newcomer's first token (on the
-    device)."""
+    prefill the same-length group on an admission view (the engine pools,
+    written through the group's table rows, and fresh per-slot state at the
+    group size), scatter its per-slot state into the newcomers' ``slots``,
+    and return each newcomer's first token (on the device)."""
     vocab = m.cfg.vocab_size
     adapters = _prepare_adapters(m, adapters)
     cache = reset_paged_blocks(cache, blocks)
-    logits, cache = m.prefill(params, cache, prompts, adapters,
-                              last_only=True, table=table_rows)
+    view = paged_prefill_view(m.cfg, cache, prompts.shape[0],
+                              getattr(torch, m.cfg.dtype),
+                              device=prompts.device)
+    logits, view = m.prefill(params, view, prompts, adapters,
+                             last_only=True, table=table_rows)
+    cache = merge_paged_cache(cache, view, slots)
     return cache, logits[:, -1, :vocab].argmax(dim=-1)
 
 
@@ -355,7 +370,7 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
     mb = -(-ring // block_size)
     pool = BlockPool(1 + max_batch * mb)
     params = _prepare_base(model, params)
-    cache = model.init_paged_cache(pool.num_blocks, block_size,
+    cache = model.init_paged_cache(pool.num_blocks, block_size, max_batch,
                                    device=device)
     table = torch.zeros((max_batch, mb), dtype=torch.int32, device=device)
     tok = torch.zeros((max_batch, 1), dtype=torch.long, device=device)
@@ -442,7 +457,8 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
             adapters = (cur_bank().requests(gather_ids)
                         if bank is not None else None)
             cache, first = _paged_admit(model, params, cache, prompts,
-                                        rows_t, rows.reshape(-1), adapters)
+                                        rows_t, sl, rows.reshape(-1),
+                                        adapters)
             tok[sl, 0] = first
             pos[sl] = plen
             active[sl] = True
@@ -660,6 +676,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.quant != "none" and cfg.family != "dense":
+        raise NotImplementedError(
+            f"--quant over the '{cfg.family}' family is not yet ported to "
+            "repro_torch (only dense decoders serve a packed base)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

@@ -106,6 +106,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"--arch {args.arch}: training the '{cfg.family}' family is not "
+            "yet ported to repro_torch (only dense decoders train)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

@@ -1,7 +1,8 @@
 """Public model API: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / loss / init_cache / prefill / decode_step.
 
-The port of ``repro/models/api.py`` for dense decoders.  As in the JAX
+The port of ``repro/models/api.py`` for dense decoders and the RG-LRU
+hybrid family (recurrentgemma).  As in the JAX
 package the embedding is not scaled by sqrt(d_model), the head is tied
 (``embed.T``) unless the config says otherwise, and the vocabulary is
 padded to a multiple of 256 (``pad_vocab``).
@@ -26,12 +27,15 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
+FAMILIES = ("dense", "hybrid")
+
+
 class Model:
     def __init__(self, cfg):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family '{cfg.family}' is not yet ported to "
-                "repro_torch (only 'dense' is)")
+                f"repro_torch (only {' and '.join(FAMILIES)} are)")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab_size)
 
@@ -126,17 +130,17 @@ class Model:
         return init_stack_cache(self.cfg, batch, max_len, dtype,
                                 device=resolve_device(device))
 
-    def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
-                         *, device="cuda"):
+    def init_paged_cache(self, num_blocks: int, block_size: int, batch: int,
+                         dtype=None, *, device="cuda"):
         """Paged serving cache: per-layer KV pools of ``num_blocks`` x
         ``block_size`` slots, shared by every request through per-request
-        block tables.  Block 0 is reserved as the null block idle slots
-        write into (see ``launch/serve.BlockPool``).  The JAX package's
-        ``batch`` argument sizes per-slot state the dense block does not
-        have, so it is left out here."""
+        block tables, plus per-slot recurrent state for ``batch`` engine
+        slots.  Block 0 is reserved as the null block idle slots write into
+        (see ``launch/serve.BlockPool``)."""
         dtype = dtype or getattr(torch, self.cfg.dtype)
         return init_paged_stack_cache(self.cfg, num_blocks, block_size,
-                                      dtype, device=resolve_device(device))
+                                      batch, dtype,
+                                      device=resolve_device(device))
 
     def prefill(self, params, cache, tokens, adapters=None, *,
                 last_only=False, table=None):

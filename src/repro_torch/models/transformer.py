@@ -1,10 +1,11 @@
 """Block-stack transformer machinery.
 
-The port of ``repro/models/transformer.py`` for the dense ``"attn"`` block.
-Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail": {...}}``,
-with the leading layer dim on repeat leaves, so carrying weights across is
-a plain copy.  Where JAX scans over the layer dim, this module loops over
-it in Python.  Other block kinds are not ported yet and raise.
+The port of ``repro/models/transformer.py`` for the dense ``"attn"`` block
+and the RG-LRU ``"rglru"`` block (recurrent temporal mix + MLP, the hybrid
+family).  Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail":
+{...}}``, with the leading layer dim on repeat leaves, so carrying weights
+across is a plain copy.  Where JAX scans over the layer dim, this module
+loops over it in Python.  Other block kinds are not ported yet and raise.
 
   init_block(cfg, generator, kind)                -> params
   apply_block(..., mode="fullseq")                -> (x, aux)
@@ -12,12 +13,14 @@ it in Python.  Other block kinds are not ported yet and raise.
 
 A cache is either per-request ring buffers (``init_stack_cache``) or, for
 the continuous-batching scheduler, shared paged pools
-(``init_paged_stack_cache``) addressed through a block ``table``.
+(``init_paged_stack_cache``) addressed through a block ``table``, beside
+the per-slot state of recurrent blocks.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.attention import (attention_decode,
                                           attention_decode_paged,
                                           attention_fullseq,
@@ -30,13 +33,15 @@ from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_params,
                                        norm_params)
 from repro_torch.tree import tree_leaves, tree_map
 
+KINDS = ("attn", "rglru")
+
 
 def _check_kind(cfg, kind: str):
-    if kind != "attn" or cfg.moe is not None:
+    if kind not in KINDS or cfg.moe is not None:
         what = "moe" if kind == "attn" else kind
         raise NotImplementedError(
             f"block '{what}' is not yet ported to repro_torch (only the "
-            "dense 'attn' block is)")
+            "dense 'attn' and the 'rglru' blocks are)")
 
 
 # ---------------------------------------------------------------- block init
@@ -47,7 +52,10 @@ def init_block(cfg, generator, kind: str, *, lead=()):
     d = cfg.d_model
     dev = generator.device
     p = dict(norm_params(cfg, d, "ln1", device=dev, lead=lead))
-    p["attn"] = attn_params(cfg, generator, lead=lead)
+    if kind == "rglru":
+        p["rglru"] = rglru_mod.rglru_params(cfg, generator, lead=lead)
+    else:
+        p["attn"] = attn_params(cfg, generator, lead=lead)
     p.update(norm_params(cfg, d, "ln2", device=dev, lead=lead))
     p["mlp"] = mlp_params(cfg, generator, d, cfg.d_ff, lead=lead)
     return p
@@ -56,17 +64,23 @@ def init_block(cfg, generator, kind: str, *, lead=()):
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype, *,
                      device):
     _check_kind(cfg, kind)
+    if kind == "rglru":
+        return rglru_mod.rglru_init_cache(cfg, batch, dtype, device=device)
     return init_kv_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def init_paged_block_cache(cfg, kind: str, num_blocks: int, block_size: int,
-                           dtype, *, device):
+                           batch: int, dtype, *, device):
     """Paged-serving counterpart of :func:`init_block_cache`: attention KV
     lives in a shared block pool (no batch dim: requests own pool blocks
-    through the block table)."""
+    through the block table), while a recurrent block keeps constant-size
+    PER-SLOT state for ``batch`` engine slots (admission swaps it per slot,
+    see :func:`paged_prefill_view`)."""
     _check_kind(cfg, kind)
-    return init_paged_kv_cache(cfg, num_blocks, block_size, dtype,
-                               device=device)
+    if kind == "attn":
+        return init_paged_kv_cache(cfg, num_blocks, block_size, dtype,
+                                   device=device)
+    return init_block_cache(cfg, kind, batch, 0, dtype, device=device)
 
 
 # ---------------------------------------------------------------- block apply
@@ -78,45 +92,61 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
     filled as the token-by-token decode would have), "decode" (one token
     against the cache).  Prefill and decode return (x, aux, cache);
     fullseq returns (x, aux).  ``aux`` (the MoE router loss in the JAX
-    package) is 0.0 for the dense block.
+    package) is 0.0 for the dense and RG-LRU blocks.
 
-    A paged cache (``k_pool`` leaves instead of per-request ``k`` rings)
-    takes the paged prefill / decode and requires ``table``: in prefill
-    the block table (b, blocks_per_req) int32, in decode the step's
+    A paged attention cache (``k_pool`` leaves instead of per-request ``k``
+    rings) takes the paged prefill / decode and requires ``table``: in
+    prefill the block table (b, blocks_per_req) int32, in decode the step's
     :class:`~repro_torch.models.attention.PagedDecode` (which
-    :func:`decode_stack` builds once for all layers).  A ring cache
-    ignores it."""
+    :func:`decode_stack` builds once for all layers).  A ring cache, and
+    an RG-LRU block's per-slot state, ignore it."""
     _check_kind(cfg, kind)
     adapters = adapters or {}
-    aux = 0.0
     h1 = apply_norm(cfg, x, p, "ln1")
+    if mode not in ("fullseq", "prefill", "decode"):
+        raise ValueError(f"unknown mode '{mode}'")
+    if kind == "rglru":
+        a, cache = _rglru_mix(cfg, p["rglru"], h1, adapters.get("rglru"),
+                              mode, cache)
+    else:
+        a, cache = _attn_mix(cfg, p["attn"], h1, adapters.get("attn"), mode,
+                             cache, positions, pos, table, causal)
+    x = x + a
+    x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, x, p, "ln2"))
+    if mode == "fullseq":
+        return x, 0.0
+    return x, 0.0, cache
+
+
+def _attn_mix(cfg, p, h1, adapters, mode, cache, positions, pos, table,
+              causal):
     paged = cache is not None and "k_pool" in cache
     if paged and table is None:
         raise ValueError("a paged cache needs the requests' block table")
     if mode == "fullseq":
-        a = attention_fullseq(cfg, p["attn"], h1, causal=causal,
-                              adapters=adapters.get("attn"),
-                              positions=positions)
-    elif mode == "prefill" and paged:
-        a, cache = attention_prefill_paged(cfg, p["attn"], h1, cache,
-                                           positions, table,
-                                           adapters=adapters.get("attn"))
-    elif mode == "prefill":
-        a, cache = attention_prefill(cfg, p["attn"], h1, cache, positions,
-                                     adapters=adapters.get("attn"))
-    elif mode == "decode" and paged:
-        a, cache = attention_decode_paged(cfg, p["attn"], h1, cache, table,
-                                          pos, adapters=adapters.get("attn"))
-    elif mode == "decode":
-        a, cache = attention_decode(cfg, p["attn"], h1, cache, pos,
-                                    adapters=adapters.get("attn"))
-    else:
-        raise ValueError(f"unknown mode '{mode}'")
-    x = x + a
-    x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, x, p, "ln2"))
+        return attention_fullseq(cfg, p, h1, causal=causal,
+                                 adapters=adapters,
+                                 positions=positions), None
+    if mode == "prefill" and paged:
+        return attention_prefill_paged(cfg, p, h1, cache, positions, table,
+                                       adapters=adapters)
+    if mode == "prefill":
+        return attention_prefill(cfg, p, h1, cache, positions,
+                                 adapters=adapters)
+    if paged:
+        return attention_decode_paged(cfg, p, h1, cache, table, pos,
+                                      adapters=adapters)
+    return attention_decode(cfg, p, h1, cache, pos, adapters=adapters)
+
+
+def _rglru_mix(cfg, p, h1, adapters, mode, cache):
     if mode == "fullseq":
-        return x, aux
-    return x, aux, cache
+        return rglru_mod.rglru_apply_fullseq(cfg, p, h1, adapters), None
+    if mode == "prefill":
+        return rglru_mod.rglru_apply_prefill(cfg, p, h1, cache,
+                                             adapters=adapters)
+    return rglru_mod.rglru_apply_decode(cfg, p, h1, cache,
+                                        adapters=adapters)
 
 
 # ---------------------------------------------------------------- the stack
@@ -160,17 +190,18 @@ def init_stack_cache(cfg, batch, max_len, dtype, *, device, num_layers=None,
     return out
 
 
-def init_paged_stack_cache(cfg, num_blocks, block_size, dtype, *, device,
-                           num_layers=None, pattern=None):
+def init_paged_stack_cache(cfg, num_blocks, block_size, batch, dtype, *,
+                           device, num_layers=None, pattern=None):
     """Stack cache for the paged serving engine: attention layers hold
-    SHARED pools (repeat leaves gain a leading layer dim as usual)."""
+    SHARED pools, recurrent layers per-slot state for ``batch`` engine
+    slots (repeat leaves gain a leading layer dim as usual)."""
     num_layers = num_layers or cfg.num_layers
     pattern = pattern or cfg.block_pattern
     repeats, tail = stack_layout(num_layers, pattern)
 
     def mk(kind):
         return init_paged_block_cache(cfg, kind, num_blocks, block_size,
-                                      dtype, device=device)
+                                      batch, dtype, device=device)
 
     out = {"repeat": {}, "tail": {}}
     if repeats:
@@ -182,24 +213,91 @@ def init_paged_stack_cache(cfg, num_blocks, block_size, dtype, *, device,
     return out
 
 
+# The scheduler's cache surgery (launch/serve.py): a paged stack cache mixes
+# two leaf families, SHARED pool subtrees (dicts holding "k_pool", no batch
+# dim beyond the repeat-layer one) and PER-SLOT leaves (slot axis 0 in the
+# tail, axis 1 under the repeat stacking).  Admission prefills newcomers on
+# a view whose pools ARE the engine pools (the prefill writes only the
+# newcomers' blocks, in place) and whose per-slot leaves are fresh inits at
+# the group size; the merge then scatters the per-slot leaves into the
+# newcomers' slots.
+
+
+def _walk_paged(c, v, fn_pool, fn_leaf, axis):
+    if isinstance(c, dict):
+        if "k_pool" in c:
+            return fn_pool(c, v, axis)
+        return {k: _walk_paged(c[k], None if v is None else v[k], fn_pool,
+                               fn_leaf, axis) for k in c}
+    return fn_leaf(c, v, axis)
+
+
+def _map_paged_cache(cache, view, fn_pool, fn_leaf):
+    """``fn_pool(pool_subtree, view_subtree, axis)`` on every pool subtree
+    and ``fn_leaf(leaf, view_leaf, axis)`` on every per-slot leaf, with
+    ``axis`` the slot axis (1 under "repeat", 0 in "tail")."""
+    return {part: {k: _walk_paged(cache[part][k],
+                                  None if view is None else view[part][k],
+                                  fn_pool, fn_leaf, axis)
+                   for k in cache[part]}
+            for part, axis in (("repeat", 1), ("tail", 0))}
+
+
+def paged_prefill_view(cfg, cache, batch, dtype, *, device):
+    """Admission view: the engine's pools, and fresh per-slot state for a
+    ``batch``-request newcomer group (zero recurrences and conv tails,
+    exactly what a fresh fixed-batch cache holds).  A dense stack has no
+    per-slot leaves, so its view is the engine cache's own pools."""
+    out = {}
+    for part, layers in cache.items():
+        out[part] = {}
+        for key, c in layers.items():
+            if "k_pool" in c:
+                out[part][key] = c
+                continue
+            fresh = init_block_cache(cfg, cfg.block_pattern[int(key[1:])],
+                                     batch, 0, dtype, device=device)
+            if part == "repeat":
+                n = tree_leaves(c)[0].shape[0]
+                fresh = tree_map(
+                    lambda a: a.expand((n,) + a.shape).clone(), fresh)
+            out[part][key] = fresh
+    return out
+
+
+def merge_paged_cache(cache, view, slots):
+    """Fold an admission view back into the engine cache: the pools are
+    the engine's own (already written), per-slot leaves scatter into the
+    newcomers' ``slots``.  In place; returns ``cache``."""
+    def leaf(c, v, axis):
+        if axis == 0:
+            c[slots] = v
+        else:
+            c[:, slots] = v
+        return c
+    return _map_paged_cache(cache, view, lambda c, v, axis: c, leaf)
+
+
 def reset_paged_blocks(cache, blocks):
     """Invalidate ``blocks`` (1-D int) in every layer's pos pool before
     reuse: freed blocks keep stale ``pos >= 0`` entries that the validity
     mask would otherwise re-admit into a new owner's attention.  In
-    place; returns ``cache``.
+    place; returns ``cache``."""
+    def pool(c, v, axis):
+        pp = c["pos_pool"]                    # (P, bs) or (repeats, P, bs)
+        pp[..., torch.as_tensor(blocks, dtype=torch.long,
+                                device=pp.device), :] = -1
+        return c
+    return _map_paged_cache(cache, None, pool, lambda c, v, axis: c)
 
-    The JAX package also keeps per-slot state for its recurrent and
-    cross-attention blocks, which admission prefills on a separate view and
-    merges back (``paged_prefill_view`` / ``merge_paged_cache``).  The
-    dense block has pools only, so admission prefills on the engine cache
-    itself; those two come with the first ported block kind that has
-    per-slot state."""
+
+def _first_pool(cache):
+    """The first attention layer's pool subtree, or None (no attention)."""
     for part in cache.values():
         for c in part.values():
-            pp = c["pos_pool"]                # (P, bs) or (repeats, P, bs)
-            pp[..., torch.as_tensor(blocks, dtype=torch.long,
-                                    device=pp.device), :] = -1
-    return cache
+            if "k_pool" in c:
+                return c
+    return None
 
 
 def _layers(cfg, pattern, stack_params, adapters, cache=None):
@@ -263,9 +361,9 @@ def decode_stack(cfg, stack_params, cache, x, pos, *, adapters=None,
     new-token slots and int32 positions are computed once here, not in
     every layer."""
     pattern = pattern or cfg.block_pattern
-    if table is not None:
-        first = next(iter((cache["repeat"] or cache["tail"]).values()))
-        table = paged_decode_index(table, pos, first["k_pool"].shape[-3])
+    pool = None if table is None else _first_pool(cache)
+    if pool is not None:
+        table = paged_decode_index(table, pos, pool["k_pool"].shape[-3])
     for kind, p, lo, c in _layers(cfg, pattern, stack_params, adapters,
                                   cache):
         x, _, _ = apply_block(cfg, kind, p, x, adapters=lo, mode="decode",

@@ -14,7 +14,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.quant import quantize                   # noqa: E402
 from repro_torch.kernels import bgmv, dispatch, lora_matmul    # noqa: E402
+from repro_torch.kernels import flash_attention as fa          # noqa: E402
+from repro_torch.kernels import ops                            # noqa: E402
 from repro_torch.kernels import paged_attention as pa          # noqa: E402
+from repro_torch.kernels import rglru_scan as rs               # noqa: E402
 
 
 @pytest.fixture
@@ -22,9 +25,8 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    lora_matmul.reset_launches()
-    bgmv.reset_launches()
-    pa.reset_launches()
+    for mod in (lora_matmul, bgmv, pa, rs, fa):
+        mod.reset_launches()
 
 
 def _operands(m, k, n, r, dtype, seed=0):
@@ -338,3 +340,126 @@ def test_quant_kernels_raise_where_refused(card):
             with pytest.raises(TypeError, match="float16"):
                 call()
     assert not any(lora_matmul.launches.values())
+
+
+# ------------------------------------------------- #15 scan, #14 attention
+
+def _cuda(*arrs, dtype="float32"):
+    return [torch.from_numpy(np.asarray(a, np.float32)).cuda().to(
+        getattr(torch, dtype)) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bt,s,d", [(4, 128, 512), (2, 300, 96),
+                                    (3, 100, 1000), (1, 1, 7)])
+def test_rglru_scan_equals_plain(card, bt, s, d, dtype):
+    """One rounded product and one rounded sum per step in both, an fp32
+    carry, one rounding of each stored h_t: the kernel equals the plain
+    version bit for bit."""
+    rng = np.random.default_rng(bt * s + d)
+    a, b = _cuda(rng.uniform(0.5, 0.999, (bt, s, d)),
+                 rng.standard_normal((bt, s, d)), dtype=dtype)
+    got, want = rs.rglru_scan(a, b), rs.rglru_scan_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == a.dtype and torch.equal(got, want)
+    assert rs.launches["rglru_scan"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,bkv,s,t,d,causal,window", [
+    (4, 4, 256, 256, 64, True, None), (4, 2, 256, 256, 128, False, None),
+    (2, 1, 512, 512, 256, True, 128), (4, 4, 128, 512, 64, False, None),
+    (3, 1, 100, 70, 80, False, 16), (2, 2, 64, 64, 40, True, 5)])
+def test_flash_attention_matches_plain(card, bh, bkv, s, t, d, causal,
+                                       window, dtype):
+    """Tolerances of tests/test_kernels.py: 2e-5 relative (fp32), 3e-2
+    (bf16), with an absolute floor five times that.  A bf16 output is held
+    to one bf16 step of |plain| (plus 1e-3) as well: both round fp32 values
+    that differ in their last bits, and the floor alone would let zeros
+    through where the outputs are small."""
+    rng = np.random.default_rng(s + t + d)
+    q, k, v = _cuda(rng.standard_normal((bh, s, d)),
+                    rng.standard_normal((bkv, t, d)),
+                    rng.standard_normal((bkv, t, d)), dtype=dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=5 * tol)
+    if dtype == "bfloat16":
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= 2 ** -7 * want.float().abs() + 1e-3).all())
+    assert fa.launches["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_mha_gqa_on_card(card):
+    rng = np.random.default_rng(3)
+    q, k, v = _cuda(rng.standard_normal((2, 256, 8, 64)),
+                    rng.standard_normal((2, 256, 2, 64)),
+                    rng.standard_normal((2, 256, 2, 64)))
+    got = ops.flash_mha(q, k, v, causal=True, window=64)
+    kx, vx = (x.repeat_interleave(4, dim=2) for x in (k, v))
+    want = ops.flash_mha(q.cpu(), kx.cpu(), vx.cpu(), causal=True, window=64)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=1e-4)
+    assert fa.launches["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_scan_and_attention_raise_under_autograd(card):
+    a = torch.rand(1, 4, 8, device="cuda", requires_grad=True)
+    q = torch.randn(1, 8, 16, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rs.rglru_scan(a, torch.rand(1, 4, 8, device="cuda"))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        rs.rglru_scan(a, a)
+        fa.flash_attention(q, q, q)
+    assert rs.launches["rglru_scan"] == fa.launches["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_scans_once_per_rglru_layer(card):
+    """A small recurrentgemma-pattern stack on the card: the prefill runs
+    #15 once per RG-LRU layer and #2 at q, v, wx and wy; a decode step runs
+    no scan; the logits equal the plain tier's within 1e-4."""
+    from repro_torch.configs.base import LoRAConfig, ModelConfig
+    from repro_torch.core.lora import AdapterBank, init_adapter_set
+    from repro_torch.models.api import build_model
+    cfg = ModelConfig(name="hybrid", family="hybrid", num_layers=5,
+                      d_model=128, num_heads=4, num_kv_heads=1, head_dim=32,
+                      d_ff=256, vocab_size=512, mlp_variant="geglu",
+                      block_pattern=("rglru", "rglru", "attn"),
+                      attn_window=16, rglru_d_state=128,
+                      lora_targets=("q", "v", "wx", "wy"))
+    model = build_model(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    bank = AdapterBank.from_sets([init_adapter_set(
+        params, gen, LoRAConfig(rank=4, targets=cfg.lora_targets))] * 2)
+    toks = torch.randint(0, 512, (2, 24), device="cuda", generator=gen)
+    out = {}
+    with torch.inference_mode():
+        for plain in (False, True):
+            for mod in (bgmv, rs):
+                mod.reset_launches()
+            with dispatch.plain_tier() if plain else torch.no_grad():
+                cache = model.init_cache(2, 32, device="cuda")
+                lg, cache = model.prefill(params, cache, toks[:, :20],
+                                          bank.requests([1, 0]))
+                lg2, _ = model.decode_step(
+                    params, cache, toks[:, 20:21],
+                    torch.full((2,), 20, device="cuda"),
+                    bank.requests([1, 0]))
+            out[plain] = (lg, lg2)
+            n = 0 if plain else 1
+            assert rs.launches["rglru_scan"] == 4 * n
+            assert bgmv.launches["bgmv_matmul"] == 10 * n
+            assert bgmv.launches["bgmv_gemv"] == 10 * n
+    for got, want in zip(out[False], out[True]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
