@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
 """A/B device times of the tile kernels of src/repro_torch/kernels/csrc/
-lora_matmul.cu across checkouts, on one NVIDIA card.
+(bgmv.cu's prefill forms, lora_matmul.cu) across checkouts, on one NVIDIA
+card.
 
-    python3 ab_tiles.py DIR [DIR ...]
+    python3 ab_tiles.py [--only NAME[,NAME...]] DIR [DIR ...]
 
 Each DIR is the root of a checkout (for example a ``git archive`` of the
 parent commit unpacked under the gitignored ``build/``).  For each DIR in
 the order given, a fresh process builds that checkout's kernels into its own
 ``build/kernels/`` and times, with its own ``chip_smoke._graph_ms`` (CUDA
-graph replay), at the training path's shapes (fp32 activations, m = 512,
-k = 2048, r = 64, gamma 1):
+graph replay), fp32 activations:
 
-  #5-#8  lora_fwd / lora_bwd_dx / lora_bwd_da / lora_bwd_db at q (n = 2048)
-         and v (n = 256); W rotated over copies that exceed L2 three times,
-         #7 / #8 on warm inputs, as chip_smoke.time_lora_kernels does;
+  #2, #3 bgmv_matmul / bgmv_matmul_quant at the serving prefill (B = 4
+         requests of s = 128 rows, r = 8, adapters gathered per request):
+         gemma-2b's q (k = n = 2048) and v (n = 256); #2 also at
+         recurrentgemma-9b's q / wx / wy (k = n = 4096) and v (k = 4096,
+         n = 256); #3 over int4 (group 64) and int8;
+  #5-#8  lora_fwd / lora_bwd_dx / lora_bwd_da / lora_bwd_db at the
+         training path's q (m = 512, k = 2048, n = 2048, r = 64) and v
+         (n = 256); #7 / #8 on warm inputs, as chip_smoke.time_lora_kernels
+         does;
   #11    quant_matmul at int4 (group 64) and int8, q, w_up and w_down, at
          m = 512 (its tile) and m = 4 (its split-k GEMV form, which shares
          the W loaders);
-  #9, #10, #12  lora_fwd_quant / lora_bwd_dx_quant at q and
-         quant_matmul_dx at q, w_up and w_down, int4 and int8, where the
-         checkout has them.
+  #9, #10, #12  lora_fwd_quant / lora_bwd_dx_quant at q and v, and
+         quant_matmul_dx at q, w_up and w_down, int4 and int8.
 
-Each kernel's output is also held against its plain version (max abs
-diff), so a faster build that computes something else shows.  Give the
-checkouts as A B B A to cancel drift; one JSON line per run.
+W (fp or packed) is rotated over copies that exceed L2 three times, as a
+pass finds it cold.  Each kernel's output is also held against its plain
+version (max abs diff), so a faster build that computes something else
+shows.  For #2, #3, #5 and #9 the graph is replayed once more under
+torch.profiler, and each call's device time is split by kernel into the
+rank pre-pass, the main tile and the second pass that adds split partials
+(``split``).  ``--only`` keeps the rows whose name starts with one of the
+given prefixes.  Give the checkouts as A B B A to cancel drift; one JSON
+line per run.
 """
 import itertools
 import json
@@ -32,32 +43,97 @@ import subprocess
 import sys
 from pathlib import Path
 
+SPLIT_KERNELS = ("bgmv_matmul", "lora_fwd")   # prefixes: #2, #3, #5, #9
 
-def one(root: Path) -> dict:
+
+def _phase(kernel_name: str) -> str:
+    """The phase of a forward call a device kernel belongs to."""
+    if ("shrink" in kernel_name or "xat" in kernel_name
+            or "fwd_kernel<64" in kernel_name):
+        return "pre-pass"
+    if "sum" in kernel_name:
+        return "second pass"
+    return "tile"
+
+
+def _split_us(fn, argsets):
+    """Device us per call by phase: the calls captured in a CUDA graph,
+    replayed once under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for args in argsets:
+            fn(*args)
+    g.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ph = _phase(e.name)
+            out[ph] = out.get(ph, 0.0) + e.time_range.elapsed_us()
+    return {ph: round(us / len(argsets), 2) for ph, us in out.items()}
+
+
+def one(root: Path, only) -> dict:
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
 
     import chip_smoke as cs
     from repro_torch.core.quant import quantize
-    from repro_torch.kernels import build, lora_matmul as lm
+    from repro_torch.kernels import bgmv, build, lora_matmul as lm
 
     build.build()
     build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(4)
-    m, k, r = 512, 2048, 64
-    us, err = {}, {}
+    us, err, split = {}, {}, {}
+
+    def wanted(name):
+        return not only or name.startswith(only)
 
     def run(name, kfn, pfn, args):
+        if not wanted(name):
+            return
         got, want = kfn(*args[0]), pfn(*args[0])
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err[name] = max(float((a - b).abs().max()) for a, b in zip(got, want))
         us[name] = cs._graph_ms(kfn, args) * 1e3
+        if name.startswith(SPLIT_KERNELS):
+            split[name] = _split_us(kfn, args)
 
+    def copies(nbytes):
+        return max(2, math.ceil(3 * cs.L2_BYTES / nbytes))
+
+    # #2 and #3 at the serving prefill: 4 requests x 128 rows, r = 8
+    B, s, r8 = 4, 128, 8
+    for model, proj, k, n in (("gemma-2b", "q", 2048, 2048),
+                              ("gemma-2b", "v", 2048, 256),
+                              ("recurrentgemma-9b", "q", 4096, 4096),
+                              ("recurrentgemma-9b", "v", 4096, 256)):
+        x, w, a, b, _ = cs._bank(gen, B, s, k, n, B, (r8,) * B,
+                                 torch.float32)
+        ws = [w.clone() for _ in range(copies(w.nbytes))]
+        run(f"bgmv_matmul {model} {proj}", bgmv.bgmv_matmul,
+            bgmv.bgmv_matmul_plain, [(x, wi, a, b) for wi in ws])
+        del ws
+        if model != "gemma-2b":
+            continue
+        for bits in (4, 8):
+            wf = quantize(w, bits, 64).dequantize()
+            wqs = [quantize(wf, bits, 64)
+                   for _ in range(copies(quantize(wf, bits, 64).nbytes))]
+            run(f"bgmv_matmul_quant int{bits} {proj}", bgmv.bgmv_matmul_quant,
+                bgmv.bgmv_matmul_quant_plain, [(x, wi, a, b) for wi in wqs])
+            del wqs
+    m, k, r = 512, 2048, 64
     for proj, n in (("q", 2048), ("v", 256)):
         x, w, a, b, g = cs._lora_operands(gen, m, k, n, r, torch.float32)
-        ws = [w.clone() for _ in range(max(2, math.ceil(
-            3 * cs.L2_BYTES / w.nbytes)))]
+        ws = [w.clone() for _ in range(copies(w.nbytes))]
         _, p = lm.lora_fwd_plain(x, w, a, b, 1.0)
         _, q = lm.lora_bwd_dx_plain(g, w, a, b, 1.0)
         run(f"lora_fwd {proj}", lm.lora_fwd, lm.lora_fwd_plain,
@@ -69,51 +145,55 @@ def one(root: Path) -> dict:
         run(f"lora_bwd_db {proj}", lm.lora_bwd_db, lm.lora_bwd_db_plain,
             [(g, p, 1.0)] * 8)
         del ws
-    shapes = {"q": (2048, 2048), "w_up": (2048, 16384),
+    shapes = {"q": (2048, 2048), "v": (2048, 256), "w_up": (2048, 16384),
               "w_down": (16384, 2048)}
     for bits, proj in itertools.product((4, 8), shapes):
         kk, n = shapes[proj]
         mode = f"int{bits} {proj}"
         wf = quantize(torch.randn(kk, n, generator=gen, device="cuda")
                       * kk ** -0.5, bits, 64).dequantize()
-        wqs = [quantize(wf, bits, 64) for _ in range(max(2, math.ceil(
-            3 * cs.L2_BYTES / quantize(wf, bits, 64).nbytes)))]
+        wqs = [quantize(wf, bits, 64)
+               for _ in range(copies(quantize(wf, bits, 64).nbytes))]
         x, _, a, b, g = cs._lora_operands(gen, m, kk, n, r, torch.float32)
-        run(f"quant_matmul {mode}", lm.quant_matmul,
-            lm.quant_matmul_plain, [(x, wi) for wi in wqs])
-        run(f"quant_matmul {mode} m 4", lm.quant_matmul,
-            lm.quant_matmul_plain, [(x[:4], wi) for wi in wqs])
-        if hasattr(lm, "quant_matmul_dx"):
+        if proj != "v":
+            run(f"quant_matmul {mode}", lm.quant_matmul,
+                lm.quant_matmul_plain, [(x, wi) for wi in wqs])
+            run(f"quant_matmul {mode} m 4", lm.quant_matmul,
+                lm.quant_matmul_plain, [(x[:4], wi) for wi in wqs])
             run(f"quant_matmul_dx {mode}", lm.quant_matmul_dx,
                 lm.quant_matmul_dx_plain, [(g, wi) for wi in wqs])
-            if proj == "q":
-                run(f"lora_fwd_quant {mode}", lm.lora_fwd_quant,
-                    lm.lora_fwd_quant_plain,
-                    [(x, wi, a, b, 1.0) for wi in wqs])
-                run(f"lora_bwd_dx_quant {mode}", lm.lora_bwd_dx_quant,
-                    lm.lora_bwd_dx_quant_plain,
-                    [(g, wi, a, b, 1.0) for wi in wqs])
+        if proj in ("q", "v"):
+            run(f"lora_fwd_quant {mode}", lm.lora_fwd_quant,
+                lm.lora_fwd_quant_plain, [(x, wi, a, b, 1.0) for wi in wqs])
+            run(f"lora_bwd_dx_quant {mode}", lm.lora_bwd_dx_quant,
+                lm.lora_bwd_dx_quant_plain,
+                [(g, wi, a, b, 1.0) for wi in wqs])
         del wqs
     return {"us": {k: round(v, 2) for k, v in us.items()},
-            "max_abs_err": err}
+            "split_us": split, "max_abs_err": err}
 
 
 def main(argv):
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(Path(argv[1]).resolve())))
+        only = tuple(argv[2].split(",")) if argv[2] else ()
+        print(json.dumps(one(Path(argv[1]).resolve(), only)))
         return 0
+    only = ""
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
     for d in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", d],
+        out = subprocess.run([sys.executable, __file__, "--one", d, only],
                              capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
             return out.returncode
         print(json.dumps({"tree": Path(d).name,
-                          **json.loads(out.stdout.splitlines()[-1])}))
+                          **json.loads(out.stdout.splitlines()[-1])}),
+              flush=True)
     return 0
 
 

@@ -9,8 +9,11 @@ Phases, in order; any failure raises and the exit code is not 0:
      per source, in parallel, sm_90a)
   3. kernels vs plain: each BGMV kernel against its plain PyTorch version at
      the gemma-2b q/v shapes, uniform and mixed-rank banks, decode and
-     prefill, a ragged case, fp32 and bf16; then their times beside the
-     plain version, torch.matmul of the base product and the card's bound
+     prefill, #2 also at recurrentgemma-9b's q / wx / wy and v, a ragged
+     case, fp32 and bf16; then their times beside the plain version,
+     torch.matmul of the base product and the card's bound (#2 at both
+     models' shapes), with the tiles and split each redesigned kernel (#2,
+     #3, #5, #9) launches with
   4. serving path: repro_torch.launch.serve.generate_banked on gemma-2b at
      full width (fp32, seeded random weights, 4 SFed-LoRA tenants), with
      the kernel launch counts, a teacher-forced check against the plain
@@ -101,8 +104,8 @@ from repro_torch.core.lora import (AdapterBank, LiveAdapterBank,  # noqa: E402
 from repro_torch.core.quant import (quant_footprint, quantize,  # noqa: E402
                                     quantize_tree)
 from repro_torch.data.synthetic import FederatedDataset     # noqa: E402
-from repro_torch.kernels import (bgmv, build, dispatch,  # noqa: E402
-                                 flash_attention, lora_matmul, ops,
+from repro_torch.kernels import (bgmv, build, common,  # noqa: E402
+                                 dispatch, flash_attention, lora_matmul, ops,
                                  paged_attention, rglru_scan)
 from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models.api import build_model              # noqa: E402
@@ -232,6 +235,10 @@ def check_kernels():
         for bank_name, ranks in (("r8", (8,) * 4), ("mixed", (4, 8, 16, 64))):
             for s in (1, 128):
                 cases.append((f"{proj} {bank_name}", 4, s, 2048, n, 4, ranks))
+    # recurrentgemma-9b's q / wx / wy and v (prefill only): one unsplit
+    # and one 16-way split plan of the rank-fused forward tile
+    cases += [(f"rg9b {proj}", 4, 128, 4096, n, 4, (8,) * 4)
+              for proj, n in (("q", 4096), ("v", 256))]
     cases += [("ragged", 4, 3, 70, 50, 3, (9, 9, 9)),
               ("ragged", 4, 1, 70, 50, 3, (9, 9, 9))]
     worst = {"bgmv_gemv": 0.0, "bgmv_matmul": 0.0}
@@ -308,47 +315,66 @@ def _eager_ms(fn, argsets, reps=3):
     return (time.perf_counter() - t0) * 1e3 / (reps * len(argsets))
 
 
+def _fwd_plan_note(m, n, k, r, bits=0, group=0):
+    """The tiles and the split a rank-fused forward tile kernel (#2, #3, #5,
+    #9) launches with on this card (kernels/common.py fwd_plan)."""
+    ksplit_p, kchunk_p, ksplit, kchunk = common.fwd_plan(
+        m, n, k, r, common.num_sms(torch.device("cuda")), bits, group)
+    rows, cols, pre = common.FWD_ROWS, common.FWD_COLS, common.FWD_PRE_COLS
+    return (f"[pre-pass {rows}x{pre} tiles x {ksplit_p} chunks of {kchunk_p}"
+            f"; main {rows}x{cols} tiles x {ksplit} chunks of {kchunk}]")
+
+
 def time_kernels():
     """Times at the serving path's shapes (fp32, B=4 requests, rank 8,
     per-request adapters gathered: ids=None), W rotated over copies that
-    together exceed L2 three times, as a decode step finds W cold."""
+    together exceed L2 three times, as a decode step finds W cold: gemma-2b's
+    q and v, and for #2 also recurrentgemma-9b's q / wx / wy (k = n = 4096)
+    and v (k = 4096, n = 256), where its hybrid prefill spends its time."""
     phase("kernel times (fp32, B=4, r=8, W cold in L2)")
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
-    for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128)):
-        for proj, n in (("q", 2048), ("v", 256)):
-            B, k, r = 4, 2048, 8
-            x, w, a, b, _ = _bank(gen, B, s, k, n, B, (r,) * B,
-                                  torch.float32)
-            copies = max(2, math.ceil(3 * L2_BYTES / w.nbytes))
-            ws = [w.clone() for _ in range(copies)]
-            xin = x[:, 0].contiguous() if s == 1 else x
-            kfn = bgmv.bgmv_gemv if s == 1 else bgmv.bgmv_matmul
-            pfn = bgmv.bgmv_gemv_plain if s == 1 else bgmv.bgmv_matmul_plain
-            argsets = [(xin, wi, a, b) for wi in ws]
-            x2 = x.reshape(B * s, k)
-            ms = _graph_ms(kfn, argsets)
-            plain_ms = _graph_ms(pfn, argsets)
-            library_ms = _graph_ms(torch.matmul, [(x2, wi) for wi in ws])
-            eager_ms = _eager_ms(kfn, argsets)
-            m = B * s
-            nbytes = (x.nbytes + w.nbytes + a.nbytes + b.nbytes
-                      + m * n * 4)
-            flops = 2 * m * k * n + 2 * m * r * (k + n)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms,
-                       eager_ms=eager_ms)
-            rows[(kern, proj)] = row
-            print(f"{kern:12s} {proj} x({B},{s},{k}) W({k},{n}) r={r}: "
-                  f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-                  f"torch.matmul (base product only) {library_ms * 1e3:.2f} "
-                  f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
-                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
-                  f"eager call with host overhead {eager_ms * 1e3:.2f} us")
+    shapes = [(kern, s, proj, 2048, n)
+              for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
+              for proj, n in (("q", 2048), ("v", 256))]
+    shapes += [("bgmv_matmul", 128, f"rg9b {proj}", 4096, n)
+               for proj, n in (("q", 4096), ("v", 256))]
+    for kern, s, proj, k, n in shapes:
+        B, r = 4, 8
+        x, w, a, b, _ = _bank(gen, B, s, k, n, B, (r,) * B,
+                              torch.float32)
+        copies = max(2, math.ceil(3 * L2_BYTES / w.nbytes))
+        ws = [w.clone() for _ in range(copies)]
+        xin = x[:, 0].contiguous() if s == 1 else x
+        kfn = bgmv.bgmv_gemv if s == 1 else bgmv.bgmv_matmul
+        pfn = bgmv.bgmv_gemv_plain if s == 1 else bgmv.bgmv_matmul_plain
+        argsets = [(xin, wi, a, b) for wi in ws]
+        x2 = x.reshape(B * s, k)
+        ms = _graph_ms(kfn, argsets)
+        plain_ms = _graph_ms(pfn, argsets)
+        library_ms = _graph_ms(torch.matmul, [(x2, wi) for wi in ws])
+        eager_ms = _eager_ms(kfn, argsets)
+        m = B * s
+        nbytes = (x.nbytes + w.nbytes + a.nbytes + b.nbytes
+                  + m * n * 4)
+        flops = 2 * m * k * n + 2 * m * r * (k + n)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms,
+                   eager_ms=eager_ms)
+        rows[(kern, proj)] = row
+        note = (" " + _fwd_plan_note(m, n, k, r)
+                if kern == "bgmv_matmul" else "")
+        print(f"{kern:12s} {proj} x({B},{s},{k}) W({k},{n}) r={r}: "
+              f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+              f"torch.matmul (base product only) {library_ms * 1e3:.2f} "
+              f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+              f"eager call with host overhead {eager_ms * 1e3:.2f} us"
+              f"{note}")
     return rows
 
 
@@ -567,6 +593,14 @@ def _print_profile(label, wall, events, per, unit):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, us) in top:
         print(f"    {us / 1e3 / per:8.3f} ms  x{n / per:5.1f}  {name[:100]}")
+    # the rank-fused forward tile's three kernels (pre-pass, main tile,
+    # fixed-order sums) make up #2, #3, #5 and #9
+    fam = [(n, us) for name, (n, us) in by_name.items()
+           if "fwd_kernel<" in name or "fwd_sum_kernel" in name]
+    if fam:
+        print(f"    {sum(us for _, us in fam) / 1e3 / per:8.3f} ms  "
+              f"x{sum(n for n, _ in fam) / per:5.1f}  rank-fused forward "
+              "tile (#2, #3, #5, #9: pre-pass, main tile and sums)")
 
 
 # ------------------------------------------ 5. LoRA matmul kernels vs plain
@@ -701,13 +735,15 @@ def time_lora_kernels():
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=library_ms,
                                       eager_ms=eager_ms)
+            note = (" " + _fwd_plan_note(m, n, k, r)
+                    if kern == "lora_fwd" else "")
             print(f"{kern:12s} {proj} m={m} k={k} n={n} r={r}: kernel "
                   f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
                   f"torch.matmul {library_ms * 1e3:.2f} us, bound "
                   f"{bound_ms * 1e3:.2f} us ({bound_by}; {nbytes / 1e6:.2f} "
                   f"MB, {flops / 1e9:.3f} GFLOP; "
                   f"{flops / ms / 1e9:.2f} TFLOP/s), eager call with host "
-                  f"overhead {eager_ms * 1e3:.2f} us")
+                  f"overhead {eager_ms * 1e3:.2f} us{note}")
         del ws
     return rows
 
@@ -1112,6 +1148,9 @@ def time_sched_kernels(block_size, ring, dev="cuda"):
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms,
                         eager_ms=eager_ms)
+                    note = (" " + _fwd_plan_note(m, n, k, 8, bits,
+                                                 QUANT_GROUP)
+                            if name == "bgmv_matmul_quant" else "")
                     print(f"{name:17s} {mode} {proj:6s} m={m:<3d} k={k} "
                           f"n={n}: kernel {ms * 1e3:.2f} us, plain "
                           f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 "
@@ -1119,7 +1158,7 @@ def time_sched_kernels(block_size, ring, dev="cuda"):
                           f"{bound_ms * 1e3:.2f} us ({bound_by}; "
                           f"{nbytes / 1e6:.2f} MB packed, "
                           f"{flops / 1e9:.3f} GFLOP), eager "
-                          f"{eager_ms * 1e3:.2f} us")
+                          f"{eager_ms * 1e3:.2f} us{note}")
             del wqs, wfs
     return rows
 
@@ -1499,6 +1538,8 @@ def time_qtrain_kernels(dev="cuda"):
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=library_ms,
                     eager_ms=eager_ms)
+                note = (" " + _fwd_plan_note(m, n, k, r, bits, QUANT_GROUP)
+                        if kern == "lora_fwd_quant" else "")
                 print(f"{kern:17s} {mode} {proj:6s} m={m} k={k} n={n} "
                       f"r={r}: kernel {ms * 1e3:.2f} us, plain "
                       f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 W "
@@ -1506,7 +1547,7 @@ def time_qtrain_kernels(dev="cuda"):
                       f"{bound_ms * 1e3:.2f} us ({bound_by}; "
                       f"{nbytes / 1e6:.2f} MB packed, {flops / 1e9:.3f} "
                       f"GFLOP; {flops / ms / 1e9:.2f} TFLOP/s), eager "
-                      f"{eager_ms * 1e3:.2f} us")
+                      f"{eager_ms * 1e3:.2f} us{note}")
             del wqs, wfs
     return rows
 

@@ -22,10 +22,19 @@ Kernel notes (what they replace, what bounds them on an H100, what the
 design does about it):
 
 * ``bgmv_matmul`` replaces ``repro/kernels/bgmv.py:_bgmv_kernel``.  At the
-  prefill shapes (B*s = 512 rows, k = 2048) it is bound by operations: it
-  runs fp32 FMA on the CUDA cores (67 TFLOP/s peak; no TF32, so the fp32
-  tolerances hold).  Rows of all requests are flattened into one M, so a
-  64 x 64 output tile reads its W tile once for every request in it.
+  prefill shapes (B*s = 512 rows, k = 2048 or 4096) it is bound by
+  operations: fp32 FMA on the CUDA cores (67 TFLOP/s peak; no TF32, so the
+  fp32 tolerances hold).  Rows of all requests are flattened into one M,
+  so an output tile reads its W tile once for every request in it.  It is
+  the rank-fused forward tile of ``csrc/fwd_tile.cuh``, one body with #3,
+  #5 and #9: a tiled pre-pass writes p = x A^T; 128 x 128 output tiles, 8 x
+  8 outputs a thread fed by float4 shared-memory loads from a cp.async
+  ring, contract a chunk of k each, the chunks sized by
+  ``common.fwd_plan`` from the shapes and SM count so that the blocks fill
+  the card once (the 64 x 64 tile it replaced put 32 blocks on 132 SMs at
+  n = 256); the rank term is the tail of the same contraction, one pass per
+  request in a tile; a second pass adds the chunks' partial sums in a
+  fixed order.
 * ``bgmv_gemv`` replaces ``repro/kernels/bgmv.py:_bgmv_gemv_kernel``.  A
   decode step is bound by the bytes of W (the q projection reads 16.8 MB,
   about 5 us at 3.35 TB/s).  One block computes a 32-column tile for up
@@ -38,16 +47,22 @@ design does about it):
   with the W-tile load replaced by a dequantizing load (one template body
   per kernel, instantiated for an fp, an int8 and an int4 W loader).  They
   move 4x (int8) or 8x (int4) fewer W bytes than fp32, which is what bounds
-  the decode form.  Each W element is formed as ``dequantize`` forms it
-  (one fp32 product, rounded to bf16 for a base packed from bf16 weights),
-  so kernel and plain version differ only in the order of their sums.
+  the decode form.  The prefill form decodes one 32-bit word per load: 4
+  int8 columns (their scales loaded once per tile) or 4 int4 columns of two
+  rows (one scale row per 16-row slab).  Each W element is formed as
+  ``dequantize`` forms it (one fp32 product, rounded to bf16 for a base
+  packed from bf16 weights), so kernel and plain version differ only in the
+  order of their sums.
 * All: the TPU kernel carries p = x A^T in VMEM across its sequential
-  grid.  GPU blocks run in no order, so a shrink pre-pass writes p to an
-  fp32 scratch (rank <= 512, small) that the main kernel reads.
+  grid.  GPU blocks run in no order, so a pre-pass writes p to an fp32
+  scratch (rank <= 512, small) that the main kernel reads: the tiled
+  pre-pass of the forward tile in the prefill forms, one warp per (row, j)
+  in the decode forms (4 rows).
 
-Each wrapper call adds one to its entry of :data:`launches` (the shrink
-pre-pass included), and nowhere else.  The kernels have no backward: on
-CUDA, a wrapper raises when grad mode is on and an operand requires grad.
+Each wrapper call adds one to its entry of :data:`launches` (the pre-pass
+and the second pass included), and nowhere else.  The kernels have no
+backward: on CUDA, a wrapper raises when grad mode is on and an operand
+requires grad.
 """
 from __future__ import annotations
 
@@ -55,8 +70,8 @@ import torch
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels.common import (DTYPES, check_packed, forward_only,
-                                        gemv_split, num_sms, raise_on, route,
-                                        stream)
+                                        fwd_plan, fwd_scratch, gemv_split,
+                                        num_sms, ptr, raise_on, route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
@@ -167,12 +182,14 @@ def bgmv_matmul(x, w, a, b, ids=None):
     nreq, s, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]
+    plan = fwd_plan(nreq * s, n, k, r, num_sms(x.device))
+    scratch = fwd_scratch(nreq * s, n, r, plan, x.device)
     p = torch.empty(nreq * s, r, dtype=torch.float32, device=x.device)
     out = torch.empty(nreq, s, n, dtype=torch.float32, device=x.device)
     err = load().bgmv_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), ids_ptr,
-        p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, DTYPES[x.dtype],
-        stream(x))
+        p.data_ptr(), ptr(scratch), out.data_ptr(), nreq, s, k, n, r, *plan,
+        DTYPES[x.dtype], stream(x))
     raise_on(err, "bgmv_matmul")
     launches["bgmv_matmul"] += 1
     return out
@@ -216,12 +233,14 @@ def bgmv_matmul_quant(x, wq, a, b, ids=None):
     nreq, s, k = x.shape
     ids_ptr = _check(x, wq, a, b, ids, nreq)
     n, r = wq.shape[1], a.shape[1]
+    plan = fwd_plan(nreq * s, n, k, r, num_sms(x.device), wq.bits, group)
+    scratch = fwd_scratch(nreq * s, n, r, plan, x.device)
     p = torch.empty(nreq * s, r, dtype=torch.float32, device=x.device)
     out = torch.empty(nreq, s, n, dtype=torch.float32, device=x.device)
     err = load().bgmv_matmul_quant_launch(
         x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
-        p.data_ptr(), out.data_ptr(), nreq, s, k, n, r, wq.bits, group,
-        bf16w, DTYPES[x.dtype], stream(x))
+        p.data_ptr(), ptr(scratch), out.data_ptr(), nreq, s, k, n, r, *plan,
+        wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
     raise_on(err, "bgmv_matmul_quant")
     launches["bgmv_matmul_quant"] += 1
     return out

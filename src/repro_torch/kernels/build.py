@@ -31,17 +31,17 @@ _F = ctypes.c_float
 # argument types of each entry point, in the order of its csrc/*.cu file
 SIGNATURES = {
     # csrc/bgmv.cu
-    "bgmv_matmul_launch": (_P,) * 7 + (_I,) * 6 + (_P,),
+    "bgmv_matmul_launch": (_P,) * 8 + (_I,) * 10 + (_P,),
     "bgmv_gemv_launch": (_P,) * 8 + (_I,) * 7 + (_P,),
-    "bgmv_matmul_quant_launch": (_P,) * 8 + (_I,) * 9 + (_P,),
+    "bgmv_matmul_quant_launch": (_P,) * 9 + (_I,) * 13 + (_P,),
     "bgmv_gemv_quant_launch": (_P,) * 9 + (_I,) * 10 + (_P,),
     # csrc/lora_matmul.cu
-    "lora_fwd_launch": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
+    "lora_fwd_launch": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P),
     "lora_bwd_dx_launch": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
     "lora_bwd_da_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "lora_bwd_db_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "quant_matmul_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
-    "lora_fwd_quant_launch": (_P,) * 7 + (_I,) * 4 + (_F,) + (_I,) * 4 + (_P,),
+    "lora_fwd_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4 + (_P,),
     "lora_bwd_dx_quant_launch": (_P,) * 7 + (_I,) * 4 + (_F,) + (_I,) * 4
     + (_P,),
     "quant_matmul_dx_launch": (_P,) * 4 + (_I,) * 7 + (_P,),

@@ -1,8 +1,10 @@
 """Wrapper plumbing shared by the kernel modules (``bgmv``, ``lora_matmul``,
 ``paged_attention``, ``rglru_scan``, ``flash_attention``): the tier rule,
 the dtype codes the C entry points take, the caller's stream, launch-error
-reporting, the forward-only guard, and the k split of the split-k GEMV body (``csrc/gemv.cuh``) that #1, #4
-and #11's decode form share.
+reporting, the forward-only guard, the k split of the split-k GEMV body
+(``csrc/gemv.cuh``) that #1, #4 and #11's decode form share, and the split
+plan of the rank-fused forward tile (``csrc/fwd_tile.cuh``) that #2, #3, #5
+and #9 share.
 
 Nothing here builds or loads a kernel; ``kernels/build.py`` does that at
 first use.
@@ -16,6 +18,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/gemv.cuh kGvCols, kGvWarps, kGvMaxB: columns, warps and rows of x
 # per block
 GEMV_COLS, GEMV_WARPS, GEMV_MAX_ROWS = 32, 8, 8
+
+# csrc/fwd_tile.cuh: output rows per block, contraction rows per slab,
+# output columns per block of the main pass and of the rank pre-pass
+FWD_ROWS, FWD_SLAB, FWD_COLS, FWD_PRE_COLS = 128, 16, 128, 64
+# the fewest slabs a chunk of a split contraction holds: shorter chunks
+# spend more of their time filling the 3-stage ring than in it
+FWD_MIN_SLABS = 4
 
 _sm_counts = {}
 
@@ -44,6 +53,11 @@ def forward_only(name, *ts):
 def stream(t):
     """The caller's current CUDA stream on ``t``'s device, as a handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t):
+    """``t``'s device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def raise_on(err: int, name: str):
@@ -75,6 +89,57 @@ def gemv_split(nreq: int, k: int, n: int, num_sms: int):
     ksplit = max(1, min(want, -(-k // GEMV_WARPS), 65535))
     kchunk = -(-k // ksplit)
     return -(-k // kchunk), kchunk
+
+
+def fwd_split(m: int, n: int, k: int, r: int, cols: int, num_sms: int,
+              bits: int = 0, group: int = 0):
+    """(ksplit, kchunk) of one pass of the rank-fused forward tile: an
+    (m, n) output in (FWD_ROWS, cols) tiles, contracting its base range
+    [0, k) and then its rank range [0, r), laid end to end as whole slabs
+    (the base padded to a slab).  Grid z takes the chunk [z kchunk, (z + 1)
+    kchunk) of that range.  When the tiles leave SMs idle, the range splits
+    into as many chunks as keep one block per SM (tiles x ksplit <=
+    num_sms), of at least FWD_MIN_SLABS slabs each; otherwise ksplit is 1.
+    A packed int4 W (``bits`` 4) must hold whole slabs in each scale group,
+    so that no slab of any chunk straddles two groups: a chunk starts on a
+    slab, and a slab on a group's slab boundary."""
+    if bits == 4:
+        assert group % FWD_SLAB == 0, (
+            f"fwd_split: int4 groups of {group} rows split a {FWD_SLAB}-row "
+            "slab (the vector path needs groups of whole slabs)")
+    tiles = -(-m // FWD_ROWS) * -(-n // cols)
+    slabs = -(-k // FWD_SLAB) + -(-r // FWD_SLAB)
+    chunk = slabs
+    if tiles < num_sms:
+        chunk = max(FWD_MIN_SLABS, -(-slabs // (num_sms // tiles)))
+    return -(-slabs // chunk), chunk * FWD_SLAB
+
+
+def fwd_plan(m: int, n: int, k: int, r: int, num_sms: int, bits: int = 0,
+             group: int = 0):
+    """(ksplit_p, kchunk_p, ksplit, kchunk): the splits of the rank
+    pre-pass (p = x A^T, (m, r) in (FWD_ROWS, FWD_PRE_COLS) tiles,
+    contracting k) and of the main pass (out, (m, n) in (FWD_ROWS,
+    FWD_COLS) tiles, contracting k then r), from the shapes and the SM count
+    alone, so that a wrapper asks nothing of the device and stays
+    capture-safe.  An int4 W with groups below a slab takes the kernels'
+    element path, which reads each row's own scale, so only larger groups
+    are held to whole slabs per group."""
+    if bits == 4 and group % FWD_SLAB:
+        bits = 0
+    return (*fwd_split(m, r, 0, k, FWD_PRE_COLS, num_sms),
+            *fwd_split(m, n, k, r, FWD_COLS, num_sms, bits, group))
+
+
+def fwd_scratch(m: int, n: int, r: int, plan, device):
+    """The partial-sum scratch the rank-fused forward tile's split passes
+    share (they run one after the other), or None when neither splits."""
+    ksplit_p, _, ksplit, _ = plan
+    numel = max(ksplit_p * m * r if ksplit_p > 1 else 0,
+                ksplit * m * n if ksplit > 1 else 0)
+    if not numel:
+        return None
+    return torch.empty(numel, dtype=torch.float32, device=device)
 
 
 def num_sms(device) -> int:

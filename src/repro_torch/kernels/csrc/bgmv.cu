@@ -16,8 +16,15 @@
 // and the fp forms are one kernel body each, templated on the W loader.
 //
 // The TPU kernel carries p = x A^T in VMEM from the n == 0 sweep to later
-// n-blocks; GPU blocks run in no order, so a pre-pass (shrink_kernel)
-// writes p to an fp32 scratch (B*s, r) that the main kernels read.
+// n-blocks; GPU blocks run in no order, so a pre-pass writes p to an fp32
+// scratch (B*s, r) that the main kernels read.  The prefill forms (#2, #3)
+// are the rank-fused forward tile of fwd_tile.cuh (shared with #5 and #9):
+// its tiled pre-pass, then 128 x 128 output tiles over chunks of k planned
+// on the host to fill the SMs, with the rank term contracted in the same
+// ring, and a fixed-order pass over the chunks' partial sums; what bounds
+// them and what the design does about it is set out there.  The decode
+// forms (#1, #4) keep the warp-per-(row, j) shrink_kernel (4 rows) and the
+// split-k GEMV of gemv.cuh.
 //
 // Ragged edges are masked in the kernels: no shape needs padding (a packed
 // int4 W may hold kq > k rows; rows >= k are never read).
@@ -30,37 +37,42 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "fwd_tile.cuh"
 #include "gemv.cuh"
 #include "loaders.cuh"
 
 namespace {
 
 using repro_kernels::DenseW;
+using repro_kernels::FwdPlan;
+using repro_kernels::fwd_rank_fused;
+using repro_kernels::fwd_vec;
 using repro_kernels::gemv_partial_kernel;
 using repro_kernels::kGvCols;
 using repro_kernels::kGvMaxB;
 using repro_kernels::kGvWarps;
 using repro_kernels::to_f;
+using repro_kernels::with_dense_cols;
+using repro_kernels::with_packed_cols;
 using repro_kernels::with_packed_w;
 
 // ------------------------------------------------------------- shrink
-// p[row, j] = sum_k x[row, k] * A[id(row), j, k], one warp per (row, j):
-// the warp's lanes stride over k (coalesced reads of the x row and the A
-// row), then reduce with shuffles.  rows = B * s; request = row / s.
+// The decode forms' pre-pass: p[b, j] = sum_k x[b, k] * A[id(b), j, k],
+// one warp per (request b, j): the warp's lanes stride over k (coalesced
+// reads of the x row and the A row), then reduce with shuffles.
 constexpr int kShrinkWarps = 8;
 
 template <typename T>
 __global__ void __launch_bounds__(kShrinkWarps * 32)
 shrink_kernel(const T* __restrict__ x, const T* __restrict__ a,
               const int* __restrict__ ids, float* __restrict__ p, int rows,
-              int s, int k, int r) {
+              int k, int r) {
   const int row = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int j = blockIdx.y * kShrinkWarps + warp;
   if (row >= rows || j >= r) return;  // uniform across the warp
-  const int req = row / s;
-  const int id = ids ? ids[req] : req;
+  const int id = ids ? ids[row] : row;
   const T* xr = x + static_cast<size_t>(row) * k;
   const T* ar = a + (static_cast<size_t>(id) * r + j) * k;
   float acc = 0.f;
@@ -69,84 +81,6 @@ shrink_kernel(const T* __restrict__ x, const T* __restrict__ a,
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   if (lane == 0) p[static_cast<size_t>(row) * r + j] = acc;
-}
-
-// ------------------------------------------------------------- matmul
-// Prefill form.  Rows of all requests are flattened to M = B * s, so one
-// output tile reads its W tile once for every request in it.  Classic
-// shared-memory tiling: 64 x 64 output tile, k in steps of 16, 256
-// threads, 4 x 4 outputs per thread (rows ty + 16 i, cols tx + 16 j, so
-// shared-memory reads are broadcasts or conflict-free).  The W tile comes
-// through the loader WL (fp, or dequantized as it is loaded).  The
-// epilogue adds p[row] . B[id(row), col] (rank r <= 512, read from L2).
-constexpr int kMmBM = 64, kMmBN = 64, kMmBK = 16, kMmThreads = 256;
-
-template <typename T, typename WL>
-__global__ void __launch_bounds__(kMmThreads)
-matmul_kernel(const T* __restrict__ x, const WL wl,
-              const T* __restrict__ bm, const int* __restrict__ ids,
-              const float* __restrict__ p, float* __restrict__ out, int m_rows,
-              int s, int k, int n, int r) {
-  __shared__ float xs[kMmBK][kMmBM];
-  __shared__ float ws[kMmBK][kMmBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kMmBM, n0 = blockIdx.x * kMmBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += kMmBK) {
-#pragma unroll
-    for (int t = 0; t < (kMmBM * kMmBK) / kMmThreads; ++t) {
-      const int idx = tid + t * kMmThreads;
-      const int mm = idx / kMmBK, kk = idx % kMmBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk][mm] = (gm < m_rows && gk < k)
-                       ? to_f(x[static_cast<size_t>(gm) * k + gk]) : 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < (kMmBK * kMmBN) / kMmThreads; ++t) {
-      const int idx = tid + t * kMmThreads;
-      const int kk = idx / kMmBN, nn = idx % kMmBN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      ws[kk][nn] = (gk < k && gn < n) ? wl(gk, gn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmBK; ++kk) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= m_rows) continue;
-    const int req = gm / s;
-    const int id = ids ? ids[req] : req;
-    const float* pr = p + static_cast<size_t>(gm) * r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= n) continue;
-      const T* br = bm + (static_cast<size_t>(id) * n + gn) * r;
-      float lora = 0.f;
-      for (int q = 0; q < r; ++q) lora = fmaf(pr[q], to_f(br[q]), lora);
-      out[static_cast<size_t>(gm) * n + gn] = acc[i][j] + lora;
-    }
-  }
 }
 
 // --------------------------------------------------------------- gemv
@@ -175,22 +109,18 @@ __global__ void finalize_kernel(const float* __restrict__ partial,
   out[idx] = acc + lora;
 }
 
-template <typename T, typename WL>
-int matmul_launch(const void* x, const WL wl, const void* a, const void* b,
-                  const int* ids, float* p, float* out, int nreq, int s, int k,
-                  int n, int r, cudaStream_t st) {
-  const int rows = nreq * s;
-  shrink_kernel<T><<<dim3(rows, (r + kShrinkWarps - 1) / kShrinkWarps),
-                     kShrinkWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), ids, p, rows, s, k,
-      r);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  matmul_kernel<T, WL>
-      <<<dim3((n + kMmBN - 1) / kMmBN, (rows + kMmBM - 1) / kMmBM), kMmThreads,
-         0, st>>>(static_cast<const T*>(x), wl, static_cast<const T*>(b), ids,
-                  p, out, rows, s, k, n, r);
-  return static_cast<int>(cudaGetLastError());
+// Prefill form (#2, #3): the rank-fused forward tile of fwd_tile.cuh over
+// the bank (adapter of row i: ids[i / s], or i / s), gamma 1.
+template <typename T, typename WS>
+int matmul_launch(const void* x, const WS& w, const void* a, const void* b,
+                  const int* ids, float* p, float* scratch, float* out,
+                  int nreq, int s, int k, int n, int r, const FwdPlan& plan,
+                  cudaStream_t st) {
+  return fwd_rank_fused<T>(static_cast<const T*>(x), w,
+                           static_cast<const T*>(a), static_cast<const T*>(b),
+                           static_cast<size_t>(r) * k,
+                           static_cast<size_t>(n) * r, ids, s, 1.f, p,
+                           scratch, out, nreq * s, k, n, r, plan, st);
 }
 
 template <typename T, typename WL>
@@ -199,8 +129,7 @@ int gemv_launch(const void* x, const WL wl, const void* a, const void* b,
                 int k, int n, int r, int ksplit, int kchunk, cudaStream_t st) {
   shrink_kernel<T><<<dim3(nreq, (r + kShrinkWarps - 1) / kShrinkWarps),
                      kShrinkWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), ids, p, nreq, 1, k,
-      r);
+      static_cast<const T*>(x), static_cast<const T*>(a), ids, p, nreq, k, r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gemv_partial_kernel<T, WL>
@@ -215,15 +144,19 @@ int gemv_launch(const void* x, const WL wl, const void* a, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The packed forms: the same launches with an int8 or int4 W loader.
+// The packed forms: the same launches with an int8 or int4 W.
 template <typename T>
 int matmul_quant(const void* x, const void* wd, const float* ws, const void* a,
-                 const void* b, const int* ids, float* p, float* out, int nreq,
-                 int s, int k, int n, int r, int bits, int group, int bf16w,
+                 const void* b, const int* ids, float* p, float* scratch,
+                 float* out, int nreq, int s, int k, int n, int r,
+                 const FwdPlan& plan, int bits, int group, int bf16w,
                  cudaStream_t st) {
-  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
-    return matmul_launch<T>(x, wl, a, b, ids, p, out, nreq, s, k, n, r, st);
-  });
+  return with_packed_cols(
+      wd, ws, n, bits, group, bf16w, fwd_vec(k, n, r, x, a, b, p),
+      [&](const auto& w) {
+        return matmul_launch<T>(x, w, a, b, ids, p, scratch, out, nreq, s, k,
+                                n, r, plan, st);
+      });
 }
 
 template <typename T>
@@ -242,20 +175,31 @@ int gemv_quant(const void* x, const void* wd, const float* ws, const void* a,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, a, b all of that type).
-// p: (nreq * s, r) fp32 scratch; out: (nreq * s, n) fp32.
+// p: (nreq * s, r) fp32 scratch; out: (nreq * s, n) fp32; scratch: the
+// partial sums of the plan's split passes (fwd_tile.cuh fwd_rank_fused),
+// unused when neither splits.
 int bgmv_matmul_launch(const void* x, const void* w, const void* a,
-                       const void* b, const int* ids, float* p, float* out,
-                       int nreq, int s, int k, int n, int r, int dtype,
-                       void* stream) {
+                       const void* b, const int* ids, float* p, float* scratch,
+                       float* out, int nreq, int s, int k, int n, int r,
+                       int ksplit_p, int kchunk_p, int ksplit, int kchunk,
+                       int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdPlan plan{ksplit_p, kchunk_p, ksplit, kchunk};
+  const bool vec = fwd_vec(k, n, r, x, a, b, p);
   if (dtype == 0)
-    return matmul_launch<float>(
-        x, DenseW<float>{static_cast<const float*>(w), n}, a, b, ids, p, out,
-        nreq, s, k, n, r, st);
+    return with_dense_cols(static_cast<const float*>(w), n, vec,
+                           [&](const auto& wv) {
+                             return matmul_launch<float>(
+                                 x, wv, a, b, ids, p, scratch, out, nreq, s, k,
+                                 n, r, plan, st);
+                           });
   if (dtype == 1)
-    return matmul_launch<__nv_bfloat16>(
-        x, DenseW<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(w), n}, a,
-        b, ids, p, out, nreq, s, k, n, r, st);
+    return with_dense_cols(static_cast<const __nv_bfloat16*>(w), n, vec,
+                           [&](const auto& wv) {
+                             return matmul_launch<__nv_bfloat16>(
+                                 x, wv, a, b, ids, p, scratch, out, nreq, s, k,
+                                 n, r, plan, st);
+                           });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -283,16 +227,19 @@ int bgmv_gemv_launch(const void* x, const void* w, const void* a,
 // dtype as above.
 int bgmv_matmul_quant_launch(const void* x, const void* wd, const float* ws,
                              const void* a, const void* b, const int* ids,
-                             float* p, float* out, int nreq, int s, int k,
-                             int n, int r, int bits, int group, int bf16w,
-                             int dtype, void* stream) {
+                             float* p, float* scratch, float* out, int nreq,
+                             int s, int k, int n, int r, int ksplit_p,
+                             int kchunk_p, int ksplit, int kchunk, int bits,
+                             int group, int bf16w, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdPlan plan{ksplit_p, kchunk_p, ksplit, kchunk};
   if (dtype == 0)
-    return matmul_quant<float>(x, wd, ws, a, b, ids, p, out, nreq, s, k, n, r,
-                               bits, group, bf16w, st);
+    return matmul_quant<float>(x, wd, ws, a, b, ids, p, scratch, out, nreq, s,
+                               k, n, r, plan, bits, group, bf16w, st);
   if (dtype == 1)
-    return matmul_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, out, nreq, s,
-                                       k, n, r, bits, group, bf16w, st);
+    return matmul_quant<__nv_bfloat16>(x, wd, ws, a, b, ids, p, scratch, out,
+                                       nreq, s, k, n, r, plan, bits, group,
+                                       bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

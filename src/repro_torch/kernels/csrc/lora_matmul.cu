@@ -26,8 +26,8 @@
 // W no less (its fewer bytes only lower a bound that was not binding); #7
 // and #8 are small (2mrk, 2mnr) and bound by the latency of their m loop,
 // which they split over blocks.
-// The packed forms pay a few integer instructions and a scale load per
-// staged W element on top of the fp tiles.
+// The packed forms of tile_kernel pay a few integer instructions and a
+// scale load per staged W element on top of the fp tiles.
 //
 // The TPU kernels carry p (forward) and q (backward) in VMEM from the first
 // sweep of a sequential grid to the later blocks, and accumulate dA and dB
@@ -38,12 +38,19 @@
 //   - dA and dB split the m loop into chunks, one block per (output tile,
 //     chunk), and a second kernel adds the chunks' partial sums in a fixed
 //     order: no atomics, so a run repeats bit for bit.
-// Every main pass is one tiled kernel (tile_kernel) over element views of
-// its operands: dense fp32 / bf16 matrices, stored along or across the
-// contraction, or a packed W read through its dequantizing loader
-// (loaders.cuh) by column (forward) or by row (dx).  Ragged edges are masked
-// in the kernels: no shape needs padding, and an int4 W's kq - k padding
-// rows are never read.
+// The forwards (#5, #9) are the rank-fused forward tile of fwd_tile.cuh,
+// shared with the BGMV prefill (#2, #3): a tiled pre-pass for p, then
+// 128 x 128 output tiles (8 x 8 per thread, a cp.async ring) over chunks of
+// k planned on the host to fill the SMs, with the rank term contracted in
+// the same ring, and a fixed-order pass over the chunks' partial sums; a
+// packed W is decoded one 32-bit word at a time.  What bounds them and what
+// the design does about it is set out there.
+// The other main passes (#6, #7, #8, #10, #11's tile, #12) are one tiled
+// kernel (tile_kernel) over element views of their operands: dense fp32 /
+// bf16 matrices, stored along or across the contraction, or a packed W read
+// through its dequantizing loader (loaders.cuh) by column (#11) or by row
+// (dx).  Ragged edges are masked in the kernels: no shape needs padding,
+// and an int4 W's kq - k padding rows are never read.
 //
 // Plain C interface, bound with ctypes (kernels/build.py,
 // kernels/lora_matmul.py).  Each entry point launches on the caller's
@@ -56,42 +63,26 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "fwd_tile.cuh"
 #include "gemv.cuh"
 #include "loaders.cuh"
 
 namespace {
 
+using repro_kernels::FwdPlan;
+using repro_kernels::fwd_rank_fused;
+using repro_kernels::fwd_vec;
 using repro_kernels::gemv_partial_kernel;
 using repro_kernels::kGvCols;
 using repro_kernels::kGvMaxB;
 using repro_kernels::kGvWarps;
 using repro_kernels::to_f;
+using repro_kernels::with_dense_cols;
+using repro_kernels::with_packed_cols;
 using repro_kernels::with_packed_w;
 
-// --------------------------------------------------------- rank pre-passes
-// p[row, j] = sum_k x[row, k] A[j, k]: both rows are contiguous along k, so
-// one warp per (row, j), lanes striding over k, then a shuffle reduction.
+// --------------------------------------------------------- rank pre-pass
 constexpr int kRankWarps = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kRankWarps * 32)
-xat_kernel(const T* __restrict__ x, const T* __restrict__ a,
-           float* __restrict__ p, int m, int k, int r) {
-  const int row = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int j = blockIdx.y * kRankWarps + warp;
-  if (row >= m || j >= r) return;  // uniform across the warp
-  const T* xr = x + static_cast<size_t>(row) * k;
-  const T* ar = a + static_cast<size_t>(j) * k;
-  float acc = 0.f;
-  for (int kk = lane; kk < k; kk += 32)
-    acc = fmaf(to_f(xr[kk]), to_f(ar[kk]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) p[static_cast<size_t>(row) * r + j] = acc;
-}
 
 // q[row, j] = sum_n g[row, n] B[n, j]: B (n, r) is contiguous along j, so
 // lanes take 32 consecutive j (coalesced reads of a B row, one broadcast
@@ -161,9 +152,9 @@ struct Dense {
 };
 
 // A packed W (k, n) behind its loader (loaders.cuh) as the right operand:
-// by column, R(j, t) = W(t, j), contracting over k (the forward); by row,
-// R(j, t) = W(j, t), contracting over n (dx).  Both read W's rows along
-// their contiguous n.
+// by column, R(j, t) = W(t, j), contracting over k (#11's prefill form); by
+// row, R(j, t) = W(j, t), contracting over n (dx).  Both read W's rows
+// along their contiguous n.
 template <typename WL>
 struct WByCol {
   static constexpr bool kTC = false;
@@ -314,19 +305,6 @@ inline dim3 tile_grid(int ni, int nj) {
   return dim3((nj + kBN - 1) / kBN, (ni + kBM - 1) / kBM);
 }
 
-// y = x W + gamma p B^T over an fp (Dense) or packed (WByCol) W, after the
-// xat pre-pass has written p.  L = x (m x k, along t), R = W (n x k);
-// L2 = p (m x r), R2 = B (n x r, along s).
-template <typename T, typename WOp>
-int fwd_tile(const void* x, const WOp w, const void* b, const float* p,
-             float* y, int m, int k, int n, int r, float gamma,
-             cudaStream_t st) {
-  tile_kernel<<<tile_grid(m, n), kThreads, 0, st>>>(
-      Dense<T, true>{static_cast<const T*>(x), k}, w, m, n, k, k, p, r,
-      Dense<T, true>{static_cast<const T*>(b), r}, r, 1.f, gamma, y);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // dx = g W^T + gamma q A over an fp or packed (WByRow) W, after the gb
 // pre-pass has written q.  L = g (m x n, along t), R = W (k x n, along t);
 // L2 = q (m x r), R2 = A (r x k, across s).
@@ -341,16 +319,6 @@ int dx_tile(const void* g, const WOp w, const void* a, const float* q,
 }
 
 template <typename T>
-int xat(const void* x, const void* a, float* p, int m, int k, int r,
-        cudaStream_t st) {
-  xat_kernel<T><<<dim3(m, (r + kRankWarps - 1) / kRankWarps),
-                  kRankWarps * 32, 0, st>>>(static_cast<const T*>(x),
-                                            static_cast<const T*>(a), p, m, k,
-                                            r);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int gb(const void* g, const void* b, float* q, int m, int n, int r,
        cudaStream_t st) {
   gb_kernel<T><<<dim3(m, (r + 31) / 32), kRankWarps * 32, 0, st>>>(
@@ -358,13 +326,27 @@ int gb(const void* g, const void* b, float* q, int m, int n, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// #5 and #9: the rank-fused forward tile of fwd_tile.cuh (its pre-pass
+// writes the residual p), one adapter (stride 0, every row request 0).
+template <typename T, typename WS>
+int fwd_launch(const void* x, const WS& w, const void* a, const void* b,
+               float* p, float* scratch, float* y, int m, int k, int n, int r,
+               const FwdPlan& plan, float gamma, cudaStream_t st) {
+  return fwd_rank_fused<T>(static_cast<const T*>(x), w,
+                           static_cast<const T*>(a), static_cast<const T*>(b),
+                           0, 0, nullptr, m, gamma, p, scratch, y, m, k, n, r,
+                           plan, st);
+}
+
 template <typename T>
 int fwd(const void* x, const void* w, const void* a, const void* b, float* p,
-        float* y, int m, int k, int n, int r, float gamma, cudaStream_t st) {
-  const int err = xat<T>(x, a, p, m, k, r, st);
-  if (err != 0) return err;
-  return fwd_tile<T>(x, Dense<T, false>{static_cast<const T*>(w), n}, b, p, y,
-                     m, k, n, r, gamma, st);
+        float* scratch, float* y, int m, int k, int n, int r,
+        const FwdPlan& plan, float gamma, cudaStream_t st) {
+  return with_dense_cols(static_cast<const T*>(w), n,
+                         fwd_vec(k, n, r, x, a, b, p), [&](const auto& wv) {
+                           return fwd_launch<T>(x, wv, a, b, p, scratch, y, m,
+                                                k, n, r, plan, gamma, st);
+                         });
 }
 
 template <typename T>
@@ -436,17 +418,17 @@ int bwd_db(const void* g, const float* p, float* partial, float* db, int m,
 // rows) are masked at the logical k, below the padded kq of an int4 W; dx's
 // columns likewise.
 
-// #9: the xat pre-pass, then the forward tile over W by column.
+// #9: #5 over a packed W.
 template <typename T>
 int fwd_quant(const void* x, const void* wd, const float* ws, const void* a,
-              const void* b, float* p, float* y, int m, int k, int n, int r,
-              float gamma, int bits, int group, int bf16w, cudaStream_t st) {
-  const int err = xat<T>(x, a, p, m, k, r, st);
-  if (err != 0) return err;
-  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
-    return fwd_tile<T>(x, WByCol<decltype(wl)>{wl}, b, p, y, m, k, n, r,
-                       gamma, st);
-  });
+              const void* b, float* p, float* scratch, float* y, int m, int k,
+              int n, int r, const FwdPlan& plan, float gamma, int bits,
+              int group, int bf16w, cudaStream_t st) {
+  return with_packed_cols(wd, ws, n, bits, group, bf16w,
+                          fwd_vec(k, n, r, x, a, b, p), [&](const auto& w) {
+                            return fwd_launch<T>(x, w, a, b, p, scratch, y, m,
+                                                 k, n, r, plan, gamma, st);
+                          });
 }
 
 // #10: the gb pre-pass, then the dx tile over W by row.
@@ -517,14 +499,21 @@ int qmm(const void* x, const void* wd, const float* ws, float* partial,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, a, b, g all of that type).
-// p: (m, r) fp32, written (the residual, or scratch); y: (m, n) fp32.
+// p: (m, r) fp32, written (the residual, or scratch); y: (m, n) fp32;
+// scratch: the partial sums of the plan's split passes (fwd_tile.cuh
+// fwd_rank_fused), unused when neither splits.
 int lora_fwd_launch(const void* x, const void* w, const void* a,
-                    const void* b, float* p, float* y, int m, int k, int n,
-                    int r, float gamma, int dtype, void* stream) {
+                    const void* b, float* p, float* scratch, float* y, int m,
+                    int k, int n, int r, int ksplit_p, int kchunk_p,
+                    int ksplit, int kchunk, float gamma, int dtype,
+                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(x, w, a, b, p, y, m, k, n, r, gamma, st);
+  const FwdPlan plan{ksplit_p, kchunk_p, ksplit, kchunk};
+  if (dtype == 0)
+    return fwd<float>(x, w, a, b, p, scratch, y, m, k, n, r, plan, gamma, st);
   if (dtype == 1)
-    return fwd<__nv_bfloat16>(x, w, a, b, p, y, m, k, n, r, gamma, st);
+    return fwd<__nv_bfloat16>(x, w, a, b, p, scratch, y, m, k, n, r, plan,
+                              gamma, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -593,18 +582,22 @@ int quant_matmul_launch(const void* x, const void* wd, const float* ws,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// #9: p (m, r) fp32, written (the residual, or scratch); y (m, n).
+// #9: p (m, r) fp32, written (the residual, or scratch); y (m, n); scratch
+// as for #5.
 int lora_fwd_quant_launch(const void* x, const void* wd, const float* ws,
-                          const void* a, const void* b, float* p, float* y,
-                          int m, int k, int n, int r, float gamma, int bits,
-                          int group, int bf16w, int dtype, void* stream) {
+                          const void* a, const void* b, float* p,
+                          float* scratch, float* y, int m, int k, int n, int r,
+                          int ksplit_p, int kchunk_p, int ksplit, int kchunk,
+                          float gamma, int bits, int group, int bf16w,
+                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdPlan plan{ksplit_p, kchunk_p, ksplit, kchunk};
   if (dtype == 0)
-    return fwd_quant<float>(x, wd, ws, a, b, p, y, m, k, n, r, gamma, bits,
-                            group, bf16w, st);
+    return fwd_quant<float>(x, wd, ws, a, b, p, scratch, y, m, k, n, r, plan,
+                            gamma, bits, group, bf16w, st);
   if (dtype == 1)
-    return fwd_quant<__nv_bfloat16>(x, wd, ws, a, b, p, y, m, k, n, r, gamma,
-                                    bits, group, bf16w, st);
+    return fwd_quant<__nv_bfloat16>(x, wd, ws, a, b, p, scratch, y, m, k, n,
+                                    r, plan, gamma, bits, group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

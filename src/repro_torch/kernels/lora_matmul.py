@@ -37,11 +37,17 @@ design does about it):
   ``_fwd_call`` and ``_fwd_call_scratch``).  At the training path's shapes
   (m = 512, k = 2048, n = 2048 or 256, r = 64) it is bound by operations:
   fp32 FMA on the CUDA cores (67 TFLOP/s peak; no TF32, so the fp32
-  tolerances hold), in 64 x 64 shared-memory tiles.  The TPU kernel builds
-  p in VMEM during its n == 0 sweep; GPU blocks run in no order, so a
-  pre-pass writes p (m x r, fp32) first and each tile adds gamma p B^T
-  after its base product.  p is the residual the backward reuses; without
-  grad it is scratch.
+  tolerances hold).  The TPU kernel builds p in VMEM during its n == 0
+  sweep; GPU blocks run in no order, so a pre-pass writes p (m x r, fp32)
+  first.  p is the residual the backward reuses; without grad it is
+  scratch.  It is the rank-fused forward tile of ``csrc/fwd_tile.cuh``, one
+  body with the BGMV prefill (#2, #3) and #9: a tiled pre-pass (128 x rows
+  and 64 rank rows of A a block), then 128 x 128 output tiles with 8 x 8
+  outputs a thread, fed by float4 shared-memory loads from a cp.async ring,
+  over chunks of k that ``common.fwd_plan`` sizes to fill the SMs once (the
+  64 x 64 tile it replaced put 32 blocks on 132 SMs at n = 256); gamma p
+  B^T is the tail of the same contraction, and a second pass adds the
+  chunks' partial sums in a fixed order.
 * ``lora_bwd_dx`` replaces ``_bwd_dx_kernel`` (``:147``, ``_bwd_dx_call``):
   the mirror of the forward, a q = g B pre-pass, then tiles that contract
   over n and read W by rows.  Bound by operations like the forward.
@@ -55,16 +61,20 @@ design does about it):
   run repeats bit for bit.
 * ``lora_fwd_quant`` and ``lora_bwd_dx_quant`` replace ``_fwd_kernel_q``
   (``:345``, ``_fwd_call_q``) and ``_bwd_dx_kernel_q`` (``:414``,
-  ``_bwd_dx_call_q``): the tiles of #5 and #6 with W read through a
-  dequantizing loader (``csrc/loaders.cuh``), by column for the forward and
-  by row for dx, after the same p / q pre-passes (the TPU kernels build them
-  in their first sweep).  Bound by operations like #5 and #6 (the packed W's
-  fewer bytes lower a bound that was not binding); the loader adds integer
-  work and a scale load per staged element.  An int4 W may hold kq > k
-  rows: x's columns, W's rows and dx's columns are masked at the logical k.
+  ``_bwd_dx_call_q``).  ``lora_fwd_quant`` is the forward tile of #5 over a
+  packed W decoded one 32-bit word per load (4 int8 columns with scales
+  loaded once per tile, or 4 int4 columns of two rows with one scale row
+  per 16-row slab); ``lora_bwd_dx_quant`` is the dx tile of #6 with W read
+  by row through a dequantizing loader (``csrc/loaders.cuh``), after the q
+  pre-pass (the TPU kernels build p and q in their first sweep).  Bound by
+  operations like #5 and #6 (the packed W's fewer bytes lower a bound that
+  was not binding); the element loader adds integer work and a scale load
+  per staged element.  An int4 W may hold kq > k rows: x's columns, W's
+  rows and dx's columns are masked at the logical k.
 * ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``): for
-  m > 8 rows (prefills, training; bound by operations) the forward tile of
-  #9 with no rank term.  At decode shapes (m <= 8) it is bound by the
+  m > 8 rows (prefills, training; bound by operations) the 64 x 64
+  ``tile_kernel`` of #6, #10 and #12 with W read by column and no rank
+  term.  At decode shapes (m <= 8) it is bound by the
   packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x 16384 / 2 = 16.8 MB,
   about 5 us at 3.35 TB/s), and the tile's k loop over 60 empty rows was
   bound by its latency instead (PERF.md); there it takes the split-k GEMV
@@ -77,7 +87,8 @@ design does about it):
   any m.
 
 Each kernel wrapper adds one to its entry of :data:`launches` where it
-launches its kernel (the rank pre-pass included), and nowhere else.
+launches its kernel (the rank pre-pass and the second pass included), and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -85,8 +96,8 @@ import torch
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels.common import (DTYPES, GEMV_MAX_ROWS, check_packed,
-                                        gemv_split, num_sms, raise_on, route,
-                                        stream)
+                                        fwd_plan, fwd_scratch, gemv_split,
+                                        num_sms, ptr, raise_on, route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
@@ -208,11 +219,14 @@ def lora_fwd(x, w, a, b, gamma: float):
     if x.shape[1] != k:
         raise ValueError(f"lora_fwd: x {tuple(x.shape)} vs w "
                          f"{tuple(w.shape)}")
+    plan = fwd_plan(m, n, k, r, num_sms(x.device))
+    scratch = fwd_scratch(m, n, r, plan, x.device)
     p = torch.empty(m, r, dtype=torch.float32, device=x.device)
     y = torch.empty(m, n, dtype=torch.float32, device=x.device)
     err = load().lora_fwd_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), p.data_ptr(),
-        y.data_ptr(), m, k, n, r, float(gamma), DTYPES[x.dtype], stream(x))
+        ptr(scratch), y.data_ptr(), m, k, n, r, *plan, float(gamma),
+        DTYPES[x.dtype], stream(x))
     raise_on(err, "lora_fwd")
     launches["lora_fwd"] += 1
     return y, p
@@ -259,10 +273,6 @@ def _m_split_out(m: int, ni: int, nj: int, device):
     return out, partial, msplit, mchunk
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def lora_bwd_da(q, x, gamma: float):
     """Kernel #7: dA = gamma q^T x, (r, k) fp32, reduced over m in a fixed
     order."""
@@ -276,7 +286,7 @@ def lora_bwd_da(q, x, gamma: float):
                          f"{tuple(x.shape)}")
     da, partial, msplit, mchunk = _m_split_out(m, r, k, x.device)
     err = load().lora_bwd_da_launch(
-        q.data_ptr(), x.data_ptr(), _ptr(partial), da.data_ptr(), m, k, r,
+        q.data_ptr(), x.data_ptr(), ptr(partial), da.data_ptr(), m, k, r,
         msplit, mchunk, float(gamma), DTYPES[x.dtype], stream(x))
     raise_on(err, "lora_bwd_da")
     launches["lora_bwd_da"] += 1
@@ -296,7 +306,7 @@ def lora_bwd_db(g, p, gamma: float):
                          f"{tuple(g.shape)}")
     db, partial, msplit, mchunk = _m_split_out(m, n, r, g.device)
     err = load().lora_bwd_db_launch(
-        g.data_ptr(), p.data_ptr(), _ptr(partial), db.data_ptr(), m, n, r,
+        g.data_ptr(), p.data_ptr(), ptr(partial), db.data_ptr(), m, n, r,
         msplit, mchunk, float(gamma), DTYPES[g.dtype], stream(g))
     raise_on(err, "lora_bwd_db")
     launches["lora_bwd_db"] += 1
@@ -325,12 +335,15 @@ def lora_fwd_quant(x, wq, a, b, gamma: float):
     if x.shape[1] != k:
         raise ValueError(f"lora_fwd_quant: x {tuple(x.shape)} vs W "
                          f"{tuple(wq.shape)}")
+    plan = fwd_plan(m, n, k, r, num_sms(x.device), wq.bits, group)
+    scratch = fwd_scratch(m, n, r, plan, x.device)
     p = torch.empty(m, r, dtype=torch.float32, device=x.device)
     y = torch.empty(m, n, dtype=torch.float32, device=x.device)
     err = load().lora_fwd_quant_launch(
         x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(), a.data_ptr(),
-        b.data_ptr(), p.data_ptr(), y.data_ptr(), m, k, n, r, float(gamma),
-        wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
+        b.data_ptr(), p.data_ptr(), ptr(scratch), y.data_ptr(), m, k, n, r,
+        *plan, float(gamma), wq.bits, group, bf16w, DTYPES[x.dtype],
+        stream(x))
     raise_on(err, "lora_fwd_quant")
     launches["lora_fwd_quant"] += 1
     return y, p
@@ -379,7 +392,7 @@ def quant_matmul(x, wq):
                               device=x.device)
     err = load().quant_matmul_launch(
         x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
-        _ptr(partial), y.data_ptr(), m, k,
+        ptr(partial), y.data_ptr(), m, k,
         n, ksplit, kchunk, wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
     raise_on(err, "quant_matmul")
     launches["quant_matmul"] += 1

@@ -11,7 +11,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import bgmv as jbgmv                      # noqa: E402
 from repro.kernels import dispatch as jdispatch              # noqa: E402
-from repro_torch.kernels import bgmv, dispatch               # noqa: E402
+from repro_torch.kernels import bgmv, common, dispatch       # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)     # the JAX BGMV tests' own bound
 NO_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
@@ -214,6 +214,96 @@ def test_wrapper_checks_accept_good_operands():
 def test_gemv_split_covers_k(nreq, k, n):
     ksplit, kchunk = bgmv.gemv_split(nreq, k, n, num_sms=132)
     assert ksplit >= 1 and ksplit * kchunk >= k > (ksplit - 1) * kchunk
+
+
+# The rank-fused forward tile's split plan (common.fwd_split / fwd_plan),
+# which #2, #3, #5 and #9 launch with: (m, n, k, r) of each pass.
+SMS = 132
+PATH_SHAPES = [
+    (512, 2048, 2048, 8),     # #2 gemma-2b q (4 x 128 prefill rows)
+    (512, 256, 2048, 8),      # #2 gemma-2b v
+    (512, 4096, 4096, 8),     # #2 recurrentgemma-9b q, wx, wy
+    (512, 256, 4096, 8),      # #2 recurrentgemma-9b v
+    (512, 2048, 2048, 64),    # #5 / #9 training q
+    (512, 256, 2048, 64),     # #5 / #9 training v
+]
+SPLIT_SHAPES = PATH_SHAPES + [(50, 30, 70, 3), (33, 17, 65, 1),
+                              (5000, 50, 12, 9), (1, 1, 1, 1),
+                              (16896, 128, 300, 64)]
+
+
+def _chunks(k, r, ksplit, kchunk):
+    """[lo, hi) of each chunk over the pass's range: k padded to a slab,
+    then r."""
+    total = -(-k // 16) * 16 + r
+    return [(z * kchunk, min(total, (z + 1) * kchunk)) for z in range(ksplit)]
+
+
+@pytest.mark.parametrize("cols", [common.FWD_COLS, common.FWD_PRE_COLS])
+@pytest.mark.parametrize("m,n,k,r", SPLIT_SHAPES)
+def test_fwd_split_covers_the_range_in_whole_slabs(m, n, k, r, cols):
+    ksplit, kchunk = common.fwd_split(m, n, k, r, cols, SMS)
+    slabs = -(-k // 16) + -(-r // 16)
+    assert ksplit >= 1 and kchunk % 16 == 0
+    assert (ksplit - 1) * kchunk < slabs * 16 <= ksplit * kchunk
+    assert all(lo < hi for lo, hi in _chunks(k, r, ksplit, kchunk))
+    if ksplit > 1:
+        assert kchunk >= common.FWD_MIN_SLABS * 16
+
+
+@pytest.mark.parametrize("group", [16, 32, 64, 128])
+@pytest.mark.parametrize("m,n,k,r", SPLIT_SHAPES)
+def test_fwd_split_int4_slab_never_straddles_a_group(m, n, k, r, group):
+    """Every 16-row slab of every chunk of the base range lies in one int4
+    scale group, so the kernel loads one scale row per slab."""
+    ksplit, kchunk = common.fwd_split(m, n, k, r, common.FWD_COLS, SMS, 4,
+                                      group)
+    for lo, hi in _chunks(k, r, ksplit, kchunk):
+        for t in range(lo, min(hi, k), 16):
+            assert t // group == (min(t + 16, k) - 1) // group
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_fwd_split_refuses_int4_groups_below_a_slab(group):
+    with pytest.raises(AssertionError, match="slab"):
+        common.fwd_split(512, 256, 2048, 8, common.FWD_COLS, SMS, 4, group)
+    # the wrappers' plan sends such a W down the element path instead
+    assert common.fwd_plan(512, 256, 2048, 8, SMS, 4, group) == \
+        common.fwd_plan(512, 256, 2048, 8, SMS)
+
+
+@pytest.mark.parametrize("m,n", [(16896, 128), (2048, 2048), (512, 33792),
+                                 (4096, 4096)])
+def test_fwd_split_is_one_when_the_tiles_fill_the_card(m, n):
+    assert -(-m // 128) * -(-n // 128) >= SMS
+    assert common.fwd_split(m, n, 2048, 64, common.FWD_COLS, SMS) == \
+        (1, 2048 + 64)
+
+
+@pytest.mark.parametrize("m,n,k,r", PATH_SHAPES)
+def test_fwd_plan_fills_the_card_at_the_path_shapes(m, n, k, r):
+    """Both passes put between 90% of the SMs and all of them to work, one
+    block each."""
+    ksplit_p, _, ksplit, _ = common.fwd_plan(m, n, k, r, SMS)
+    for tiles, split in ((-(-m // 128) * -(-r // 64), ksplit_p),
+                         (-(-m // 128) * -(-n // 128), ksplit)):
+        assert 0.9 * SMS <= tiles * split <= SMS
+
+
+@pytest.mark.parametrize("bits,group", [(0, 0), (8, 0), (4, 64), (4, 16)])
+@pytest.mark.parametrize("m,n,k,r", PATH_SHAPES)
+def test_fwd_plan_depends_only_on_shapes_and_sm_count(m, n, k, r, bits,
+                                                      group):
+    import inspect
+    assert list(inspect.signature(common.fwd_plan).parameters) == [
+        "m", "n", "k", "r", "num_sms", "bits", "group"]
+    plan = common.fwd_plan(m, n, k, r, SMS, bits, group)
+    assert plan == common.fwd_plan(m, n, k, r, SMS, bits, group)
+    assert plan == (*common.fwd_split(m, r, 0, k, common.FWD_PRE_COLS, SMS),
+                    *common.fwd_split(m, n, k, r, common.FWD_COLS, SMS))
+    # a bigger card never splits less
+    big = common.fwd_plan(m, n, k, r, 2 * SMS, bits, group)
+    assert big[0] >= plan[0] and big[2] >= plan[2]
 
 
 # ------------------------------------------------------------- on the card

@@ -58,11 +58,15 @@ def _assert_close(got, want, dtype=torch.float32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n,r", [(512, 2048, 256, 64), (50, 70, 30, 3),
-                                     (33, 65, 17, 1)])
+                                     (33, 65, 17, 1), (300, 1000, 4100, 8)])
 def test_lora_kernels_match_plain(card, m, k, n, r, dtype):
+    """#5-#8 against their plain versions; #5 twice, bit for bit (its split
+    passes add their partial sums in a fixed order)."""
     lm = lora_matmul
     x, w, a, b, g = _operands(m, k, n, r, getattr(torch, dtype))
     y, p = lm.lora_fwd(x, w, a, b, 1.5)
+    y2, p2 = lm.lora_fwd(x, w, a, b, 1.5)
+    assert torch.equal(y, y2) and torch.equal(p, p2)
     y_want, p_want = lm.lora_fwd_plain(x, w, a, b, 1.5)
     dx, q = lm.lora_bwd_dx(g, w, a, b, 1.5)
     dx_want, q_want = lm.lora_bwd_dx_plain(g, w, a, b, 1.5)
@@ -73,7 +77,7 @@ def test_lora_kernels_match_plain(card, m, k, n, r, dtype):
                       (da, lm.lora_bwd_da_plain(q_want, x, 1.5)),
                       (db, lm.lora_bwd_db_plain(g, p_want, 1.5))):
         _assert_close(got, want)
-    assert lm.launches == _launches(lora_fwd=1, lora_bwd_dx=1, lora_bwd_da=1,
+    assert lm.launches == _launches(lora_fwd=2, lora_bwd_dx=1, lora_bwd_da=1,
                                     lora_bwd_db=1)
 
 
@@ -189,7 +193,9 @@ def test_quant_matmul_matches_plain(card, bits, m, k, n, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("s,k,n,r", [(1, 2048, 2048, 8), (128, 2048, 256, 8),
-                                     (3, 70, 50, 9), (1, 70, 50, 9)])
+                                     (3, 70, 50, 9), (1, 70, 50, 9),
+                                     (128, 4096, 4096, 8),
+                                     (37, 1000, 4100, 64)])
 @pytest.mark.parametrize("with_ids", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bgmv_quant_matches_plain(card, bits, s, k, n, r, with_ids, dtype):
@@ -218,7 +224,7 @@ def test_bgmv_quant_matches_plain(card, bits, s, k, n, r, with_ids, dtype):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("m,k,n,r", [(512, 2048, 2048, 64),
                                      (512, 2048, 256, 64), (50, 100, 30, 3),
-                                     (3, 100, 30, 3)])
+                                     (3, 100, 30, 3), (300, 1000, 4100, 1)])
 def test_packed_training_kernels_match_plain(card, bits, m, k, n, r, dtype):
     """#9, #10 and #12 against their plain versions at the training path's
     q and v shapes, a ragged one (k = 100: an int4 W holds 128 rows, the
@@ -237,6 +243,69 @@ def test_packed_training_kernels_match_plain(card, bits, m, k, n, r, dtype):
         _assert_close(got, want)
     assert lm.launches == _launches(lora_fwd_quant=1, lora_bwd_dx_quant=1,
                                     quant_matmul_dx=1)
+
+
+# the rank-fused forward tile (#2, #3, #5, #9): (B, s, k, n, r, ranks of a
+# mixed-rank bank) with m = B s rows; the planned split on a 132-SM card
+FWD_CASES = [
+    (4, 128, 2048, 256, 8, None),             # gemma-2b v: split 15 ways
+    (4, 128, 4096, 4096, 8, None),            # recurrentgemma-9b q: unsplit
+    (4, 128, 2048, 2048, 64, (4, 8, 16, 64)),  # mixed ranks: split 2 ways
+    (3, 37, 1000, 4100, 8, (1, 8, 3)),        # m, k, n off every multiple
+    (5, 29, 333, 250, 1, None),               # odd widths: element path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,s,k,n,r,ranks", FWD_CASES)
+def test_fwd_tile_kernels_match_plain_and_repeat(card, B, s, k, n, r, ranks,
+                                                 dtype):
+    """#2 (bank ids and ids=None), #3 (int8, int4 with kq > k where k is no
+    multiple of 64), #5 and #9 against their plain versions, each called
+    twice with results equal bit for bit."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(B * s + k)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda().to(dt)
+    x, w = arr(B, s, k), arr(k, n, scale=k ** -0.5)
+    a, b = arr(B, r, k, scale=0.05), arr(B, n, r, scale=0.05)
+    for t, rt in enumerate(ranks or ()):
+        a[t, rt:] = 0
+        b[t, :, rt:] = 0
+    ids = torch.tensor([(2 * i + 1) % B for i in range(B)], dtype=torch.int32,
+                       device="cuda")
+    x2, a2, b2 = x.reshape(B * s, k), a[0].contiguous(), b[0].contiguous()
+    wqs = {bits: _packed(k, n, bits, seed=5) for bits in (8, 4)}
+    calls = {
+        "bgmv_matmul ids": (lambda: bgmv.bgmv_matmul(x, w, a, b, ids),
+                            lambda: bgmv.bgmv_matmul_plain(x, w, a, b, ids)),
+        "bgmv_matmul none": (lambda: bgmv.bgmv_matmul(x, w, a, b),
+                             lambda: bgmv.bgmv_matmul_plain(x, w, a, b)),
+        "lora_fwd": (lambda: lora_matmul.lora_fwd(x2, w, a2, b2, 1.5),
+                     lambda: lora_matmul.lora_fwd_plain(x2, w, a2, b2, 1.5)),
+    }
+    for bits, wq in wqs.items():
+        calls[f"bgmv_matmul_quant int{bits}"] = (
+            lambda wq=wq: bgmv.bgmv_matmul_quant(x, wq, a, b, ids),
+            lambda wq=wq: bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids))
+        calls[f"lora_fwd_quant int{bits}"] = (
+            lambda wq=wq: lora_matmul.lora_fwd_quant(x2, wq, a2, b2, 1.5),
+            lambda wq=wq: lora_matmul.lora_fwd_quant_plain(x2, wq, a2, b2,
+                                                           1.5))
+    for name, (kfn, pfn) in calls.items():
+        got, again, want = kfn(), kfn(), pfn()
+        torch.cuda.synchronize()
+        got, again, want = ((t if isinstance(t, tuple) else (t,))
+                            for t in (got, again, want))
+        for g_, a_, w_ in zip(got, again, want):
+            assert torch.equal(g_, a_), name
+            _assert_close(g_, w_)
+    assert bgmv.launches == {"bgmv_matmul": 4, "bgmv_gemv": 0,
+                             "bgmv_matmul_quant": 4, "bgmv_gemv_quant": 0}
+    assert lora_matmul.launches == _launches(lora_fwd=2, lora_fwd_quant=4)
 
 
 @pytest.mark.cuda

@@ -264,3 +264,84 @@ def test_m_split_covers_m_in_whole_steps(monkeypatch, m, ni, nj, want):
     msplit, mchunk = lora_matmul._m_split(m, ni, nj, "cuda")
     assert (msplit, mchunk) == want
     assert mchunk % 16 == 0 and (msplit - 1) * mchunk < m <= msplit * mchunk
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records each entry point's
+    arguments and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+def _fwd_call(name, m, k, n, r):
+    """(wrapper call, C entry point, (k, n, r), bits, group) of one of the
+    four wrappers on the rank-fused forward tile."""
+    from repro_torch.core.quant import quantize
+    x, w, a, b, _ = _t(*_operands(m, k, n, r, seed=4))
+    wq = quantize(w, 4, 64)
+    bank_a, bank_b = a[None].repeat(4, 1, 1), b[None].repeat(4, 1, 1)
+    x3 = x.reshape(4, m // 4, k)
+    return {
+        "lora_fwd": (lambda: lora_matmul.lora_fwd(x, w, a, b, 1.5),
+                     "lora_fwd_launch", 0, 0),
+        "lora_fwd_quant": (lambda: lora_matmul.lora_fwd_quant(x, wq, a, b,
+                                                              1.5),
+                           "lora_fwd_quant_launch", 4, 64),
+        "bgmv_matmul": (lambda: bgmv.bgmv_matmul(x3, w, bank_a, bank_b),
+                        "bgmv_matmul_launch", 0, 0),
+        "bgmv_matmul_quant": (lambda: bgmv.bgmv_matmul_quant(x3, wq, bank_a,
+                                                             bank_b),
+                              "bgmv_matmul_quant_launch", 4, 64),
+    }[name]
+
+
+@pytest.mark.parametrize("m,k,n,r", [(512, 2048, 256, 64), (64, 2048, 512, 8),
+                                     (40, 70, 30, 3)])
+@pytest.mark.parametrize("name", ["lora_fwd", "lora_fwd_quant", "bgmv_matmul",
+                                  "bgmv_matmul_quant"])
+def test_fwd_wrappers_launch_with_the_plan_and_a_big_enough_scratch(
+        monkeypatch, name, m, k, n, r):
+    """#2, #3, #5 and #9 hand their entry point common.fwd_plan's split of
+    these shapes on a 132-SM card (ksplit_p, kchunk_p, ksplit, kchunk, right
+    after r) and a scratch that holds the larger split pass's partials (a
+    null pointer when neither splits), then count one launch."""
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    scratch = {}
+    real_scratch = common.fwd_scratch
+
+    def recording_scratch(*args):
+        scratch["t"] = real_scratch(*args)
+        return scratch["t"]
+    for mod in (lora_matmul, bgmv):
+        monkeypatch.setattr(mod, "route", lambda t, _name: True)
+        monkeypatch.setattr(mod, "num_sms", lambda device: 132)
+        monkeypatch.setattr(mod, "stream", lambda t: None)
+        monkeypatch.setattr(mod, "fwd_scratch", recording_scratch)
+    call, entry, bits, group = _fwd_call(name, m, k, n, r)
+    call()
+    (got_entry, args), = lib.calls
+    assert got_entry == entry
+    plan = common.fwd_plan(m, n, k, r, 132, bits, group)
+    ints = [a for a in args if type(a) is int]
+    at = [i for i in range(len(ints) - 2) if ints[i:i + 3] == [k, n, r]][0]
+    assert tuple(ints[at + 3:at + 7]) == plan
+    ksplit_p, _, ksplit, _ = plan
+    need = max(ksplit_p * m * r if ksplit_p > 1 else 0,
+               ksplit * m * n if ksplit > 1 else 0)
+    if need:
+        assert scratch["t"].numel() >= need
+        assert scratch["t"].data_ptr() in args
+    else:
+        assert scratch["t"] is None and None in args
+    launches = (lora_matmul.launches if name.startswith("lora")
+                else bgmv.launches)
+    assert launches[name] == 1
