@@ -23,18 +23,26 @@ graph replay), fp32 activations:
   #11    quant_matmul at int4 (group 64) and int8, q, w_up and w_down, at
          m = 512 (its tile) and m = 4 (its split-k GEMV form, which shares
          the W loaders);
-  #9, #10, #12  lora_fwd_quant / lora_bwd_dx_quant at q and v, and
-         quant_matmul_dx at q, w_up and w_down, int4 and int8.
+  #9, #10 lora_fwd_quant / lora_bwd_dx_quant at q and v, int4 and int8;
+  #12    quant_matmul_dx at k, o, w_up and w_down, int4 and int8;
+  #13    paged_attention over fp32 and bf16 pools at (a) the gemma-2b
+         scheduled path (B 4, h 8, kh 1, hd 256, block 16, 10 table
+         columns), (b) the hybrid's (h 16, window 2048) and (c) a long
+         context (h 16, 128 columns, window 2048), chip_smoke._paged_case's
+         staggered fills; beside each, SDPA on the gathered view (one
+         library call, the yardstick; the same on every checkout).
 
 W (fp or packed) is rotated over copies that exceed L2 three times, as a
 pass finds it cold.  Each kernel's output is also held against its plain
 version (max abs diff), so a faster build that computes something else
-shows.  For #2, #3, #5 and #9 the graph is replayed once more under
-torch.profiler, and each call's device time is split by kernel into the
-rank pre-pass, the main tile and the second pass that adds split partials
-(``split``).  ``--only`` keeps the rows whose name starts with one of the
-given prefixes.  Give the checkouts as A B B A to cancel drift; one JSON
-line per run.
+shows.  For #2, #3, #5, #9, #12 and #13 the graph is replayed once more
+under torch.profiler, and each call's device time is split by kernel into
+the rank pre-pass, the main kernel ("tile") and the second pass that adds
+split partials or merges split softmaxes (``split``).  The compiler's
+registers and spills of those kernels (``-Xptxas -v``, from the build log)
+come with each run (``ptxas``).  ``--only`` keeps the rows whose name
+starts with one of the given prefixes.  Give the checkouts as A B B A to
+cancel drift; one JSON line per run.
 """
 import itertools
 import json
@@ -43,7 +51,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-SPLIT_KERNELS = ("bgmv_matmul", "lora_fwd")   # prefixes: #2, #3, #5, #9
+# prefixes: #2, #3, #5, #9, #12, #13
+SPLIT_KERNELS = ("bgmv_matmul", "lora_fwd", "quant_matmul_dx",
+                 "paged_attention")
+# the kernels whose registers and spills a run reports (mangled names)
+PTXAS_KERNELS = ("paged_attn", "paged_split", "paged_merge", "fwd_kernel",
+                 "tile_kernel")
 
 
 def _phase(kernel_name: str) -> str:
@@ -51,7 +64,7 @@ def _phase(kernel_name: str) -> str:
     if ("shrink" in kernel_name or "xat" in kernel_name
             or "fwd_kernel<64" in kernel_name):
         return "pre-pass"
-    if "sum" in kernel_name:
+    if "sum" in kernel_name or "merge" in kernel_name:
         return "second pass"
     return "tile"
 
@@ -78,6 +91,23 @@ def _split_us(fn, argsets):
     return {ph: round(us / len(argsets), 2) for ph, us in out.items()}
 
 
+def _ptxas(log: Path) -> dict:
+    """{mangled kernel name: "N regs, S spill"} for PTXAS_KERNELS, read from
+    the compiler's -v report beside the library."""
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            spill = line.strip().split(",")[1].split()[0]
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split()[0]
+            if any(k in name for k in PTXAS_KERNELS):
+                out[name] = f"{regs} regs, {spill} B spill"
+            name = None
+    return out
+
+
 def one(root: Path, only) -> dict:
     sys.path[:0] = [str(root), str(root / "src")]
     import torch
@@ -86,7 +116,7 @@ def one(root: Path, only) -> dict:
     from repro_torch.core.quant import quantize
     from repro_torch.kernels import bgmv, build, lora_matmul as lm
 
-    build.build()
+    lib = build.build()
     build.load()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(4)
@@ -145,7 +175,8 @@ def one(root: Path, only) -> dict:
         run(f"lora_bwd_db {proj}", lm.lora_bwd_db, lm.lora_bwd_db_plain,
             [(g, p, 1.0)] * 8)
         del ws
-    shapes = {"q": (2048, 2048), "v": (2048, 256), "w_up": (2048, 16384),
+    shapes = {"q": (2048, 2048), "v": (2048, 256), "k": (2048, 256),
+              "o": (2048, 2048), "w_up": (2048, 16384),
               "w_down": (16384, 2048)}
     for bits, proj in itertools.product((4, 8), shapes):
         kk, n = shapes[proj]
@@ -155,11 +186,12 @@ def one(root: Path, only) -> dict:
         wqs = [quantize(wf, bits, 64)
                for _ in range(copies(quantize(wf, bits, 64).nbytes))]
         x, _, a, b, g = cs._lora_operands(gen, m, kk, n, r, torch.float32)
-        if proj != "v":
+        if proj in ("q", "w_up", "w_down"):
             run(f"quant_matmul {mode}", lm.quant_matmul,
                 lm.quant_matmul_plain, [(x, wi) for wi in wqs])
             run(f"quant_matmul {mode} m 4", lm.quant_matmul,
                 lm.quant_matmul_plain, [(x[:4], wi) for wi in wqs])
+        if proj in ("k", "o", "w_up", "w_down"):
             run(f"quant_matmul_dx {mode}", lm.quant_matmul_dx,
                 lm.quant_matmul_dx_plain, [(g, wi) for wi in wqs])
         if proj in ("q", "v"):
@@ -169,8 +201,38 @@ def one(root: Path, only) -> dict:
                 lm.lora_bwd_dx_quant_plain,
                 [(g, wi, a, b, 1.0) for wi in wqs])
         del wqs
+    # #13: (label, h, table columns, window); B 4, kh 1, hd 256, block 16
+    pa = cs.paged_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, h, mb, window in (("a", 8, 10, None), ("b", 16, 10, 2048),
+                                 ("c", 16, 128, 2048)):
+        if not (wanted("paged_attention") or wanted("sdpa")):
+            break
+        q, kp, vp, pos, table, qpos = cs._paged_case(gen, 4, h, 1, 256, 16,
+                                                      mb)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"({label}) h {h} mb {mb} {str(dt)[6:]}"
+            args = [(q.to(dt), kp.to(dt), vp.to(dt), pos, table, qpos)] * 8
+            run(f"paged_attention {tag}",
+                lambda *a_: pa.paged_attention(*a_, window=window),
+                lambda *a_: pa.paged_attention_plain(*a_, window=window),
+                args)
+            if wanted("sdpa"):
+                kg, vg = (t.to(dt)[table.long()].reshape(4, -1, 1, 256)
+                          .permute(0, 2, 1, 3).expand(4, h, -1, -1)
+                          .contiguous() for t in (kp, vp))
+                pg = pos[table.long()].reshape(4, -1)
+                ok = (pg >= 0) & (pg <= qpos[:, None])
+                if window:
+                    ok &= qpos[:, None] - pg < window
+                sargs = [(q.to(dt)[:, :, None], kg, vg,
+                          ok[:, None, None, :])] * 8
+                us[f"sdpa {tag}"] = cs._graph_ms(
+                    lambda q_, k_, v_, m_: sdpa(q_, k_, v_, attn_mask=m_),
+                    sargs) * 1e3
     return {"us": {k: round(v, 2) for k, v in us.items()},
-            "split_us": split, "max_abs_err": err}
+            "split_us": split, "max_abs_err": err,
+            "ptxas": _ptxas(lib.with_suffix(".log"))}
 
 
 def main(argv):

@@ -29,11 +29,13 @@ Phases, in order; any failure raises and the exit code is not 0:
      second kernel-tier run that must repeat bit for bit, ms/round and a
      profile of one client local step
   7. paged and quantized kernels vs plain: #13 (paged attention) at the
-     scheduled path's shapes, with window and softcap variants and a ragged
-     case with an idle slot; #3, #4 (quantized BGMV) and #11 (packed GEMM)
-     over int8 and int4 (group 64) gemma-2b projections at m = 4 and 512;
-     then their times beside the plain versions, one PyTorch call each and
-     the card's bound
+     scheduled path's shapes (with window and softcap variants), the
+     hybrid's 16 query heads with its window of 2048, a 2048-position
+     context, and a ragged case with an idle slot, over fp32 and bf16
+     pools; #3, #4 (quantized BGMV) and #11 (packed GEMM) over int8 and
+     int4 (group 64) gemma-2b projections at m = 4 and 512; then their
+     times beside the plain versions, one PyTorch call each (SDPA for #13)
+     and the card's bound, with the split #13 launches with
   8. scheduled serving path: repro_torch.launch.serve.serve_scheduled on
      gemma-2b at full width over an fp32, an int8 and an int4 base (8
      requests, two waves through 4 slots, one deadline), with the launch
@@ -47,7 +49,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      fp32 and bf16 activations; a base packed from bf16 weights through
      all six packed kernels (#3, #4, #9-#12); then the times of #9, #10 and
      #12 beside their plain versions, one torch.matmul on the dequantized
-     W and the card's bound
+     W and the card's bound, with the tiles and split #9 and #12 launch
+     with
  10. training path over a packed base: the FederatedTrainer of phase 6 over
      an int8 and an int4 base (#9, #10, #7, #8 at q and v; #11 and #12 at
      k, o and the MLP), with the launch counts, a bit-identical repeat,
@@ -325,6 +328,24 @@ def _fwd_plan_note(m, n, k, r, bits=0, group=0):
             f"; main {rows}x{cols} tiles x {ksplit} chunks of {kchunk}]")
 
 
+def _dx_plan_note(m, k, n):
+    """The tiles and the split #12 launches with on this card
+    (kernels/common.py dx_plan)."""
+    ksplit, kchunk = common.dx_plan(m, k, n,
+                                    common.num_sms(torch.device("cuda")))
+    return (f"[{common.FWD_ROWS}x{common.FWD_COLS} tiles x {ksplit} chunks "
+            f"of {kchunk}{'; fixed-order sum' if ksplit > 1 else ''}]")
+
+
+def _paged_plan_note(b, kh, mb):
+    """The grid and the split #13 launches with on this card
+    (kernels/common.py paged_split)."""
+    nsplit, cols = common.paged_split(b, kh, mb,
+                                      common.num_sms(torch.device("cuda")))
+    return (f"[grid {b}x{kh}x{nsplit}: {nsplit} chunks of {cols} columns"
+            f"{'; merge' if nsplit > 1 else ''}]")
+
+
 def time_kernels():
     """Times at the serving path's shapes (fp32, B=4 requests, rank 8,
     per-request adapters gathered: ids=None), W rotated over copies that
@@ -580,7 +601,7 @@ def _print_profile(label, wall, events, per, unit):
     if not events:
         print(f"{label}: device time not measured (the profiler recorded no "
               "CUDA events)")
-        return
+        return None
     wall_ms = wall * 1e3 / per
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / per
     print(f"{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
@@ -594,13 +615,22 @@ def _print_profile(label, wall, events, per, unit):
     for name, (n, us) in top:
         print(f"    {us / 1e3 / per:8.3f} ms  x{n / per:5.1f}  {name[:100]}")
     # the rank-fused forward tile's three kernels (pre-pass, main tile,
-    # fixed-order sums) make up #2, #3, #5 and #9
-    fam = [(n, us) for name, (n, us) in by_name.items()
-           if "fwd_kernel<" in name or "fwd_sum_kernel" in name]
-    if fam:
-        print(f"    {sum(us for _, us in fam) / 1e3 / per:8.3f} ms  "
-              f"x{sum(n for n, _ in fam) / per:5.1f}  rank-fused forward "
-              "tile (#2, #3, #5, #9: pre-pass, main tile and sums)")
+    # fixed-order sums) make up #2, #3, #5, #9 and #12; #12's main tile is
+    # the one with a by-row packed stager (RowsInt8 / RowsInt4); #13 is its
+    # split kernel and merge
+    groups = (("rank-fused forward tile (#2, #3, #5, #9, #12: pre-pass, "
+               "main tile and sums)",
+               lambda name: "fwd_kernel<" in name or "fwd_sum_kernel" in name),
+              ("of which #12's main tile (RowsInt8 / RowsInt4)",
+               lambda name: "fwd_kernel<" in name and "RowsInt" in name),
+              ("paged attention #13 (split kernel and merge)",
+               lambda name: "paged_" in name))
+    for label_, match in groups:
+        fam = [(n, us) for name, (n, us) in by_name.items() if match(name)]
+        if fam:
+            print(f"    {sum(us for _, us in fam) / 1e3 / per:8.3f} ms  "
+                  f"x{sum(n for n, _ in fam) / per:5.1f}  {label_}")
+    return busy_ms
 
 
 # ------------------------------------------ 5. LoRA matmul kernels vs plain
@@ -991,24 +1021,45 @@ def _paged_case(gen, b, h, kh, hd, bs, mb, idle=0, dev="cuda"):
     return q, kp, vp, pos_pool, table, qpos
 
 
+def _paged_shapes(block_size, ring):
+    """#13's timed shapes, (label, h, table columns, window) with B 4, kh
+    1, hd 256: (a) the gemma-2b scheduled path, (b) the hybrid's attention
+    layers (16 query heads, window 2048) on the same ring, (c) a long
+    context (the hybrid's window of 2048 positions, 128 columns)."""
+    mb = -(-ring // block_size)
+    return (("path", 8, mb, None), ("hybrid", 16, mb, 2048),
+            ("long", 16, -(-2048 // block_size), 2048))
+
+
+def _paged_check_cases(block_size, ring):
+    """(label, _paged_case shape, [(window, softcap), ...]) of #13's
+    checks: the three timed shapes, and a ragged case with an idle slot."""
+    cases = []
+    for name, h, mb, window in _paged_shapes(block_size, ring):
+        variants = ([(None, None), (64, None), (None, 50.0), (64, 50.0)]
+                    if name == "path" else [(window, None)])
+        cases.append((f"{name} B4 h{h} kh1 hd256 bs{block_size} mb{mb}",
+                      (4, h, 1, 256, block_size, mb, 0), variants))
+    cases.append(("B3 h6 kh2 hd80 bs5 mb3 idle1", (3, 6, 2, 80, 5, 3, 1),
+                  [(None, None), (64, None), (None, 50.0), (64, 50.0)]))
+    return cases
+
+
 def check_sched_kernels(block_size, ring, dev="cuda"):
-    """fp32 and bf16 builds of each kernel: #13 over fp32 and bf16 pools;
-    #3, #4 and #11 with fp32 and bf16 activations over a base packed from
+    """fp32 and bf16 builds of each kernel: #13 over fp32 and bf16 pools at
+    the gemma-2b path, the hybrid's and a long context (_paged_shapes), and
+    a ragged case; #3, #4 and #11 with fp32 and bf16 activations over a base packed from
     fp32 weights (the only base their wrappers take)."""
     phase("paged-attention #13 and quantized BGMV / GEMM #3, #4, #11 vs "
           f"plain (tolerance: |kernel - plain| <= {KERNEL_RTOL} * max(1, "
           f"max|plain|), + {BF16_STEP} * |plain| for a bf16 output)")
     gen = torch.Generator(dev).manual_seed(5)
     worst = {k: 0.0 for k in SCHED_KERNELS}
-    mb = -(-ring // block_size)
     pa = paged_attention
-    for label, shape in ((f"B4 h8 kh1 hd256 bs{block_size} mb{mb}",
-                          (4, 8, 1, 256, block_size, mb, 0)),
-                         ("B3 h6 kh2 hd80 bs5 mb3 idle1",
-                          (3, 6, 2, 80, 5, 3, 1))):
+    for label, shape, variants in _paged_check_cases(block_size, ring):
         q, kp, vp, *rest = _paged_case(gen, *shape, dev=dev)
-        for dt, window, softcap in itertools.product(
-                (torch.float32, torch.bfloat16), (None, 64), (None, 50.0)):
+        for dt, (window, softcap) in itertools.product(
+                (torch.float32, torch.bfloat16), variants):
             args = [t.to(dt) for t in (q, kp, vp)] + rest
             got = pa.paged_attention(*args, window=window, softcap=softcap)
             want = pa.paged_attention_plain(*args, window=window,
@@ -1060,52 +1111,64 @@ def check_sched_kernels(block_size, ring, dev="cuda"):
     return worst
 
 
-def time_sched_kernels(block_size, ring, dev="cuda"):
-    """Times at the scheduled path's shapes (fp32 activations, B = 4, rank
-    8, int8 and int4 group 64): #3, #4 and #11 with the packed W rotated
-    over copies that together exceed L2 three times (a step reads each
-    layer's W once); #13 on one layer's pools, warm (18 layers of pools,
-    24 MB, fit in L2)."""
-    phase("paged / quantized kernel times (fp32 activations, B=4, r=8)")
-    gen = torch.Generator(dev).manual_seed(6)
-    rows = {}
-    mb = -(-ring // block_size)
-    q, kp, vp, pos_pool, table, qpos = _paged_case(gen, 4, 8, 1, 256,
+def _time_paged(gen, h, mb, window, block_size, dev):
+    """#13 at B 4, h query heads on one kv head of 256, mb table columns of
+    block_size positions (_paged_case's fills), fp32 pools, warm (one
+    layer's pools; 18 layers of the gemma-2b path's fit in L2), beside its
+    plain version, SDPA on the gathered view and the bound."""
+    q, kp, vp, pos_pool, table, qpos = _paged_case(gen, 4, h, 1, 256,
                                                    block_size, mb, dev=dev)
     pa = paged_attention
     args = [(q, kp, vp, pos_pool, table, qpos)] * 8
-    ms = _graph_ms(pa.paged_attention, args)
-    plain_ms = _graph_ms(pa.paged_attention_plain, args)
+    ms = _graph_ms(lambda *a: pa.paged_attention(*a, window=window), args)
+    plain_ms = _graph_ms(
+        lambda *a: pa.paged_attention_plain(*a, window=window), args)
     # the library call: SDPA over the already-gathered view, GQA expanded
     kg, vg, pg = (t.reshape(4, mb * block_size, *t.shape[3:])
                   for t in (kp[table.long()], vp[table.long()],
                             pos_pool[table.long()]))
-    kh_ = kg.permute(0, 2, 1, 3).expand(4, 8, -1, -1).contiguous()
-    vh_ = vg.permute(0, 2, 1, 3).expand(4, 8, -1, -1).contiguous()
-    mask = ((pg >= 0) & (pg <= qpos[:, None]))[:, None, None, :]
+    kh_ = kg.permute(0, 2, 1, 3).expand(4, h, -1, -1).contiguous()
+    vh_ = vg.permute(0, 2, 1, 3).expand(4, h, -1, -1).contiguous()
+    ok = (pg >= 0) & (pg <= qpos[:, None])
+    if window:
+        ok &= qpos[:, None] - pg < window
+    mask = ok[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = _graph_ms(lambda q_, k_, v_, m_: sdpa(q_, k_, v_,
                                                        attn_mask=m_),
                            [(q[:, :, None], kh_, vh_, mask)] * 8)
-    eager_ms = _eager_ms(pa.paged_attention, args)
+    eager_ms = _eager_ms(lambda *a: pa.paged_attention(*a, window=window),
+                         args)
     # the work this run's fill needs: pos of every table position; K and V
-    # rows (kh = 1) and q.k, p.v for the 8 query heads at the attendable
+    # rows (kh = 1) and q.k, p.v for the h query heads at the attendable
     # ones only
     n_pos, n_valid = pg.numel(), int(mask.sum())
     nbytes = (q.nbytes * 2 + n_pos * 4 + n_valid * 2 * 256 * 4
               + table.nbytes + qpos.nbytes)
-    flops = 2 * 2 * 8 * 256 * n_valid
+    flops = 2 * 2 * h * 256 * n_valid
     bound_ms, bound_by = _bound(nbytes, flops)
-    rows[("paged_attention", "path")] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms, eager_ms=eager_ms)
-    print(f"paged_attention B=4 h=8 kh=1 hd=256 bs={block_size} mb={mb}: "
-          f"kernel {ms * 1e3:.2f} us, plain (gather + softmax) "
-          f"{plain_ms * 1e3:.2f} us, SDPA on the gathered view "
+    print(f"paged_attention B=4 h={h} kh=1 hd=256 bs={block_size} mb={mb} "
+          f"window={window}: kernel {ms * 1e3:.2f} us, plain (gather + "
+          f"softmax) {plain_ms * 1e3:.2f} us, SDPA on the gathered view "
           f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_valid} of {n_pos} "
-          f"positions attendable), eager call with host "
-          f"overhead {eager_ms * 1e3:.2f} us")
+          f"positions attendable), eager call with host overhead "
+          f"{eager_ms * 1e3:.2f} us {_paged_plan_note(4, 1, mb)}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, eager_ms=eager_ms)
+
+
+def time_sched_kernels(block_size, ring, dev="cuda"):
+    """Times at the scheduled path's shapes (fp32 activations, B = 4, rank
+    8, int8 and int4 group 64): #3, #4 and #11 with the packed W rotated
+    over copies that together exceed L2 three times (a step reads each
+    layer's W once); #13 at _paged_shapes (_time_paged)."""
+    phase("paged / quantized kernel times (fp32 activations, B=4, r=8)")
+    gen = torch.Generator(dev).manual_seed(6)
+    rows = {}
+    for name, h, mb, window in _paged_shapes(block_size, ring):
+        rows[("paged_attention", name)] = _time_paged(gen, h, mb, window,
+                                                      block_size, dev)
     for mode, bits in (("int8", 8), ("int4", 4)):
         for proj, (k, n) in PROJ.items():
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
@@ -1372,10 +1435,19 @@ def sched_path(name, model, params, bank, mode):
         # where the time goes: one wave's prefill and 8 decode steps
         p_t = torch.as_tensor(prompts[:4], device=device)
         toks = torch.as_tensor(fixed[:4, :9], device=device)
-        _print_profile(f"scheduled path ({mode}; teacher-forced prefill + 8 "
-                       "decode steps)", *_profiled(lambda: _forced_paged(
-                           model, base, bank, ids[:4], p_t, toks, False)),
-                       1, "prefill + 8 steps")
+        busy = _print_profile(
+            f"scheduled path ({mode}; teacher-forced prefill + 8 decode "
+            "steps)", *_profiled(lambda: _forced_paged(
+                model, base, bank, ids[:4], p_t, toks, False)),
+            1, "prefill + 8 steps")
+        # the same prefill alone: the rest is the 8 decode steps
+        _, events = _profiled(lambda: _forced_paged(
+            model, base, bank, ids[:4], p_t, toks[:, :1], False))
+        pre = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        if busy is not None and events:
+            print(f"scheduled decode ({mode}): device busy "
+                  f"{(busy - pre) / 8:.2f} ms a step (prefill + 8 steps "
+                  f"{busy:.2f} ms, prefill alone {pre:.2f} ms)")
     return launches, dict(ms_per_step=decode_ms, tokens_per_s=n_tok / wall)
 
 
@@ -1539,7 +1611,9 @@ def time_qtrain_kernels(dev="cuda"):
                     bound_by=bound_by, library_ms=library_ms,
                     eager_ms=eager_ms)
                 note = (" " + _fwd_plan_note(m, n, k, r, bits, QUANT_GROUP)
-                        if kern == "lora_fwd_quant" else "")
+                        if kern == "lora_fwd_quant" else
+                        " " + _dx_plan_note(m, k, n)
+                        if kern == "quant_matmul_dx" else "")
                 print(f"{kern:17s} {mode} {proj:6s} m={m} k={k} n={n} "
                       f"r={r}: kernel {ms * 1e3:.2f} us, plain "
                       f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 W "

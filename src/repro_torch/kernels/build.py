@@ -44,9 +44,9 @@ SIGNATURES = {
     "lora_fwd_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4 + (_P,),
     "lora_bwd_dx_quant_launch": (_P,) * 7 + (_I,) * 4 + (_F,) + (_I,) * 4
     + (_P,),
-    "quant_matmul_dx_launch": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "quant_matmul_dx_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
     # csrc/paged_attention.cu
-    "paged_attention_launch": (_P,) * 7 + (_I,) * 8 + (_F, _F, _I, _P),
+    "paged_attention_launch": (_P,) * 8 + (_I,) * 11 + (_F, _F, _I, _P),
     # csrc/rglru_scan.cu
     "rglru_scan_launch": (_P,) * 3 + (_I,) * 4 + (_P,),
     # csrc/flash_attention.cu

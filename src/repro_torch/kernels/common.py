@@ -3,8 +3,8 @@
 the dtype codes the C entry points take, the caller's stream, launch-error
 reporting, the forward-only guard, the k split of the split-k GEMV body
 (``csrc/gemv.cuh``) that #1, #4 and #11's decode form share, and the split
-plan of the rank-fused forward tile (``csrc/fwd_tile.cuh``) that #2, #3, #5
-and #9 share.
+plan of the rank-fused forward tile (``csrc/fwd_tile.cuh``) that #2, #3, #5,
+#9 and #12 share, and the split of paged attention's table (#13).
 
 Nothing here builds or loads a kernel; ``kernels/build.py`` does that at
 first use.
@@ -129,6 +129,32 @@ def fwd_plan(m: int, n: int, k: int, r: int, num_sms: int, bits: int = 0,
         bits = 0
     return (*fwd_split(m, r, 0, k, FWD_PRE_COLS, num_sms),
             *fwd_split(m, n, k, r, FWD_COLS, num_sms, bits, group))
+
+
+def dx_plan(m: int, k: int, n: int, num_sms: int):
+    """(ksplit, kchunk) of #12, dx = g dequant(W)^T for a packed W of
+    logical shape (k, n), on the rank-fused forward tile: :func:`fwd_split`
+    with the roles swapped, an (m, k) output in (FWD_ROWS, FWD_COLS) tiles
+    contracting W's n, and no rank term.  fwd_split's int4 rule (no slab
+    straddles a scale group) concerns a contraction along k; here the
+    contraction runs along n, whose scales change with every element, so
+    it does not apply.  The tile's output columns straddle k's groups
+    instead, and the by-row stager (``csrc/fwd_tile.cuh`` RowsInt4) reads
+    each column's own scale row."""
+    return fwd_split(m, k, n, 0, FWD_COLS, num_sms)
+
+
+def paged_split(b: int, kh: int, mb: int, num_sms: int):
+    """(nsplit, cols) of paged attention (#13): its grid is (request, kv
+    head, chunk), chunk z taking table columns [z cols, (z + 1) cols).  The
+    most chunks that keep b kh nsplit blocks within one wave of the SMs,
+    at least one column each: nsplit = 1 once b kh fills the card.  From
+    the shapes and the SM count alone, so the wrapper asks nothing of the
+    device and stays capture-safe; every chunk is nonempty and together
+    they cover the mb columns exactly."""
+    want = max(1, min(mb, num_sms // (b * kh)))
+    cols = -(-mb // want)
+    return -(-mb // cols), cols
 
 
 def fwd_scratch(m: int, n: int, r: int, plan, device):

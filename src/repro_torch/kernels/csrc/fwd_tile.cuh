@@ -1,6 +1,8 @@
 // The rank-fused forward tile, for Hopper (sm_90a): one kernel body for the
-// BGMV prefill (bgmv.cu: #2 over an fp W, #3 over a packed W) and the LoRA
-// forward (lora_matmul.cu: #5 over an fp W, #9 over a packed W).
+// BGMV prefill (bgmv.cu: #2 over an fp W, #3 over a packed W), the LoRA
+// forward (lora_matmul.cu: #5 over an fp W, #9 over a packed W) and the
+// packed GEMM's dx (lora_matmul.cu: #12, replacing _qmm_dx_kernel,
+// src/repro/kernels/lora_matmul.py:544; no rank term, below).
 //
 //   p[i, s]   = sum_t x[i, t] A_row(i)[s, t]                  (pre-pass)
 //   out[i, j] = sum_t x[i, t] W(t, j) + gamma sum_s p[i, s] B_row(i)[j, s]
@@ -42,6 +44,15 @@
 //     through the same ring and micro-kernel, one pass per request in the
 //     tile (rows of other requests are masked to 0), as slabs r of the
 //     chunked range [0, roundup(k, 16) + r).
+//   - #12, dx = g dequant(W)^T, contracts along W's contiguous n, so the
+//     by-column packed stagers cannot serve it, and on the 64 x 64 tile it
+//     reached 18 TFLOP/s (PERF.md).  Here it is this body with no rank
+//     term: g through Rows, W through RowsInt8 / RowsInt4, which stage
+//     element (t, j) = dequant(W)(j, t) 4 n of two neighbouring rows a
+//     thread (a 32-bit word of each row for int8, the byte row both share
+//     for int4), convert without I2F and store transposed as float2, and
+//     the host splits n (kernels/common.py dx_plan) where the (m, k) tiles
+//     leave SMs idle.
 // Ragged edges are masked (nothing is padded; an int4 W's kq - k rows are
 // never read).  The vector paths need k, n, r multiples of 4 and aligned
 // operands (and int4 groups of 16 rows or more); the host picks the scalar
@@ -419,6 +430,162 @@ struct ColsT {
   }
 };
 
+// A packed W (k, n) read by row, for dx = g dequant(W)^T (#12): element
+// (t, j) = dequant(W)(j, t), with j along the output (W's row, k, columns
+// [n0, nlim = k)) and t along the contraction (W's contiguous n).  Vector
+// path: a thread stages 4 consecutive t of two neighbouring rows j, j + 1
+// (one 32-bit load of each row for int8, one load of the byte row both
+// share for int4) with one float4 of scales, and stores them transposed as
+// 4 float2 (buf[t][j, j + 1], row stride kBN + 4): a warp's 32 lanes take
+// 64 consecutive j at one t, so each store is the 2 wavefronts 256 bytes
+// need.  The integers become floats without a conversion instruction: a
+// byte (or nibble) with its sign bit flipped is the low mantissa bits of
+// 2^23 + 128 + q (2^23 + 8 + q), one byte permute and one exact subtraction
+// away from float(q).  Each element is then still float(q) * scale, rounded
+// to bf16 for a base packed from bf16 weights, as loaders.cuh forms it.
+// Scalar path: loaders.cuh element by element, for shapes off the vector
+// conditions.  Columns at or past k (an odd k's last row, an int4 W's kq -
+// k padding rows) are never stored as anything but 0.
+
+// float(q) of signed byte u of w ^ 0x80808080
+__device__ __forceinline__ float s8_float(unsigned wx, int u) {
+  // bytes: [byte u of wx, 0, 0, 0x4B] = 2^23 + (q + 128)
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, u | 0x7650)) -
+         8388736.f;
+}
+
+// float(q) of signed nibble u (nibbles of w ^ 0x88888888 split into
+// bytes: lo holds the even nibbles, hi the odd ones)
+__device__ __forceinline__ float s4_float(unsigned nib, int u) {
+  return __uint_as_float(__byte_perm(nib, 0x4B000000u, u | 0x7650)) -
+         8388616.f;
+}
+
+// int8, per-n scales: row j's word and row j + 1's share s[t, t + 4).
+template <int kBN, bool kBf16, bool kVec_>
+struct RowsInt8 {
+  static constexpr bool kVec = kVec_;
+  static constexpr int kPer = kVec ? kBN / 2 : kBN;       // loads per t step
+  static constexpr int kTq = kVec ? kFwdBK / 4 : kFwdBK;  // t steps a slab
+  static constexpr int kN = kPer * kTq / kFwdThreads;
+  static constexpr int kLd = kBN + 4;
+  Int8W<kBf16> wl;  // its n: the contraction length
+  int nlim;         // k
+  int n0;
+  unsigned w[kN], w1[kN];  // rows j and j + 1
+  float4 sc[kN];
+  typename Int8W<kBf16>::Raw raw[kN];
+  bool in[kN];
+
+  __device__ __forceinline__ void cols(int n0_) { n0 = n0_; }
+  __device__ __forceinline__ void fetch(int t0, int tlim, float*) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int idx = threadIdx.x + e * kFwdThreads;
+      if constexpr (kVec) {
+        const int j = n0 + 2 * (idx % kPer), t = t0 + (idx / kPer) * 4;
+        in[e] = j < nlim && t < tlim;
+        const int8_t* row = wl.d + static_cast<size_t>(j) * wl.n + t;
+        w[e] = in[e] ? __ldg(reinterpret_cast<const unsigned*>(row)) : 0u;
+        w1[e] = in[e] && j + 1 < nlim
+                    ? __ldg(reinterpret_cast<const unsigned*>(row + wl.n))
+                    : 0u;
+        sc[e] = in[e] ? __ldg(reinterpret_cast<const float4*>(wl.s + t))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        const int j = n0 + idx % kBN, t = t0 + idx / kBN;
+        in[e] = j < nlim && t < tlim;
+        if (in[e]) raw[e] = wl.fetch(j, t);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* buf) const {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int idx = threadIdx.x + e * kFwdThreads;
+      if constexpr (kVec) {
+        const int jj = 2 * (idx % kPer), tt = (idx / kPer) * 4;
+        const unsigned x0 = w[e] ^ 0x80808080u, x1 = w1[e] ^ 0x80808080u;
+        const float s[4] = {sc[e].x, sc[e].y, sc[e].z, sc[e].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<float2*>(buf + (tt + u) * kLd + jj) =
+              make_float2(dequant<kBf16>(s8_float(x0, u), s[u]),
+                          dequant<kBf16>(s8_float(x1, u), s[u]));
+      } else {
+        buf[(idx / kBN) * kLd + idx % kBN] =
+            in[e] ? Int8W<kBf16>::cvt(raw[e]) : 0.f;
+      }
+    }
+  }
+};
+
+// int4, two rows a byte (j even: row j the low nibble, j + 1 the high),
+// scales per (group of rows of k, n): the tile's 128 columns straddle
+// groups of k, so each word indexes its own scale row, s[j >> shift][t, t +
+// 4) (a group of 2 or more rows holds both rows of a byte).
+template <int kBN, bool kBf16, bool kVec_>
+struct RowsInt4 {
+  static constexpr bool kVec = kVec_;
+  static constexpr int kPer = kVec ? kBN / 2 : kBN;       // loads per t step
+  static constexpr int kTq = kVec ? kFwdBK / 4 : kFwdBK;  // t steps a slab
+  static constexpr int kN = kPer * kTq / kFwdThreads;
+  static constexpr int kLd = kBN + 4;
+  Int4W<kBf16> wl;  // its n: the contraction length
+  int nlim;         // k
+  int n0;
+  unsigned w[kN];
+  float4 sc[kN];
+  bool hi_in[kN];  // row j + 1 lies below k
+  typename Int4W<kBf16>::Raw raw[kN];
+  bool in[kN];
+
+  __device__ __forceinline__ void cols(int n0_) { n0 = n0_; }
+  __device__ __forceinline__ void fetch(int t0, int tlim, float*) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int idx = threadIdx.x + e * kFwdThreads;
+      if constexpr (kVec) {
+        const int j = n0 + 2 * (idx % kPer), t = t0 + (idx / kPer) * 4;
+        in[e] = j < nlim && t < tlim;
+        hi_in[e] = j + 1 < nlim;
+        w[e] = in[e] ? __ldg(reinterpret_cast<const unsigned*>(
+                           wl.d + static_cast<size_t>(j >> 1) * wl.n + t))
+                     : 0u;
+        sc[e] = in[e] ? __ldg(reinterpret_cast<const float4*>(
+                            wl.s + static_cast<size_t>(j >> wl.group_shift) *
+                                       wl.n + t))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        const int j = n0 + idx % kBN, t = t0 + idx / kBN;
+        in[e] = j < nlim && t < tlim;
+        if (in[e]) raw[e] = wl.fetch(j, t);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* buf) const {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int idx = threadIdx.x + e * kFwdThreads;
+      if constexpr (kVec) {
+        const int jj = 2 * (idx % kPer), tt = (idx / kPer) * 4;
+        const unsigned x = w[e] ^ 0x88888888u;
+        const unsigned lo = x & 0x0F0F0F0Fu, hi = (x >> 4) & 0x0F0F0F0Fu;
+        const float s[4] = {sc[e].x, sc[e].y, sc[e].z, sc[e].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<float2*>(buf + (tt + u) * kLd + jj) =
+              make_float2(dequant<kBf16>(s4_float(lo, u), s[u]),
+                          hi_in[e] ? dequant<kBf16>(s4_float(hi, u), s[u])
+                                   : 0.f);
+      } else {
+        buf[(idx / kBN) * kLd + idx % kBN] =
+            in[e] ? Int4W<kBf16>::cvt(raw[e]) : 0.f;
+      }
+    }
+  }
+};
+
 // The pre-pass has no base term.
 struct NoStage {
   __device__ __forceinline__ void rows(int, int, int) {}
@@ -559,15 +726,18 @@ fwd_kernel(const XS xs0, const WS ws0, const PS ps0, const BS bs0,
     ws.cols(n0);
     mainloop<kBN>(acc, smem, xs, ws, v_lo, min(v_hi, sh.kbase), tx, ty);
   }
-  if (v_hi > kpad) {  // the rank term, one pass per request in the tile
-    PS ps = ps0;
-    BS bs = bs0;
-    bs.cols(n0);
-    const int s_lo = max(v_lo, kpad) - kpad, s_hi = v_hi - kpad;
-    for (int q = m0 / sh.s; q * sh.s < mhi; ++q) {
-      ps.rows(m0, max(m0, q * sh.s), min(mhi, (q + 1) * sh.s));
-      bs.adapter(sh.ids ? __ldg(sh.ids + q) : q);
-      mainloop<kBN>(acc, smem, ps, bs, s_lo, s_hi, tx, ty);
+  // the rank term, one pass per request in the tile (#12 has none)
+  if constexpr (!std::is_same<BS, NoStage>::value) {
+    if (v_hi > kpad) {
+      PS ps = ps0;
+      BS bs = bs0;
+      bs.cols(n0);
+      const int s_lo = max(v_lo, kpad) - kpad, s_hi = v_hi - kpad;
+      for (int q = m0 / sh.s; q * sh.s < mhi; ++q) {
+        ps.rows(m0, max(m0, q * sh.s), min(mhi, (q + 1) * sh.s));
+        bs.adapter(sh.ids ? __ldg(sh.ids + q) : q);
+        mainloop<kBN>(acc, smem, ps, bs, s_lo, s_hi, tx, ty);
+      }
     }
   }
 
@@ -707,6 +877,22 @@ int fwd_rank_fused(const T* x, const WS& w, const T* a, const T* b,
   return fwd_sum(scratch, out, m * n, plan.ksplit, st);
 }
 
+// out (m, nout) = x (m, kc) times the right stager w, with no rank term:
+// #12's dx = g dequant(W)^T over RowsInt8 / RowsInt4 (kc = W's n, nout =
+// its k).  The contraction runs in ksplit chunks of kchunk (whole slabs);
+// when it splits, the chunks' partials (scratch, ksplit * m * nout floats)
+// are added in a fixed order.
+template <typename T, typename WS>
+int fwd_base_only(const T* x, const WS& w, float* scratch, float* out, int m,
+                  int kc, int nout, int ksplit, int kchunk, cudaStream_t st) {
+  const int err = fwd_pass<kFwdMainBN>(
+      Rows<T, WS::kVec>{x, kc}, w, NoStage{}, NoStage{},
+      FwdShape{m, nout, kc, 0, kchunk, m, nullptr}, ksplit,
+      ksplit > 1 ? scratch : out, st);
+  if (err != 0 || ksplit == 1) return err;
+  return fwd_sum(scratch, out, m * nout, ksplit, st);
+}
+
 // f(W stager) for a dense W (k, n) of T, on the vector path when vec.
 template <typename T, typename F>
 int with_dense_cols(const T* w, int n, bool vec, F&& f) {
@@ -743,6 +929,38 @@ int with_packed_cols(const void* wd, const float* ws, int n, int bits,
       (bits != 4 || group % kFwdBK == 0))
     return with_packed_cols_v<true>(wd, ws, n, bits, group, bf16w, f);
   return with_packed_cols_v<false>(wd, ws, n, bits, group, bf16w, f);
+}
+
+// f(W stager) for a packed W (k, n) read by row (RowsInt8 / RowsInt4: the
+// right operand of dx = g dequant(W)^T), or cudaErrorInvalidValue for bits
+// other than 8 and 4.  The vector path also needs n % 4 == 0 (checked by
+// the caller with g's alignment), 4-byte aligned data and 16-byte aligned
+// scales; it has no condition on the int4 group (the contraction runs along
+// n, and every group holds both rows of a byte).
+template <bool kVec, typename F>
+int with_packed_rows_v(const void* wd, const float* ws, int n, int k,
+                       int bits, int group, int bf16w, F&& f) {
+  if (bits == 8) {
+    const int8_t* d = static_cast<const int8_t*>(wd);
+    return bf16w ? f(RowsInt8<kFwdMainBN, true, kVec>{{d, ws, n}, k})
+                 : f(RowsInt8<kFwdMainBN, false, kVec>{{d, ws, n}, k});
+  }
+  if (bits == 4) {
+    const uint8_t* d = static_cast<const uint8_t*>(wd);
+    const int shift = log2_group(group);
+    return bf16w
+               ? f(RowsInt4<kFwdMainBN, true, kVec>{{d, ws, n, shift}, k})
+               : f(RowsInt4<kFwdMainBN, false, kVec>{{d, ws, n, shift}, k});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename F>
+int with_packed_rows(const void* wd, const float* ws, int n, int k, int bits,
+                     int group, int bf16w, bool vec, F&& f) {
+  if (vec && fwd_aligned(wd, 4) && fwd_aligned(ws, 16))
+    return with_packed_rows_v<true>(wd, ws, n, k, bits, group, bf16w, f);
+  return with_packed_rows_v<false>(wd, ws, n, k, bits, group, bf16w, f);
 }
 
 }  // namespace

@@ -44,12 +44,16 @@
 // k planned on the host to fill the SMs, with the rank term contracted in
 // the same ring, and a fixed-order pass over the chunks' partial sums; a
 // packed W is decoded one 32-bit word at a time.  What bounds them and what
-// the design does about it is set out there.
-// The other main passes (#6, #7, #8, #10, #11's tile, #12) are one tiled
-// kernel (tile_kernel) over element views of their operands: dense fp32 /
-// bf16 matrices, stored along or across the contraction, or a packed W read
+// the design does about it is set out there.  #12 (dx = g dequant(W)^T)
+// runs on the same body with no rank term: g is the left operand, W read
+// by row (RowsInt8 / RowsInt4: one word is 4 elements along n of one row,
+// or of two for int4) the right one, n split over grid z where the (m, k)
+// tiles leave SMs idle (kernels/common.py dx_plan).
+// The other main passes (#6, #7, #8, #10, #11's tile) are one tiled kernel
+// (tile_kernel) over element views of their operands: dense fp32 / bf16
+// matrices, stored along or across the contraction, or a packed W read
 // through its dequantizing loader (loaders.cuh) by column (#11) or by row
-// (dx).  Ragged edges are masked in the kernels: no shape needs padding,
+// (#10).  Ragged edges are masked in the kernels: no shape needs padding,
 // and an int4 W's kq - k padding rows are never read.
 //
 // Plain C interface, bound with ctypes (kernels/build.py,
@@ -70,6 +74,8 @@
 namespace {
 
 using repro_kernels::FwdPlan;
+using repro_kernels::fwd_aligned;
+using repro_kernels::fwd_base_only;
 using repro_kernels::fwd_rank_fused;
 using repro_kernels::fwd_vec;
 using repro_kernels::gemv_partial_kernel;
@@ -79,6 +85,7 @@ using repro_kernels::kGvWarps;
 using repro_kernels::to_f;
 using repro_kernels::with_dense_cols;
 using repro_kernels::with_packed_cols;
+using repro_kernels::with_packed_rows;
 using repro_kernels::with_packed_w;
 
 // --------------------------------------------------------- rank pre-pass
@@ -445,17 +452,20 @@ int bwd_dx_quant(const void* g, const void* wd, const float* ws,
   });
 }
 
-// #12: dx = g dequant(W)^T, the dx tile with no rank term.
+// #12: dx = g dequant(W)^T on the rank-fused forward body of fwd_tile.cuh
+// with no rank term: g (m, n) is the left operand (Rows), W read by row the
+// right one (RowsInt8 / RowsInt4), contracting n in ksplit chunks of kchunk
+// (kernels/common.py dx_plan) whose partials a fixed-order pass adds.
 template <typename T>
-int qmm_dx(const void* g, const void* wd, const float* ws, float* dx, int m,
-           int k, int n, int bits, int group, int bf16w, cudaStream_t st) {
-  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
-    tile_kernel<<<tile_grid(m, k), kThreads, 0, st>>>(
-        Dense<T, true>{static_cast<const T*>(g), n},
-        WByRow<decltype(wl)>{wl}, m, k, n, n, nullptr, 0, NoRank{}, 0, 1.f,
-        0.f, dx);
-    return static_cast<int>(cudaGetLastError());
-  });
+int qmm_dx(const void* g, const void* wd, const float* ws, float* scratch,
+           float* dx, int m, int k, int n, int ksplit, int kchunk, int bits,
+           int group, int bf16w, cudaStream_t st) {
+  return with_packed_rows(
+      wd, ws, n, k, bits, group, bf16w, n % 4 == 0 && fwd_aligned(g, 16),
+      [&](const auto& w) {
+        return fwd_base_only<T>(static_cast<const T*>(g), w, scratch, dx, m,
+                                n, k, ksplit, kchunk, st);
+      });
 }
 
 // #11: y = x dequant(W).  For m > kGvMaxB rows (prefills, training) the
@@ -616,16 +626,20 @@ int lora_bwd_dx_quant_launch(const void* g, const void* wd, const float* ws,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// #12: dx (m, k).
+// #12: dx (m, k).  The contraction over n runs in ksplit chunks of kchunk
+// (whole 16-element slabs); when ksplit > 1, scratch is a (ksplit, m, k)
+// fp32 buffer for the chunks' partials, else unused.
 int quant_matmul_dx_launch(const void* g, const void* wd, const float* ws,
-                           float* dx, int m, int k, int n, int bits, int group,
+                           float* scratch, float* dx, int m, int k, int n,
+                           int ksplit, int kchunk, int bits, int group,
                            int bf16w, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return qmm_dx<float>(g, wd, ws, dx, m, k, n, bits, group, bf16w, st);
+    return qmm_dx<float>(g, wd, ws, scratch, dx, m, k, n, ksplit, kchunk,
+                         bits, group, bf16w, st);
   if (dtype == 1)
-    return qmm_dx<__nv_bfloat16>(g, wd, ws, dx, m, k, n, bits, group, bf16w,
-                                 st);
+    return qmm_dx<__nv_bfloat16>(g, wd, ws, scratch, dx, m, k, n, ksplit,
+                                 kchunk, bits, group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -73,18 +73,25 @@ design does about it):
   rows and dx's columns are masked at the logical k.
 * ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``): for
   m > 8 rows (prefills, training; bound by operations) the 64 x 64
-  ``tile_kernel`` of #6, #10 and #12 with W read by column and no rank
-  term.  At decode shapes (m <= 8) it is bound by the
+  ``tile_kernel`` of #6 and #10 with W read by column and no rank term.
+  At decode shapes (m <= 8) it is bound by the
   packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x 16384 / 2 = 16.8 MB,
   about 5 us at 3.35 TB/s), and the tile's k loop over 60 empty rows was
   bound by its latency instead (PERF.md); there it takes the split-k GEMV
   body of the BGMV decode kernel (``csrc/gemv.cuh``), which reads each
   packed element once, and a fixed-order pass adds the k-split partials.
 * ``quant_matmul_dx`` replaces ``_qmm_dx_kernel`` (``:544``,
-  ``_qmm_dx_call``): the dx tile of #10 with no rank term, bound by
-  operations (2 m n k; 2 x 512 x 2048 x 16384 at the MLP's projections).
-  Training runs it at m = 512 only, so it has no GEMV form; it is right at
-  any m.
+  ``_qmm_dx_call``), bound by operations (2 m n k; 2 x 512 x 2048 x 16384
+  at the MLP's projections, 513 us at the fp32 peak).  The 64 x 64 tile it
+  ran on first reached 18 TFLOP/s there (PERF.md); the packed read cost
+  nothing visible beside it.  It now runs on the rank-fused forward tile
+  of #2, #3, #5 and #9 with no rank term: g (m, n) is the left operand, W
+  read by row the right one (``csrc/fwd_tile.cuh`` RowsInt8 / RowsInt4,
+  one 32-bit word a load, each element still ``dequantize``'s product),
+  and ``common.dx_plan`` splits the contraction over n where the (m, k)
+  output's 128 x 128 tiles leave SMs idle, a fixed-order pass adding the
+  chunks.  Training runs it at m = 512 only, so it has no GEMV form; it
+  is right at any m.
 
 Each kernel wrapper adds one to its entry of :data:`launches` where it
 launches its kernel (the rank pre-pass and the second pass included), and
@@ -96,8 +103,9 @@ import torch
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels.common import (DTYPES, GEMV_MAX_ROWS, check_packed,
-                                        fwd_plan, fwd_scratch, gemv_split,
-                                        num_sms, ptr, raise_on, route, stream)
+                                        dx_plan, fwd_plan, fwd_scratch,
+                                        gemv_split, num_sms, ptr, raise_on,
+                                        route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
@@ -410,11 +418,14 @@ def quant_matmul_dx(g, wq):
     if wq.shape[1] != n:
         raise ValueError(f"quant_matmul_dx: g {tuple(g.shape)} vs W "
                          f"{tuple(wq.shape)}")
+    ksplit, kchunk = dx_plan(m, k, n, num_sms(g.device))
+    scratch = (torch.empty(ksplit * m * k, dtype=torch.float32,
+                           device=g.device) if ksplit > 1 else None)
     dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
     err = load().quant_matmul_dx_launch(
         g.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
-        dx.data_ptr(), m, k, n, wq.bits, group, bf16w, DTYPES[g.dtype],
-        stream(g))
+        ptr(scratch), dx.data_ptr(), m, k, n, ksplit, kchunk, wq.bits, group,
+        bf16w, DTYPES[g.dtype], stream(g))
     raise_on(err, "quant_matmul_dx")
     launches["quant_matmul_dx"] += 1
     return dx

@@ -17,15 +17,23 @@ else raises.  There is no fallback from the kernel to the plain version.
 
 Kernel note (what it replaces, what bounds it on an H100, what the design
 does about it): ``paged_attention`` replaces
-``repro/kernels/paged_attention.py:_paged_attn_kernel``, which walks a
-request's blocks in a sequential grid dimension with the running softmax
-(m, l, acc) in VMEM.  GPU blocks run in no order, so one CUDA block owns a
-(request, kv head) and loops over its table row itself, with (m, l, acc)
-for that kv head's query heads in shared memory.  At gemma-2b decode
-(B = 4, kh = 1) only 4 blocks run on 132 SMs: the kernel is bound by
-latency, not by its bytes (about 1.3 MB of K, V and pos per layer at 160
-positions, 0.4 us at 3.35 TB/s).  Splitting the table's columns over
-blocks, with a fixed-order combine pass, is the next design.
+``repro/kernels/paged_attention.py:_paged_attn_kernel`` (``:45``), which
+walks a request's blocks in a sequential grid dimension with the running
+softmax (m, l, acc) in VMEM.  On the card it is bound by bytes, and at the
+paths' shapes by latency: the K and V a gemma-2b decode step may attend
+(B = 4, kh = 1, 160 positions) are 1.1 MB, 0.34 us at 3.35 TB/s, and 16
+query heads on a kv head do about 8 FLOP a byte, under the fp32 ridge.
+One CUDA block per (request, kv head), as the TPU grid suggests, put 4
+blocks on 132 SMs (143 us, PERF.md).  So the grid is (request, kv head,
+chunk): ``common.paged_split`` splits the table's columns into chunks that
+fill the SMs about once, each block carries (m, l, acc) over its chunk and
+writes fp32 partials, and a second kernel merges a request's partials in
+chunk order (no atomics: a run repeats bit for bit; with one chunk the
+block writes the output itself).  Inside a block, positions are staged in
+sub-blocks of up to 16 through a 4-stage cp.async ring, q is held once,
+and each staged K and V element is read once for all the kv head's query
+heads (4 x 4 score tiles over float4 quads, 4 heads x 4 dims of p V a
+thread); see ``csrc/paged_attention.cu``.
 
 The plain version is the exact-softmax oracle of
 ``repro/kernels/ref.py:paged_attention_ref`` (gather the request's view,
@@ -41,8 +49,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (DTYPES, forward_only, raise_on,
-                                        route, stream)
+from repro_torch.kernels.common import (DTYPES, forward_only, num_sms,
+                                        paged_split, ptr, raise_on, route,
+                                        stream)
 
 NEG_INF = -1e30
 
@@ -50,6 +59,9 @@ NEG_INF = -1e30
 launches = {"paged_attention": 0}
 
 _MAX_SMEM = 227 * 1024        # bytes of shared memory one block may use
+_SUB = 16                     # csrc/paged_attention.cu kSub: the most
+                              # positions a sub-block stages
+_STAGES = 4                   # and kStages: sub-blocks in its ring
 
 
 def reset_launches() -> None:
@@ -83,11 +95,40 @@ def paged_attention_plain(q, k_pool, v_pool, pos_pool, table, qpos, *,
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def _smem(g: int, hd: int, sub: int, itemsize: int) -> int:
+    """Bytes of shared memory one block of ``csrc/paged_attention.cu``
+    uses (its ``Layout``): a ring of _STAGES sub-blocks of K and V (``sub``
+    rows each, of hd rounded up to 4 elements plus 16 bytes, to 8 plus 16
+    bytes for bf16) and q (g rows, hd rounded up to 4, to 8 for bf16) in
+    the pools' type; fp32 acc (g rows of hd rounded up to 4), the
+    probabilities and scores (16 positions of g rounded up to 4 heads), m,
+    l, corr, and pos."""
+    g4, hq4 = -(-g // 4) * 4, -(-hd // 4) * 4
+    ldk = hq4 + 4 if itemsize == 4 else -(-hq4 // 8) * 8 + 8
+    ldq = hq4 if itemsize == 4 else -(-hq4 // 8) * 8
+    return ((_STAGES * 2 * sub * ldk + g * ldq) * itemsize
+            + 4 * (g * hq4 + 2 * g4 * _SUB + 3 * g4 + _STAGES * _SUB))
+
+
+def sub_block(g: int, hd: int, bs: int, itemsize: int) -> int:
+    """Positions a sub-block of the kernel stages: 16, or bs if fewer,
+    halved (to 1 at the least) only where heads too large for 16 would not
+    fit in shared memory; 0 where even one position does not (fp32: g = 1
+    past hd 5784, g = 8 past 2404, g = 16 past 1436, where the first
+    kernel's layout of q, acc and one block's scores went to 29046, 3622
+    and 1806; every head of the repo's configs has hd <= 256)."""
+    for sub in (_SUB, 8, 4, 2, 1):
+        if _smem(g, hd, sub, itemsize) <= _MAX_SMEM:
+            return min(sub, bs)
+    return 0
+
+
 def _check(q, k_pool, v_pool, pos_pool, table, qpos, window):
     """Everything the kernel assumes, checked before any pointer leaves
-    Python: device, dtype, shape, contiguity.  The table's entries are
-    checked by the kernel itself (a device-side trap on an entry outside
-    the pool), which costs no host synchronisation."""
+    Python: device, dtype, shape, contiguity, and a sub-block that fits in
+    shared memory; returns its size.  The table's entries are checked by
+    the kernel itself (a device-side trap on an entry outside the pool),
+    which costs no host synchronisation."""
     dev, dt = q.device, q.dtype
     if dt not in DTYPES:
         raise TypeError(f"paged_attention takes float32 or bfloat16, got {dt}")
@@ -118,10 +159,13 @@ def _check(q, k_pool, v_pool, pos_pool, table, qpos, window):
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     g = h // kh
-    smem = 4 * (2 * g * hd + g * bs + 3 * g)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged_attention: {g} query heads x head_dim {hd} "
-                         f"need {smem} bytes of shared memory > {_MAX_SMEM}")
+    sub = sub_block(g, hd, bs, q.element_size())
+    if not sub:
+        raise ValueError(
+            f"paged_attention: {g} query heads x head_dim {hd} need "
+            f"{_smem(g, hd, 1, q.element_size())} bytes of shared memory > "
+            f"{_MAX_SMEM}")
+    return sub
 
 
 def paged_attention(q, k_pool, v_pool, pos_pool, table, qpos, *,
@@ -133,15 +177,20 @@ def paged_attention(q, k_pool, v_pool, pos_pool, table, qpos, *,
                                      qpos, window=window, softcap=softcap)
     from repro_torch.kernels.build import load
     forward_only("paged_attention", q, k_pool, v_pool)
-    _check(q, k_pool, v_pool, pos_pool, table, qpos, window)
+    sub = _check(q, k_pool, v_pool, pos_pool, table, qpos, window)
     b, h, hd = q.shape
-    _, bs, kh, _ = k_pool.shape
+    npool, bs, kh, _ = k_pool.shape
+    mb = table.shape[1]
+    nsplit, cols = paged_split(b, kh, mb, num_sms(q.device))
     out = torch.empty_like(q)
+    # the chunks' partials (acc, m, l) per query head, merged in order
+    part = (torch.empty(b * h * nsplit * (hd + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     err = load().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pos_pool.data_ptr(), table.data_ptr(), qpos.data_ptr(),
-        out.data_ptr(), b, k_pool.shape[0], h, kh, hd, bs, table.shape[1],
-        0 if window is None else int(window),
+        out.data_ptr(), ptr(part), b, npool, h, kh, hd, bs, mb, nsplit, cols,
+        sub, 0 if window is None else int(window),
         float(softcap) if softcap else 0.0, hd ** -0.5, DTYPES[q.dtype],
         stream(q))
     raise_on(err, "paged_attention")

@@ -128,16 +128,31 @@ def test_bgmv_raises_under_autograd(card):
     assert bgmv.launches["bgmv_matmul"] == 1
 
 
+# #13's shapes (b, h, kh, hd, bs, mb) and the split they plan on a 132-SM
+# card (common.paged_split)
+PAGED_CASES = [
+    (4, 8, 1, 256, 16, 10),     # gemma-2b path: 10 chunks of 1 column
+    (3, 6, 2, 80, 5, 3),        # ragged: bs 5, hd 80, two kv heads
+    (4, 16, 1, 256, 16, 10),    # the hybrid's 16 query heads
+    (4, 16, 1, 256, 16, 128),   # long context: 32 chunks of 4 columns
+    (4, 8, 1, 256, 16, 1),      # one column: unsplit, no merge
+    (4, 8, 1, 256, 32, 10),     # 2 sub-blocks a column
+    (140, 4, 1, 64, 16, 6),     # b kh fills the card: unsplit
+    (2, 3, 1, 70, 7, 9),        # hd off every vector multiple: element path
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window,softcap", [(None, None), (5, 30.0)])
-@pytest.mark.parametrize("b,h,kh,hd,bs,mb", [(4, 8, 1, 256, 16, 10),
-                                             (3, 6, 2, 80, 5, 3)])
+@pytest.mark.parametrize("window,softcap", [(None, None), (5, 30.0),
+                                            (2048, None)])
+@pytest.mark.parametrize("b,h,kh,hd,bs,mb", PAGED_CASES)
 def test_paged_attention_matches_plain(card, b, h, kh, hd, bs, mb, window,
                                        softcap, dtype):
     """#13 against its plain version over fp32 and bf16 pools: staggered
-    and wrapped fills, and one idle slot whose table row points at the
-    null block 0."""
+    and wrapped fills (some chunks with no attendable position), and one
+    idle slot whose table row points at the null block 0; split and
+    unsplit plans; two calls equal bit for bit."""
     rng = np.random.default_rng(1)
     npool = 1 + (b - 1) * mb
     q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
@@ -148,7 +163,7 @@ def test_paged_attention_matches_plain(card, b, h, kh, hd, bs, mb, window,
     pos_pool = torch.full((npool, bs), -1, dtype=torch.int32)
     vlen, qpos = mb * bs, []
     for i in range(b - 1):
-        filled = (vlen // 2, vlen, vlen + 3)[i % 3]
+        filled = max(1, (vlen // 2, vlen, vlen + 3)[i % 3])
         pos = torch.arange(filled)
         vslot = pos % vlen
         pos_pool[table[i, vslot // bs].long(), vslot % bs] = pos.int()
@@ -159,10 +174,12 @@ def test_paged_attention_matches_plain(card, b, h, kh, hd, bs, mb, window,
     args = ([t.cuda().to(dt) for t in (q, kp, vp)]
             + [t.cuda() for t in (pos_pool, table, qpos)])
     got = pa.paged_attention(*args, window=window, softcap=softcap)
+    again = pa.paged_attention(*args, window=window, softcap=softcap)
     want = pa.paged_attention_plain(*args, window=window, softcap=softcap)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     _assert_close(got, want, dt)
-    assert pa.launches["paged_attention"] == 1
+    assert pa.launches["paged_attention"] == 2
 
 
 def _packed(k, n, bits, seed=0):
@@ -243,6 +260,43 @@ def test_packed_training_kernels_match_plain(card, bits, m, k, n, r, dtype):
         _assert_close(got, want)
     assert lm.launches == _launches(lora_fwd_quant=1, lora_bwd_dx_quant=1,
                                     quant_matmul_dx=1)
+
+
+# #12 on the rank-fused forward tile, (m, k, n) and the split planned on a
+# 132-SM card (common.dx_plan)
+DX_CASES = [
+    (512, 2048, 16384),    # w_up: 2 chunks
+    (512, 16384, 2048),    # w_down: 512 tiles, unsplit
+    (512, 2048, 256),      # k: 2 chunks of 8 slabs
+    (300, 1000, 4100),     # m, k, n off every tile multiple; int4 kq 1024
+    (37, 70, 50),          # n % 4 != 0: the element path; int4 kq 128
+    (50, 100, 30),         # the same, odd again
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16w", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", DX_CASES)
+def test_quant_matmul_dx_matches_plain_and_repeats(card, m, k, n, bits, dtype,
+                                                   bf16w):
+    """#12 against g @ dequantize(W)^T over bases packed from fp32 and bf16
+    weights, with fp32 and bf16 activations, split and unsplit; two calls
+    equal bit for bit."""
+    rng = np.random.default_rng(m + k + n)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * k ** -0.5).astype(
+        np.float32)).cuda()
+    wq = quantize(w.bfloat16() if bf16w else w, bits, 64)
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(
+        np.float32)).cuda().to(getattr(torch, dtype))
+    got = lora_matmul.quant_matmul_dx(g, wq)
+    again = lora_matmul.quant_matmul_dx(g, wq)
+    want = lora_matmul.quant_matmul_dx_plain(g, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want)
+    assert lora_matmul.launches == _launches(quant_matmul_dx=2)
 
 
 # the rank-fused forward tile (#2, #3, #5, #9): (B, s, k, n, r, ranks of a

@@ -345,3 +345,78 @@ def test_fwd_wrappers_launch_with_the_plan_and_a_big_enough_scratch(
     launches = (lora_matmul.launches if name.startswith("lora")
                 else bgmv.launches)
     assert launches[name] == 1
+
+
+# #12's (m, k, n) on the training path (m = 512: gemma-2b's k, o, w_up,
+# w_down) and ragged ones, with its plan on a 132-SM card
+DX_PLANS = {"k": ((512, 2048, 256), (2, 128)),
+            "o": ((512, 2048, 2048), (2, 1024)),
+            "w_up": ((512, 2048, 16384), (2, 8192)),
+            "w_down": ((512, 16384, 2048), (1, 2048))}
+
+
+@pytest.mark.parametrize("m,k,n", [shape for shape, _ in DX_PLANS.values()]
+                         + [(50, 100, 30), (37, 70, 50), (300, 1000, 4100),
+                            (4096, 2048, 2048)])
+def test_dx_plan_covers_n_in_whole_slabs(m, k, n):
+    """#12 contracts W's n in chunks of whole 16-element slabs that cover it
+    exactly, each chunk nonempty; split only while the (m, k) output's
+    128 x 128 tiles leave SMs idle, and then within one block per SM."""
+    ksplit, kchunk = common.dx_plan(m, k, n, 132)
+    assert kchunk % common.FWD_SLAB == 0
+    assert (ksplit - 1) * kchunk < n <= ksplit * kchunk
+    tiles = -(-m // common.FWD_ROWS) * -(-k // common.FWD_COLS)
+    assert ksplit == 1 or tiles * ksplit <= 132
+
+
+@pytest.mark.parametrize("proj", sorted(DX_PLANS))
+def test_dx_plan_fills_the_card_on_the_training_path(proj):
+    """At k, o and w_up the 64 output tiles split n 2 ways (128 blocks on
+    132 SMs); w_down's 512 tiles already fill the card.  The plan is
+    fwd_split's with the roles swapped and no rank term, whatever the
+    packing: the int4 group rule concerns a contraction along k, and #12
+    contracts along n."""
+    (m, k, n), want = DX_PLANS[proj]
+    assert common.dx_plan(m, k, n, 132) == want
+    assert want == common.fwd_split(m, k, n, 0, common.FWD_COLS, 132)
+    tiles = -(-m // common.FWD_ROWS) * -(-k // common.FWD_COLS)
+    assert tiles * want[0] >= 128
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(512, 2048, 256), (512, 16384, 2048),
+                                   (50, 100, 30)])
+def test_quant_matmul_dx_launches_with_the_plan_and_scratch(monkeypatch, m,
+                                                            k, n, bits):
+    """#12 hands its entry point dx_plan's split on a 132-SM card (ksplit,
+    kchunk right after m, k, n) and, when it splits, a scratch for the
+    (ksplit, m, k) partials (a null pointer otherwise); then counts one
+    launch."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(lora_matmul, "route", lambda t, _name: True)
+    monkeypatch.setattr(lora_matmul, "num_sms", lambda device: 132)
+    monkeypatch.setattr(lora_matmul, "stream", lambda t: None)
+    made = {}
+    real_empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made[t.data_ptr()] = t
+        return t
+    monkeypatch.setattr(lora_matmul.torch, "empty", recording_empty)
+    _, w, _, _, g = _t(*_operands(m, k, n, 1, seed=5))
+    wq = quantize(w, bits, 64)
+    lora_matmul.quant_matmul_dx(g, wq)
+    (entry, args), = lib.calls
+    assert entry == "quant_matmul_dx_launch"
+    ksplit, kchunk = common.dx_plan(m, k, n, 132)
+    assert args[5:10] == (m, k, n, ksplit, kchunk)
+    assert args[10:13] == (bits, 0 if bits == 8 else 64, 0)
+    if ksplit > 1:
+        assert made[args[3]].numel() >= ksplit * m * k
+    else:
+        assert args[3] is None
+    assert lora_matmul.launches == dict(NO_LORA_LAUNCHES, quant_matmul_dx=1)

@@ -14,7 +14,14 @@ JAX package, on the CPU.
     equal the JAX ``serve_scheduled`` tokens from the same weights.
   * Deadline eviction keeps an exact prefix; ``make_requests`` draws what
     the JAX package draws.
+  * Kernel #13's split of the table over the card (``common.paged_split``)
+    and its sub-block size (``sub_block``): the chunks cover the table's
+    columns exactly, fill the SMs at the paths' shapes, and depend on the
+    shapes and SM count alone; a torch emulation of the kernel's chunked
+    (m, l, acc) and its fixed-order merge equals the plain version within
+    1e-5; the wrapper hands its entry point that plan and a scratch.
 """
+import inspect
 import dataclasses
 import random
 
@@ -37,7 +44,7 @@ from repro_torch.checkpoint import io as tio                   # noqa: E402
 from repro_torch.configs.base import LoRAConfig                # noqa: E402
 from repro_torch.configs.base import ModelConfig               # noqa: E402
 from repro_torch.core import lora as tlora                     # noqa: E402
-from repro_torch.kernels import dispatch                       # noqa: E402
+from repro_torch.kernels import common, dispatch               # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged      # noqa: E402
 from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
@@ -223,6 +230,241 @@ def test_paged_attention_plain_matches_jax(window, softcap):
     via = tpaged.paged_attention(*(torch.from_numpy(a) for a in args),
                                  window=window, softcap=softcap)
     assert torch.equal(via, got) and tpaged.launches["paged_attention"] == 0
+
+
+# ------------------------------- kernel #13's split plan and chunked merge
+
+# (b, kh, mb) of the timed shapes and their plan on a 132-SM card: (a) the
+# gemma-2b scheduled path, (b) the hybrid's (the same table, 16 query
+# heads), (c) a long context of 2048 positions
+PAGED_PLANS = {"a": ((4, 1, 10), (10, 1)), "b": ((4, 1, 10), (10, 1)),
+               "c": ((4, 1, 128), (32, 4))}
+
+
+@pytest.mark.parametrize("b,kh,mb,sms", [
+    (4, 1, 10, 132), (4, 1, 128, 132), (4, 1, 1, 132), (3, 2, 3, 132),
+    (4, 1, 34, 132), (132, 1, 10, 132), (200, 2, 50, 132),
+    (4, 1, 1000, 132), (1, 1, 7, 16), (4, 1, 10, 114), (66, 2, 3, 132)])
+def test_paged_split_covers_the_table_once(b, kh, mb, sms):
+    """Every chunk holds at least one column, together exactly the mb
+    columns; b kh nsplit blocks stay within one wave of the SMs (nsplit 1
+    once b kh fills them) and use more than half the chunks it allows."""
+    nsplit, cols = common.paged_split(b, kh, mb, sms)
+    assert cols >= 1 and (nsplit - 1) * cols < mb <= nsplit * cols
+    if b * kh >= sms:
+        assert nsplit == 1
+    else:
+        allowed = min(mb, sms // (b * kh))
+        assert allowed / 2 < nsplit <= allowed
+
+
+@pytest.mark.parametrize("shape", sorted(PAGED_PLANS))
+def test_paged_split_fills_the_card_at_the_paths_shapes(shape):
+    """(a) and (b): 10 chunks of one column, 40 blocks; (c): 32 chunks of
+    4 columns, 128 blocks on 132 SMs."""
+    (b, kh, mb), want = PAGED_PLANS[shape]
+    assert common.paged_split(b, kh, mb, 132) == want
+
+
+def test_paged_split_depends_on_shapes_and_sm_count_alone():
+    """A plain function of (b, kh, mb, SM count), so the wrapper asks
+    nothing of the device and a CUDA graph can capture it."""
+    assert list(inspect.signature(common.paged_split).parameters) == [
+        "b", "kh", "mb", "num_sms"]
+    assert common.paged_split(4, 1, 128, 132) == common.paged_split(
+        4, 1, 128, 132)
+    assert common.paged_split(4, 1, 128, 66) != common.paged_split(
+        4, 1, 128, 132)
+
+
+@pytest.mark.parametrize("g,hd,bs,itemsize,want", [
+    (8, 256, 16, 4, 16), (16, 256, 16, 4, 16), (16, 256, 16, 2, 16),
+    (3, 80, 5, 4, 5), (8, 256, 32, 4, 16), (64, 256, 16, 4, 8),
+    (1, 4096, 16, 4, 1), (64, 400, 16, 4, 1), (1, 6000, 16, 4, 0),
+    (1, 20000, 16, 4, 0), (64, 2000, 16, 2, 0)])
+def test_sub_block_fits_shared_memory(g, hd, bs, itemsize, want):
+    """16 positions a sub-block (bs if fewer), halved only where a large
+    head would not fit; 0 (refused by the wrapper's check) where even one
+    position does not."""
+    sub = tpaged.sub_block(g, hd, bs, itemsize)
+    assert sub == want
+    if sub:
+        assert tpaged._smem(g, hd, sub, itemsize) <= tpaged._MAX_SMEM
+    if sub and sub < min(16, bs):
+        assert tpaged._smem(g, hd, 2 * sub, itemsize) > tpaged._MAX_SMEM
+
+
+def _paged_operands(b, h, kh, hd, bs, mb, idle=0, seed=3):
+    """chip_smoke._paged_case on the CPU: request i owns mb pool blocks
+    filled to a staggered level (half, full, wrapped past the ring, one
+    short of full); ``idle`` trailing slots point every table entry at the
+    null block 0."""
+    rng = np.random.default_rng(seed)
+    live = b - idle
+    npool = 1 + live * mb
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (npool, bs, kh, hd)).astype(np.float32)) for _ in range(2))
+    table = torch.zeros(b, mb, dtype=torch.int32)
+    table[:live] = torch.arange(1, npool, dtype=torch.int32).reshape(live, mb)
+    pos_pool = torch.full((npool, bs), -1, dtype=torch.int32)
+    vlen, qpos = mb * bs, []
+    for i in range(live):
+        filled = (vlen // 2, vlen, vlen + 3, vlen - 1)[i % 4]
+        pos = torch.arange(filled)
+        vslot = pos % vlen
+        pos_pool[table[i, vslot // bs].long(), vslot % bs] = pos.int()
+        qpos.append(filled - 1)
+    pos_pool[0, 0] = 0                    # an idle slot's own write
+    qpos = torch.tensor(qpos + [0] * idle, dtype=torch.int32)
+    return q, kp, vp, pos_pool, table, qpos
+
+
+def _split_emulation(q, k_pool, v_pool, pos_pool, table, qpos, *, window,
+                     softcap, sms):
+    """The kernel's arithmetic in torch: each (request, kv head, chunk) of
+    common.paged_split's plan carries the running (m, l, acc) of the kv
+    head's query heads over its columns, sub_block positions at a time (p
+    = 0 where the score is NEG_INF); then a request's partials are merged
+    in chunk order: m = max m_z, l = sum l_z e^(m_z - m), acc likewise, out
+    = acc / max(l, 1e-30)."""
+    b, h, hd = q.shape
+    _, bs, kh, _ = k_pool.shape
+    mb, g = table.shape[1], h // kh
+    nsplit, cols = common.paged_split(b, kh, mb, sms)
+    sub = tpaged.sub_block(g, hd, bs, 4)
+    neg = tpaged.NEG_INF
+    out = torch.empty(b, h, hd)
+    for i in range(b):
+        qp = int(qpos[i])
+        for kv in range(kh):
+            qg = q[i, kv * g:(kv + 1) * g].double()
+            parts = []
+            for z in range(nsplit):
+                m = torch.full((g,), neg, dtype=torch.float64)
+                l = torch.zeros(g, dtype=torch.float64)
+                acc = torch.zeros(g, hd, dtype=torch.float64)
+                for col in range(z * cols, min(mb, (z + 1) * cols)):
+                    blk = int(table[i, col])
+                    for o in range(0, bs, sub):
+                        k = k_pool[blk, o:o + sub, kv].double()
+                        v = v_pool[blk, o:o + sub, kv].double()
+                        p = pos_pool[blk, o:o + sub]
+                        s = qg @ k.T * hd ** -0.5
+                        if softcap:
+                            s = softcap * torch.tanh(s / softcap)
+                        valid = (p >= 0) & (p <= qp)
+                        if window is not None:
+                            valid &= qp - p < window
+                        s = torch.where(valid, s, torch.full_like(s, neg))
+                        m_new = torch.maximum(m, s.max(-1).values)
+                        pr = torch.where(s <= neg / 2, torch.zeros_like(s),
+                                         torch.exp(s - m_new[:, None]))
+                        corr = torch.exp(m - m_new)
+                        l = l * corr + pr.sum(-1)
+                        acc = acc * corr[:, None] + pr @ v
+                        m = m_new
+                parts.append((m, l, acc))
+            mx = torch.stack([m for m, _, _ in parts]).max(0).values
+            lsum = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+            a = sum(acc * torch.exp(m - mx)[:, None] for m, _, acc in parts)
+            out[i, kv * g:(kv + 1) * g] = (
+                a / lsum.clamp_min(1e-30)[:, None]).float()
+    return out, parts
+
+
+@pytest.mark.parametrize("shape,h,kh,hd,bs,idle,window,softcap", [
+    ("a", 8, 1, 32, 16, 0, None, None),
+    ("a", 8, 1, 32, 16, 1, 24, 30.0),      # idle slot; early chunks masked
+    ("b", 16, 1, 32, 16, 0, 2048, None),
+    ("c", 16, 1, 32, 16, 0, 2048, None),   # request 0: half its chunks empty
+    ("c", 16, 1, 32, 16, 1, 100, None),    # most chunks outside the window
+    ("a", 6, 2, 20, 5, 1, None, 50.0),     # two kv heads, bs 5
+    ("a", 4, 1, 20, 32, 0, None, None),    # two sub-blocks a column
+])
+def test_chunked_merge_equals_plain(shape, h, kh, hd, bs, idle, window,
+                                    softcap):
+    """The kernel's split (m, l, acc) and fixed-order merge, emulated in
+    torch at the plans of (a)-(c), equal the exact softmax of the plain
+    version within 1e-5, with chunks that hold no attendable position and
+    an idle slot on the null block."""
+    (b, _, mb), (nsplit, _) = PAGED_PLANS[shape]
+    args = _paged_operands(b, h, kh, hd, bs, mb, idle)
+    got, _ = _split_emulation(*args, window=window, softcap=softcap,
+                              sms=132)
+    want = tpaged.paged_attention_plain(*args, window=window,
+                                        softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert nsplit > 1
+
+
+def test_chunked_merge_skips_empty_chunks():
+    """A chunk with no attendable position carries (m, l, acc) = (NEG_INF,
+    0, 0) and adds nothing to the merge."""
+    args = _paged_operands(4, 16, 1, 32, 16, 128)
+    _, parts = _split_emulation(*args, window=None, softcap=None, sms=132)
+    m, l, acc = parts[-1]                  # request 3's last chunk: filled
+    assert bool((m > tpaged.NEG_INF / 2).all())
+    args = _paged_operands(1, 16, 1, 32, 16, 128)   # half filled
+    _, parts = _split_emulation(*args, window=None, softcap=None, sms=132)
+    m, l, acc = parts[-1]
+    assert bool((m == tpaged.NEG_INF).all()) and not l.any() \
+        and not acc.any()
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records each entry point's
+    arguments and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.mark.parametrize("b,h,kh,hd,bs,mb,window", [
+    (4, 8, 1, 256, 16, 10, None), (4, 16, 1, 256, 16, 128, 2048),
+    (3, 6, 2, 80, 5, 3, 64), (140, 4, 1, 64, 16, 6, None),
+    (4, 8, 1, 256, 16, 1, None)])
+def test_paged_wrapper_launches_with_the_plan_and_scratch(
+        monkeypatch, b, h, kh, hd, bs, mb, window):
+    """The wrapper hands its entry point paged_split's plan on a 132-SM
+    card, sub_block's size and, when the plan splits, a scratch for the
+    (B, kh, nsplit, g, hd + 2) partials (a null pointer otherwise); then
+    counts one launch."""
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(tpaged, "route", lambda t, _name: True)
+    monkeypatch.setattr(tpaged, "num_sms", lambda device: 132)
+    monkeypatch.setattr(tpaged, "stream", lambda t: None)
+    made = {}
+    real_empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made[t.data_ptr()] = t
+        return t
+    monkeypatch.setattr(tpaged.torch, "empty", recording_empty)
+    args = _paged_operands(b, h, kh, hd, bs, mb)
+    tpaged.reset_launches()
+    tpaged.paged_attention(*args, window=window)
+    (entry, got), = lib.calls
+    assert entry == "paged_attention_launch"
+    nsplit, cols = common.paged_split(b, kh, mb, 132)
+    sub = tpaged.sub_block(h // kh, hd, bs, 4)
+    assert got[8:19] == (b, args[1].shape[0], h, kh, hd, bs, mb, nsplit, cols,
+                         sub, window or 0)
+    if nsplit > 1:
+        assert made[got[7]].numel() >= b * h * nsplit * (hd + 2)
+    else:
+        assert got[7] is None
+    assert tpaged.launches["paged_attention"] == 1
 
 
 # ------------------------------------------------ scheduled vs fixed batch
