@@ -20,9 +20,8 @@ graph replay), fp32 activations:
          training path's q (m = 512, k = 2048, n = 2048, r = 64) and v
          (n = 256); #7 / #8 on warm inputs, as chip_smoke.time_lora_kernels
          does;
-  #11    quant_matmul at int4 (group 64) and int8, q, w_up and w_down, at
-         m = 512 (its tile) and m = 4 (its split-k GEMV form, which shares
-         the W loaders);
+  #11    quant_matmul at int4 (group 64) and int8, k, o, w_up and w_down,
+         at m = 512 (the forward tile) and m = 4 (the packed GEMV);
   #9, #10 lora_fwd_quant / lora_bwd_dx_quant at q and v, int4 and int8;
   #12    quant_matmul_dx at k, o, w_up and w_down, int4 and int8;
   #13    paged_attention over fp32 and bf16 pools at (a) the gemma-2b
@@ -35,14 +34,16 @@ graph replay), fp32 activations:
 W (fp or packed) is rotated over copies that exceed L2 three times, as a
 pass finds it cold.  Each kernel's output is also held against its plain
 version (max abs diff), so a faster build that computes something else
-shows.  For #2, #3, #5, #9, #12 and #13 the graph is replayed once more
-under torch.profiler, and each call's device time is split by kernel into
-the rank pre-pass, the main kernel ("tile") and the second pass that adds
-split partials or merges split softmaxes (``split``).  The compiler's
-registers and spills of those kernels (``-Xptxas -v``, from the build log)
-come with each run (``ptxas``).  ``--only`` keeps the rows whose name
-starts with one of the given prefixes.  Give the checkouts as A B B A to
-cancel drift; one JSON line per run.
+shows.  For #2, #3, #5, #9, #10, #11, #12 and #13 (SPLIT_KERNELS, matched
+by the row's kernel name exactly) the graph is replayed once more under
+torch.profiler, and each call's device time is split by kernel into the
+rank pre-pass, the main kernel ("tile", or #11's packed GEMV, "gemv") and
+the second pass that adds split partials or merges split softmaxes
+(``split``).  The compiler's registers and spills of those kernels
+(``-Xptxas -v``, from the build log) come with each run (``ptxas``).
+``--only`` keeps the rows whose name starts with one of the given
+prefixes.  Give the checkouts as A B B A to cancel drift; one JSON line per
+run.
 """
 import itertools
 import json
@@ -51,12 +52,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-# prefixes: #2, #3, #5, #9, #12, #13
-SPLIT_KERNELS = ("bgmv_matmul", "lora_fwd", "quant_matmul_dx",
-                 "paged_attention")
+# the wrappers whose calls a run splits by phase: #2, #3, #5, #9, #10, #11,
+# #12, #13 (a row's first word, matched exactly: quant_matmul is a prefix of
+# quant_matmul_dx)
+SPLIT_KERNELS = ("bgmv_matmul", "bgmv_matmul_quant", "lora_fwd",
+                 "lora_fwd_quant", "lora_bwd_dx_quant", "quant_matmul",
+                 "quant_matmul_dx", "paged_attention")
 # the kernels whose registers and spills a run reports (mangled names)
 PTXAS_KERNELS = ("paged_attn", "paged_split", "paged_merge", "fwd_kernel",
-                 "tile_kernel")
+                 "tile_kernel", "qgemv_kernel")
 
 
 def _phase(kernel_name: str) -> str:
@@ -66,6 +70,8 @@ def _phase(kernel_name: str) -> str:
         return "pre-pass"
     if "sum" in kernel_name or "merge" in kernel_name:
         return "second pass"
+    if "qgemv" in kernel_name:
+        return "gemv"
     return "tile"
 
 
@@ -133,7 +139,7 @@ def one(root: Path, only) -> dict:
         want = want if isinstance(want, tuple) else (want,)
         err[name] = max(float((a - b).abs().max()) for a, b in zip(got, want))
         us[name] = cs._graph_ms(kfn, args) * 1e3
-        if name.startswith(SPLIT_KERNELS):
+        if name.split()[0] in SPLIT_KERNELS:
             split[name] = _split_us(kfn, args)
 
     def copies(nbytes):
@@ -186,7 +192,7 @@ def one(root: Path, only) -> dict:
         wqs = [quantize(wf, bits, 64)
                for _ in range(copies(quantize(wf, bits, 64).nbytes))]
         x, _, a, b, g = cs._lora_operands(gen, m, kk, n, r, torch.float32)
-        if proj in ("q", "w_up", "w_down"):
+        if proj in ("k", "o", "w_up", "w_down"):
             run(f"quant_matmul {mode}", lm.quant_matmul,
                 lm.quant_matmul_plain, [(x, wi) for wi in wqs])
             run(f"quant_matmul {mode} m 4", lm.quant_matmul,

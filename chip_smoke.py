@@ -33,9 +33,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      hybrid's 16 query heads with its window of 2048, a 2048-position
      context, and a ragged case with an idle slot, over fp32 and bf16
      pools; #3, #4 (quantized BGMV) and #11 (packed GEMM) over int8 and
-     int4 (group 64) gemma-2b projections at m = 4 and 512; then their
+     int4 (group 64) gemma-2b projections, #11 at m = 1, 4, 8 (its packed
+     GEMV), 9 and 512 (its forward tile) and two ragged shapes; then their
      times beside the plain versions, one PyTorch call each (SDPA for #13)
-     and the card's bound, with the split #13 launches with
+     and the card's bound, with the split #13 and #11 launch with
   8. scheduled serving path: repro_torch.launch.serve.serve_scheduled on
      gemma-2b at full width over an fp32, an int8 and an int4 base (8
      requests, two waves through 4 slots, one deadline), with the launch
@@ -45,12 +46,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      LiveAdapterBank of 2 hot slots
   9. packed training kernels vs plain: #9, #10 (the LoRA matmul forward
      and dx over a packed W) and #12 (the packed GEMM's dx) over int8 and
-     int4 (group 64) gemma-2b projections at m = 512 and a ragged case,
-     fp32 and bf16 activations; a base packed from bf16 weights through
-     all six packed kernels (#3, #4, #9-#12); then the times of #9, #10 and
-     #12 beside their plain versions, one torch.matmul on the dequantized
-     W and the card's bound, with the tiles and split #9 and #12 launch
-     with
+     int4 (group 64) gemma-2b projections at m = 512 (#9, #10 at rank 64
+     and 8) and a ragged case, fp32 and bf16 activations; a base packed
+     from bf16 weights through all six packed kernels (#3, #4, #9-#12);
+     then the times of #9, #10 and #12 beside their plain versions, one
+     torch.matmul on the dequantized W and the card's bound, with the tiles
+     and split #9, #10 and #12 launch with
  10. training path over a packed base: the FederatedTrainer of phase 6 over
      an int8 and an int4 base (#9, #10, #7, #8 at q and v; #11 and #12 at
      k, o and the MLP), with the launch counts, a bit-identical repeat,
@@ -144,8 +145,8 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "bgmv_gemv_quant": CSRC + "bgmv.cu",
            "quant_matmul": CSRC + "lora_matmul.cu",
            "lora_fwd_quant": CSRC + "lora_matmul.cu",
-           "lora_bwd_dx_quant": CSRC + "lora_matmul.cu",
-           "quant_matmul_dx": CSRC + "lora_matmul.cu",
+           "lora_bwd_dx_quant": CSRC + "packed_dx.cu",
+           "quant_matmul_dx": CSRC + "packed_dx.cu",
            "rglru_scan": CSRC + "rglru_scan.cu",
            "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
@@ -335,6 +336,32 @@ def _dx_plan_note(m, k, n):
                                     common.num_sms(torch.device("cuda")))
     return (f"[{common.FWD_ROWS}x{common.FWD_COLS} tiles x {ksplit} chunks "
             f"of {kchunk}{'; fixed-order sum' if ksplit > 1 else ''}]")
+
+
+def _qmm_plan_note(m, k, n, bits, group):
+    """The form, tiles and split #11 launches with on this card: the packed
+    GEMV (kernels/common.py qgemv_split) for m <= 8 rows, else the forward
+    tile with no rank term (qmm_plan)."""
+    sms = common.num_sms(torch.device("cuda"))
+    if m <= common.QGEMV_MAX_ROWS:
+        ksplit, kchunk = common.qgemv_split(k, n, sms)
+        form = f"packed GEMV, {common.QGEMV_COLS}-column blocks"
+    else:
+        ksplit, kchunk = common.qmm_plan(m, n, k, sms, bits, group)
+        form = f"{common.FWD_ROWS}x{common.FWD_COLS} tiles"
+    return (f"[{form} x {ksplit} chunks of {kchunk}"
+            f"{'; fixed-order sum' if ksplit > 1 else ''}]")
+
+
+def _dx_rank_plan_note(m, k, n, r):
+    """The tiles and the split #10 launches with on this card
+    (kernels/common.py dx_rank_plan)."""
+    ksplit_p, kchunk_p, ksplit, kchunk = common.dx_rank_plan(
+        m, k, n, r, common.num_sms(torch.device("cuda")))
+    rows, cols, pre = common.FWD_ROWS, common.FWD_COLS, common.FWD_PRE_COLS
+    return (f"[q pre-pass {rows}x{pre} tiles x {ksplit_p} chunks of "
+            f"{kchunk_p}; main {rows}x{cols} tiles x {ksplit} chunks of "
+            f"{kchunk}]")
 
 
 def _paged_plan_note(b, kh, mb):
@@ -615,14 +642,20 @@ def _print_profile(label, wall, events, per, unit):
     for name, (n, us) in top:
         print(f"    {us / 1e3 / per:8.3f} ms  x{n / per:5.1f}  {name[:100]}")
     # the rank-fused forward tile's three kernels (pre-pass, main tile,
-    # fixed-order sums) make up #2, #3, #5, #9 and #12; #12's main tile is
-    # the one with a by-row packed stager (RowsInt8 / RowsInt4); #13 is its
-    # split kernel and merge
-    groups = (("rank-fused forward tile (#2, #3, #5, #9, #12: pre-pass, "
+    # fixed-order sums) make up #2, #3, #5, #9-#12 (#11 at m > 8 rows); the
+    # main tiles with a by-row packed stager (RowsInt8 / RowsInt4) are #10's
+    # and #12's, those with a by-column one and no rank term #11's; #11's
+    # decode form is its packed GEMV; #13 is its split kernel and merge
+    groups = (("rank-fused forward tile (#2, #3, #5, #9-#12: pre-pass, "
                "main tile and sums)",
                lambda name: "fwd_kernel<" in name or "fwd_sum_kernel" in name),
-              ("of which #12's main tile (RowsInt8 / RowsInt4)",
+              ("of which #10's and #12's main tiles (RowsInt8 / RowsInt4)",
                lambda name: "fwd_kernel<" in name and "RowsInt" in name),
+              ("of which #11's main tile (ColsInt8 / ColsInt4, no rank term)",
+               lambda name: ("fwd_kernel<" in name and "ColsInt" in name
+                             and "NoStage" in name)),
+              ("#11's packed GEMV (its decode form)",
+               lambda name: "qgemv_kernel" in name),
               ("paged attention #13 (split kernel and merge)",
                lambda name: "paged_" in name))
     for label_, match in groups:
@@ -1048,8 +1081,11 @@ def _paged_check_cases(block_size, ring):
 def check_sched_kernels(block_size, ring, dev="cuda"):
     """fp32 and bf16 builds of each kernel: #13 over fp32 and bf16 pools at
     the gemma-2b path, the hybrid's and a long context (_paged_shapes), and
-    a ragged case; #3, #4 and #11 with fp32 and bf16 activations over a base packed from
-    fp32 weights (the only base their wrappers take)."""
+    a ragged case; #3, #4 and #11 with fp32 and bf16 activations over bases
+    packed from fp32 weights (check_qtrain_kernels takes bf16-packed ones),
+    #11 at m = 1, 4, 8 (its packed GEMV), 9 and 512 (its forward tile) and
+    at two ragged shapes (k 70 and 99, n 50 and 51: odd n takes the
+    GEMV's byte loads and the tile's scalar path)."""
     phase("paged-attention #13 and quantized BGMV / GEMM #3, #4, #11 vs "
           f"plain (tolerance: |kernel - plain| <= {KERNEL_RTOL} * max(1, "
           f"max|plain|), + {BF16_STEP} * |plain| for a bf16 output)")
@@ -1068,12 +1104,14 @@ def check_sched_kernels(block_size, ring, dev="cuda"):
                 "paged_attention",
                 f"{label} {str(dt)[6:]} w={window} c={softcap}", got, want))
     for mode, bits in (("int8", 8), ("int4", 4)):
-        for proj, (k, n) in list(PROJ.items()) + [("ragged", (70, 50))]:
+        for proj, (k, n) in list(PROJ.items()) + [("ragged", (70, 50)),
+                                                  ("odd n", (99, 51))]:
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
             wq = quantize(w, bits, QUANT_GROUP)
             del w
+            # #11's packed GEMV (m <= 8) and forward tile (m > 8)
             for m, dt in itertools.product(
-                    (4, 512) if proj != "ragged" else (5, 13),
+                    (1, 4, 8, 9, 512) if proj in PROJ else (1, 5, 8, 9, 13),
                     (torch.float32, torch.bfloat16)):
                 x = torch.randn(m, k, generator=gen, device=dev).to(dt)
                 worst["quant_matmul"] = max(worst["quant_matmul"], _err(
@@ -1213,7 +1251,9 @@ def time_sched_kernels(block_size, ring, dev="cuda"):
                         eager_ms=eager_ms)
                     note = (" " + _fwd_plan_note(m, n, k, 8, bits,
                                                  QUANT_GROUP)
-                            if name == "bgmv_matmul_quant" else "")
+                            if name == "bgmv_matmul_quant" else
+                            " " + _qmm_plan_note(m, k, n, bits, QUANT_GROUP)
+                            if name == "quant_matmul" else "")
                     print(f"{name:17s} {mode} {proj:6s} m={m:<3d} k={k} "
                           f"n={n}: kernel {ms * 1e3:.2f} us, plain "
                           f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 "
@@ -1494,25 +1534,29 @@ def _check_pair(name, label, got, want):
 
 def check_qtrain_kernels(dev="cuda"):
     """#9, #10 and #12 over int8 and int4 (group 64) gemma-2b projections
-    at the training path's m = 512 (#9 and #10 at the adapted q and v, #12
-    at every base projection), with fp32 and bf16 activations, and a ragged
-    case (m 50, k 100: an int4 W holds kq = 128 rows; n 30, r 3).  Then a
+    at the training path's m = 512 (#9 and #10 at the adapted q and v, with
+    rank 64 and 8, #12 at every base projection), with fp32 and bf16
+    activations, and a ragged case (m 50, k 100: an int4 W holds kq = 128
+    rows; n 30, r 3).  Then a
     base packed from bf16 weights through all six packed kernels (#3, #4,
     #9, #10, #11, #12), whose loaders round each product to bf16."""
     phase("packed training kernels #9, #10, #12 vs plain (tolerance: "
           f"|kernel - plain| <= {KERNEL_RTOL} * max(1, max|plain|))")
     gen = torch.Generator(dev).manual_seed(9)
     worst = {k: 0.0 for k in QTRAIN_KERNELS}
-    cases = [(p, 512, k, n, 64) for p, (k, n) in PROJ.items()]
-    cases.append(("ragged", 50, 100, 30, 3))
+    # (label, m, k, n, r, adapted: #9 and #10 run beside #12)
+    cases = [(p, 512, k, n, 64, p in ("q", "v")) for p, (k, n) in
+             PROJ.items()]
+    cases += [(f"{p} r8", 512, *PROJ[p], 8, True) for p in ("q", "v")]
+    cases.append(("ragged", 50, 100, 30, 3, True))
     for mode, bits in (("int8", 8), ("int4", 4)):
-        for label, m, k, n, r in cases:
+        for label, m, k, n, r, adapted in cases:
             wq = quantize(torch.randn(k, n, generator=gen, device=dev)
                           * k ** -0.5, bits, QUANT_GROUP)
             for dt in (torch.float32, torch.bfloat16):
                 x, _, a, b, g = _lora_operands(gen, m, k, n, r, dt, dev)
                 calls = _qtrain_calls(x, wq, a, b, g)
-                if label not in ("q", "v", "ragged"):
+                if not adapted:
                     calls = {"quant_matmul_dx": calls["quant_matmul_dx"]}
                 for kern, (kfn, pfn) in calls.items():
                     worst[kern] = max(worst[kern], _check_pair(
@@ -1613,7 +1657,8 @@ def time_qtrain_kernels(dev="cuda"):
                 note = (" " + _fwd_plan_note(m, n, k, r, bits, QUANT_GROUP)
                         if kern == "lora_fwd_quant" else
                         " " + _dx_plan_note(m, k, n)
-                        if kern == "quant_matmul_dx" else "")
+                        if kern == "quant_matmul_dx" else
+                        " " + _dx_rank_plan_note(m, k, n, r))
                 print(f"{kern:17s} {mode} {proj:6s} m={m} k={k} n={n} "
                       f"r={r}: kernel {ms * 1e3:.2f} us, plain "
                       f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 W "

@@ -42,7 +42,8 @@ SIGNATURES = {
     "lora_bwd_db_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "quant_matmul_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
     "lora_fwd_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4 + (_P,),
-    "lora_bwd_dx_quant_launch": (_P,) * 7 + (_I,) * 4 + (_F,) + (_I,) * 4
+    # csrc/packed_dx.cu
+    "lora_bwd_dx_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4
     + (_P,),
     "quant_matmul_dx_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
     # csrc/paged_attention.cu

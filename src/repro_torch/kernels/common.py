@@ -1,10 +1,21 @@
 """Wrapper plumbing shared by the kernel modules (``bgmv``, ``lora_matmul``,
 ``paged_attention``, ``rglru_scan``, ``flash_attention``): the tier rule,
 the dtype codes the C entry points take, the caller's stream, launch-error
-reporting, the forward-only guard, the k split of the split-k GEMV body
-(``csrc/gemv.cuh``) that #1, #4 and #11's decode form share, and the split
-plan of the rank-fused forward tile (``csrc/fwd_tile.cuh``) that #2, #3, #5,
-#9 and #12 share, and the split of paged attention's table (#13).
+reporting, the forward-only guard, and the host plans of the kernels that
+split a contraction or a table over blocks, each from the shapes and the
+SM count alone (so a wrapper asks nothing of the device and stays
+capture-safe):
+
+* ``gemv_split``: the k split of the split-k GEMV body (``csrc/gemv.cuh``)
+  of #1 and #4;
+* ``qgemv_split``: the k split of #11's packed GEMV, its decode form
+  (``csrc/qgemv.cu``);
+* ``fwd_split`` / ``fwd_plan``: the splits of the rank-fused forward tile
+  (``csrc/fwd_tile.cuh``) of #2, #3, #5 and #9, its pre-pass and main
+  pass; ``qmm_plan``, its main pass with no rank term for #11 at m > 8;
+  ``dx_plan`` and ``dx_rank_plan``, its passes with the roles swapped for
+  #12 (no rank term) and #10 (the q pre-pass and the rank tail);
+* ``paged_split``: the split of paged attention's table (#13).
 
 Nothing here builds or loads a kernel; ``kernels/build.py`` does that at
 first use.
@@ -25,6 +36,15 @@ FWD_ROWS, FWD_SLAB, FWD_COLS, FWD_PRE_COLS = 128, 16, 128, 64
 # the fewest slabs a chunk of a split contraction holds: shorter chunks
 # spend more of their time filling the 3-stage ring than in it
 FWD_MIN_SLABS = 4
+
+# csrc/qgemv.cuh: the most rows of x #11's packed GEMV takes (more take
+# the forward tile), the columns a block covers (8 warps over 32 lanes x 8
+# columns), and the bounds of a chunk of k: at least QGEMV_MIN_CHUNK rows,
+# so that each of the block's 8 warps walks enough rows to keep its loads in
+# flight; at most QGEMV_MAX_CHUNK (kQgMaxChunk), the rows of x a block
+# stages in shared memory
+QGEMV_MAX_ROWS, QGEMV_COLS = 8, 256
+QGEMV_MIN_CHUNK, QGEMV_MAX_CHUNK = 128, 1024
 
 _sm_counts = {}
 
@@ -91,15 +111,35 @@ def gemv_split(nreq: int, k: int, n: int, num_sms: int):
     return -(-k // kchunk), kchunk
 
 
+def qgemv_split(k: int, n: int, num_sms: int):
+    """(ksplit, kchunk) of #11's packed GEMV (m <= 8 rows of x, a packed W
+    of logical shape (k, n)): blocks of QGEMV_COLS columns, k split into
+    the longest power-of-two chunks (QGEMV_MIN_CHUNK to QGEMV_MAX_CHUNK
+    rows) that still give every SM a block, or one chunk of k rounded up to
+    a 16-row slab where k is shorter.  A power of two divides k at the
+    paths' shapes, so no chunk is a short tail; the chunks cover k exactly,
+    none empty.  ksplit 1 writes y directly, more go through the
+    fixed-order sum of the partials.  On an H100 (132 SMs): gemma-2b's k
+    and o 16 chunks of 128, w_up 4 of 512, w_down 32 of 512."""
+    blocks = -(-n // QGEMV_COLS)
+    most = -(-k // -(-num_sms // blocks))   # the longest chunk filling the SMs
+    chunk = QGEMV_MIN_CHUNK
+    while chunk * 2 <= min(most, QGEMV_MAX_CHUNK):
+        chunk *= 2
+    chunk = min(chunk, -(-k // 16) * 16)
+    return -(-k // chunk), chunk
+
+
 def fwd_split(m: int, n: int, k: int, r: int, cols: int, num_sms: int,
-              bits: int = 0, group: int = 0):
+              bits: int = 0, group: int = 0,
+              min_slabs: int = FWD_MIN_SLABS):
     """(ksplit, kchunk) of one pass of the rank-fused forward tile: an
     (m, n) output in (FWD_ROWS, cols) tiles, contracting its base range
     [0, k) and then its rank range [0, r), laid end to end as whole slabs
     (the base padded to a slab).  Grid z takes the chunk [z kchunk, (z + 1)
     kchunk) of that range.  When the tiles leave SMs idle, the range splits
     into as many chunks as keep one block per SM (tiles x ksplit <=
-    num_sms), of at least FWD_MIN_SLABS slabs each; otherwise ksplit is 1.
+    num_sms), of at least ``min_slabs`` slabs each; otherwise ksplit is 1.
     A packed int4 W (``bits`` 4) must hold whole slabs in each scale group,
     so that no slab of any chunk straddles two groups: a chunk starts on a
     slab, and a slab on a group's slab boundary."""
@@ -111,7 +151,7 @@ def fwd_split(m: int, n: int, k: int, r: int, cols: int, num_sms: int,
     slabs = -(-k // FWD_SLAB) + -(-r // FWD_SLAB)
     chunk = slabs
     if tiles < num_sms:
-        chunk = max(FWD_MIN_SLABS, -(-slabs // (num_sms // tiles)))
+        chunk = max(min_slabs, -(-slabs // (num_sms // tiles)))
     return -(-slabs // chunk), chunk * FWD_SLAB
 
 
@@ -131,17 +171,43 @@ def fwd_plan(m: int, n: int, k: int, r: int, num_sms: int, bits: int = 0,
             *fwd_split(m, n, k, r, FWD_COLS, num_sms, bits, group))
 
 
-def dx_plan(m: int, k: int, n: int, num_sms: int):
-    """(ksplit, kchunk) of #12, dx = g dequant(W)^T for a packed W of
-    logical shape (k, n), on the rank-fused forward tile: :func:`fwd_split`
+def qmm_plan(m: int, n: int, k: int, num_sms: int, bits: int,
+             group: int):
+    """(ksplit, kchunk) of #11 at m > 8 rows, y = x dequant(W) on the
+    rank-fused forward tile with no rank term: fwd_plan's main pass with r
+    = 0, an (m, n) output in (FWD_ROWS, FWD_COLS) tiles contracting k, W
+    read by column.  So fwd_split's int4 rule holds (no slab straddles a
+    scale group), except for groups below a slab, which take the element
+    path (each row's own scale)."""
+    if bits == 4 and group % FWD_SLAB:
+        bits = 0
+    return fwd_split(m, n, k, 0, FWD_COLS, num_sms, bits, group)
+
+
+def dx_plan(m: int, k: int, n: int, num_sms: int, r: int = 0):
+    """(ksplit, kchunk) of the main pass of a packed dx on the rank-fused
+    forward tile, for a packed W of logical shape (k, n): :func:`fwd_split`
     with the roles swapped, an (m, k) output in (FWD_ROWS, FWD_COLS) tiles
-    contracting W's n, and no rank term.  fwd_split's int4 rule (no slab
-    straddles a scale group) concerns a contraction along k; here the
-    contraction runs along n, whose scales change with every element, so
-    it does not apply.  The tile's output columns straddle k's groups
-    instead, and the by-row stager (``csrc/fwd_tile.cuh`` RowsInt4) reads
-    each column's own scale row."""
-    return fwd_split(m, k, n, 0, FWD_COLS, num_sms)
+    contracting W's n, then (#10) the rank range [0, r) of q against gamma
+    A, laid after n padded to a slab.  r = 0 is #12, dx = g dequant(W)^T.
+    fwd_split's int4 rule (no slab straddles a scale group) concerns a
+    contraction along k; here the contraction runs along n, whose scales
+    change with every element, so it does not apply.  The tile's output
+    columns straddle k's groups instead, and the by-row stager
+    (``csrc/fwd_tile.cuh`` RowsInt4) reads each column's own scale row."""
+    return fwd_split(m, k, n, r, FWD_COLS, num_sms)
+
+
+def dx_rank_plan(m: int, k: int, n: int, r: int, num_sms: int):
+    """(ksplit_p, kchunk_p, ksplit, kchunk) of #10, dx = g dequant(W)^T +
+    gamma (g B) A: the q = g B pre-pass, an (m, r) output in (FWD_ROWS,
+    FWD_PRE_COLS) tiles contracting n, then :func:`dx_plan`'s main pass
+    with r (the order of ``fwd_plan``).  The pre-pass takes chunks down to
+    one slab: its 4 tiles at m = 512 contract n = 256 at v, 16 slabs that
+    4-slab chunks would spread over 16 of the SMs (on an H100 the 1-slab
+    split ran #10 at v 2.4-2.7 us faster than the 4-slab one, PERF.md)."""
+    return (*fwd_split(m, r, 0, n, FWD_PRE_COLS, num_sms, min_slabs=1),
+            *dx_plan(m, k, n, num_sms, r))
 
 
 def paged_split(b: int, kh: int, mb: int, num_sms: int):

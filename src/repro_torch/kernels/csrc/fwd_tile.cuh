@@ -1,8 +1,14 @@
-// The rank-fused forward tile, for Hopper (sm_90a): one kernel body for the
-// BGMV prefill (bgmv.cu: #2 over an fp W, #3 over a packed W), the LoRA
-// forward (lora_matmul.cu: #5 over an fp W, #9 over a packed W) and the
-// packed GEMM's dx (lora_matmul.cu: #12, replacing _qmm_dx_kernel,
-// src/repro/kernels/lora_matmul.py:544; no rank term, below).
+// The rank-fused forward tile, for Hopper (sm_90a): one kernel body for
+// seven of the TPU kernels of src/repro/kernels/:
+//   bgmv.cu        #2 _bgmv_kernel (bgmv.py:59), #3 _bgmv_kernel_q (:224):
+//                  the BGMV prefill over an fp or packed W;
+//   lora_matmul.cu #5 _fwd_kernel (lora_matmul.py:55), #9 _fwd_kernel_q
+//                  (:345): the LoRA forward; #11 _qmm_kernel (:514) at m > 8
+//                  rows: the packed GEMM, no rank term;
+//   packed_dx.cu   #12 _qmm_dx_kernel (:544): dx = g dequant(W)^T, no rank
+//                  term; #10 _bwd_dx_kernel_q (:414): dx = g dequant(W)^T +
+//                  gamma (g B) A, with the roles of the forward's operands
+//                  swapped (dx_rank_fused, below).
 //
 //   p[i, s]   = sum_t x[i, t] A_row(i)[s, t]                  (pre-pass)
 //   out[i, j] = sum_t x[i, t] W(t, j) + gamma sum_s p[i, s] B_row(i)[j, s]
@@ -15,9 +21,10 @@
 // are fp32; p is the residual the LoRA backward reuses.
 //
 // What bounds it on an H100 at the paths' shapes (m = 512; k = 2048 or
-// 4096; n = 2048 / 4096 (q, wx, wy) or 256 (v); r = 8 or 64): operations,
-// fp32 FMA on the CUDA cores (67 TFLOP/s; no TF32, so the fp32 bounds
-// hold).  The 64 x 64 tiles this body replaces lost 3-9x to torch.matmul:
+// 4096; n = 2048 / 4096 (q, wx, wy), 256 (v) or 16384 (the MLP); r = 8 or
+// 64): operations, fp32 FMA on the CUDA cores (67 TFLOP/s; no TF32, so the
+// fp32 bounds hold).  The 64 x 64 tiles this body replaces lost 2.4-9x to
+// torch.matmul:
 //   - 32 blocks on 132 SMs at n = 256, each walking all of k.  Here a
 //     128 x 128 tile (128 x 64 for the pre-pass) walks one chunk of the
 //     contraction, grid z picks the chunk, and the chunks are planned on
@@ -44,19 +51,19 @@
 //     through the same ring and micro-kernel, one pass per request in the
 //     tile (rows of other requests are masked to 0), as slabs r of the
 //     chunked range [0, roundup(k, 16) + r).
-//   - #12, dx = g dequant(W)^T, contracts along W's contiguous n, so the
-//     by-column packed stagers cannot serve it, and on the 64 x 64 tile it
-//     reached 18 TFLOP/s (PERF.md).  Here it is this body with no rank
-//     term: g through Rows, W through RowsInt8 / RowsInt4, which stage
-//     element (t, j) = dequant(W)(j, t) 4 n of two neighbouring rows a
-//     thread (a 32-bit word of each row for int8, the byte row both share
-//     for int4), convert without I2F and store transposed as float2, and
-//     the host splits n (kernels/common.py dx_plan) where the (m, k) tiles
-//     leave SMs idle.
+//   - #12 and #10 contract along W's contiguous n, so the by-column packed
+//     stagers cannot serve them.  Here g goes through Rows and W through
+//     RowsInt8 / RowsInt4, which stage element (t, j) = dequant(W)(j, t) 4 n
+//     of two neighbouring rows a thread (a 32-bit word of each row for int8,
+//     the byte row both share for int4), convert without I2F and store
+//     transposed as float2, and the host splits n (kernels/common.py
+//     dx_plan) where the (m, k) tiles leave SMs idle.  #10's q = g B is the
+//     pre-pass with B row-major (ColsDense) as the right operand, and gamma q
+//     A the tail, A row-major scaled by gamma as it is staged.
 // Ragged edges are masked (nothing is padded; an int4 W's kq - k rows are
 // never read).  The vector paths need k, n, r multiples of 4 and aligned
-// operands (and int4 groups of 16 rows or more); the host picks the scalar
-// path otherwise.
+// operands (and, by column, int4 groups of 16 rows or more); the host picks
+// the scalar path otherwise.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,22 +97,6 @@ struct Geo {
   static constexpr int kStage = kXFloats + kFwdBK * kWLd;
   static constexpr size_t kSmem = sizeof(float) * kStage * kFwdStages;
 };
-
-// ------------------------------------------------------------ cp.async
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 4 consecutive elements in one load: float4, or 4 bf16 in a uint2
 template <typename E>
@@ -165,7 +156,7 @@ struct Rows {
       const bool in = i >= lo && i < hi && t < tlim;
       const E* src = in ? p + static_cast<size_t>(i) * ld + t : p;
       if constexpr (kAsync)
-        cp_async16(buf + row * kXLd + c, src, in);
+        cp_async<16>(buf + row * kXLd + c, src, in);
       else if constexpr (kVec)
         u[e] = ld4(src, in);
       else
@@ -187,22 +178,29 @@ struct Rows {
   }
 };
 
-// A dense W (k, n), row-major, columns [n0, nlim).
-template <int kBN, typename T, bool kVec_>
+// A dense row-major (t, j) operand with leading dimension ld, columns [n0,
+// nlim): a W (k, n) of #2 / #5; B (n, r) as the right operand of #10's
+// pre-pass; and, kScaled, gamma A (r, k) as #10's rank tail.  One operand
+// for every request (adapter() is a no-op).  A scaled operand stages through
+// registers (cp.async copies bytes as they are).
+template <int kBN, typename T, bool kVec_, bool kScaled = false>
 struct ColsDense {
   static constexpr bool kVec = kVec_;
-  static constexpr bool kAsync = kVec && std::is_same<T, float>::value;
+  static constexpr bool kAsync =
+      kVec && std::is_same<T, float>::value && !kScaled;
   static constexpr int kW = kVec ? 4 : 1;
   static constexpr int kPerRow = kBN / kW;
   static constexpr int kN = kFwdBK * kPerRow / kFwdThreads;
   static constexpr int kLd = kBN + 4;
   const T* p;
   int ld, nlim;
+  float scale = 1.f;  // read only when kScaled
   int n0;
   typename Vec4<T>::U u[kN];
   T v[kN];
 
   __device__ __forceinline__ void cols(int n0_) { n0 = n0_; }
+  __device__ __forceinline__ void adapter(int) {}
   __device__ __forceinline__ void fetch(int t0, int tlim, float* buf) {
 #pragma unroll
     for (int e = 0; e < kN; ++e) {
@@ -212,7 +210,7 @@ struct ColsDense {
       const bool in = t < tlim && j < nlim;
       const T* src = in ? p + static_cast<size_t>(t) * ld + j : p;
       if constexpr (kAsync)
-        cp_async16(buf + tt * kLd + c, src, in);
+        cp_async<16>(buf + tt * kLd + c, src, in);
       else if constexpr (kVec)
         u[e] = ld4(src, in);
       else
@@ -225,10 +223,15 @@ struct ColsDense {
       for (int e = 0; e < kN; ++e) {
         const int idx = threadIdx.x + e * kFwdThreads;
         const int tt = idx / kPerRow, c = (idx % kPerRow) * kW;
-        if constexpr (kVec)
-          *reinterpret_cast<float4*>(buf + tt * kLd + c) = as_f4(u[e]);
-        else
-          buf[tt * kLd + c] = to_f(v[e]);
+        if constexpr (kVec) {
+          float4 f = as_f4(u[e]);
+          if constexpr (kScaled)
+            f = make_float4(scale * f.x, scale * f.y, scale * f.z,
+                            scale * f.w);
+          *reinterpret_cast<float4*>(buf + tt * kLd + c) = f;
+        } else {
+          buf[tt * kLd + c] = kScaled ? scale * to_f(v[e]) : to_f(v[e]);
+        }
       }
     }
   }
@@ -438,28 +441,13 @@ struct ColsT {
 // share for int4) with one float4 of scales, and stores them transposed as
 // 4 float2 (buf[t][j, j + 1], row stride kBN + 4): a warp's 32 lanes take
 // 64 consecutive j at one t, so each store is the 2 wavefronts 256 bytes
-// need.  The integers become floats without a conversion instruction: a
-// byte (or nibble) with its sign bit flipped is the low mantissa bits of
-// 2^23 + 128 + q (2^23 + 8 + q), one byte permute and one exact subtraction
-// away from float(q).  Each element is then still float(q) * scale, rounded
-// to bf16 for a base packed from bf16 weights, as loaders.cuh forms it.
+// need.  The integers become floats without a conversion instruction
+// (loaders.cuh s8_float / s4_float).  Each element is then still float(q) *
+// scale, rounded to bf16 for a base packed from bf16 weights, as
+// loaders.cuh forms it.
 // Scalar path: loaders.cuh element by element, for shapes off the vector
 // conditions.  Columns at or past k (an odd k's last row, an int4 W's kq -
 // k padding rows) are never stored as anything but 0.
-
-// float(q) of signed byte u of w ^ 0x80808080
-__device__ __forceinline__ float s8_float(unsigned wx, int u) {
-  // bytes: [byte u of wx, 0, 0, 0x4B] = 2^23 + (q + 128)
-  return __uint_as_float(__byte_perm(wx, 0x4B000000u, u | 0x7650)) -
-         8388736.f;
-}
-
-// float(q) of signed nibble u (nibbles of w ^ 0x88888888 split into
-// bytes: lo holds the even nibbles, hi the odd ones)
-__device__ __forceinline__ float s4_float(unsigned nib, int u) {
-  return __uint_as_float(__byte_perm(nib, 0x4B000000u, u | 0x7650)) -
-         8388616.f;
-}
 
 // int8, per-n scales: row j's word and row j + 1's share s[t, t + 4).
 template <int kBN, bool kBf16, bool kVec_>
@@ -833,16 +821,12 @@ struct FwdPlan {
   int ksplit_p, kchunk_p, ksplit, kchunk;
 };
 
-inline bool fwd_aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 // The vector paths' conditions on the shapes and the operands x, A, B, p
 // (16-byte aligned: cp.async and float4 loads); the W loader adds its own.
 inline bool fwd_vec(int k, int n, int r, const void* x, const void* a,
                     const void* b, const float* p) {
-  return k % 4 == 0 && n % 4 == 0 && r % 4 == 0 && fwd_aligned(x, 16) &&
-         fwd_aligned(a, 16) && fwd_aligned(b, 16) && fwd_aligned(p, 16);
+  return k % 4 == 0 && n % 4 == 0 && r % 4 == 0 && is_aligned(x, 16) &&
+         is_aligned(a, 16) && is_aligned(b, 16) && is_aligned(p, 16);
 }
 
 // p = x A_row^T (pre-pass; a_stride = r * k between adapters), then
@@ -878,6 +862,7 @@ int fwd_rank_fused(const T* x, const WS& w, const T* a, const T* b,
 }
 
 // out (m, nout) = x (m, kc) times the right stager w, with no rank term:
+// #11's y = x dequant(W) over ColsInt8 / ColsInt4 (kc = k, nout = n), and
 // #12's dx = g dequant(W)^T over RowsInt8 / RowsInt4 (kc = W's n, nout =
 // its k).  The contraction runs in ksplit chunks of kchunk (whole slabs);
 // when it splits, the chunks' partials (scratch, ksplit * m * nout floats)
@@ -893,10 +878,43 @@ int fwd_base_only(const T* x, const WS& w, float* scratch, float* out, int m,
   return fwd_sum(scratch, out, m * nout, ksplit, st);
 }
 
+// #10: q = g B (pre-pass), then dx = g dequant(W)^T + gamma q A, with g
+// (m, n), W read by row through w (RowsInt8 / RowsInt4, kVec matching), A
+// (r, k) and B (n, r): #12's main pass with #5's rank tail, the operands'
+// roles swapped.  The pre-pass is an (m, r) output contracting n, with B
+// row-major as the right operand; the main pass contracts its range [0,
+// roundup(n, kFwdBK) + r): n against W's rows, then r of q rows against
+// gamma A.  q is written (the residual #7 reuses); scratch holds the larger
+// pass's partials (ksplit_p * m * r or ksplit * m * k floats) when it
+// splits (kernels/common.py dx_plan).
+template <typename T, typename WS>
+int dx_rank_fused(const T* g, const WS& w, const T* a, const T* b,
+                  float gamma, float* q, float* scratch, float* dx, int m,
+                  int k, int n, int r, const FwdPlan& plan, cudaStream_t st) {
+  constexpr bool kVec = WS::kVec;
+  int err = fwd_pass<kFwdPreBN>(
+      NoStage{}, NoStage{}, Rows<T, kVec>{g, n},
+      ColsDense<kFwdPreBN, T, kVec>{b, r, r},
+      FwdShape{m, r, 0, n, plan.kchunk_p, m, nullptr}, plan.ksplit_p,
+      plan.ksplit_p > 1 ? scratch : q, st);
+  if (err != 0) return err;
+  if (plan.ksplit_p > 1) {
+    err = fwd_sum(scratch, q, m * r, plan.ksplit_p, st);
+    if (err != 0) return err;
+  }
+  err = fwd_pass<kFwdMainBN>(
+      Rows<T, kVec>{g, n}, w, Rows<float, kVec>{q, r},
+      ColsDense<kFwdMainBN, T, kVec, true>{a, k, k, gamma},
+      FwdShape{m, k, n, r, plan.kchunk, m, nullptr}, plan.ksplit,
+      plan.ksplit > 1 ? scratch : dx, st);
+  if (err != 0 || plan.ksplit == 1) return err;
+  return fwd_sum(scratch, dx, m * k, plan.ksplit, st);
+}
+
 // f(W stager) for a dense W (k, n) of T, on the vector path when vec.
 template <typename T, typename F>
 int with_dense_cols(const T* w, int n, bool vec, F&& f) {
-  if (vec && fwd_aligned(w, 16))
+  if (vec && is_aligned(w, 16))
     return f(ColsDense<kFwdMainBN, T, true>{w, n, n});
   return f(ColsDense<kFwdMainBN, T, false>{w, n, n});
 }
@@ -925,7 +943,7 @@ int with_packed_cols_v(const void* wd, const float* ws, int n, int bits,
 template <typename F>
 int with_packed_cols(const void* wd, const float* ws, int n, int bits,
                      int group, int bf16w, bool vec, F&& f) {
-  if (vec && fwd_aligned(wd, 4) && fwd_aligned(ws, 16) &&
+  if (vec && is_aligned(wd, 4) && is_aligned(ws, 16) &&
       (bits != 4 || group % kFwdBK == 0))
     return with_packed_cols_v<true>(wd, ws, n, bits, group, bf16w, f);
   return with_packed_cols_v<false>(wd, ws, n, bits, group, bf16w, f);
@@ -958,7 +976,7 @@ int with_packed_rows_v(const void* wd, const float* ws, int n, int k,
 template <typename F>
 int with_packed_rows(const void* wd, const float* ws, int n, int k, int bits,
                      int group, int bf16w, bool vec, F&& f) {
-  if (vec && fwd_aligned(wd, 4) && fwd_aligned(ws, 16))
+  if (vec && is_aligned(wd, 4) && is_aligned(ws, 16))
     return with_packed_rows_v<true>(wd, ws, n, k, bits, group, bf16w, f);
   return with_packed_rows_v<false>(wd, ws, n, k, bits, group, bf16w, f);
 }

@@ -1,5 +1,7 @@
-// The split-k GEMV body shared by bgmv.cu (#1 and #4, with the rank-r
-// term added by their finalize) and lora_matmul.cu (#11's decode form).
+// The split-k GEMV body of bgmv.cu's decode kernels: #1 (_bgmv_gemv_kernel,
+// src/repro/kernels/bgmv.py:114) and #4 (_bgmv_gemv_kernel_q, :251), with
+// the rank-r term added by their finalize.  (#11's decode form, which ran on
+// it before, has its own packed GEMV, qgemv.cu.)
 //
 // Decode shapes are bound by reading W.  A block owns 32 columns (lane =
 // column, so each warp reads 32 contiguous elements of a W row) and a
@@ -10,7 +12,10 @@
 // the card's memory pipeline; the ksplit partial sums go to scratch
 // (partial[ks][row][col]) for a second kernel to add in a fixed order.
 // W comes through a loader (loaders.cuh): fp, or dequantized as it is
-// loaded.
+// loaded.  Over a packed W this body is bound by load latency, not bytes
+// (one 32-byte warp load a row, a scale and x reloaded per element): #11's
+// packed GEMV showed what a word-wide form gains (PERF.md), and moving #4
+// onto it is queued (ROADMAP.md).
 #pragma once
 
 #include "loaders.cuh"

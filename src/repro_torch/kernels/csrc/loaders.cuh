@@ -1,4 +1,5 @@
-// Element loaders shared by the kernels of bgmv.cu and lora_matmul.cu.
+// Element loaders, decode and copy helpers shared by the kernels of
+// bgmv.cu, lora_matmul.cu, packed_dx.cu and qgemv.cu.
 //
 // A W loader returns W[row, col] of a logical (k, n) weight as fp32, from
 //   DenseW  a row-major fp32 or bf16 matrix;
@@ -93,10 +94,11 @@ struct Int4W {
     v -= 2 * (v & 8);  // sign-extend the nibble
     return dequant<kBf16>(static_cast<float>(v), e.s);
   }
-  // The same element in one step, for the GEMV body (gemv.cuh).  Not
-  // cvt(fetch()): with it the GEMV took 26.7 / 132.5 us at int4 q / w_up,
+  // The same element in one step, for the GEMV body (gemv.cuh, #4).  Not
+  // cvt(fetch()): with it that body took 26.7 / 132.5 us at int4 q / w_up,
   // m = 4, against 18.5 / 122 this way, while cvt with this select instead
-  // of the shift slowed the tiles 5-11% (on an H100; PERF.md).
+  // of the shift slowed the tiles 5-11% (on an H100, when #11 ran on both;
+  // PERF.md).
   __device__ __forceinline__ float operator()(int row, int col) const {
     const int byte = __ldg(d + static_cast<size_t>(row >> 1) * n + col);
     int v = (row & 1) ? (byte >> 4) : (byte & 0xF);
@@ -107,6 +109,54 @@ struct Int4W {
   }
 };
 
+// Word-wide decode, for the kernels that load a packed W 4 bytes (or more)
+// at a time (fwd_tile.cuh's stagers, qgemv.cuh): the integers become floats
+// without a conversion instruction.  A byte (or nibble) with its sign bit
+// flipped is the low mantissa bits of 2^23 + 128 + q (2^23 + 8 + q), one
+// byte permute and one exact subtraction away from float(q).
+
+// float(q) of signed byte u of w ^ 0x80808080
+__device__ __forceinline__ float s8_float(unsigned wx, int u) {
+  // bytes: [byte u of wx, 0, 0, 0x4B] = 2^23 + (q + 128)
+  return __uint_as_float(__byte_perm(wx, 0x4B000000u, u | 0x7650)) -
+         8388736.f;
+}
+
+// float(q) of signed nibble u (nibbles of w ^ 0x88888888 split into
+// bytes: lo holds the even nibbles, hi the odd ones)
+__device__ __forceinline__ float s4_float(unsigned nib, int u) {
+  return __uint_as_float(__byte_perm(nib, 0x4B000000u, u | 0x7650)) -
+         8388616.f;
+}
+
+// dst (shared) <- kBytes (16, 8 or 4) of src (global), asynchronously;
+// zeros where !in.  16-byte copies bypass L1 (.cg), smaller ones cannot.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool in = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(in ? kBytes : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Host side: whether p is a multiple of bytes (the vector paths' loads).
+inline bool is_aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // log2 of a power-of-two group size (host side, when building an Int4W).
 inline int log2_group(int group) {
   int shift = 0;
@@ -116,8 +166,9 @@ inline int log2_group(int group) {
 
 // Host side: build the loader for a packed W (wd, ws, n columns; bits 8 or
 // 4, the int4 group size, bf16w = round to bf16) and return f(loader), or
-// cudaErrorInvalidValue for any other bits.  Every entry point over a
-// packed W goes through here, so each kernel is instantiated for all four.
+// cudaErrorInvalidValue for any other bits, so that a kernel over a loader
+// (#4's GEMV) is instantiated for all four.  The forward tile's stagers
+// wrap the same loaders (fwd_tile.cuh with_packed_cols / _rows).
 template <typename F>
 int with_packed_w(const void* wd, const float* ws, int n, int bits, int group,
                   int bf16w, F&& f) {

@@ -12,9 +12,8 @@
 //   lora_bwd_db_launch       <- _bwd_db_kernel    dB = gamma g^T p
 // and over a packed frozen base (core/quant.py, W = dequant(W)):
 //   lora_fwd_quant_launch    <- _fwd_kernel_q     #5 over a packed W
-//   lora_bwd_dx_quant_launch <- _bwd_dx_kernel_q  #6 over a packed W
 //   quant_matmul_launch      <- _qmm_kernel       y  = x dequant(W)
-//   quant_matmul_dx_launch   <- _qmm_dx_kernel    dx = g dequant(W)^T
+// (the packed dx forms, #10 and #12, are in packed_dx.cu)
 // with x (m, k), W (k, n), A (r, k), B (n, r), g (m, n), p and q (m, r).
 // x, W, A, B and g are fp32 or bf16 (one type for all); p and q are fp32;
 // accumulation is fp32 FMA on the CUDA cores (no TF32), outputs are fp32.
@@ -25,9 +24,8 @@
 // products are bound by operations (2mkn, 67 TFLOP/s fp32 peak), a packed
 // W no less (its fewer bytes only lower a bound that was not binding); #7
 // and #8 are small (2mrk, 2mnr) and bound by the latency of their m loop,
-// which they split over blocks.
-// The packed forms of tile_kernel pay a few integer instructions and a
-// scale load per staged W element on top of the fp tiles.
+// which they split over blocks.  #11's decode form (m <= 8 rows) is bound
+// by W's packed bytes instead.
 //
 // The TPU kernels carry p (forward) and q (backward) in VMEM from the first
 // sweep of a sequential grid to the later blocks, and accumulate dA and dB
@@ -38,23 +36,22 @@
 //   - dA and dB split the m loop into chunks, one block per (output tile,
 //     chunk), and a second kernel adds the chunks' partial sums in a fixed
 //     order: no atomics, so a run repeats bit for bit.
-// The forwards (#5, #9) are the rank-fused forward tile of fwd_tile.cuh,
-// shared with the BGMV prefill (#2, #3): a tiled pre-pass for p, then
-// 128 x 128 output tiles (8 x 8 per thread, a cp.async ring) over chunks of
-// k planned on the host to fill the SMs, with the rank term contracted in
-// the same ring, and a fixed-order pass over the chunks' partial sums; a
-// packed W is decoded one 32-bit word at a time.  What bounds them and what
-// the design does about it is set out there.  #12 (dx = g dequant(W)^T)
-// runs on the same body with no rank term: g is the left operand, W read
-// by row (RowsInt8 / RowsInt4: one word is 4 elements along n of one row,
-// or of two for int4) the right one, n split over grid z where the (m, k)
-// tiles leave SMs idle (kernels/common.py dx_plan).
-// The other main passes (#6, #7, #8, #10, #11's tile) are one tiled kernel
-// (tile_kernel) over element views of their operands: dense fp32 / bf16
-// matrices, stored along or across the contraction, or a packed W read
-// through its dequantizing loader (loaders.cuh) by column (#11) or by row
-// (#10).  Ragged edges are masked in the kernels: no shape needs padding,
-// and an int4 W's kq - k padding rows are never read.
+// #5, #9 and #11's prefill form run on the rank-fused forward tile of
+// fwd_tile.cuh, shared with the BGMV prefill (#2, #3) and the packed dx
+// forms (#10, #12, packed_dx.cu): a tiled pre-pass for p, then 128 x 128
+// output tiles (8 x 8 per thread, a cp.async ring) over chunks of k planned
+// on the host to fill the SMs, the rank term contracted in the same ring,
+// and a fixed-order pass over the chunks' partial sums; W is read by column
+// (ColsDense, ColsInt8 / ColsInt4: a packed W decoded one 32-bit word at a
+// time).  What bounds them and what the design does about it is set out
+// there.  #11 (no rank term) replaced a 64 x 64 tile that ran at 2.7x
+// torch.matmul.  #11's decode form (m <= 8 rows) is the packed GEMV of
+// qgemv.cu (16-byte loads of W into a per-warp ring, word-wide decode, x in
+// shared memory), which replaced a split-k GEMV at 21x its byte bound.
+// #6, #7 and #8 are one older tiled kernel (tile_kernel, 64 x 64 outputs)
+// over element views of dense fp32 / bf16 matrices stored along or across
+// the contraction.  Ragged edges are masked in the kernels: no shape needs
+// padding, and an int4 W's kq - k padding rows are never read.
 //
 // Plain C interface, bound with ctypes (kernels/build.py,
 // kernels/lora_matmul.py).  Each entry point launches on the caller's
@@ -68,25 +65,22 @@
 #include <type_traits>
 
 #include "fwd_tile.cuh"
-#include "gemv.cuh"
 #include "loaders.cuh"
+#include "qgemv.cuh"
 
 namespace {
 
 using repro_kernels::FwdPlan;
-using repro_kernels::fwd_aligned;
 using repro_kernels::fwd_base_only;
 using repro_kernels::fwd_rank_fused;
+using repro_kernels::fwd_sum;
 using repro_kernels::fwd_vec;
-using repro_kernels::gemv_partial_kernel;
-using repro_kernels::kGvCols;
-using repro_kernels::kGvMaxB;
-using repro_kernels::kGvWarps;
+using repro_kernels::is_aligned;
+using repro_kernels::kQgMaxRows;
+using repro_kernels::qgemv_partial;
 using repro_kernels::to_f;
 using repro_kernels::with_dense_cols;
 using repro_kernels::with_packed_cols;
-using repro_kernels::with_packed_rows;
-using repro_kernels::with_packed_w;
 
 // --------------------------------------------------------- rank pre-pass
 constexpr int kRankWarps = 8;
@@ -156,32 +150,6 @@ struct Dense {
                      : p + static_cast<size_t>(t) * ld + i);
   }
   static __device__ __forceinline__ float cvt(Raw v) { return to_f(v); }
-};
-
-// A packed W (k, n) behind its loader (loaders.cuh) as the right operand:
-// by column, R(j, t) = W(t, j), contracting over k (#11's prefill form); by
-// row, R(j, t) = W(j, t), contracting over n (dx).  Both read W's rows
-// along their contiguous n.
-template <typename WL>
-struct WByCol {
-  static constexpr bool kTC = false;
-  using Raw = typename WL::Raw;
-  WL wl;
-  __device__ __forceinline__ Raw fetch(int i, int t) const {
-    return wl.fetch(t, i);
-  }
-  static __device__ __forceinline__ float cvt(Raw v) { return WL::cvt(v); }
-};
-
-template <typename WL>
-struct WByRow {
-  static constexpr bool kTC = true;
-  using Raw = typename WL::Raw;
-  WL wl;
-  __device__ __forceinline__ Raw fetch(int i, int t) const {
-    return wl.fetch(i, t);
-  }
-  static __device__ __forceinline__ float cvt(Raw v) { return WL::cvt(v); }
 };
 
 struct NoRank {};  // R2 of a tile with no rank-r term
@@ -312,9 +280,9 @@ inline dim3 tile_grid(int ni, int nj) {
   return dim3((nj + kBN - 1) / kBN, (ni + kBM - 1) / kBM);
 }
 
-// dx = g W^T + gamma q A over an fp or packed (WByRow) W, after the gb
-// pre-pass has written q.  L = g (m x n, along t), R = W (k x n, along t);
-// L2 = q (m x r), R2 = A (r x k, across s).
+// #6: dx = g W^T + gamma q A over a dense W, after the gb pre-pass has
+// written q.  L = g (m x n, along t), R = W (k x n, along t); L2 = q (m x
+// r), R2 = A (r x k, across s).
 template <typename T, typename WOp>
 int dx_tile(const void* g, const WOp w, const void* a, const float* q,
             float* dx, int m, int k, int n, int r, float gamma,
@@ -420,10 +388,11 @@ int bwd_db(const void* g, const float* p, float* partial, float* db, int m,
 }
 
 // ------------------------------------------------- over a packed frozen W
-// The same tiles with W behind an int8 / int4 loader (loaders.cuh), which
-// forms each element as core/quant.dequantize does.  x's columns (and W's
-// rows) are masked at the logical k, below the padded kq of an int4 W; dx's
-// columns likewise.
+// On the rank-fused forward body of fwd_tile.cuh, W decoded a word at a
+// time by its packed stagers, each element formed as core/quant.dequantize
+// forms it (loaders.cuh); #11's decode form on the packed GEMV of
+// qgemv.cu.  x's columns (and W's rows) are masked at the logical k, below
+// the padded kq of an int4 W.
 
 // #9: #5 over a packed W.
 template <typename T>
@@ -438,70 +407,30 @@ int fwd_quant(const void* x, const void* wd, const float* ws, const void* a,
                           });
 }
 
-// #10: the gb pre-pass, then the dx tile over W by row.
+// #11: y = x dequant(W).  Both forms read each packed W element once per
+// call and split k over a host plan, the chunks' partials (scratch) added
+// in a fixed order.  m > kQgMaxRows (prefills, training; bound by
+// operations): the forward body with no rank term, x through Rows, W by
+// column through ColsInt8 / ColsInt4 (as #9), planned by
+// kernels/common.py qmm_plan.  Decode form (m <= kQgMaxRows; bound by W's
+// packed bytes): the packed GEMV of qgemv.cu, planned by qgemv_split.
 template <typename T>
-int bwd_dx_quant(const void* g, const void* wd, const float* ws,
-                 const void* a, const void* b, float* q, float* dx, int m,
-                 int k, int n, int r, float gamma, int bits, int group,
-                 int bf16w, cudaStream_t st) {
-  const int err = gb<T>(g, b, q, m, n, r, st);
-  if (err != 0) return err;
-  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
-    return dx_tile<T>(g, WByRow<decltype(wl)>{wl}, a, q, dx, m, k, n, r,
-                      gamma, st);
-  });
-}
-
-// #12: dx = g dequant(W)^T on the rank-fused forward body of fwd_tile.cuh
-// with no rank term: g (m, n) is the left operand (Rows), W read by row the
-// right one (RowsInt8 / RowsInt4), contracting n in ksplit chunks of kchunk
-// (kernels/common.py dx_plan) whose partials a fixed-order pass adds.
-template <typename T>
-int qmm_dx(const void* g, const void* wd, const float* ws, float* scratch,
-           float* dx, int m, int k, int n, int ksplit, int kchunk, int bits,
-           int group, int bf16w, cudaStream_t st) {
-  return with_packed_rows(
-      wd, ws, n, k, bits, group, bf16w, n % 4 == 0 && fwd_aligned(g, 16),
-      [&](const auto& w) {
-        return fwd_base_only<T>(static_cast<const T*>(g), w, scratch, dx, m,
-                                n, k, ksplit, kchunk, st);
-      });
-}
-
-// #11: y = x dequant(W).  For m > kGvMaxB rows (prefills, training) the
-// forward tile over W by column with no rank term.  Decode form (m <=
-// kGvMaxB): the tile would loop over all of k in 16-row steps for every
-// output tile, bound by that loop's latency (about 3 ms for an int4 w_down
-// at m = 4 on an H100, PERF.md); the split-k GEMV of gemv.cuh reads each
-// packed W element once and spreads k over blocks, then
-// sum_partials_kernel adds the ksplit partials.
-template <typename T, typename WL>
-int qmm_launch(const T* x, const WL wl, float* partial, float* y, int m,
-               int k, int n, int ksplit, int kchunk, cudaStream_t st) {
-  if (m > kGvMaxB) {
-    tile_kernel<<<tile_grid(m, n), kThreads, 0, st>>>(
-        Dense<T, true>{x, k}, WByCol<WL>{wl}, m, n, k, k, nullptr, 0,
-        NoRank{}, 0, 1.f, 0.f, y);
-    return static_cast<int>(cudaGetLastError());
-  }
-  gemv_partial_kernel<T, WL>
-      <<<dim3((n + kGvCols - 1) / kGvCols, ksplit, 1), dim3(kGvCols, kGvWarps),
-         0, st>>>(x, wl, partial, m, k, n, kchunk);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<(m * n + 255) / 256, 256, 0, st>>>(partial, y, m * n,
-                                                           ksplit);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int qmm(const void* x, const void* wd, const float* ws, float* partial,
+int qmm(const void* x, const void* wd, const float* ws, float* scratch,
         float* y, int m, int k, int n, int ksplit, int kchunk, int bits,
         int group, int bf16w, cudaStream_t st) {
-  return with_packed_w(wd, ws, n, bits, group, bf16w, [&](auto wl) {
-    return qmm_launch<T>(static_cast<const T*>(x), wl, partial, y, m, k, n,
-                         ksplit, kchunk, st);
-  });
+  if (m > kQgMaxRows)
+    return with_packed_cols(
+        wd, ws, n, bits, group, bf16w,
+        k % 4 == 0 && n % 4 == 0 && is_aligned(x, 16), [&](const auto& w) {
+          return fwd_base_only<T>(static_cast<const T*>(x), w, scratch, y, m,
+                                  k, n, ksplit, kchunk, st);
+        });
+  const int err =
+      qgemv_partial(x, std::is_same<T, __nv_bfloat16>::value, wd, ws,
+                    ksplit > 1 ? scratch : y, m, k, n, ksplit, kchunk, bits,
+                    group, bf16w, st);
+  if (err != 0 || ksplit == 1) return err;
+  return fwd_sum(scratch, y, m * n, ksplit, st);
 }
 
 }  // namespace
@@ -575,19 +504,20 @@ int lora_bwd_db_launch(const void* g, const float* p, float* partial,
 // for a base packed from bf16 weights (each element rounded to bf16,
 // loaders.cuh).  x, g, a, b of dtype; outputs fp32.
 //
-// #11: y (m, n).  When m <= 8 (the decode form) partial is a (ksplit, m, n)
-// fp32 scratch and the k range splits into ksplit chunks of kchunk;
-// otherwise partial, ksplit and kchunk are unused.
+// #11: y (m, n).  The contraction over k runs in ksplit chunks of kchunk
+// (kernels/common.py qgemv_split for m <= 8, the decode form; qmm_plan
+// otherwise); when ksplit > 1, scratch is a (ksplit, m, n) fp32 buffer for
+// the chunks' partials, else unused.
 int quant_matmul_launch(const void* x, const void* wd, const float* ws,
-                        float* partial, float* y, int m, int k, int n,
+                        float* scratch, float* y, int m, int k, int n,
                         int ksplit, int kchunk, int bits, int group, int bf16w,
                         int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return qmm<float>(x, wd, ws, partial, y, m, k, n, ksplit, kchunk, bits,
+    return qmm<float>(x, wd, ws, scratch, y, m, k, n, ksplit, kchunk, bits,
                       group, bf16w, st);
   if (dtype == 1)
-    return qmm<__nv_bfloat16>(x, wd, ws, partial, y, m, k, n, ksplit, kchunk,
+    return qmm<__nv_bfloat16>(x, wd, ws, scratch, y, m, k, n, ksplit, kchunk,
                               bits, group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -608,38 +538,6 @@ int lora_fwd_quant_launch(const void* x, const void* wd, const float* ws,
   if (dtype == 1)
     return fwd_quant<__nv_bfloat16>(x, wd, ws, a, b, p, scratch, y, m, k, n,
                                     r, plan, gamma, bits, group, bf16w, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// #10: q (m, r) fp32, written; dx (m, k).
-int lora_bwd_dx_quant_launch(const void* g, const void* wd, const float* ws,
-                             const void* a, const void* b, float* q, float* dx,
-                             int m, int k, int n, int r, float gamma, int bits,
-                             int group, int bf16w, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_dx_quant<float>(g, wd, ws, a, b, q, dx, m, k, n, r, gamma, bits,
-                               group, bf16w, st);
-  if (dtype == 1)
-    return bwd_dx_quant<__nv_bfloat16>(g, wd, ws, a, b, q, dx, m, k, n, r,
-                                       gamma, bits, group, bf16w, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// #12: dx (m, k).  The contraction over n runs in ksplit chunks of kchunk
-// (whole 16-element slabs); when ksplit > 1, scratch is a (ksplit, m, k)
-// fp32 buffer for the chunks' partials, else unused.
-int quant_matmul_dx_launch(const void* g, const void* wd, const float* ws,
-                           float* scratch, float* dx, int m, int k, int n,
-                           int ksplit, int kchunk, int bits, int group,
-                           int bf16w, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return qmm_dx<float>(g, wd, ws, scratch, dx, m, k, n, ksplit, kchunk,
-                         bits, group, bf16w, st);
-  if (dtype == 1)
-    return qmm_dx<__nv_bfloat16>(g, wd, ws, scratch, dx, m, k, n, ksplit,
-                                 kchunk, bits, group, bf16w, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,7 +7,8 @@ The port of ``repro/kernels/lora_matmul.py``'s ``jax.custom_vjp``s that the
 JAX package trains through: ``lora_matmul_vjp`` (an fp W),
 ``lora_matmul_quant_vjp`` (a packed W) and ``quant_matmul_vjp`` (a packed W
 and no adapter).  Each piece is a hand-written kernel in
-``csrc/lora_matmul.cu`` beside its plain PyTorch version:
+``csrc/lora_matmul.cu`` (#10 and #12 in ``csrc/packed_dx.cu``, #11's decode
+form in ``csrc/qgemv.cu``) beside its plain PyTorch version:
 
   lora_fwd          (#5)  y = x W + gamma p B^T, p = x A^T   -> (y, p)
   lora_bwd_dx       (#6)  dx = g W^T + gamma q A, q = g B    -> (dx, q)
@@ -61,28 +62,35 @@ design does about it):
   run repeats bit for bit.
 * ``lora_fwd_quant`` and ``lora_bwd_dx_quant`` replace ``_fwd_kernel_q``
   (``:345``, ``_fwd_call_q``) and ``_bwd_dx_kernel_q`` (``:414``,
-  ``_bwd_dx_call_q``).  ``lora_fwd_quant`` is the forward tile of #5 over a
-  packed W decoded one 32-bit word per load (4 int8 columns with scales
-  loaded once per tile, or 4 int4 columns of two rows with one scale row
-  per 16-row slab); ``lora_bwd_dx_quant`` is the dx tile of #6 with W read
-  by row through a dequantizing loader (``csrc/loaders.cuh``), after the q
-  pre-pass (the TPU kernels build p and q in their first sweep).  Bound by
-  operations like #5 and #6 (the packed W's fewer bytes lower a bound that
-  was not binding); the element loader adds integer work and a scale load
-  per staged element.  An int4 W may hold kq > k rows: x's columns, W's
-  rows and dx's columns are masked at the logical k.
-* ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``): for
-  m > 8 rows (prefills, training; bound by operations) the 64 x 64
-  ``tile_kernel`` of #6 and #10 with W read by column and no rank term.
-  At decode shapes (m <= 8) it is bound by the
-  packed bytes of W (int4 ``w_up`` at gemma-2b: 2048 x 16384 / 2 = 16.8 MB,
-  about 5 us at 3.35 TB/s), and the tile's k loop over 60 empty rows was
-  bound by its latency instead (PERF.md); there it takes the split-k GEMV
-  body of the BGMV decode kernel (``csrc/gemv.cuh``), which reads each
-  packed element once, and a fixed-order pass adds the k-split partials.
+  ``_bwd_dx_call_q``), bound by operations like #5 and #6 (the packed W's
+  fewer bytes lower a bound that was not binding).  ``lora_fwd_quant`` is
+  the forward tile of #5 over a packed W decoded one 32-bit word per load
+  (4 int8 columns with scales loaded once per tile, or 4 int4 columns of
+  two rows with one scale row per 16-row slab).  ``lora_bwd_dx_quant`` is
+  the rank-fused dx on the same body (``csrc/packed_dx.cu``): a q = g B
+  pre-pass (B row-major the right operand, n split in 1-slab chunks), then
+  g against W read by row as #12 reads it, with gamma q A as the
+  contraction's tail, planned by ``common.dx_rank_plan``; it replaced a
+  one-warp-per-row pre-pass and the 64 x 64 tile (2.56x torch.matmul at
+  q).  An int4 W may hold kq > k rows: x's columns, W's rows and dx's
+  columns are masked at the logical k.
+* ``quant_matmul`` replaces ``_qmm_kernel`` (``:514``, ``_qmm_call``).  For
+  m > 8 rows (prefills, training; bound by operations) it is the forward
+  tile with no rank term, W read by column as #9 reads it, k split by
+  ``common.qmm_plan``; it replaced the 64 x 64 tile (2.7x torch.matmul at
+  the MLP).  At decode shapes (m <= 8) it is bound by the packed bytes of
+  W (int4 ``w_up`` at gemma-2b: 2048 x 16384 / 2 = 16.8 MB, 5.0 us at
+  3.35 TB/s) and the work of decoding each element: the packed GEMV of
+  ``csrc/qgemv.cu`` copies W 16 bytes at a time into a per-warp
+  shared-memory ring (cp.async), decodes a word at a time without I2F,
+  loads each scale once per block or group, keeps the m rows of x in
+  shared memory, and splits k by ``common.qgemv_split``; a fixed-order pass
+  adds the k-split partials.  It replaced a split-k GEMV of one column a
+  lane at 21x its byte bound.
 * ``quant_matmul_dx`` replaces ``_qmm_dx_kernel`` (``:544``,
-  ``_qmm_dx_call``), bound by operations (2 m n k; 2 x 512 x 2048 x 16384
-  at the MLP's projections, 513 us at the fp32 peak).  The 64 x 64 tile it
+  ``_qmm_dx_call``, in ``csrc/packed_dx.cu``), bound by operations (2 m n
+  k; 2 x 512 x 2048 x 16384 at the MLP's projections, 513 us at the fp32
+  peak).  The 64 x 64 tile it
   ran on first reached 18 TFLOP/s there (PERF.md); the packed read cost
   nothing visible beside it.  It now runs on the rank-fused forward tile
   of #2, #3, #5 and #9 with no rank term: g (m, n) is the left operand, W
@@ -102,9 +110,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import QuantizedLinear
-from repro_torch.kernels.common import (DTYPES, GEMV_MAX_ROWS, check_packed,
-                                        dx_plan, fwd_plan, fwd_scratch,
-                                        gemv_split, num_sms, ptr, raise_on,
+from repro_torch.kernels.common import (DTYPES, QGEMV_MAX_ROWS,
+                                        check_packed, dx_plan, dx_rank_plan,
+                                        fwd_plan, fwd_scratch, num_sms, ptr,
+                                        qgemv_split, qmm_plan, raise_on,
                                         route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
@@ -369,12 +378,15 @@ def lora_bwd_dx_quant(g, wq, a, b, gamma: float):
     if g.shape[1] != n:
         raise ValueError(f"lora_bwd_dx_quant: g {tuple(g.shape)} vs W "
                          f"{tuple(wq.shape)}")
+    plan = dx_rank_plan(m, k, n, r, num_sms(g.device))
+    scratch = fwd_scratch(m, k, r, plan, g.device)
     q = torch.empty(m, r, dtype=torch.float32, device=g.device)
     dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
     err = load().lora_bwd_dx_quant_launch(
         g.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(), a.data_ptr(),
-        b.data_ptr(), q.data_ptr(), dx.data_ptr(), m, k, n, r, float(gamma),
-        wq.bits, group, bf16w, DTYPES[g.dtype], stream(g))
+        b.data_ptr(), q.data_ptr(), ptr(scratch), dx.data_ptr(), m, k, n, r,
+        *plan, float(gamma), wq.bits, group, bf16w, DTYPES[g.dtype],
+        stream(g))
     raise_on(err, "lora_bwd_dx_quant")
     launches["lora_bwd_dx_quant"] += 1
     return dx, q
@@ -391,17 +403,16 @@ def quant_matmul(x, wq):
     if wq.k != k:
         raise ValueError(f"quant_matmul: x {tuple(x.shape)} vs W "
                          f"{tuple(wq.shape)}")
+    sms = num_sms(x.device)
+    ksplit, kchunk = (qgemv_split(k, n, sms) if m <= QGEMV_MAX_ROWS
+                      else qmm_plan(m, n, k, sms, wq.bits, group))
+    scratch = (torch.empty(ksplit * m * n, dtype=torch.float32,
+                           device=x.device) if ksplit > 1 else None)
     y = torch.empty(m, n, dtype=torch.float32, device=x.device)
-    ksplit = kchunk = 0
-    partial = None
-    if m <= GEMV_MAX_ROWS:           # the decode form: split-k GEMV
-        ksplit, kchunk = gemv_split(m, k, n, num_sms(x.device))
-        partial = torch.empty(ksplit, m, n, dtype=torch.float32,
-                              device=x.device)
     err = load().quant_matmul_launch(
         x.data_ptr(), wq.data.data_ptr(), wq.scales.data_ptr(),
-        ptr(partial), y.data_ptr(), m, k,
-        n, ksplit, kchunk, wq.bits, group, bf16w, DTYPES[x.dtype], stream(x))
+        ptr(scratch), y.data_ptr(), m, k, n, ksplit, kchunk, wq.bits, group,
+        bf16w, DTYPES[x.dtype], stream(x))
     raise_on(err, "quant_matmul")
     launches["quant_matmul"] += 1
     return y

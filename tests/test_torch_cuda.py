@@ -182,11 +182,13 @@ def test_paged_attention_matches_plain(card, b, h, kh, hd, bs, mb, window,
     assert pa.launches["paged_attention"] == 2
 
 
-def _packed(k, n, bits, seed=0):
+def _packed(k, n, bits, seed=0, group=64, wdtype="float32"):
+    """A seeded W (k, n) packed int8 / int4 (``group``) from weights of
+    ``wdtype``."""
     rng = np.random.default_rng(seed)
     w = torch.from_numpy((rng.standard_normal((k, n)) * k ** -0.5).astype(
         np.float32)).cuda()
-    return quantize(w, bits, 64)
+    return quantize(w.to(getattr(torch, wdtype)), bits, group)
 
 
 @pytest.mark.cuda
@@ -297,6 +299,70 @@ def test_quant_matmul_dx_matches_plain_and_repeats(card, m, k, n, bits, dtype,
     assert torch.equal(got, again)
     _assert_close(got, want)
     assert lora_matmul.launches == _launches(quant_matmul_dx=2)
+
+
+# #11 (k, n): the vector paths (GEMV 16-byte loads, tile float4), the GEMV's
+# 8-byte loads (n % 16 == 8), its byte loads with the tile's vector path
+# (n % 8 == 4), and both scalar paths (odd n, k % 4 != 0); k = 4096 and
+# 1000 split k into several chunks
+QMM_SHAPES = [(2048, 2048), (4096, 264), (1000, 4100), (70, 51)]
+# (bits, int4 group): groups below a slab take the tile's element path
+QMM_PACKINGS = [(8, 64), (4, 8), (4, 16), (4, 32), (4, 64), (4, 128)]
+# (activation dtype, weights the base was packed from)
+QMM_TYPES = [("float32", "float32"), ("bfloat16", "float32"),
+             ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", QMM_TYPES)
+@pytest.mark.parametrize("bits,group", QMM_PACKINGS)
+@pytest.mark.parametrize("k,n", QMM_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 9, 512])
+def test_quant_matmul_forms_match_plain_and_repeat(card, m, k, n, bits,
+                                                   group, dtype, wdtype):
+    """#11 in its packed GEMV form (m <= 8) and on the forward tile (m >
+    8) against x @ dequantize(W), over int8 and int4 bases of every group
+    size from 8 to 128, packed from fp32 or bf16 weights, with fp32 and
+    bf16 activations; two calls equal bit for bit."""
+    wq = _packed(k, n, bits, m + k + n + group, group, wdtype)
+    x = torch.randn(m, k, device="cuda").to(getattr(torch, dtype))
+    got = lora_matmul.quant_matmul(x, wq)
+    again = lora_matmul.quant_matmul(x, wq)
+    want = lora_matmul.quant_matmul_plain(x, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want)
+    assert lora_matmul.launches == _launches(quant_matmul=2)
+
+
+# #10 (m, k, n): the training path's q and v, m, k, n off every tile
+# multiple, and the scalar path (n % 4 != 0)
+LORA_DX_Q_SHAPES = [(512, 2048, 2048), (512, 2048, 256), (300, 1000, 4100),
+                    (37, 70, 50), (50, 100, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wdtype", QMM_TYPES)
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("r", [1, 8, 64])
+@pytest.mark.parametrize("m,k,n", LORA_DX_Q_SHAPES)
+def test_lora_bwd_dx_quant_matches_plain_and_repeats(card, m, k, n, r, bits,
+                                                     dtype, wdtype):
+    """#10 (the rank-fused dx: q = g B, then g dequant(W)^T + gamma q A)
+    against its plain version, dx and q, over bases packed from fp32 and
+    bf16 weights, with fp32 and bf16 activations; two calls equal bit for
+    bit."""
+    lm = lora_matmul
+    _, _, a, b, g = _operands(m, k, n, r, getattr(torch, dtype), seed=r)
+    wq = _packed(k, n, bits, m + r, wdtype=wdtype)
+    dx, q = lm.lora_bwd_dx_quant(g, wq, a, b, 1.5)
+    dx2, q2 = lm.lora_bwd_dx_quant(g, wq, a, b, 1.5)
+    dx_want, q_want = lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(q, q2)
+    _assert_close(dx, dx_want)
+    _assert_close(q, q_want)
+    assert lm.launches == _launches(lora_bwd_dx_quant=2)
 
 
 # the rank-fused forward tile (#2, #3, #5, #9): (B, s, k, n, r, ranks of a

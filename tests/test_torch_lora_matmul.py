@@ -420,3 +420,185 @@ def test_quant_matmul_dx_launches_with_the_plan_and_scratch(monkeypatch, m,
     else:
         assert args[3] is None
     assert lora_matmul.launches == dict(NO_LORA_LAUNCHES, quant_matmul_dx=1)
+
+
+# #11's plans: the packed GEMV's k split (common.qgemv_split, m <= 8) and
+# the forward tile's (common.qmm_plan, m > 8); (k, n) of gemma-2b's packed
+# projections and ragged ones
+QMM_SHAPES = [(2048, 256), (2048, 2048), (2048, 16384), (16384, 2048),
+              (70, 51), (4096, 264), (1000, 4100), (100, 30), (16, 8),
+              (100000, 64)]
+
+
+@pytest.mark.parametrize("sms", [132, 8, 1000])
+@pytest.mark.parametrize("k,n", QMM_SHAPES)
+def test_qgemv_split_covers_k_in_whole_slabs(k, n, sms):
+    """Chunks of whole 16-row slabs, no longer than the rows of x a block
+    stages, cover k exactly with none empty; a power of two from
+    QGEMV_MIN_CHUNK up, each SM given a block where that length allows."""
+    ksplit, kchunk = common.qgemv_split(k, n, sms)
+    assert kchunk % 16 == 0 and kchunk <= common.QGEMV_MAX_CHUNK
+    assert (ksplit - 1) * kchunk < k <= ksplit * kchunk
+    if kchunk < common.QGEMV_MIN_CHUNK:
+        assert ksplit == 1 and kchunk == -(-k // 16) * 16
+    else:
+        assert kchunk & (kchunk - 1) == 0
+    blocks = -(-n // common.QGEMV_COLS)
+    if kchunk > common.QGEMV_MIN_CHUNK:
+        assert blocks * ksplit >= sms
+
+
+def test_qgemv_split_at_the_path_shapes():
+    """On a 132-SM card: k and o 16 chunks of 128 rows (16 and 128 blocks),
+    w_up and w_gate 4 of 512 (256 blocks), w_down 32 of 512 (256)."""
+    want = {(2048, 256): (16, 128), (2048, 2048): (16, 128),
+            (2048, 16384): (4, 512), (16384, 2048): (32, 512)}
+    for (k, n), plan in want.items():
+        assert common.qgemv_split(k, n, 132) == plan
+
+
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 16), (4, 32), (4, 64),
+                                        (4, 128), (4, 8), (4, 2)])
+@pytest.mark.parametrize("m", [9, 512, 4096])
+@pytest.mark.parametrize("k,n", QMM_SHAPES)
+def test_qmm_plan_is_the_forward_main_pass_with_no_rank(m, k, n, bits,
+                                                        group):
+    """#11 at m > 8 splits k as fwd_plan's main pass with r = 0 does: whole
+    slabs covering k exactly, each chunk nonempty, and for int4 with groups
+    of a slab or more, no slab straddling two scale groups (groups below a
+    slab take the element path, planned as unpacked)."""
+    ksplit, kchunk = common.qmm_plan(m, n, k, 132, bits, group)
+    assert kchunk % 16 == 0 and (ksplit - 1) * kchunk < k <= ksplit * kchunk
+    packed = bits if bits != 4 or group % 16 == 0 else 0
+    assert (ksplit, kchunk) == common.fwd_split(m, n, k, 0, common.FWD_COLS,
+                                                132, packed, group)
+    if bits == 4 and group >= 16:
+        for z in range(ksplit):
+            for t in range(z * kchunk, min(k, (z + 1) * kchunk), 16):
+                assert t // group == (min(t + 16, k) - 1) // group
+    tiles = -(-m // common.FWD_ROWS) * -(-n // common.FWD_COLS)
+    assert ksplit == 1 or tiles * ksplit <= 132
+
+
+@pytest.mark.parametrize("r", [1, 8, 64])
+@pytest.mark.parametrize("m,k,n", [(512, 2048, 2048), (512, 2048, 256),
+                                   (50, 100, 30), (37, 70, 50),
+                                   (300, 1000, 4100)])
+def test_dx_plan_with_rank_covers_the_range_in_whole_slabs(m, k, n, r):
+    """#10's main pass contracts n padded to a slab, then the rank range:
+    whole slabs that cover it exactly, none empty; its q pre-pass contracts
+    n in whole slabs; dx_rank_plan is the two, and with r = 0 dx_plan is
+    #12's plan unchanged."""
+    ksplit, kchunk = common.dx_plan(m, k, n, 132, r)
+    slabs = -(-n // 16) + -(-r // 16)
+    assert kchunk % 16 == 0
+    assert (ksplit - 1) * kchunk < slabs * 16 <= ksplit * kchunk
+    ksplit_p, kchunk_p, *main = common.dx_rank_plan(m, k, n, r, 132)
+    assert main == [ksplit, kchunk]
+    assert kchunk_p % 16 == 0
+    assert (ksplit_p - 1) * kchunk_p < -(-n // 16) * 16 <= ksplit_p * kchunk_p
+    assert common.dx_plan(m, k, n, 132, 0) == common.dx_plan(m, k, n, 132)
+    assert common.dx_plan(m, k, n, 132) == common.fwd_split(
+        m, k, n, 0, common.FWD_COLS, 132)
+
+
+def test_plans_ask_nothing_of_the_device(monkeypatch):
+    """qgemv_split, qmm_plan, dx_plan and dx_rank_plan read the shapes and
+    the SM count alone (so the wrappers stay capture-safe): with every
+    device query refused they give the same plans."""
+    before = (common.qgemv_split(2048, 16384, 132),
+              common.qmm_plan(512, 16384, 2048, 132, 4, 64),
+              common.dx_plan(512, 2048, 2048, 132, 64),
+              common.dx_rank_plan(512, 2048, 256, 64, 132))
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plan asked the device")
+    for name in ("is_available", "current_device", "get_device_properties",
+                 "device_count", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert before == (common.qgemv_split(2048, 16384, 132),
+                      common.qmm_plan(512, 16384, 2048, 132, 4, 64),
+                      common.dx_plan(512, 2048, 2048, 132, 64),
+                      common.dx_rank_plan(512, 2048, 256, 64, 132))
+
+
+def _patch_launch(monkeypatch):
+    """A recording kernel library on a 132-SM card, and a record of every
+    tensor lora_matmul allocates (by data pointer)."""
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(lora_matmul, "route", lambda t, _name: True)
+    monkeypatch.setattr(lora_matmul, "num_sms", lambda device: 132)
+    monkeypatch.setattr(lora_matmul, "stream", lambda t: None)
+    made = {}
+    real_empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made[t.data_ptr()] = t
+        return t
+    monkeypatch.setattr(lora_matmul.torch, "empty", recording_empty)
+    return lib, made
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 16384), (1, 16384, 2048),
+                                   (8, 70, 51), (9, 2048, 256),
+                                   (512, 2048, 16384), (512, 16384, 2048)])
+def test_quant_matmul_launches_with_its_plan_and_scratch(monkeypatch, m, k,
+                                                         n, bits):
+    """#11 hands its entry point qgemv_split's plan for m <= 8 rows and
+    qmm_plan's above (ksplit, kchunk right after m, k, n) and, when the
+    plan splits, a scratch for the (ksplit, m, n) partials (a null pointer
+    otherwise); then counts one launch."""
+    from repro_torch.core.quant import quantize
+    lib, made = _patch_launch(monkeypatch)
+    x, w, _, _, _ = _t(*_operands(m, k, n, 1, seed=6))
+    wq = quantize(w, bits, 64)
+    lora_matmul.quant_matmul(x, wq)
+    (entry, args), = lib.calls
+    assert entry == "quant_matmul_launch"
+    group = 0 if bits == 8 else 64
+    plan = (common.qgemv_split(k, n, 132) if m <= 8
+            else common.qmm_plan(m, n, k, 132, bits, group))
+    assert args[5:10] == (m, k, n, *plan)
+    assert args[10:13] == (bits, group, 0)
+    if plan[0] > 1:
+        assert made[args[3]].numel() >= plan[0] * m * n
+    else:
+        assert args[3] is None
+    assert lora_matmul.launches == dict(NO_LORA_LAUNCHES, quant_matmul=1)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n,r", [(512, 2048, 2048, 64),
+                                     (512, 2048, 256, 64),
+                                     (512, 2048, 256, 8), (50, 100, 30, 3)])
+def test_lora_bwd_dx_quant_launches_with_its_plan_and_scratch(monkeypatch, m,
+                                                              k, n, r, bits):
+    """#10 hands its entry point dx_rank_plan's split (ksplit_p, kchunk_p,
+    ksplit, kchunk right after m, k, n, r), a q buffer of (m, r) and a
+    scratch that holds the larger split pass's partials (a null pointer
+    when neither splits); then counts one launch."""
+    from repro_torch.core.quant import quantize
+    lib, made = _patch_launch(monkeypatch)
+    _, w, a, b, g = _t(*_operands(m, k, n, r, seed=7))
+    wq = quantize(w, bits, 64)
+    lora_matmul.lora_bwd_dx_quant(g, wq, a, b, 1.5)
+    (entry, args), = lib.calls
+    assert entry == "lora_bwd_dx_quant_launch"
+    plan = common.dx_rank_plan(m, k, n, r, 132)
+    assert args[8:16] == (m, k, n, r, *plan)
+    assert args[16] == 1.5 and args[17:20] == (bits, 0 if bits == 8 else 64,
+                                               0)
+    assert made[args[5]].shape == (m, r)
+    ksplit_p, _, ksplit, _ = plan
+    need = max(ksplit_p * m * r if ksplit_p > 1 else 0,
+               ksplit * m * k if ksplit > 1 else 0)
+    if need:
+        assert made[args[6]].numel() >= need
+    else:
+        assert args[6] is None
+    assert lora_matmul.launches == dict(NO_LORA_LAUNCHES,
+                                        lora_bwd_dx_quant=1)
