@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B device times of the tile kernels of src/repro_torch/kernels/csrc/
-(bgmv.cu's prefill forms, lora_matmul.cu) across checkouts, on one NVIDIA
-card.
+"""A/B device times of the kernels of src/repro_torch/kernels/csrc/ (the
+forward tile's forms in bgmv.cu, lora_matmul.cu, dense_dx.cu and
+packed_dx.cu, the packed GEMV, paged and flash attention) across
+checkouts, on one NVIDIA card.
 
     python3 ab_tiles.py [--only NAME[,NAME...]] DIR [DIR ...]
 
@@ -29,12 +30,17 @@ graph replay), fp32 activations:
          columns), (b) the hybrid's (h 16, window 2048) and (c) a long
          context (h 16, 128 columns, window 2048), chip_smoke._paged_case's
          staggered fills; beside each, SDPA on the gathered view (one
-         library call, the yardstick; the same on every checkout).
+         library call, the yardstick; the same on every checkout);
+  #14    flash_attention at chip_smoke.FLASH_SHAPES' recurrentgemma-9b
+         (s = t = 4096, 16 heads on one kv head, d 256, causal, window
+         2048) and gemma-2b (s = t = 2048, 8 heads, causal), fp32, beside
+         SDPA on the expanded heads (``... sdpa`` rows), as
+         chip_smoke.time_scan_flash times them.
 
 W (fp or packed) is rotated over copies that exceed L2 three times, as a
 pass finds it cold.  Each kernel's output is also held against its plain
 version (max abs diff), so a faster build that computes something else
-shows.  For #2, #3, #5, #9, #10, #11, #12 and #13 (SPLIT_KERNELS, matched
+shows.  For #2, #3, #5, #6, #9-#13 (SPLIT_KERNELS, matched
 by the row's kernel name exactly) the graph is replayed once more under
 torch.profiler, and each call's device time is split by kernel into the
 rank pre-pass, the main kernel ("tile", or #11's packed GEMV, "gemv") and
@@ -52,15 +58,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the wrappers whose calls a run splits by phase: #2, #3, #5, #9, #10, #11,
-# #12, #13 (a row's first word, matched exactly: quant_matmul is a prefix of
+# the wrappers whose calls a run splits by phase: #2, #3, #5, #6, #9-#13 (a
+# row's first word, matched exactly: quant_matmul is a prefix of
 # quant_matmul_dx)
 SPLIT_KERNELS = ("bgmv_matmul", "bgmv_matmul_quant", "lora_fwd",
-                 "lora_fwd_quant", "lora_bwd_dx_quant", "quant_matmul",
-                 "quant_matmul_dx", "paged_attention")
+                 "lora_bwd_dx", "lora_fwd_quant", "lora_bwd_dx_quant",
+                 "quant_matmul", "quant_matmul_dx", "paged_attention")
 # the kernels whose registers and spills a run reports (mangled names)
 PTXAS_KERNELS = ("paged_attn", "paged_split", "paged_merge", "fwd_kernel",
-                 "tile_kernel", "qgemv_kernel")
+                 "tile_kernel", "qgemv_kernel", "flash_kernel")
 
 
 def _phase(kernel_name: str) -> str:
@@ -236,6 +242,29 @@ def one(root: Path, only) -> dict:
                 us[f"sdpa {tag}"] = cs._graph_ms(
                     lambda q_, k_, v_, m_: sdpa(q_, k_, v_, attn_mask=m_),
                     sargs) * 1e3
+    # #14 at the two attention shapes of chip_smoke.time_scan_flash
+    fa = cs.flash_attention
+    for label in ("recurrentgemma-9b", "gemma-2b"):
+        if not wanted(f"flash_attention {label}"):
+            continue
+        b, s_, t_, h, kh, d, causal, window = cs.FLASH_SHAPES[label]
+        q, k_, v = cs._flash_operands(gen, cs.FLASH_SHAPES[label],
+                                      torch.float32)
+        kw = dict(causal=causal, window=window)
+        run(f"flash_attention {label}",
+            lambda *x: fa.flash_attention(*x, **kw),
+            lambda *x: fa.flash_attention_plain(*x, **kw), [(q, k_, v)] * 2)
+        qh = q.reshape(b, h, s_, d)
+        kx, vx = (y.reshape(b, kh, t_, d).repeat_interleave(h // kh, dim=1)
+                  for y in (k_, v))
+        mask = fa.band_mask(s_, t_, causal=causal, window=window,
+                            device=q.device)
+        sargs = [(qh, kx, vx)] * 2
+        us[f"flash_attention {label} sdpa"] = cs._graph_ms(
+            (lambda *x: sdpa(*x, is_causal=causal)) if window is None else
+            (lambda *x: sdpa(*x, attn_mask=mask)), sargs) * 1e3
+        del q, k_, v, qh, kx, vx, sargs
+        torch.cuda.empty_cache()
     return {"us": {k: round(v, 2) for k, v in us.items()},
             "split_us": split, "max_abs_err": err,
             "ptxas": _ptxas(lib.with_suffix(".log"))}

@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the exit code is not 0:
   5. LoRA matmul kernels vs plain: #5-#8 (forward, dx, dA, dB) against
      their plain versions at the training path's q/v shapes and a ragged
      one, fp32 and bf16; then their times beside the plain versions, one
-     torch.matmul call each and the card's bound
+     torch.matmul call each and the card's bound, with the tiles and split
+     #5 and #6 launch with
   6. training path: repro_torch's FederatedTrainer on gemma-2b at full
      width (fp32, seeded random base, 4 clients, fedsa + sfedlora, rank
      64), 3 rounds and a held-out eval, with the launch counts of #5-#8,
@@ -137,7 +138,7 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "bgmv_matmul": "src/repro_torch/kernels/csrc/bgmv.cu",
            "lora_fwd": "src/repro_torch/kernels/csrc/lora_matmul.cu",
-           "lora_bwd_dx": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+           "lora_bwd_dx": "src/repro_torch/kernels/csrc/dense_dx.cu",
            "lora_bwd_da": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "lora_bwd_db": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "paged_attention": CSRC + "paged_attention.cu",
@@ -354,7 +355,7 @@ def _qmm_plan_note(m, k, n, bits, group):
 
 
 def _dx_rank_plan_note(m, k, n, r):
-    """The tiles and the split #10 launches with on this card
+    """The tiles and the split #6 and #10 launch with on this card
     (kernels/common.py dx_rank_plan)."""
     ksplit_p, kchunk_p, ksplit, kchunk = common.dx_rank_plan(
         m, k, n, r, common.num_sms(torch.device("cuda")))
@@ -642,11 +643,11 @@ def _print_profile(label, wall, events, per, unit):
     for name, (n, us) in top:
         print(f"    {us / 1e3 / per:8.3f} ms  x{n / per:5.1f}  {name[:100]}")
     # the rank-fused forward tile's three kernels (pre-pass, main tile,
-    # fixed-order sums) make up #2, #3, #5, #9-#12 (#11 at m > 8 rows); the
+    # fixed-order sums) make up #2, #3, #5, #6, #9-#12 (#11 at m > 8 rows); the
     # main tiles with a by-row packed stager (RowsInt8 / RowsInt4) are #10's
     # and #12's, those with a by-column one and no rank term #11's; #11's
     # decode form is its packed GEMV; #13 is its split kernel and merge
-    groups = (("rank-fused forward tile (#2, #3, #5, #9-#12: pre-pass, "
+    groups = (("rank-fused forward tile (#2, #3, #5, #6, #9-#12: pre-pass, "
                "main tile and sums)",
                lambda name: "fwd_kernel<" in name or "fwd_sum_kernel" in name),
               ("of which #10's and #12's main tiles (RowsInt8 / RowsInt4)",
@@ -799,7 +800,9 @@ def time_lora_kernels():
                                       library_ms=library_ms,
                                       eager_ms=eager_ms)
             note = (" " + _fwd_plan_note(m, n, k, r)
-                    if kern == "lora_fwd" else "")
+                    if kern == "lora_fwd" else
+                    " " + _dx_rank_plan_note(m, k, n, r)
+                    if kern == "lora_bwd_dx" else "")
             print(f"{kern:12s} {proj} m={m} k={k} n={n} r={r}: kernel "
                   f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
                   f"torch.matmul {library_ms * 1e3:.2f} us, bound "

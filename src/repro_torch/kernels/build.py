@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,11 +39,12 @@ SIGNATURES = {
     "bgmv_gemv_quant_launch": (_P,) * 9 + (_I,) * 10 + (_P,),
     # csrc/lora_matmul.cu
     "lora_fwd_launch": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P),
-    "lora_bwd_dx_launch": (_P,) * 6 + (_I,) * 4 + (_F, _I, _P),
     "lora_bwd_da_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "lora_bwd_db_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "quant_matmul_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
     "lora_fwd_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4 + (_P,),
+    # csrc/dense_dx.cu
+    "lora_bwd_dx_launch": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P),
     # csrc/packed_dx.cu
     "lora_bwd_dx_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4
     + (_P,),
@@ -79,31 +82,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(src: Path, obj: str):
+    """(name, seconds, returncode, output) of one nvcc of ``src``."""
+    t0 = time.monotonic()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    return src.name, time.monotonic() - t0, proc.returncode, proc.stdout
+
+
 def build() -> Path:
     """Compile the sources unless the library for them exists: one nvcc
     per ``.cu`` file, all started together, then one link.  The compiler's
-    report (registers, shared memory, spills per kernel) is kept beside the
-    library as ``<name>.log``."""
+    report (registers, shared memory, spills per kernel) and each file's
+    compile time are kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs, procs = [], []
-        for src in _sources():
-            if src.suffix != ".cu":
-                continue
-            obj = os.path.join(tmpdir, src.stem + ".o")
-            objs.append(obj)
-            procs.append((src.name, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        srcs = [src for src in _sources() if src.suffix == ".cu"]
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in srcs]
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            done = list(pool.map(_compile, srcs, objs))
         log, failed = [], []
-        for name, proc in procs:
-            text, _ = proc.communicate()
-            log.append(f"== {name}\n{text}")
-            if proc.returncode != 0:
+        for name, seconds, rc, text in done:
+            log.append(f"== {name} ({seconds:.1f} s)\n{text}")
+            if rc != 0:
                 failed.append(name)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))

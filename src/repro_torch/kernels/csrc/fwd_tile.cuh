@@ -1,14 +1,16 @@
 // The rank-fused forward tile, for Hopper (sm_90a): one kernel body for
-// seven of the TPU kernels of src/repro/kernels/:
+// eight of the TPU kernels of src/repro/kernels/:
 //   bgmv.cu        #2 _bgmv_kernel (bgmv.py:59), #3 _bgmv_kernel_q (:224):
 //                  the BGMV prefill over an fp or packed W;
 //   lora_matmul.cu #5 _fwd_kernel (lora_matmul.py:55), #9 _fwd_kernel_q
 //                  (:345): the LoRA forward; #11 _qmm_kernel (:514) at m > 8
 //                  rows: the packed GEMM, no rank term;
+//   dense_dx.cu    #6 _bwd_dx_kernel (:147): dx = g W^T + gamma (g B) A over
+//                  a dense W;
 //   packed_dx.cu   #12 _qmm_dx_kernel (:544): dx = g dequant(W)^T, no rank
-//                  term; #10 _bwd_dx_kernel_q (:414): dx = g dequant(W)^T +
-//                  gamma (g B) A, with the roles of the forward's operands
-//                  swapped (dx_rank_fused, below).
+//                  term; #10 _bwd_dx_kernel_q (:414): #6 over a packed W.
+//                  #6 and #10 swap the roles of the forward's operands
+//                  (dx_rank_fused, below).
 //
 //   p[i, s]   = sum_t x[i, t] A_row(i)[s, t]                  (pre-pass)
 //   out[i, j] = sum_t x[i, t] W(t, j) + gamma sum_s p[i, s] B_row(i)[j, s]
@@ -51,15 +53,18 @@
 //     through the same ring and micro-kernel, one pass per request in the
 //     tile (rows of other requests are masked to 0), as slabs r of the
 //     chunked range [0, roundup(k, 16) + r).
-//   - #12 and #10 contract along W's contiguous n, so the by-column packed
+//   - #12, #10 and #6 contract along W's contiguous n, so the by-column
 //     stagers cannot serve them.  Here g goes through Rows and W through
-//     RowsInt8 / RowsInt4, which stage element (t, j) = dequant(W)(j, t) 4 n
-//     of two neighbouring rows a thread (a 32-bit word of each row for int8,
-//     the byte row both share for int4), convert without I2F and store
-//     transposed as float2, and the host splits n (kernels/common.py
-//     dx_plan) where the (m, k) tiles leave SMs idle.  #10's q = g B is the
-//     pre-pass with B row-major (ColsDense) as the right operand, and gamma q
-//     A the tail, A row-major scaled by gamma as it is staged.
+//     RowsInt8 / RowsInt4, which stage element (t, j) = dequant(W)(j, t) 4
+//     n of two neighbouring rows a thread (a 32-bit word of each row for
+//     int8, the byte row both share for int4), convert without I2F and
+//     store transposed as float2, or (a dense W) ColsT, 4 n of one row a
+//     thread stored transposed; the host splits n (kernels/common.py
+//     dx_plan) where the (m, k) tiles leave SMs idle.  The q = g B of #10
+//     and #6 is the pre-pass with B row-major (ColsDense) as the right
+//     operand, and gamma q A the tail, A row-major scaled by gamma as it is
+//     staged.  #6 ran on a 64 x 64 tile with a one-warp-per-row q pre-pass
+//     at 2.44x torch.matmul (PERF.md).
 // Ragged edges are masked (nothing is padded; an int4 W's kq - k rows are
 // never read).  The vector paths need k, n, r multiples of 4 and aligned
 // operands (and, by column, int4 groups of 16 rows or more); the host picks
@@ -97,29 +102,6 @@ struct Geo {
   static constexpr int kStage = kXFloats + kFwdBK * kWLd;
   static constexpr size_t kSmem = sizeof(float) * kStage * kFwdStages;
 };
-
-// 4 consecutive elements in one load: float4, or 4 bf16 in a uint2
-template <typename E>
-struct Vec4 {
-  using U = float4;
-};
-template <>
-struct Vec4<__nv_bfloat16> {
-  using U = uint2;
-};
-__device__ __forceinline__ float4 as_f4(float4 u) { return u; }
-__device__ __forceinline__ float4 as_f4(uint2 u) {
-  // a bf16 is the top half of the fp32 with the same value
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-template <typename E>
-__device__ __forceinline__ typename Vec4<E>::U ld4(const E* p, bool in) {
-  using U = typename Vec4<E>::U;
-  return in ? __ldg(reinterpret_cast<const U*>(p)) : U{};
-}
 
 // --------------------------------------------------------------- stagers
 // A stager moves one slab of an operand into a stage of the ring as fp32:
@@ -381,9 +363,16 @@ struct ColsInt4 {
 // The transpose of a (cols, ld) matrix per adapter, scaled: element
 // (t, j) = scale * q[j * ld + t], q = base + id * stride, columns [n0,
 // nlim).  B^T (t = rank index, ld = r) in the main pass, scaled by gamma;
-// A^T (t along k, ld = k) in the pre-pass.
-template <int kBN, typename T, bool kVec>
+// A^T (t along k, ld = k) in the pre-pass; and a dense W (k, n) read by row
+// for #6's dx = g W^T (ld = n, nlim = k, stride 0, scale 1, q = W): 4 lanes
+// read 64 contiguous bytes of a row.  Its transposed stores are 2-way
+// bank-conflicted (a warp's 8 j x 4 t, row stride kBN + 4); a stager on
+// RowsInt8's pattern (4 t of two rows a thread, stored as float2,
+// conflict-free) ran #6's main tile 1.8% slower on an H100 (PERF.md): its
+// 16-byte loads from 64 rows a warp cost more than the conflicts.
+template <int kBN, typename T, bool kVec_>
 struct ColsT {
+  static constexpr bool kVec = kVec_;
   static constexpr int kW = kVec ? 4 : 1;
   static constexpr int kPerCol = kFwdBK / kW;  // loads per column per slab
   static constexpr int kN = kBN * kPerCol / kFwdThreads;
@@ -878,11 +867,12 @@ int fwd_base_only(const T* x, const WS& w, float* scratch, float* out, int m,
   return fwd_sum(scratch, out, m * nout, ksplit, st);
 }
 
-// #10: q = g B (pre-pass), then dx = g dequant(W)^T + gamma q A, with g
-// (m, n), W read by row through w (RowsInt8 / RowsInt4, kVec matching), A
-// (r, k) and B (n, r): #12's main pass with #5's rank tail, the operands'
-// roles swapped.  The pre-pass is an (m, r) output contracting n, with B
-// row-major as the right operand; the main pass contracts its range [0,
+// #6 and #10: q = g B (pre-pass), then dx = g W^T + gamma q A, with g
+// (m, n), W (dense, or packed and dequantized) read by row through w
+// (ColsT, RowsInt8 / RowsInt4, kVec matching), A (r, k) and B (n, r):
+// #12's main pass with #5's rank tail, the operands' roles swapped.  The
+// pre-pass is an (m, r) output contracting n, with B row-major as the
+// right operand; the main pass contracts its range [0,
 // roundup(n, kFwdBK) + r): n against W's rows, then r of q rows against
 // gamma A.  q is written (the residual #7 reuses); scratch holds the larger
 // pass's partials (ksplit_p * m * r or ksplit * m * k floats) when it
@@ -917,6 +907,16 @@ int with_dense_cols(const T* w, int n, bool vec, F&& f) {
   if (vec && is_aligned(w, 16))
     return f(ColsDense<kFwdMainBN, T, true>{w, n, n});
   return f(ColsDense<kFwdMainBN, T, false>{w, n, n});
+}
+
+// f(W stager) for a dense W (k, n) of T read by row (ColsT: the right
+// operand of dx = g W^T), on the vector path when vec (n % 4 == 0, checked
+// by the caller) and W is 16-byte aligned.
+template <typename T, typename F>
+int with_dense_rows(const T* w, int n, int k, bool vec, F&& f) {
+  if (vec && is_aligned(w, 16))
+    return f(ColsT<kFwdMainBN, T, true>{w, n, k, 0, 1.f, w});
+  return f(ColsT<kFwdMainBN, T, false>{w, n, k, 0, 1.f, w});
 }
 
 // f(W stager) for a packed W (loaders.cuh's layout), or

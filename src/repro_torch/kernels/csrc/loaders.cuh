@@ -1,5 +1,5 @@
 // Element loaders, decode and copy helpers shared by the kernels of
-// bgmv.cu, lora_matmul.cu, packed_dx.cu and qgemv.cu.
+// bgmv.cu, lora_matmul.cu, packed_dx.cu, qgemv.cu and flash_attention.cu.
 //
 // A W loader returns W[row, col] of a logical (k, n) weight as fp32, from
 //   DenseW  a row-major fp32 or bf16 matrix;
@@ -108,6 +108,31 @@ struct Int4W {
         __ldg(s + static_cast<size_t>(row >> group_shift) * n + col));
   }
 };
+
+// 4 consecutive elements in one load (fwd_tile.cuh's stagers,
+// flash_attention.cu): float4, or 4 bf16 in a uint2; as_f4 widens them to
+// fp32, ld4 loads them (zeros where !in).
+template <typename E>
+struct Vec4 {
+  using U = float4;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  using U = uint2;
+};
+__device__ __forceinline__ float4 as_f4(float4 u) { return u; }
+__device__ __forceinline__ float4 as_f4(uint2 u) {
+  // a bf16 is the top half of the fp32 with the same value
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+template <typename E>
+__device__ __forceinline__ typename Vec4<E>::U ld4(const E* p, bool in) {
+  using U = typename Vec4<E>::U;
+  return in ? __ldg(reinterpret_cast<const U*>(p)) : U{};
+}
 
 // Word-wide decode, for the kernels that load a packed W 4 bytes (or more)
 // at a time (fwd_tile.cuh's stagers, qgemv.cuh): the integers become floats

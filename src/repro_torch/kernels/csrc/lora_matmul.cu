@@ -6,8 +6,8 @@
 // quant_matmul_vjp):
 //   lora_fwd_launch          <- _fwd_kernel       y  = x W + gamma (x A^T) B^T,
 //                                                 p  = x A^T (residual)
-//   lora_bwd_dx_launch       <- _bwd_dx_kernel    dx = g W^T + gamma (g B) A,
-//                                                 q  = g B (residual)
+//   (lora_bwd_dx_launch      <- _bwd_dx_kernel    dx = g W^T + gamma (g B) A,
+//                                                 q  = g B, in dense_dx.cu)
 //   lora_bwd_da_launch       <- _bwd_da_kernel    dA = gamma q^T x
 //   lora_bwd_db_launch       <- _bwd_db_kernel    dB = gamma g^T p
 // and over a packed frozen base (core/quant.py, W = dequant(W)):
@@ -37,21 +37,22 @@
 //     chunk), and a second kernel adds the chunks' partial sums in a fixed
 //     order: no atomics, so a run repeats bit for bit.
 // #5, #9 and #11's prefill form run on the rank-fused forward tile of
-// fwd_tile.cuh, shared with the BGMV prefill (#2, #3) and the packed dx
-// forms (#10, #12, packed_dx.cu): a tiled pre-pass for p, then 128 x 128
-// output tiles (8 x 8 per thread, a cp.async ring) over chunks of k planned
-// on the host to fill the SMs, the rank term contracted in the same ring,
-// and a fixed-order pass over the chunks' partial sums; W is read by column
-// (ColsDense, ColsInt8 / ColsInt4: a packed W decoded one 32-bit word at a
-// time).  What bounds them and what the design does about it is set out
-// there.  #11 (no rank term) replaced a 64 x 64 tile that ran at 2.7x
-// torch.matmul.  #11's decode form (m <= 8 rows) is the packed GEMV of
-// qgemv.cu (16-byte loads of W into a per-warp ring, word-wide decode, x in
-// shared memory), which replaced a split-k GEMV at 21x its byte bound.
-// #6, #7 and #8 are one older tiled kernel (tile_kernel, 64 x 64 outputs)
-// over element views of dense fp32 / bf16 matrices stored along or across
-// the contraction.  Ragged edges are masked in the kernels: no shape needs
-// padding, and an int4 W's kq - k padding rows are never read.
+// fwd_tile.cuh, shared with the BGMV prefill (#2, #3) and the dx forms
+// (#6, dense_dx.cu; #10, #12, packed_dx.cu): a tiled pre-pass for p, then
+// 128 x 128 output tiles (8 x 8 per thread, a cp.async ring) over chunks of
+// k planned on the host to fill the SMs, the rank term contracted in the
+// same ring, and a fixed-order pass over the chunks' partial sums; W is
+// read by column (ColsDense, ColsInt8 / ColsInt4: a packed W decoded one
+// 32-bit word at a time).  What bounds them and what the design does about
+// it is set out there.  #11 (no rank term) replaced a 64 x 64 tile that
+// ran at 2.7x torch.matmul.  #11's decode form (m <= 8 rows) is the packed
+// GEMV of qgemv.cu (16-byte loads of W into a per-warp ring, word-wide
+// decode, x in shared memory), which replaced a split-k GEMV at 21x its
+// byte bound.  #7 and #8 are one older
+// tiled kernel (tile_kernel, 64 x 64 outputs) over element views of dense
+// fp32 / bf16 matrices stored along or across the contraction, their m loop
+// split over blocks.  Ragged edges are masked in the kernels: no shape
+// needs padding, and an int4 W's kq - k padding rows are never read.
 //
 // Plain C interface, bound with ctypes (kernels/build.py,
 // kernels/lora_matmul.py).  Each entry point launches on the caller's
@@ -82,42 +83,9 @@ using repro_kernels::to_f;
 using repro_kernels::with_dense_cols;
 using repro_kernels::with_packed_cols;
 
-// --------------------------------------------------------- rank pre-pass
-constexpr int kRankWarps = 8;
-
-// q[row, j] = sum_n g[row, n] B[n, j]: B (n, r) is contiguous along j, so
-// lanes take 32 consecutive j (coalesced reads of a B row, one broadcast
-// read of g) and the 8 warps split n; the warps' partial sums are added in
-// a fixed order.
-template <typename T>
-__global__ void __launch_bounds__(kRankWarps * 32)
-gb_kernel(const T* __restrict__ g, const T* __restrict__ b,
-          float* __restrict__ q, int m, int n, int r) {
-  __shared__ float red[kRankWarps][32];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int j = blockIdx.y * 32 + lane;
-  float acc = 0.f;
-  if (row < m && j < r) {
-    const T* gr = g + static_cast<size_t>(row) * n;
-    for (int nn = warp; nn < n; nn += kRankWarps)
-      acc = fmaf(to_f(gr[nn]), to_f(b[static_cast<size_t>(nn) * r + j]), acc);
-  }
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && row < m && j < r) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRankWarps; ++w) sum += red[w][lane];
-    q[static_cast<size_t>(row) * r + j] = sum;
-  }
-}
-
 // ------------------------------------------------------------ tile kernel
-// out[i, j] = scale * sum_t L(i, t) R(j, t)
-//           + gamma * sum_s L2(i, s) R2(j, s)        (unless R2 is NoRank)
-// over an I x J output.  64 x 64 output tile per block, t in steps of 16
+// out[i, j] = scale * sum_t L(i, t) R(j, t) over an I x J output (#7's dA
+// and #8's dB).  64 x 64 output tile per block, t in steps of 16
 // through shared memory, 256 threads with 4 x 4 outputs each (rows
 // ty + 16 i, cols tx + 16 j: shared-memory reads are broadcasts or
 // conflict-free).  Each operand is an element view (below) that fetches
@@ -126,15 +94,15 @@ gb_kernel(const T* __restrict__ g, const T* __restrict__ b,
 // (cvt), and says how it is stored: kTC when it is contiguous along t.
 // Staging maps neighbouring threads to neighbouring addresses in both
 // cases.  The contraction loop is inside the block, so no sum crosses
-// blocks, except #7 / #8's: their m loop is split over grid z and a second
-// kernel adds the parts in a fixed order (below).
+// blocks, except over grid z: #7 / #8 split their m loop over it and a
+// second kernel adds the parts in a fixed order (below).
 //
 // Each step's loads would otherwise wait in line behind its FMAs: the next
 // slab's loads are issued into registers before the FMAs on the current
-// one, converted (a packed W's decode included) and stored to a second
-// shared-memory slab after them, so one barrier per step suffices.  The
-// launch bound caps a thread at 128 registers, so two blocks share an SM
-// and each hides the other's barrier waits (PERF.md).
+// one, converted and stored to a second shared-memory slab after them, so
+// one barrier per step suffices.  The launch bound caps a thread at 128
+// registers, so two blocks share an SM and each hides the other's barrier
+// waits (PERF.md).
 constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
 
 // A row-major fp32 or bf16 matrix with leading dimension ld: element (i, t)
@@ -151,8 +119,6 @@ struct Dense {
   }
   static __device__ __forceinline__ float cvt(Raw v) { return to_f(v); }
 };
-
-struct NoRank {};  // R2 of a tile with no rank-r term
 
 // One thread's share of a kW x kBK slab of an operand, in registers, and
 // whether each of its elements lies inside the operand.
@@ -239,29 +205,24 @@ __device__ __forceinline__ void contract(float (&acc)[4][4],
   }
 }
 
-template <typename LOp, typename ROp, typename R2Op>
+template <typename LOp, typename ROp>
 __global__ void __launch_bounds__(kThreads, 2)
 tile_kernel(const LOp l, const ROp r, int ni, int nj, int nt, int tchunk,
-            const float* __restrict__ l2, int ldl2, const R2Op r2, int nt2,
-            float scale, float gamma, float* __restrict__ out) {
+            float scale, float* __restrict__ out) {
   __shared__ float ls[2][kBK][kBM + 1];  // two slabs of each: the one the
   __shared__ float rs[2][kBK][kBN + 1];  // FMAs read, the next one staged
   const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4], acc2[4][4];
+  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = acc2[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   // block z of the grid contracts t in [z tchunk, (z + 1) tchunk) into
-  // output z (the split of #7 / #8's m loop; one z elsewhere)
+  // output z (the split of #7 / #8's m loop)
   const int t_lo = blockIdx.z * tchunk;
   out += static_cast<size_t>(blockIdx.z) * ni * nj;
   contract(acc, ls, rs, l, r, i0, ni, j0, nj, t_lo, min(nt, t_lo + tchunk));
-  if constexpr (!std::is_same<R2Op, NoRank>::value)
-    // the rank-r term, after the base product
-    contract(acc2, ls, rs, Dense<float, true>{l2, ldl2}, r2, i0, ni, j0, nj,
-             0, nt2);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gi = i0 + ty + 16 * i;
@@ -270,35 +231,13 @@ tile_kernel(const LOp l, const ROp r, int ni, int nj, int nt, int tchunk,
     for (int j = 0; j < 4; ++j) {
       const int gj = j0 + tx + 16 * j;
       if (gj < nj)
-        out[static_cast<size_t>(gi) * nj + gj] =
-            scale * acc[i][j] + gamma * acc2[i][j];
+        out[static_cast<size_t>(gi) * nj + gj] = scale * acc[i][j];
     }
   }
 }
 
 inline dim3 tile_grid(int ni, int nj) {
   return dim3((nj + kBN - 1) / kBN, (ni + kBM - 1) / kBM);
-}
-
-// #6: dx = g W^T + gamma q A over a dense W, after the gb pre-pass has
-// written q.  L = g (m x n, along t), R = W (k x n, along t); L2 = q (m x
-// r), R2 = A (r x k, across s).
-template <typename T, typename WOp>
-int dx_tile(const void* g, const WOp w, const void* a, const float* q,
-            float* dx, int m, int k, int n, int r, float gamma,
-            cudaStream_t st) {
-  tile_kernel<<<tile_grid(m, k), kThreads, 0, st>>>(
-      Dense<T, true>{static_cast<const T*>(g), n}, w, m, k, n, n, q, r,
-      Dense<T, false>{static_cast<const T*>(a), k}, r, 1.f, gamma, dx);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int gb(const void* g, const void* b, float* q, int m, int n, int r,
-       cudaStream_t st) {
-  gb_kernel<T><<<dim3(m, (r + 31) / 32), kRankWarps * 32, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(b), q, m, n, r);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // #5 and #9: the rank-fused forward tile of fwd_tile.cuh (its pre-pass
@@ -324,16 +263,6 @@ int fwd(const void* x, const void* w, const void* a, const void* b, float* p,
                          });
 }
 
-template <typename T>
-int bwd_dx(const void* g, const void* w, const void* a, const void* b,
-           float* q, float* dx, int m, int k, int n, int r, float gamma,
-           cudaStream_t st) {
-  const int err = gb<T>(g, b, q, m, n, r, st);
-  if (err != 0) return err;
-  return dx_tile<T>(g, Dense<T, true>{static_cast<const T*>(w), n}, a, q, dx,
-                    m, k, n, r, gamma, st);
-}
-
 // y[i] = sum over ks of partial[ks][i], in a fixed order.
 __global__ void sum_partials_kernel(const float* __restrict__ partial,
                                     float* __restrict__ y, int total,
@@ -357,8 +286,7 @@ int reduce_m(const LOp l, const ROp r, float* partial, float* out, int ni,
              cudaStream_t st) {
   dim3 grid = tile_grid(ni, nj);
   grid.z = msplit;
-  tile_kernel<<<grid, kThreads, 0, st>>>(l, r, ni, nj, m, mchunk, nullptr, 0,
-                                         NoRank{}, 0, gamma, 0.f,
+  tile_kernel<<<grid, kThreads, 0, st>>>(l, r, ni, nj, m, mchunk, gamma,
                                          msplit > 1 ? partial : out);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || msplit == 1) return static_cast<int>(err);
@@ -453,18 +381,6 @@ int lora_fwd_launch(const void* x, const void* w, const void* a,
   if (dtype == 1)
     return fwd<__nv_bfloat16>(x, w, a, b, p, scratch, y, m, k, n, r, plan,
                               gamma, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// q: (m, r) fp32, written; dx: (m, k) fp32.
-int lora_bwd_dx_launch(const void* g, const void* w, const void* a,
-                       const void* b, float* q, float* dx, int m, int k, int n,
-                       int r, float gamma, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_dx<float>(g, w, a, b, q, dx, m, k, n, r, gamma, st);
-  if (dtype == 1)
-    return bwd_dx<__nv_bfloat16>(g, w, a, b, q, dx, m, k, n, r, gamma, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

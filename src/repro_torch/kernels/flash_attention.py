@@ -26,12 +26,20 @@ does about it): ``flash_attention`` replaces
 ``repro/kernels/flash_attention.py:_kernel``, whose sequential innermost
 grid dimension walks key blocks with (acc, m, l) in VMEM.  GPU blocks run
 in no order, so one CUDA block owns a (folded head, 64-row query tile),
-loops over 32-row key / value tiles itself and skips the tiles outside the
-causal / window band.  It is bound by operations (4 * bh * attended pairs *
-d FLOPs in fp32 FMA, no TF32: 1.54 ms at recurrentgemma-9b's local
-attention, s = t = 4096, window 2048, 16 heads of 256), and keeps the
-(s, t) scores out of device memory; both products are register-tiled from
-shared memory.
+loops over 64-key tiles itself and skips the tiles outside the causal /
+window band.  It is bound by operations (4 * bh * attended pairs * d FLOPs
+in fp32 FMA, no TF32: 1.54 ms at recurrentgemma-9b's local attention, s = t
+= 4096, window 2048, 16 heads of 256) and keeps the (s, t) scores out of
+device memory.  A block is two teams of 8 warps on one query tile: each
+team walks half of the tile's key tiles, streaming K and V through its own
+3-stage ring of 16 KB shared-memory slabs, filled by cp.async (fp32) two
+slabs ahead of the FMAs and handed over by mbarriers, and the two teams'
+running softmaxes join in a fixed order at the end.  A thread owns 4 x 4
+scores and 8 x 8 outputs (at d 256), read as float4; at most 128
+registers a thread, 205 KB of shared memory a block; query tiles run
+longest first.  It replaced a kernel with synchronous scalar K / V loads,
+2 x 4 scores a thread and one block of 8 warps per SM, at 2.12x SDPA on
+gemma-2b's attention (``PERF.md``).
 
 :data:`launches` counts kernel launches, one per wrapper call that
 launches, and nothing else.  Forward only: on CUDA the wrapper raises when

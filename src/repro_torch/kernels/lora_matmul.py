@@ -7,8 +7,9 @@ The port of ``repro/kernels/lora_matmul.py``'s ``jax.custom_vjp``s that the
 JAX package trains through: ``lora_matmul_vjp`` (an fp W),
 ``lora_matmul_quant_vjp`` (a packed W) and ``quant_matmul_vjp`` (a packed W
 and no adapter).  Each piece is a hand-written kernel in
-``csrc/lora_matmul.cu`` (#10 and #12 in ``csrc/packed_dx.cu``, #11's decode
-form in ``csrc/qgemv.cu``) beside its plain PyTorch version:
+``csrc/lora_matmul.cu`` (#6 in ``csrc/dense_dx.cu``, #10 and #12 in
+``csrc/packed_dx.cu``, #11's decode form in ``csrc/qgemv.cu``) beside its
+plain PyTorch version:
 
   lora_fwd          (#5)  y = x W + gamma p B^T, p = x A^T   -> (y, p)
   lora_bwd_dx       (#6)  dx = g W^T + gamma q A, q = g B    -> (dx, q)
@@ -49,9 +50,16 @@ design does about it):
   64 x 64 tile it replaced put 32 blocks on 132 SMs at n = 256); gamma p
   B^T is the tail of the same contraction, and a second pass adds the
   chunks' partial sums in a fixed order.
-* ``lora_bwd_dx`` replaces ``_bwd_dx_kernel`` (``:147``, ``_bwd_dx_call``):
-  the mirror of the forward, a q = g B pre-pass, then tiles that contract
-  over n and read W by rows.  Bound by operations like the forward.
+* ``lora_bwd_dx`` replaces ``_bwd_dx_kernel`` (``:147``, ``_bwd_dx_call``),
+  bound by operations like the forward.  It is the rank-fused dx on the
+  forward tile (``csrc/dense_dx.cu``), as ``lora_bwd_dx_quant`` is over a
+  packed W: a q = g B pre-pass (B row-major the right operand, n split in
+  1-slab chunks), then g against W read by row (``csrc/fwd_tile.cuh``
+  ColsT: 4 n of one row a thread, stored transposed), with gamma q A as the
+  contraction's tail, planned by ``common.dx_rank_plan`` and summed over
+  its chunks in a fixed order.  It replaced a one-warp-per-row
+  pre-pass and the 64 x 64 tile that #7 and #8 still run on (2.44x
+  torch.matmul at q).
 * ``lora_bwd_da`` and ``lora_bwd_db`` replace ``_bwd_da_kernel`` (``:201``)
   and ``_bwd_db_kernel`` (``:230``), which accumulate over m in an output
   block the TPU grid revisits.  Small (2 m r k operations) with few output
@@ -259,11 +267,14 @@ def lora_bwd_dx(g, w, a, b, gamma: float):
     if g.shape[1] != n:
         raise ValueError(f"lora_bwd_dx: g {tuple(g.shape)} vs w "
                          f"{tuple(w.shape)}")
+    plan = dx_rank_plan(m, k, n, r, num_sms(g.device))
+    scratch = fwd_scratch(m, k, r, plan, g.device)
     q = torch.empty(m, r, dtype=torch.float32, device=g.device)
     dx = torch.empty(m, k, dtype=torch.float32, device=g.device)
     err = load().lora_bwd_dx_launch(
         g.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), q.data_ptr(),
-        dx.data_ptr(), m, k, n, r, float(gamma), DTYPES[g.dtype], stream(g))
+        ptr(scratch), dx.data_ptr(), m, k, n, r, *plan, float(gamma),
+        DTYPES[g.dtype], stream(g))
     raise_on(err, "lora_bwd_dx")
     launches["lora_bwd_dx"] += 1
     return dx, q

@@ -365,6 +365,32 @@ def test_lora_bwd_dx_quant_matches_plain_and_repeats(card, m, k, n, r, bits,
     assert lm.launches == _launches(lora_bwd_dx_quant=2)
 
 
+# #6 (m, k, n, r): the training path's q and v (v splits both passes on a
+# 132-SM card), a plan that splits both passes with m, k, n off every tile
+# multiple, and k, n, r off multiples of 4 (the scalar path)
+LORA_DX_SHAPES = [(512, 2048, 2048, 64), (512, 2048, 256, 64),
+                  (300, 1000, 4100, 8), (50, 70, 30, 3), (33, 65, 17, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", LORA_DX_SHAPES)
+def test_lora_bwd_dx_matches_plain_and_repeats(card, m, k, n, r, dtype):
+    """#6 (the rank-fused dx over a dense W: q = g B, then g W^T + gamma q
+    A) against its plain version, dx and q, with fp32 and bf16 operands;
+    two calls equal bit for bit."""
+    lm = lora_matmul
+    _, w, a, b, g = _operands(m, k, n, r, getattr(torch, dtype), seed=r + 1)
+    dx, q = lm.lora_bwd_dx(g, w, a, b, 1.5)
+    dx2, q2 = lm.lora_bwd_dx(g, w, a, b, 1.5)
+    dx_want, q_want = lm.lora_bwd_dx_plain(g, w, a, b, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(q, q2)
+    _assert_close(dx, dx_want)
+    _assert_close(q, q_want)
+    assert lm.launches == _launches(lora_bwd_dx=2)
+
+
 # the rank-fused forward tile (#2, #3, #5, #9): (B, s, k, n, r, ranks of a
 # mixed-rank bank) with m = B s rows; the planned split on a 132-SM card
 FWD_CASES = [
@@ -560,21 +586,29 @@ def test_rglru_scan_equals_plain(card, bt, s, d, dtype):
 @pytest.mark.parametrize("bh,bkv,s,t,d,causal,window", [
     (4, 4, 256, 256, 64, True, None), (4, 2, 256, 256, 128, False, None),
     (2, 1, 512, 512, 256, True, 128), (4, 4, 128, 512, 64, False, None),
-    (3, 1, 100, 70, 80, False, 16), (2, 2, 64, 64, 40, True, 5)])
+    (3, 1, 100, 70, 80, False, 16), (2, 2, 64, 64, 40, True, 5),
+    # the kernel's 64-row query and 64-key tiles: s and t off their
+    # multiples, windows inside one key tile, each head dim's capacity
+    (2, 1, 200, 130, 256, True, 48), (4, 2, 90, 300, 128, False, None),
+    (2, 2, 130, 130, 37, True, None), (8, 1, 512, 512, 256, True, None),
+    (3, 3, 330, 330, 64, True, 33), (2, 1, 64, 500, 256, False, 60)])
 def test_flash_attention_matches_plain(card, bh, bkv, s, t, d, causal,
                                        window, dtype):
     """Tolerances of tests/test_kernels.py: 2e-5 relative (fp32), 3e-2
     (bf16), with an absolute floor five times that.  A bf16 output is held
     to one bf16 step of |plain| (plus 1e-3) as well: both round fp32 values
     that differ in their last bits, and the floor alone would let zeros
-    through where the outputs are small."""
+    through where the outputs are small.  A second call equals the first
+    bit for bit."""
     rng = np.random.default_rng(s + t + d)
     q, k, v = _cuda(rng.standard_normal((bh, s, d)),
                     rng.standard_normal((bkv, t, d)),
                     rng.standard_normal((bkv, t, d)), dtype=dtype)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     tol = 2e-5 if dtype == "float32" else 3e-2
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
@@ -582,7 +616,7 @@ def test_flash_attention_matches_plain(card, bh, bkv, s, t, d, causal,
     if dtype == "bfloat16":
         diff = (got.float() - want.float()).abs()
         assert bool((diff <= 2 ** -7 * want.float().abs() + 1e-3).all())
-    assert fa.launches["flash_attention"] == 1
+    assert fa.launches["flash_attention"] == 2
 
 
 @pytest.mark.cuda

@@ -602,3 +602,31 @@ def test_lora_bwd_dx_quant_launches_with_its_plan_and_scratch(monkeypatch, m,
         assert args[6] is None
     assert lora_matmul.launches == dict(NO_LORA_LAUNCHES,
                                         lora_bwd_dx_quant=1)
+
+
+@pytest.mark.parametrize("m,k,n,r", [(512, 2048, 2048, 64),
+                                     (512, 2048, 256, 64), (50, 70, 30, 3)])
+def test_lora_bwd_dx_launches_with_its_plan_and_scratch(monkeypatch, m, k, n,
+                                                        r):
+    """#6 hands its entry point dx_rank_plan's split (ksplit_p, kchunk_p,
+    ksplit, kchunk right after m, k, n, r), a q buffer of (m, r) and a
+    scratch that holds the larger split pass's partials (a null pointer
+    when neither splits), as #10 does over a packed W; then counts one
+    launch."""
+    lib, made = _patch_launch(monkeypatch)
+    _, w, a, b, g = _t(*_operands(m, k, n, r, seed=8))
+    lora_matmul.lora_bwd_dx(g, w, a, b, 1.5)
+    (entry, args), = lib.calls
+    assert entry == "lora_bwd_dx_launch"
+    plan = common.dx_rank_plan(m, k, n, r, 132)
+    assert args[7:15] == (m, k, n, r, *plan)
+    assert args[15] == 1.5 and args[16] == 0
+    assert made[args[4]].shape == (m, r) and made[args[6]].shape == (m, k)
+    ksplit_p, _, ksplit, _ = plan
+    need = max(ksplit_p * m * r if ksplit_p > 1 else 0,
+               ksplit * m * k if ksplit > 1 else 0)
+    if need:
+        assert made[args[5]].numel() >= need
+    else:
+        assert args[5] is None
+    assert lora_matmul.launches == dict(NO_LORA_LAUNCHES, lora_bwd_dx=1)
