@@ -17,6 +17,9 @@ graph replay), fp32 activations:
          gemma-2b's q (k = n = 2048) and v (n = 256); #2 also at
          recurrentgemma-9b's q / wx / wy (k = n = 4096) and v (k = 4096,
          n = 256); #3 over int4 (group 64) and int8;
+  #1, #4 bgmv_gemv / bgmv_gemv_quant at the same shapes in decode (B = 4
+         rows of x, r = 8, adapters gathered): #1 at both models' q and v,
+         #4 at gemma-2b's over int4 (group 64) and int8;
   #5-#8  lora_fwd / lora_bwd_dx / lora_bwd_da / lora_bwd_db at the
          training path's q (m = 512, k = 2048, n = 2048, r = 64) and v
          (n = 256); #7 / #8 on warm inputs, as chip_smoke.time_lora_kernels
@@ -40,12 +43,14 @@ graph replay), fp32 activations:
 W (fp or packed) is rotated over copies that exceed L2 three times, as a
 pass finds it cold.  Each kernel's output is also held against its plain
 version (max abs diff), so a faster build that computes something else
-shows.  For #2, #3, #5, #6, #9-#13 (SPLIT_KERNELS, matched
-by the row's kernel name exactly) the graph is replayed once more under
-torch.profiler, and each call's device time is split by kernel into the
-rank pre-pass, the main kernel ("tile", or #11's packed GEMV, "gemv") and
-the second pass that adds split partials or merges split softmaxes
-(``split``).  The compiler's registers and spills of those kernels
+shows.  For #1-#6, #9-#13 (SPLIT_KERNELS, matched by the row's kernel
+name exactly) the graph is replayed once more under torch.profiler, and
+each call's device time is split by kernel into the rank pre-pass, the
+main kernel ("tile", or the decode GEMV of #1, #4 and #11, "gemv") and
+the second pass that adds split partials (with #1 / #4's rank term) or
+merges split softmaxes (``split_us``; each phase the time that an earlier
+phase's kernels do not already cover, since #1 / #4's pass starts while
+their GEMV runs).  The compiler's registers and spills of those kernels
 (``-Xptxas -v``, from the build log) come with each run (``ptxas``).
 ``--only`` keeps the rows whose name starts with one of the given
 prefixes.  Give the checkouts as A B B A to cancel drift; one JSON line per
@@ -58,25 +63,31 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the wrappers whose calls a run splits by phase: #2, #3, #5, #6, #9-#13 (a
-# row's first word, matched exactly: quant_matmul is a prefix of
-# quant_matmul_dx)
-SPLIT_KERNELS = ("bgmv_matmul", "bgmv_matmul_quant", "lora_fwd",
-                 "lora_bwd_dx", "lora_fwd_quant", "lora_bwd_dx_quant",
-                 "quant_matmul", "quant_matmul_dx", "paged_attention")
-# the kernels whose registers and spills a run reports (mangled names)
+# the wrappers whose calls a run splits by phase: #1-#6, #9-#13 (a row's
+# first word, matched exactly: quant_matmul is a prefix of quant_matmul_dx)
+SPLIT_KERNELS = ("bgmv_gemv", "bgmv_gemv_quant", "bgmv_matmul",
+                 "bgmv_matmul_quant", "lora_fwd", "lora_bwd_dx",
+                 "lora_fwd_quant", "lora_bwd_dx_quant", "quant_matmul",
+                 "quant_matmul_dx", "paged_attention")
+# the kernels whose registers and spills a run reports (mangled names;
+# gemv_kernel is the decode GEMV, qgemv_kernel on checkouts before it took
+# #1 and #4)
 PTXAS_KERNELS = ("paged_attn", "paged_split", "paged_merge", "fwd_kernel",
-                 "tile_kernel", "qgemv_kernel", "flash_kernel")
+                 "tile_kernel", "gemv_kernel", "bgmv_pass_kernel",
+                 "flash_kernel")
 
 
 def _phase(kernel_name: str) -> str:
-    """The phase of a forward call a device kernel belongs to."""
+    """The phase of a forward call a device kernel belongs to (also by the
+    names of older checkouts: shrink_kernel, gemv_partial_kernel and
+    finalize_kernel were #1 / #4's three kernels on older checkouts)."""
     if ("shrink" in kernel_name or "xat" in kernel_name
             or "fwd_kernel<64" in kernel_name):
         return "pre-pass"
-    if "sum" in kernel_name or "merge" in kernel_name:
+    if ("sum" in kernel_name or "merge" in kernel_name
+            or "bgmv_pass" in kernel_name or "finalize" in kernel_name):
         return "second pass"
-    if "qgemv" in kernel_name:
+    if "gemv" in kernel_name:
         return "gemv"
     return "tile"
 
@@ -95,12 +106,28 @@ def _split_us(fn, argsets):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         g.replay()
         torch.cuda.synchronize()
-    out = {}
+    spans = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            ph = _phase(e.name)
-            out[ph] = out.get(ph, 0.0) + e.time_range.elapsed_us()
+            spans.setdefault(_phase(e.name), []).append(
+                (e.time_range.start, e.time_range.end))
+    # each phase's time not already covered by an earlier one: #1 / #4's
+    # pass is launched while their GEMV runs and waits for it
+    out, covered = {}, []
+    for ph in ("pre-pass", "tile", "gemv", "second pass"):
+        if ph in spans:
+            out[ph] = _union(covered + spans[ph]) - _union(covered)
+            covered += spans[ph]
     return {ph: round(us / len(argsets), 2) for ph, us in out.items()}
+
+
+def _union(spans):
+    """The length of the union of (start, end) spans."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        total += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return total
 
 
 def _ptxas(log: Path) -> dict:
@@ -159,9 +186,12 @@ def one(root: Path, only) -> dict:
                               ("recurrentgemma-9b", "v", 4096, 256)):
         x, w, a, b, _ = cs._bank(gen, B, s, k, n, B, (r8,) * B,
                                  torch.float32)
+        x1 = x[:, 0].contiguous()
         ws = [w.clone() for _ in range(copies(w.nbytes))]
         run(f"bgmv_matmul {model} {proj}", bgmv.bgmv_matmul,
             bgmv.bgmv_matmul_plain, [(x, wi, a, b) for wi in ws])
+        run(f"bgmv_gemv {model} {proj}", bgmv.bgmv_gemv,
+            bgmv.bgmv_gemv_plain, [(x1, wi, a, b) for wi in ws])
         del ws
         if model != "gemma-2b":
             continue
@@ -171,6 +201,8 @@ def one(root: Path, only) -> dict:
                    for _ in range(copies(quantize(wf, bits, 64).nbytes))]
             run(f"bgmv_matmul_quant int{bits} {proj}", bgmv.bgmv_matmul_quant,
                 bgmv.bgmv_matmul_quant_plain, [(x, wi, a, b) for wi in wqs])
+            run(f"bgmv_gemv_quant int{bits} {proj}", bgmv.bgmv_gemv_quant,
+                bgmv.bgmv_gemv_quant_plain, [(x1, wi, a, b) for wi in wqs])
             del wqs
     m, k, r = 512, 2048, 64
     for proj, n in (("q", 2048), ("v", 256)):

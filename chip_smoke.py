@@ -11,9 +11,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      the gemma-2b q/v shapes, uniform and mixed-rank banks, decode and
      prefill, #2 also at recurrentgemma-9b's q / wx / wy and v, a ragged
      case, fp32 and bf16; then their times beside the plain version,
-     torch.matmul of the base product and the card's bound (#2 at both
-     models' shapes), with the tiles and split each redesigned kernel (#2,
-     #3, #5, #9) launches with
+     torch.matmul of the base product and the card's bound (#1 and #2 at
+     both models' shapes), with the tiles and split each redesigned kernel
+     (#1, #2, #3, #5, #9) launches with
   4. serving path: repro_torch.launch.serve.generate_banked on gemma-2b at
      full width (fp32, seeded random weights, 4 SFed-LoRA tenants), with
      the kernel launch counts, a teacher-forced check against the plain
@@ -37,7 +37,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      int4 (group 64) gemma-2b projections, #11 at m = 1, 4, 8 (its packed
      GEMV), 9 and 512 (its forward tile) and two ragged shapes; then their
      times beside the plain versions, one PyTorch call each (SDPA for #13)
-     and the card's bound, with the split #13 and #11 launch with
+     and the card's bound, with the split #13, #11 and #4 launch with
   8. scheduled serving path: repro_torch.launch.serve.serve_scheduled on
      gemma-2b at full width over an fp32, an int8 and an int4 base (8
      requests, two waves through 4 slots, one deadline), with the launch
@@ -135,7 +135,7 @@ LOGIT_ATOL = 1e-3              # teacher-forced logits, kernel vs plain tier
 # forward, so the bound is relative and well above fp32 rounding
 TRAIN_RTOL = 1e-3
 CSRC = "src/repro_torch/kernels/csrc/"
-SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
+SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/qgemv.cu",
            "bgmv_matmul": "src/repro_torch/kernels/csrc/bgmv.cu",
            "lora_fwd": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "lora_bwd_dx": "src/repro_torch/kernels/csrc/dense_dx.cu",
@@ -143,7 +143,7 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/bgmv.cu",
            "lora_bwd_db": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "paged_attention": CSRC + "paged_attention.cu",
            "bgmv_matmul_quant": CSRC + "bgmv.cu",
-           "bgmv_gemv_quant": CSRC + "bgmv.cu",
+           "bgmv_gemv_quant": CSRC + "qgemv.cu",
            "quant_matmul": CSRC + "lora_matmul.cu",
            "lora_fwd_quant": CSRC + "lora_matmul.cu",
            "lora_bwd_dx_quant": CSRC + "packed_dx.cu",
@@ -354,6 +354,17 @@ def _qmm_plan_note(m, k, n, bits, group):
             f"{'; fixed-order sum' if ksplit > 1 else ''}]")
 
 
+def _gemv_plan_note(nreq, k, n, col_bytes):
+    """The column blocks and split #1 and #4 launch with on this card: the
+    decode GEMV (kernels/common.py gemv_plan; a W row's column takes
+    col_bytes bytes), then the fixed-order pass."""
+    ksplit, kchunk = common.gemv_plan(nreq, k, n, col_bytes,
+                                      common.num_sms(torch.device("cuda")))
+    cols = common.QGEMV_COLS // col_bytes
+    return (f"[decode GEMV, {-(-n // cols)} blocks of {cols} columns x "
+            f"{ksplit} chunks of {kchunk}; fixed-order pass]")
+
+
 def _dx_rank_plan_note(m, k, n, r):
     """The tiles and the split #6 and #10 launch with on this card
     (kernels/common.py dx_rank_plan)."""
@@ -378,15 +389,17 @@ def time_kernels():
     """Times at the serving path's shapes (fp32, B=4 requests, rank 8,
     per-request adapters gathered: ids=None), W rotated over copies that
     together exceed L2 three times, as a decode step finds W cold: gemma-2b's
-    q and v, and for #2 also recurrentgemma-9b's q / wx / wy (k = n = 4096)
-    and v (k = 4096, n = 256), where its hybrid prefill spends its time."""
+    q and v, and for #1 and #2 also recurrentgemma-9b's q / wx / wy (k = n =
+    4096) and v (k = 4096, n = 256), where its hybrid decode steps and
+    prefill spend their time."""
     phase("kernel times (fp32, B=4, r=8, W cold in L2)")
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
     shapes = [(kern, s, proj, 2048, n)
               for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
               for proj, n in (("q", 2048), ("v", 256))]
-    shapes += [("bgmv_matmul", 128, f"rg9b {proj}", 4096, n)
+    shapes += [(kern, s, f"rg9b {proj}", 4096, n)
+               for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
                for proj, n in (("q", 4096), ("v", 256))]
     for kern, s, proj, k, n in shapes:
         B, r = 4, 8
@@ -415,8 +428,8 @@ def time_kernels():
                    bound_by=bound_by, library_ms=library_ms,
                    eager_ms=eager_ms)
         rows[(kern, proj)] = row
-        note = (" " + _fwd_plan_note(m, n, k, r)
-                if kern == "bgmv_matmul" else "")
+        note = " " + (_fwd_plan_note(m, n, k, r) if kern == "bgmv_matmul"
+                      else _gemv_plan_note(B, k, n, 4))
         print(f"{kern:12s} {proj} x({B},{s},{k}) W({k},{n}) r={r}: "
               f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
               f"torch.matmul (base product only) {library_ms * 1e3:.2f} "
@@ -623,15 +636,29 @@ def where_time_goes(model, params, adapters, prompt, seq, n_steps=4):
                            "prefill" if per == 1 else "step")
 
 
+def _busy_us(events):
+    """Device busy us of ``events``: the union of their intervals.  Kernels
+    overlap where one is a programmatic dependent of the one before (#1 /
+    #4's pass starts while their GEMV runs and waits for it), so a plain
+    sum of durations would count that overlap twice."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
+
+
 def _print_profile(label, wall, events, per, unit):
     """Host wall vs device busy time per ``unit`` (``per`` units in the
-    profiled window) and the kernels that take the device time."""
+    profiled window) and the kernels that take the device time (each
+    kernel's own duration; #1 / #4's pass counts from its early launch)."""
     if not events:
         print(f"{label}: device time not measured (the profiler recorded no "
               "CUDA events)")
         return None
     wall_ms = wall * 1e3 / per
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / per
+    busy_ms = _busy_us(events) / 1e3 / per
     print(f"{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.2f}, "
           f"{len(events) / per:.0f} device events per {unit}")
@@ -645,8 +672,10 @@ def _print_profile(label, wall, events, per, unit):
     # the rank-fused forward tile's three kernels (pre-pass, main tile,
     # fixed-order sums) make up #2, #3, #5, #6, #9-#12 (#11 at m > 8 rows); the
     # main tiles with a by-row packed stager (RowsInt8 / RowsInt4) are #10's
-    # and #12's, those with a by-column one and no rank term #11's; #11's
-    # decode form is its packed GEMV; #13 is its split kernel and merge
+    # and #12's, those with a by-column one and no rank term #11's; the
+    # decode GEMV without the rank term (NoRank) is #11's decode form, with
+    # it (BankRank) and its fixed-order pass #1 and #4; #13 is its split
+    # kernel and merge
     groups = (("rank-fused forward tile (#2, #3, #5, #6, #9-#12: pre-pass, "
                "main tile and sums)",
                lambda name: "fwd_kernel<" in name or "fwd_sum_kernel" in name),
@@ -655,15 +684,18 @@ def _print_profile(label, wall, events, per, unit):
               ("of which #11's main tile (ColsInt8 / ColsInt4, no rank term)",
                lambda name: ("fwd_kernel<" in name and "ColsInt" in name
                              and "NoStage" in name)),
-              ("#11's packed GEMV (its decode form)",
-               lambda name: "qgemv_kernel" in name),
+              ("#11's decode form (decode GEMV, NoRank)",
+               lambda name: "gemv_kernel<" in name and "NoRank" in name),
+              ("#1 and #4 (decode GEMV, BankRank, and its fixed-order pass)",
+               lambda name: (("gemv_kernel<" in name and "BankRank" in name)
+                             or "bgmv_pass_kernel" in name)),
               ("paged attention #13 (split kernel and merge)",
                lambda name: "paged_" in name))
     for label_, match in groups:
-        fam = [(n, us) for name, (n, us) in by_name.items() if match(name)]
+        fam = [e for e in events if match(e.name)]
         if fam:
-            print(f"    {sum(us for _, us in fam) / 1e3 / per:8.3f} ms  "
-                  f"x{sum(n for n, _ in fam) / per:5.1f}  {label_}")
+            print(f"    {_busy_us(fam) / 1e3 / per:8.3f} ms  "
+                  f"x{len(fam) / per:5.1f}  {label_}")
     return busy_ms
 
 
@@ -1252,11 +1284,12 @@ def time_sched_kernels(block_size, ring, dev="cuda"):
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms,
                         eager_ms=eager_ms)
-                    note = (" " + _fwd_plan_note(m, n, k, 8, bits,
-                                                 QUANT_GROUP)
-                            if name == "bgmv_matmul_quant" else
-                            " " + _qmm_plan_note(m, k, n, bits, QUANT_GROUP)
-                            if name == "quant_matmul" else "")
+                    note = " " + (
+                        _fwd_plan_note(m, n, k, 8, bits, QUANT_GROUP)
+                        if name == "bgmv_matmul_quant" else
+                        _qmm_plan_note(m, k, n, bits, QUANT_GROUP)
+                        if name == "quant_matmul" else
+                        _gemv_plan_note(m, k, n, 1))
                     print(f"{name:17s} {mode} {proj:6s} m={m:<3d} k={k} "
                           f"n={n}: kernel {ms * 1e3:.2f} us, plain "
                           f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 "
@@ -1486,7 +1519,7 @@ def sched_path(name, model, params, bank, mode):
         # the same prefill alone: the rest is the 8 decode steps
         _, events = _profiled(lambda: _forced_paged(
             model, base, bank, ids[:4], p_t, toks[:, :1], False))
-        pre = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        pre = _busy_us(events) / 1e3
         if busy is not None and events:
             print(f"scheduled decode ({mode}): device busy "
                   f"{(busy - pre) / 8:.2f} ms a step (prefill + 8 steps "

@@ -37,27 +37,34 @@ design does about it):
   fixed order.
 * ``bgmv_gemv`` replaces ``repro/kernels/bgmv.py:_bgmv_gemv_kernel``.  A
   decode step is bound by the bytes of W (the q projection reads 16.8 MB,
-  about 5 us at 3.35 TB/s).  One block computes a 32-column tile for up
-  to 8 requests, so W is read once per step for a batch of up to 8 (once
-  per 8 requests beyond) instead of once per request as in the TPU grid,
-  and the k range is split over blocks so that enough loads are in
-  flight; a second kernel adds the partial sums in a fixed order.
+  about 5 us at 3.35 TB/s).  It is the decode GEMV of ``csrc/qgemv.cuh``,
+  one body with #4 and #11's decode form: each warp copies 256 bytes of a
+  W row at a time (64 fp32 or 128 bf16 columns) into its own cp.async ring
+  in shared memory, the block holds its chunk of the rows of x there as
+  fp32, and W is read once per call for up to 8 requests (once per 8
+  beyond) instead of once per request as in the TPU grid.  k splits over
+  blocks by ``common.gemv_plan`` (shapes and SM count only) so that the
+  blocks fill the card.
 * ``bgmv_matmul_quant`` and ``bgmv_gemv_quant`` replace
   ``_bgmv_kernel_q`` and ``_bgmv_gemv_kernel_q``: the two kernels above
-  with the W-tile load replaced by a dequantizing load (one template body
-  per kernel, instantiated for an fp, an int8 and an int4 W loader).  They
-  move 4x (int8) or 8x (int4) fewer W bytes than fp32, which is what bounds
-  the decode form.  The prefill form decodes one 32-bit word per load: 4
-  int8 columns (their scales loaded once per tile) or 4 int4 columns of two
-  rows (one scale row per 16-row slab).  Each W element is formed as
-  ``dequantize`` forms it (one fp32 product, rounded to bf16 for a base
-  packed from bf16 weights), so kernel and plain version differ only in the
-  order of their sums.
+  over a packed W.  They move 4x (int8) or 8x (int4) fewer W bytes than
+  fp32, which is what bounds the decode form.  The prefill form decodes
+  one 32-bit word per load: 4 int8 columns (their scales loaded once per
+  tile) or 4 int4 columns of two rows (one scale row per 16-row slab); the
+  decode form two words of a row a lane, 8 columns (int4: of two rows),
+  their scales loaded once per block or scale group.  Each W element is
+  formed as ``dequantize`` forms it (one fp32 product, rounded to bf16 for
+  a base packed from bf16 weights), so kernel and plain version differ
+  only in the order of their sums.
 * All: the TPU kernel carries p = x A^T in VMEM across its sequential
-  grid.  GPU blocks run in no order, so a pre-pass writes p to an fp32
-  scratch (rank <= 512, small) that the main kernel reads: the tiled
-  pre-pass of the forward tile in the prefill forms, one warp per (row, j)
-  in the decode forms (4 rows).
+  grid.  GPU blocks run in no order: in the prefill forms the forward
+  tile's tiled pre-pass writes p to an fp32 scratch that the main kernel
+  reads; in the decode forms rank blocks of the GEMV's grid, beside its
+  column blocks, form each k-chunk's partial p from the x they stage (four
+  (row, j) pairs a warp) while the column blocks form the chunk's partial
+  x W, and a second kernel, launched to start while the GEMV runs, adds
+  both over the chunks in a fixed order and then p B^T: two launches a
+  call.
 
 Each wrapper call adds one to its entry of :data:`launches` (the pre-pass
 and the second pass included), and nowhere else.  The kernels have no
@@ -70,7 +77,7 @@ import torch
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels.common import (DTYPES, check_packed, forward_only,
-                                        fwd_plan, fwd_scratch, gemv_split,
+                                        fwd_plan, fwd_scratch, gemv_plan,
                                         num_sms, ptr, raise_on, route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
@@ -195,6 +202,14 @@ def bgmv_matmul(x, w, a, b, ids=None):
     return out
 
 
+def _gemv_buffers(nreq, n, r, ksplit, device):
+    """The decode forms' scratches, the k-chunks' partials of p = x A^T
+    (ksplit, nreq, r) and of x W (ksplit, nreq, n), and their output."""
+    return (torch.empty(ksplit, nreq, r, dtype=torch.float32, device=device),
+            torch.empty(ksplit, nreq, n, dtype=torch.float32, device=device),
+            torch.empty(nreq, n, dtype=torch.float32, device=device))
+
+
 def bgmv_gemv(x, w, a, b, ids=None):
     """Single-token form: x (B, k) -> (B, n) fp32."""
     if not route(x, "bgmv"):
@@ -204,11 +219,9 @@ def bgmv_gemv(x, w, a, b, ids=None):
     nreq, k = x.shape
     ids_ptr = _check(x, w, a, b, ids, nreq)
     n, r = w.shape[1], a.shape[1]
-    ksplit, kchunk = gemv_split(nreq, k, n, num_sms(x.device))
-    p = torch.empty(nreq, r, dtype=torch.float32, device=x.device)
-    partial = torch.empty(ksplit, nreq, n, dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty(nreq, n, dtype=torch.float32, device=x.device)
+    ksplit, kchunk = gemv_plan(nreq, k, n, w.element_size(),
+                               num_sms(x.device))
+    p, partial, out = _gemv_buffers(nreq, n, r, ksplit, x.device)
     err = load().bgmv_gemv_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), ids_ptr,
         p.data_ptr(), partial.data_ptr(), out.data_ptr(), nreq, k, n, r,
@@ -257,11 +270,8 @@ def bgmv_gemv_quant(x, wq, a, b, ids=None):
     nreq, k = x.shape
     ids_ptr = _check(x, wq, a, b, ids, nreq)
     n, r = wq.shape[1], a.shape[1]
-    ksplit, kchunk = gemv_split(nreq, k, n, num_sms(x.device))
-    p = torch.empty(nreq, r, dtype=torch.float32, device=x.device)
-    partial = torch.empty(ksplit, nreq, n, dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty(nreq, n, dtype=torch.float32, device=x.device)
+    ksplit, kchunk = gemv_plan(nreq, k, n, 1, num_sms(x.device))
+    p, partial, out = _gemv_buffers(nreq, n, r, ksplit, x.device)
     err = load().bgmv_gemv_quant_launch(
         x.data_ptr(), *_quant_args(wq), a.data_ptr(), b.data_ptr(), ids_ptr,
         p.data_ptr(), partial.data_ptr(), out.data_ptr(), nreq, k, n, r,

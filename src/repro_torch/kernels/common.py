@@ -6,10 +6,8 @@ split a contraction or a table over blocks, each from the shapes and the
 SM count alone (so a wrapper asks nothing of the device and stays
 capture-safe):
 
-* ``gemv_split``: the k split of the split-k GEMV body (``csrc/gemv.cuh``)
-  of #1 and #4;
-* ``qgemv_split``: the k split of #11's packed GEMV, its decode form
-  (``csrc/qgemv.cu``);
+* ``qgemv_split`` and ``gemv_plan``: the k split of the decode GEMV
+  (``csrc/qgemv.cu``) in #11's decode form and in #1 / #4;
 * ``fwd_split`` / ``fwd_plan``: the splits of the rank-fused forward tile
   (``csrc/fwd_tile.cuh``) of #2, #3, #5 and #9, its pre-pass and main
   pass; ``qmm_plan``, its main pass with no rank term for #11 at m > 8;
@@ -26,10 +24,6 @@ import torch
 
 # dtype codes of the C entry points: 0 = float32, 1 = bfloat16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/gemv.cuh kGvCols, kGvWarps, kGvMaxB: columns, warps and rows of x
-# per block
-GEMV_COLS, GEMV_WARPS, GEMV_MAX_ROWS = 32, 8, 8
-
 # csrc/fwd_tile.cuh: output rows per block, contraction rows per slab,
 # output columns per block of the main pass and of the rank pre-pass
 FWD_ROWS, FWD_SLAB, FWD_COLS, FWD_PRE_COLS = 128, 16, 128, 64
@@ -37,14 +31,19 @@ FWD_ROWS, FWD_SLAB, FWD_COLS, FWD_PRE_COLS = 128, 16, 128, 64
 # spend more of their time filling the 3-stage ring than in it
 FWD_MIN_SLABS = 4
 
-# csrc/qgemv.cuh: the most rows of x #11's packed GEMV takes (more take
-# the forward tile), the columns a block covers (8 warps over 32 lanes x 8
-# columns), and the bounds of a chunk of k: at least QGEMV_MIN_CHUNK rows,
-# so that each of the block's 8 warps walks enough rows to keep its loads in
-# flight; at most QGEMV_MAX_CHUNK (kQgMaxChunk), the rows of x a block
-# stages in shared memory
+# csrc/qgemv.cuh: the most rows of x a block of the decode GEMV takes (#11
+# takes the forward tile beyond; #1 / #4 run groups of that many), the
+# columns of a packed W a block covers (8 warps over 32 lanes x 8 bytes of
+# a row; a dense row's column takes 2 or 4 of those bytes), and the bounds
+# of a chunk of k: at least QGEMV_MIN_CHUNK rows, so that each of the
+# block's 8 warps walks enough rows to keep its loads in flight; at most
+# QGEMV_MAX_CHUNK (kQgMaxChunk), the rows of x a block stages in shared
+# memory
 QGEMV_MAX_ROWS, QGEMV_COLS = 8, 256
 QGEMV_MIN_CHUNK, QGEMV_MAX_CHUNK = 128, 1024
+# #1 / #4 with a single column block (a packed W of n <= 256): chunks down
+# to 32 rows, more blocks at the cost of a longer fixed-order pass
+GEMV_NARROW_CHUNK = 32
 
 _sm_counts = {}
 
@@ -101,33 +100,52 @@ def check_packed(wq, name: str):
             int(wq.out_dtype == "bfloat16"))
 
 
-def gemv_split(nreq: int, k: int, n: int, num_sms: int):
-    """(ksplit, kchunk) for the GEMV body: split k so that about four
-    blocks per SM are in flight, with at least one row per warp."""
-    tiles = -(-n // GEMV_COLS) * -(-nreq // GEMV_MAX_ROWS)
-    want = -(-4 * num_sms // tiles)
-    ksplit = max(1, min(want, -(-k // GEMV_WARPS), 65535))
-    kchunk = -(-k // ksplit)
-    return -(-k // kchunk), kchunk
-
-
-def qgemv_split(k: int, n: int, num_sms: int):
-    """(ksplit, kchunk) of #11's packed GEMV (m <= 8 rows of x, a packed W
-    of logical shape (k, n)): blocks of QGEMV_COLS columns, k split into
-    the longest power-of-two chunks (QGEMV_MIN_CHUNK to QGEMV_MAX_CHUNK
-    rows) that still give every SM a block, or one chunk of k rounded up to
-    a 16-row slab where k is shorter.  A power of two divides k at the
-    paths' shapes, so no chunk is a short tail; the chunks cover k exactly,
-    none empty.  ksplit 1 writes y directly, more go through the
-    fixed-order sum of the partials.  On an H100 (132 SMs): gemma-2b's k
-    and o 16 chunks of 128, w_up 4 of 512, w_down 32 of 512."""
-    blocks = -(-n // QGEMV_COLS)
+def _gemv_chunks(k: int, blocks: int, num_sms: int,
+                 min_chunk: int = QGEMV_MIN_CHUNK):
+    """(ksplit, kchunk): k split into the longest power-of-two chunks
+    (``min_chunk`` to QGEMV_MAX_CHUNK rows) that still give every SM a
+    block, ``blocks`` blocks a chunk, or one chunk of k rounded up to a
+    16-row slab where k is shorter."""
     most = -(-k // -(-num_sms // blocks))   # the longest chunk filling the SMs
-    chunk = QGEMV_MIN_CHUNK
+    chunk = min_chunk
     while chunk * 2 <= min(most, QGEMV_MAX_CHUNK):
         chunk *= 2
     chunk = min(chunk, -(-k // 16) * 16)
     return -(-k // chunk), chunk
+
+
+def qgemv_split(k: int, n: int, num_sms: int):
+    """(ksplit, kchunk) of #11's packed GEMV (m <= 8 rows of x, a packed W
+    of logical shape (k, n)): blocks of QGEMV_COLS columns, k split by
+    :func:`_gemv_chunks`.  A power of two divides k at the paths' shapes,
+    so no chunk is a short tail; the chunks cover k exactly, none empty.
+    ksplit 1 writes y directly, more go through the fixed-order sum of the
+    partials.  On an H100 (132 SMs): gemma-2b's k and o 16 chunks of 128,
+    w_up 4 of 512, w_down 32 of 512."""
+    return _gemv_chunks(k, -(-n // QGEMV_COLS), num_sms)
+
+
+def gemv_plan(nreq: int, k: int, n: int, col_bytes: int, num_sms: int):
+    """(ksplit, kchunk) of #1 and #4 on the decode GEMV: nreq rows of x in
+    groups of QGEMV_MAX_ROWS, a W of logical shape (k, n) whose columns take
+    ``col_bytes`` bytes of a row (1 packed, int8 or int4; 2 bf16; 4 fp32),
+    so blocks of QGEMV_COLS / col_bytes columns; k split by
+    :func:`_gemv_chunks` over the blocks of all groups so that each SM gets
+    two column blocks (one for #11's plan), where the chunks' length
+    allows, and down to GEMV_NARROW_CHUNK rows where one column block is
+    all there is.  From the shapes and the SM count alone, so the wrappers
+    stay capture-safe.  The fixed-order pass that adds the chunks runs
+    whatever ksplit is: it also adds the rank term.  On an H100 (132 SMs),
+    m = 4: fp32 q (k = n = 2048) and v (n = 256) 16 chunks of 128 (32 and
+    4 column blocks), recurrentgemma-9b's q (k = n = 4096) 8 of 512; packed
+    q 16 of 128 (8 column blocks), packed v 64 of 32 (1).  Two blocks an SM
+    ran recurrentgemma-9b's q 4 us faster than one; 32-row chunks ran the
+    packed v 0.1-0.6 us faster than 128-row ones, fp32 v (4 column blocks)
+    1.4 us slower (PERF.md)."""
+    blocks = (-(-n // (QGEMV_COLS // col_bytes))
+              * -(-nreq // QGEMV_MAX_ROWS))
+    return _gemv_chunks(k, blocks, 2 * num_sms,
+                        GEMV_NARROW_CHUNK if blocks == 1 else QGEMV_MIN_CHUNK)
 
 
 def fwd_split(m: int, n: int, k: int, r: int, cols: int, num_sms: int,

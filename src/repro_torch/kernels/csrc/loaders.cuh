@@ -1,8 +1,7 @@
 // Element loaders, decode and copy helpers shared by the kernels of
 // bgmv.cu, lora_matmul.cu, packed_dx.cu, qgemv.cu and flash_attention.cu.
 //
-// A W loader returns W[row, col] of a logical (k, n) weight as fp32, from
-//   DenseW  a row-major fp32 or bf16 matrix;
+// A packed W loader reads W[row, col] of a logical (k, n) weight from
 //   Int8W   int8 data (k, n) and per-channel fp32 scales (1, n);
 //   Int4W   uint8 data (kq / 2, n), two rows per byte (row 2i in the low
 //           nibble, row 2i + 1 in the high nibble, 4-bit two's complement),
@@ -14,13 +13,14 @@
 // forms, and with kBf16 (a base packed from bf16 weights) round it to bf16
 // and back, as dequantize's cast to the weights' dtype does; so a kernel
 // over a packed W and its plain version (x @ dequantize(W)) differ only in
-// the order of their sums.  A packed loader also splits the element in two,
-// fetch (the loads: the raw byte and its scale) and cvt (the integer and
-// fp32 arithmetic on them), so that a tile can keep a slab's loads in
-// flight while it computes on the one before.  A loader reads only what it
-// is asked for: callers mask rows >= k and cols >= n.  The weights are
-// read-only for a kernel's lifetime, so loads go through the read-only data
-// cache (__ldg).
+// the order of their sums.  A loader splits the element in two, fetch (the
+// loads: the raw byte and its scale) and cvt (the integer and fp32
+// arithmetic on them), so that a tile can keep a slab's loads in flight
+// while it computes on the one before (fwd_tile.cuh's stagers).  A loader
+// reads only what it is asked for: callers mask rows >= k and cols >= n.
+// The weights are read-only for a kernel's lifetime, so loads go through
+// the read-only data cache (__ldg).  The decode GEMV (qgemv.cu) reads
+// packed rows a word at a time instead (s8_float / s4_float below).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,15 +35,6 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-
-template <typename T>
-struct DenseW {
-  const T* w;
-  int n;
-  __device__ __forceinline__ float operator()(int row, int col) const {
-    return to_f(__ldg(w + static_cast<size_t>(row) * n + col));
-  }
-};
 
 // The dequantized element: the fp32 product, or (kBf16) that product
 // rounded to the nearest bf16, ties to even, as Tensor.to(torch.bfloat16).
@@ -68,9 +59,6 @@ struct Int8W {
   static __device__ __forceinline__ float cvt(Raw e) {
     return dequant<kBf16>(static_cast<float>(e.q), e.s);
   }
-  __device__ __forceinline__ float operator()(int row, int col) const {
-    return cvt(fetch(row, col));
-  }
 };
 
 template <bool kBf16>
@@ -93,19 +81,6 @@ struct Int4W {
     int v = (e.byte >> e.shift) & 0xF;
     v -= 2 * (v & 8);  // sign-extend the nibble
     return dequant<kBf16>(static_cast<float>(v), e.s);
-  }
-  // The same element in one step, for the GEMV body (gemv.cuh, #4).  Not
-  // cvt(fetch()): with it that body took 26.7 / 132.5 us at int4 q / w_up,
-  // m = 4, against 18.5 / 122 this way, while cvt with this select instead
-  // of the shift slowed the tiles 5-11% (on an H100, when #11 ran on both;
-  // PERF.md).
-  __device__ __forceinline__ float operator()(int row, int col) const {
-    const int byte = __ldg(d + static_cast<size_t>(row >> 1) * n + col);
-    int v = (row & 1) ? (byte >> 4) : (byte & 0xF);
-    v -= 2 * (v & 8);  // sign-extend the nibble
-    return dequant<kBf16>(
-        static_cast<float>(v),
-        __ldg(s + static_cast<size_t>(row >> group_shift) * n + col));
   }
 };
 
@@ -187,27 +162,6 @@ inline int log2_group(int group) {
   int shift = 0;
   while ((1 << shift) < group) ++shift;
   return shift;
-}
-
-// Host side: build the loader for a packed W (wd, ws, n columns; bits 8 or
-// 4, the int4 group size, bf16w = round to bf16) and return f(loader), or
-// cudaErrorInvalidValue for any other bits, so that a kernel over a loader
-// (#4's GEMV) is instantiated for all four.  The forward tile's stagers
-// wrap the same loaders (fwd_tile.cuh with_packed_cols / _rows).
-template <typename F>
-int with_packed_w(const void* wd, const float* ws, int n, int bits, int group,
-                  int bf16w, F&& f) {
-  if (bits == 8) {
-    const int8_t* d = static_cast<const int8_t*>(wd);
-    return bf16w ? f(Int8W<true>{d, ws, n}) : f(Int8W<false>{d, ws, n});
-  }
-  if (bits == 4) {
-    const uint8_t* d = static_cast<const uint8_t*>(wd);
-    const int shift = log2_group(group);
-    return bf16w ? f(Int4W<true>{d, ws, n, shift})
-                 : f(Int4W<false>{d, ws, n, shift});
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace repro_kernels

@@ -45,10 +45,10 @@
 // read by column (ColsDense, ColsInt8 / ColsInt4: a packed W decoded one
 // 32-bit word at a time).  What bounds them and what the design does about
 // it is set out there.  #11 (no rank term) replaced a 64 x 64 tile that
-// ran at 2.7x torch.matmul.  #11's decode form (m <= 8 rows) is the packed
+// ran at 2.7x torch.matmul.  #11's decode form (m <= 8 rows) is the decode
 // GEMV of qgemv.cu (16-byte loads of W into a per-warp ring, word-wide
-// decode, x in shared memory), which replaced a split-k GEMV at 21x its
-// byte bound.  #7 and #8 are one older
+// decode, x in shared memory; shared with #1 / #4 of bgmv.cu), which
+// replaced a split-k GEMV at 21x its byte bound.  #7 and #8 are one older
 // tiled kernel (tile_kernel, 64 x 64 outputs) over element views of dense
 // fp32 / bf16 matrices stored along or across the contraction, their m loop
 // split over blocks.  Ragged edges are masked in the kernels: no shape

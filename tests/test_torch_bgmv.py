@@ -16,6 +16,7 @@ from repro_torch.kernels import bgmv, common, dispatch       # noqa: E402
 TOL = dict(rtol=2e-5, atol=2e-5)     # the JAX BGMV tests' own bound
 NO_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
                "bgmv_gemv_quant": 0}
+SMS = 132                            # an H100's SMs, for the host plans
 
 
 @pytest.fixture(autouse=True)
@@ -209,16 +210,141 @@ def test_wrapper_checks_accept_good_operands():
     assert bgmv._check(x, w, a, b, ids.contiguous(), 3) == ids.data_ptr()
 
 
-@pytest.mark.parametrize("nreq,k,n", [(4, 2048, 2048), (4, 2048, 256),
-                                      (3, 70, 50), (20, 8, 1)])
-def test_gemv_split_covers_k(nreq, k, n):
-    ksplit, kchunk = bgmv.gemv_split(nreq, k, n, num_sms=132)
-    assert ksplit >= 1 and ksplit * kchunk >= k > (ksplit - 1) * kchunk
+# The decode GEMV's plan (common.gemv_plan), which #1 and #4 launch with:
+# (nreq, k, n, bytes a column takes in a W row).  The paths' q and v over
+# fp32, bf16 and packed W at m = 4, recurrentgemma-9b's q / wx / wy and v,
+# odd n, k below a slab, and more rows of x than a block takes.
+GEMV_PLAN_SHAPES = [(4, 2048, 2048, 4), (4, 2048, 256, 4),
+                    (4, 2048, 2048, 2), (4, 2048, 256, 1),
+                    (4, 2048, 2048, 1), (4, 4096, 4096, 4),
+                    (4, 4096, 256, 4), (3, 70, 51, 4), (5, 99, 33, 1),
+                    (2, 8, 40, 2), (1, 1, 1, 4), (11, 2048, 2048, 1),
+                    (40, 4096, 256, 4)]
+
+
+@pytest.mark.parametrize("nreq,k,n,col_bytes", GEMV_PLAN_SHAPES)
+def test_gemv_plan_covers_k_from_the_shapes_alone(nreq, k, n, col_bytes):
+    """Chunks of whole 16-row slabs, no longer than the rows of x a block
+    stages, cover k exactly with none empty; the plan reads only the
+    shapes and the SM count, and a bigger card never splits less."""
+    import inspect
+    assert list(inspect.signature(common.gemv_plan).parameters) == [
+        "nreq", "k", "n", "col_bytes", "num_sms"]
+    ksplit, kchunk = common.gemv_plan(nreq, k, n, col_bytes, SMS)
+    assert (ksplit, kchunk) == common.gemv_plan(nreq, k, n, col_bytes, SMS)
+    assert kchunk % 16 == 0 and kchunk <= common.QGEMV_MAX_CHUNK
+    assert (ksplit - 1) * kchunk < k <= ksplit * kchunk
+    assert common.gemv_plan(nreq, k, n, col_bytes, 2 * SMS)[0] >= ksplit
+
+
+def test_gemv_plan_at_the_path_shapes():
+    """On a 132-SM card at m = 4: gemma-2b's q and v 16 chunks of 128 rows
+    (a dense format's narrower column blocks, 64 fp32 or 128 bf16 columns
+    against 256 packed, leave that at the 128-row floor) except a packed v,
+    one column block, 64 of 32; recurrentgemma-9b's q 8 of 512 (64 column
+    blocks, two an SM)."""
+    want = {(2048, 2048, 4): (16, 128), (2048, 2048, 2): (16, 128),
+            (2048, 2048, 1): (16, 128), (2048, 256, 4): (16, 128),
+            (2048, 256, 2): (16, 128), (2048, 256, 1): (64, 32),
+            (4096, 4096, 4): (8, 512), (4096, 256, 4): (32, 128)}
+    for (k, n, cb), plan in want.items():
+        assert common.gemv_plan(4, k, n, cb, SMS) == plan
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records each entry point's
+    arguments and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+def _patch_launch(monkeypatch):
+    """A recording kernel library on a 132-SM card, and a record of every
+    tensor bgmv allocates (by data pointer)."""
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(bgmv, "route", lambda t, _name: True)
+    monkeypatch.setattr(bgmv, "num_sms", lambda device: SMS)
+    monkeypatch.setattr(bgmv, "stream", lambda t: None)
+    made = {}
+    real_empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        made[t.data_ptr()] = t
+        return t
+    monkeypatch.setattr(bgmv.torch, "empty", recording_empty)
+    return lib, made
+
+
+GEMV_LAUNCH_SHAPES = [(4, 2048, 2048, 8), (4, 2048, 256, 8),
+                      (11, 70, 50, 3), (1, 8, 33, 1)]
+
+
+def _assert_gemv_buffers(made, args, nreq, n, r, ksplit, out):
+    """p (ksplit, nreq, r), partial (ksplit, nreq, n) and the returned out
+    (nreq, n), all fp32, at args' p, partial and out pointers."""
+    p, partial, y = (made[a] for a in args)
+    assert p.shape == (ksplit, nreq, r) and partial.shape == (ksplit, nreq, n)
+    assert y is out and y.shape == (nreq, n)
+    assert {t.dtype for t in (p, partial, y)} == {torch.float32}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nreq,k,n,r", GEMV_LAUNCH_SHAPES)
+def test_bgmv_gemv_launches_with_its_plan_and_scratch(monkeypatch, nreq, k,
+                                                      n, r, dtype):
+    """#1 hands its entry point gemv_plan's split for its W's column width
+    (ksplit, kchunk right after nreq, k, n, r), the rank and base partial
+    scratches and the output; then counts one launch."""
+    lib, made = _patch_launch(monkeypatch)
+    x, w, a, b, ids = _operands(nreq, 1, k, n, 3, r, seed=nreq)
+    x, w, a, b = (t.to(dtype) for t in _t(x[:, 0], w, a, b))
+    out = bgmv.bgmv_gemv(x, w, a, b, torch.from_numpy(ids))
+    (entry, args), = lib.calls
+    assert entry == "bgmv_gemv_launch"
+    plan = common.gemv_plan(nreq, k, n, 4 if dtype == torch.float32 else 2,
+                            SMS)
+    assert args[8:14] == (nreq, k, n, r, *plan)
+    assert args[14] == common.DTYPES[dtype]
+    _assert_gemv_buffers(made, args[5:8], nreq, n, r, plan[0], out)
+    assert bgmv.launches == dict(NO_LAUNCHES, bgmv_gemv=1)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("nreq,k,n,r", GEMV_LAUNCH_SHAPES)
+def test_bgmv_gemv_quant_launches_with_its_plan_and_scratch(monkeypatch,
+                                                            nreq, k, n, r,
+                                                            bits):
+    """#4 hands its entry point gemv_plan's split for a packed W (one byte
+    a column), the rank and base partial scratches, the output and the
+    packing (bits, group, bf16 rounding); then counts one launch."""
+    from repro_torch.core.quant import quantize
+    lib, made = _patch_launch(monkeypatch)
+    x, w, a, b, _ = _operands(nreq, 1, k, n, nreq, r, seed=nreq + bits)
+    wq = quantize(torch.from_numpy(w), bits, 64)
+    xt, at, bt = _t(x[:, 0], a, b)
+    out = bgmv.bgmv_gemv_quant(xt, wq, at, bt)
+    (entry, args), = lib.calls
+    assert entry == "bgmv_gemv_quant_launch"
+    plan = common.gemv_plan(nreq, k, n, 1, SMS)
+    assert args[5] is None                     # ids=None: no pointer
+    assert args[9:15] == (nreq, k, n, r, *plan)
+    assert args[15:19] == (bits, 0 if bits == 8 else 64, 0, 0)
+    _assert_gemv_buffers(made, args[6:9], nreq, n, r, plan[0], out)
+    assert bgmv.launches == dict(NO_LAUNCHES, bgmv_gemv_quant=1)
 
 
 # The rank-fused forward tile's split plan (common.fwd_split / fwd_plan),
 # which #2, #3, #5 and #9 launch with: (m, n, k, r) of each pass.
-SMS = 132
 PATH_SHAPES = [
     (512, 2048, 2048, 8),     # #2 gemma-2b q (4 x 128 prefill rows)
     (512, 256, 2048, 8),      # #2 gemma-2b v

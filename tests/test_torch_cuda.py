@@ -454,6 +454,80 @@ def test_fwd_tile_kernels_match_plain_and_repeat(card, B, s, k, n, r, ranks,
     assert lora_matmul.launches == _launches(lora_fwd=2, lora_fwd_quant=4)
 
 
+# #1 / #4 on the decode GEMV: (k, n, r) of the paths' v and q, and a
+# ragged shape (odd n, k no multiple of a slab); rows of x from one to past
+# a block's 8 (two groups)
+GEMV_SHAPES = [(2048, 256, 8), (2048, 2048, 8), (70, 50, 3)]
+GEMV_ROWS = [1, 3, 4, 8, 11]
+# (bits, weights the base was packed from)
+GEMV_PACKINGS = [(8, "float32"), (4, "float32"), (8, "bfloat16"),
+                 (4, "bfloat16")]
+
+
+def _gemv_bank(nreq, k, n, r, dt, seed):
+    """x (nreq, k) and a bank of nreq + 2 adapters A, B of ``dt``; the ids
+    a shuffled draw over the bank, and the bank gathered per request (for
+    ids=None)."""
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda().to(dt)
+    x = arr(nreq, k)
+    a, b = arr(nreq + 2, r, k, scale=0.05), arr(nreq + 2, n, r, scale=0.05)
+    ids = torch.from_numpy(rng.permutation(nreq + 2)[:nreq].astype(
+        np.int32)).cuda()
+    gathered = (a.index_select(0, ids.long()).contiguous(),
+                b.index_select(0, ids.long()).contiguous())
+    return x, (a, b, ids), (*gathered, None)
+
+
+def _gemv_checks(kfn, pfn, x, w, banks):
+    """kfn against pfn with bank ids and with ids=None, each called twice
+    with results equal bit for bit."""
+    for a, b, ids in banks:
+        got, again = kfn(x, w, a, b, ids), kfn(x, w, a, b, ids)
+        want = pfn(x, w, a, b, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n,r", GEMV_SHAPES)
+@pytest.mark.parametrize("nreq", GEMV_ROWS)
+def test_bgmv_gemv_matches_plain_and_repeats(card, nreq, k, n, r, dtype):
+    """#1 over a dense W of x's type, fp32 and bf16, against its plain
+    version with shuffled bank ids and ids=None; 1 to 11 rows of x."""
+    dt = getattr(torch, dtype)
+    x, bank, gathered = _gemv_bank(nreq, k, n, r, dt, nreq + k + n)
+    w = (torch.randn(k, n, device="cuda") * k ** -0.5).to(dt)
+    _gemv_checks(bgmv.bgmv_gemv, bgmv.bgmv_gemv_plain, x, w,
+                 (bank, gathered))
+    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 4,
+                             "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,wdtype", GEMV_PACKINGS)
+@pytest.mark.parametrize("k,n,r", GEMV_SHAPES)
+@pytest.mark.parametrize("nreq", GEMV_ROWS)
+def test_bgmv_gemv_quant_matches_plain_and_repeats(card, nreq, k, n, r, bits,
+                                                   wdtype, dtype):
+    """#4 over int8 and int4 (group 64) bases packed from fp32 or bf16
+    weights, with fp32 and bf16 x / A / B, against its plain version with
+    shuffled bank ids and ids=None; 1 to 11 rows of x."""
+    dt = getattr(torch, dtype)
+    x, bank, gathered = _gemv_bank(nreq, k, n, r, dt, nreq + k + bits)
+    wq = _packed(k, n, bits, seed=nreq + n, wdtype=wdtype)
+    _gemv_checks(bgmv.bgmv_gemv_quant, bgmv.bgmv_gemv_quant_plain, x, wq,
+                 (bank, gathered))
+    assert bgmv.launches == {"bgmv_matmul": 0, "bgmv_gemv": 0,
+                             "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 4}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_loss_gradients_over_packed_base_reach_adapters(card, mode):
