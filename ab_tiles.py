@@ -23,7 +23,8 @@ graph replay), fp32 activations:
   #5-#8  lora_fwd / lora_bwd_dx / lora_bwd_da / lora_bwd_db at the
          training path's q (m = 512, k = 2048, n = 2048, r = 64) and v
          (n = 256); #7 / #8 on warm inputs, as chip_smoke.time_lora_kernels
-         does;
+         does, beside one torch.matmul each (``... matmul`` rows, the same
+         on every tree);
   #11    quant_matmul at int4 (group 64) and int8, k, o, w_up and w_down,
          at m = 512 (the forward tile) and m = 4 (the packed GEMV);
   #9, #10 lora_fwd_quant / lora_bwd_dx_quant at q and v, int4 and int8;
@@ -43,15 +44,17 @@ graph replay), fp32 activations:
 W (fp or packed) is rotated over copies that exceed L2 three times, as a
 pass finds it cold.  Each kernel's output is also held against its plain
 version (max abs diff), so a faster build that computes something else
-shows.  For #1-#6, #9-#13 (SPLIT_KERNELS, matched by the row's kernel
-name exactly) the graph is replayed once more under torch.profiler, and
-each call's device time is split by kernel into the rank pre-pass, the
-main kernel ("tile", or the decode GEMV of #1, #4 and #11, "gemv") and
-the second pass that adds split partials (with #1 / #4's rank term) or
-merges split softmaxes (``split_us``; each phase the time that an earlier
-phase's kernels do not already cover, since #1 / #4's pass starts while
-their GEMV runs).  The compiler's registers and spills of those kernels
-(``-Xptxas -v``, from the build log) come with each run (``ptxas``).
+shows.  For #1-#13 (SPLIT_KERNELS, matched by the row's kernel name
+exactly) the graph is replayed once more under torch.profiler, and each
+call's device time is split by kernel into the rank pre-pass, the main
+kernel ("tile", or the decode GEMV of #1, #4 and #11, "gemv") and the
+second pass that adds split partials (with #1 / #4's rank term) or merges
+split softmaxes (``split_us``; each phase the time that an earlier phase's
+kernels do not already cover, since #1 / #4's pass starts while their
+GEMV runs).  #7 / #8 are one kernel since their m split is reduced in a
+cluster: all of a call is "tile".  The compiler's registers and spills of
+those kernels (``-Xptxas -v``, from the build log) come with each run
+(``ptxas``).
 ``--only`` keeps the rows whose name starts with one of the given
 prefixes.  Give the checkouts as A B B A to cancel drift; one JSON line per
 run.
@@ -63,24 +66,27 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the wrappers whose calls a run splits by phase: #1-#6, #9-#13 (a row's
-# first word, matched exactly: quant_matmul is a prefix of quant_matmul_dx)
+# the wrappers whose calls a run splits by phase: #1-#13 (a row's first
+# word, matched exactly: quant_matmul is a prefix of quant_matmul_dx)
 SPLIT_KERNELS = ("bgmv_gemv", "bgmv_gemv_quant", "bgmv_matmul",
                  "bgmv_matmul_quant", "lora_fwd", "lora_bwd_dx",
-                 "lora_fwd_quant", "lora_bwd_dx_quant", "quant_matmul",
-                 "quant_matmul_dx", "paged_attention")
+                 "lora_bwd_da", "lora_bwd_db", "lora_fwd_quant",
+                 "lora_bwd_dx_quant", "quant_matmul", "quant_matmul_dx",
+                 "paged_attention")
 # the kernels whose registers and spills a run reports (mangled names;
 # gemv_kernel is the decode GEMV, qgemv_kernel on checkouts before it took
-# #1 and #4)
+# #1 and #4; lora_grad_kernel is #7 / #8, tile_kernel on checkouts before
+# it)
 PTXAS_KERNELS = ("paged_attn", "paged_split", "paged_merge", "fwd_kernel",
-                 "tile_kernel", "gemv_kernel", "bgmv_pass_kernel",
-                 "flash_kernel")
+                 "tile_kernel", "lora_grad_kernel", "gemv_kernel",
+                 "bgmv_pass_kernel", "flash_kernel")
 
 
 def _phase(kernel_name: str) -> str:
-    """The phase of a forward call a device kernel belongs to (also by the
-    names of older checkouts: shrink_kernel, gemv_partial_kernel and
-    finalize_kernel were #1 / #4's three kernels on older checkouts)."""
+    """The phase of a call a device kernel belongs to (also by the names of
+    older checkouts: shrink_kernel, gemv_partial_kernel and finalize_kernel
+    were #1 / #4's three kernels, tile_kernel and sum_partials_kernel #7 /
+    #8's two)."""
     if ("shrink" in kernel_name or "xat" in kernel_name
             or "fwd_kernel<64" in kernel_name):
         return "pre-pass"
@@ -218,6 +224,12 @@ def one(root: Path, only) -> dict:
             [(q, x, 1.0)] * 8)
         run(f"lora_bwd_db {proj}", lm.lora_bwd_db, lm.lora_bwd_db_plain,
             [(g, p, 1.0)] * 8)
+        if wanted("lora_bwd_da"):
+            us[f"lora_bwd_da {proj} matmul"] = cs._graph_ms(
+                lambda q_, x_: torch.matmul(q_.t(), x_), [(q, x)] * 8) * 1e3
+        if wanted("lora_bwd_db"):
+            us[f"lora_bwd_db {proj} matmul"] = cs._graph_ms(
+                lambda g_, p_: torch.matmul(g_.t(), p_), [(g, p)] * 8) * 1e3
         del ws
     shapes = {"q": (2048, 2048), "v": (2048, 256), "k": (2048, 256),
               "o": (2048, 2048), "w_up": (2048, 16384),

@@ -19,10 +19,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      the kernel launch counts, a teacher-forced check against the plain
      tier on the card, ms/token and a profile
   5. LoRA matmul kernels vs plain: #5-#8 (forward, dx, dA, dB) against
-     their plain versions at the training path's q/v shapes and a ragged
-     one, fp32 and bf16; then their times beside the plain versions, one
-     torch.matmul call each and the card's bound, with the tiles and split
-     #5 and #6 launch with
+     their plain versions at the training path's q/v shapes, bench-4l's
+     widest rank (m 256, k 128, n 128, r 512) and two ragged ones, fp32 and
+     bf16, #7 and #8 also twice, bit for bit; then their times beside the
+     plain versions, one torch.matmul call each and the card's bound, with
+     the tiles and split #5 and #6 launch with, and the clusters of #7 and
+     #8 and how many the card holds at once
   6. training path: repro_torch's FederatedTrainer on gemma-2b at full
      width (fp32, seeded random base, 4 clients, fedsa + sfedlora, rank
      64), 3 rounds and a held-out eval, with the launch counts of #5-#8,
@@ -139,8 +141,8 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/qgemv.cu",
            "bgmv_matmul": "src/repro_torch/kernels/csrc/bgmv.cu",
            "lora_fwd": "src/repro_torch/kernels/csrc/lora_matmul.cu",
            "lora_bwd_dx": "src/repro_torch/kernels/csrc/dense_dx.cu",
-           "lora_bwd_da": "src/repro_torch/kernels/csrc/lora_matmul.cu",
-           "lora_bwd_db": "src/repro_torch/kernels/csrc/lora_matmul.cu",
+           "lora_bwd_da": CSRC + "lora_grads.cu",
+           "lora_bwd_db": CSRC + "lora_grads.cu",
            "paged_attention": CSRC + "paged_attention.cu",
            "bgmv_matmul_quant": CSRC + "bgmv.cu",
            "bgmv_gemv_quant": CSRC + "qgemv.cu",
@@ -374,6 +376,20 @@ def _dx_rank_plan_note(m, k, n, r):
     return (f"[q pre-pass {rows}x{pre} tiles x {ksplit_p} chunks of "
             f"{kchunk_p}; main {rows}x{cols} tiles x {ksplit} chunks of "
             f"{kchunk}]")
+
+
+def _reduce_plan_note(m, ni, nj):
+    """The tiles, clusters and chunks #7 / #8 launch with on this card
+    (kernels/common.py reduce_plan), and how many such clusters the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    c, chunk = common.reduce_plan(m, ni, nj,
+                                  common.num_sms(torch.device("cuda")))
+    tile = common.REDUCE_TILE
+    tiles = -(-ni // tile) * -(-nj // tile)
+    held = build.load().lora_grads_max_clusters(c)
+    return (f"[{tiles} tiles of {tile}x{tile} x clusters of {c} CTAs, "
+            f"chunks of {chunk} rows; the card holds {held} such clusters "
+            "at once]")
 
 
 def _paged_plan_note(b, kh, mb):
@@ -674,8 +690,8 @@ def _print_profile(label, wall, events, per, unit):
     # main tiles with a by-row packed stager (RowsInt8 / RowsInt4) are #10's
     # and #12's, those with a by-column one and no rank term #11's; the
     # decode GEMV without the rank term (NoRank) is #11's decode form, with
-    # it (BankRank) and its fixed-order pass #1 and #4; #13 is its split
-    # kernel and merge
+    # it (BankRank) and its fixed-order pass #1 and #4; #7 and #8 are the
+    # cluster-reduced gradient kernel; #13 is its split kernel and merge
     groups = (("rank-fused forward tile (#2, #3, #5, #6, #9-#12: pre-pass, "
                "main tile and sums)",
                lambda name: "fwd_kernel<" in name or "fwd_sum_kernel" in name),
@@ -689,6 +705,8 @@ def _print_profile(label, wall, events, per, unit):
               ("#1 and #4 (decode GEMV, BankRank, and its fixed-order pass)",
                lambda name: (("gemv_kernel<" in name and "BankRank" in name)
                              or "bgmv_pass_kernel" in name)),
+              ("#7 and #8 (the cluster-reduced gradient kernel)",
+               lambda name: "lora_grad_kernel<" in name),
               ("paged attention #13 (split kernel and merge)",
                lambda name: "paged_" in name))
     for label_, match in groups:
@@ -740,9 +758,11 @@ def _lora_calls(x, w, a, b, g, gamma):
 
 def check_lora_kernels():
     phase("LoRA matmul kernels #5-#8 vs plain (tolerance: |kernel - plain| "
-          f"<= {KERNEL_RTOL} * max(1, max|plain|))")
+          f"<= {KERNEL_RTOL} * max(1, max|plain|)); #7 and #8 also twice, "
+          "bit for bit")
     gen = torch.Generator("cuda").manual_seed(3)
     cases = [("q", 512, 2048, 2048, 64), ("v", 512, 2048, 256, 64),
+             ("bench-4l", 256, 128, 128, 512),
              ("ragged", 50, 70, 30, 3), ("ragged r=1", 33, 65, 17, 1)]
     worst = {k: 0.0 for k in LORA_KERNELS}
     for label, m, k, n, r in cases:
@@ -750,6 +770,12 @@ def check_lora_kernels():
             calls = _lora_calls(*_lora_operands(gen, m, k, n, r, dtype), 1.5)
             for kern, (kfn, pfn) in calls.items():
                 got, want = kfn(), pfn()
+                if kern in ("lora_bwd_da", "lora_bwd_db"):
+                    again = kfn()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(
+                            f"{kern} {label} {dtype}: two calls differ")
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
@@ -834,7 +860,10 @@ def time_lora_kernels():
             note = (" " + _fwd_plan_note(m, n, k, r)
                     if kern == "lora_fwd" else
                     " " + _dx_rank_plan_note(m, k, n, r)
-                    if kern == "lora_bwd_dx" else "")
+                    if kern == "lora_bwd_dx" else
+                    " " + _reduce_plan_note(m, r, k)
+                    if kern == "lora_bwd_da" else
+                    " " + _reduce_plan_note(m, n, r))
             print(f"{kern:12s} {proj} m={m} k={k} n={n} r={r}: kernel "
                   f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
                   f"torch.matmul {library_ms * 1e3:.2f} us, bound "

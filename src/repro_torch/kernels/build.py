@@ -39,10 +39,12 @@ SIGNATURES = {
     "bgmv_gemv_quant_launch": (_P,) * 9 + (_I,) * 10 + (_P,),
     # csrc/lora_matmul.cu
     "lora_fwd_launch": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P),
-    "lora_bwd_da_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
-    "lora_bwd_db_launch": (_P,) * 4 + (_I,) * 5 + (_F, _I, _P),
     "quant_matmul_launch": (_P,) * 5 + (_I,) * 9 + (_P,),
     "lora_fwd_quant_launch": (_P,) * 8 + (_I,) * 8 + (_F,) + (_I,) * 4 + (_P,),
+    # csrc/lora_grads.cu
+    "lora_bwd_da_launch": (_P,) * 3 + (_I,) * 5 + (_F, _I, _P),
+    "lora_bwd_db_launch": (_P,) * 3 + (_I,) * 5 + (_F, _I, _P),
+    "lora_grads_max_clusters": (_I,),
     # csrc/dense_dx.cu
     "lora_bwd_dx_launch": (_P,) * 7 + (_I,) * 8 + (_F, _I, _P),
     # csrc/packed_dx.cu

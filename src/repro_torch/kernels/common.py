@@ -13,6 +13,8 @@ capture-safe):
   pass; ``qmm_plan``, its main pass with no rank term for #11 at m > 8;
   ``dx_plan`` and ``dx_rank_plan``, its passes with the roles swapped for
   #12 (no rank term) and #10 (the q pre-pass and the rank tail);
+* ``reduce_plan``: the cluster split of the m loop of the LoRA gradient
+  reductions #7 and #8 (``csrc/lora_grads.cu``);
 * ``paged_split``: the split of paged attention's table (#13).
 
 Nothing here builds or loads a kernel; ``kernels/build.py`` does that at
@@ -41,6 +43,13 @@ FWD_MIN_SLABS = 4
 # memory
 QGEMV_MAX_ROWS, QGEMV_COLS = 8, 256
 QGEMV_MIN_CHUNK, QGEMV_MAX_CHUNK = 128, 1024
+# csrc/lora_grads.cu (#7, #8): output tile rows and columns, m rows per
+# slab, the most CTAs in a cluster (16, the non-portable size: on an H100,
+# clusters of 16 ran #8 at v 4.11 us against 4.82 at 8) and the CTAs per SM
+# a plan aims at (1.75: clusters of 7 at gemma-2b's 32 tiles ran #7 / #8 at
+# q in 8.2 us, of 8 in 9.1 and of 6 in 9.0; PERF.md)
+REDUCE_TILE, REDUCE_SLAB = 64, 16
+REDUCE_MAX_CLUSTER, REDUCE_CTAS_PER_SM = 16, 1.75
 # #1 / #4 with a single column block (a packed W of n <= 256): chunks down
 # to 32 rows, more blocks at the cost of a longer fixed-order pass
 GEMV_NARROW_CHUNK = 32
@@ -226,6 +235,27 @@ def dx_rank_plan(m: int, k: int, n: int, r: int, num_sms: int):
     split ran #10 at v 2.4-2.7 us faster than the 4-slab one, PERF.md)."""
     return (*fwd_split(m, r, 0, n, FWD_PRE_COLS, num_sms, min_slabs=1),
             *dx_plan(m, k, n, num_sms, r))
+
+
+def reduce_plan(m: int, ni: int, nj: int, num_sms: int):
+    """(c, chunk) of #7 / #8, out (ni, nj) = gamma sum over m of L^T R: the
+    m loop in c chunks of ``chunk`` rows (whole REDUCE_SLAB slabs), one CTA
+    per (REDUCE_TILE x REDUCE_TILE output tile, chunk), the c CTAs of a
+    tile one thread-block cluster that adds their partials in distributed
+    shared memory.  c is the most, up to REDUCE_MAX_CLUSTER, that keeps
+    tiles x c within REDUCE_CTAS_PER_SM CTAs an SM, and no larger than m's
+    slabs allow; then the slabs are dealt out evenly, so no chunk is empty.
+    c = 1 (no cluster) once the tiles alone outnumber half that wave.  From
+    the shapes and the SM count alone, so the wrappers stay capture-safe.
+    On an H100 (132 SMs) at m = 512: dA (64 x 2048, 32 tiles) and dB at q
+    (2048 x 64) 7 chunks of 80 rows, dB at v (256 x 64, 4 tiles) 16 of
+    32."""
+    tiles = -(-ni // REDUCE_TILE) * -(-nj // REDUCE_TILE)
+    slabs = -(-m // REDUCE_SLAB)
+    want = int(REDUCE_CTAS_PER_SM * num_sms) // tiles
+    c = max(1, min(REDUCE_MAX_CLUSTER, want, slabs))
+    per = -(-slabs // c)
+    return -(-slabs // per), per * REDUCE_SLAB
 
 
 def paged_split(b: int, kh: int, mb: int, num_sms: int):

@@ -1,5 +1,6 @@
 // Element loaders, decode and copy helpers shared by the kernels of
-// bgmv.cu, lora_matmul.cu, packed_dx.cu, qgemv.cu and flash_attention.cu.
+// bgmv.cu, lora_matmul.cu, packed_dx.cu, qgemv.cu, flash_attention.cu and
+// lora_grads.cu.
 //
 // A packed W loader reads W[row, col] of a logical (k, n) weight from
 //   Int8W   int8 data (k, n) and per-channel fp32 scales (1, n);
@@ -85,8 +86,8 @@ struct Int4W {
 };
 
 // 4 consecutive elements in one load (fwd_tile.cuh's stagers,
-// flash_attention.cu): float4, or 4 bf16 in a uint2; as_f4 widens them to
-// fp32, ld4 loads them (zeros where !in).
+// flash_attention.cu; lora_grads.cu from shared memory): float4, or 4 bf16
+// in a uint2; as_f4 widens them to fp32, ld4 loads them (zeros where !in).
 template <typename E>
 struct Vec4 {
   using U = float4;

@@ -7,9 +7,9 @@ The port of ``repro/kernels/lora_matmul.py``'s ``jax.custom_vjp``s that the
 JAX package trains through: ``lora_matmul_vjp`` (an fp W),
 ``lora_matmul_quant_vjp`` (a packed W) and ``quant_matmul_vjp`` (a packed W
 and no adapter).  Each piece is a hand-written kernel in
-``csrc/lora_matmul.cu`` (#6 in ``csrc/dense_dx.cu``, #10 and #12 in
-``csrc/packed_dx.cu``, #11's decode form in ``csrc/qgemv.cu``) beside its
-plain PyTorch version:
+``csrc/lora_matmul.cu`` (#6 in ``csrc/dense_dx.cu``, #7 and #8 in
+``csrc/lora_grads.cu``, #10 and #12 in ``csrc/packed_dx.cu``, #11's decode
+form in ``csrc/qgemv.cu``) beside its plain PyTorch version:
 
   lora_fwd          (#5)  y = x W + gamma p B^T, p = x A^T   -> (y, p)
   lora_bwd_dx       (#6)  dx = g W^T + gamma q A, q = g B    -> (dx, q)
@@ -58,16 +58,23 @@ design does about it):
   ColsT: 4 n of one row a thread, stored transposed), with gamma q A as the
   contraction's tail, planned by ``common.dx_rank_plan`` and summed over
   its chunks in a fixed order.  It replaced a one-warp-per-row
-  pre-pass and the 64 x 64 tile that #7 and #8 still run on (2.44x
-  torch.matmul at q).
+  pre-pass and a 64 x 64 tile (2.44x torch.matmul at q).
 * ``lora_bwd_da`` and ``lora_bwd_db`` replace ``_bwd_da_kernel`` (``:201``)
   and ``_bwd_db_kernel`` (``:230``), which accumulate over m in an output
-  block the TPU grid revisits.  Small (2 m r k operations) with few output
-  tiles (32 for dA at q), so a block that walked all m would be bound by
-  that loop's latency: the m loop is split into chunks, one block per
-  (output tile, chunk), about two blocks per SM, and a second pass adds
-  the chunks' partial sums in a fixed order.  No atomics, so a training
-  run repeats bit for bit.
+  block the TPU grid revisits.  Both are out (ni, nj) = gamma L^T R over
+  the m rows (dA: L = q, R = x; dB: L = g, R = p), one kernel in
+  ``csrc/lora_grads.cu``.  Small (2 m r k operations, 2.00 us at q) with
+  few 64 x 64 output tiles (32 for dA, 4 for dB at v), so the m loop is
+  split: ``common.reduce_plan`` picks c <= 16 chunks of whole 16-row slabs,
+  one CTA per (tile, chunk), and the c CTAs of a tile form a thread-block
+  cluster.  Each contracts its chunk through a cp.async ring with 4 x 4
+  outputs a thread and stores its partial of each rank's share of the
+  tile into that rank's shared memory; after one cluster barrier each
+  rank adds the c partials of its share in rank order, scales by gamma
+  and writes it once: one launch, no partial buffer in global memory, no
+  atomics, so a training run repeats bit for bit.  It replaced a 64 x 64
+  tile with element-wise staging, whose chunks went through a global
+  partial buffer and a second kernel (1.17-1.23x torch.matmul).
 * ``lora_fwd_quant`` and ``lora_bwd_dx_quant`` replace ``_fwd_kernel_q``
   (``:345``, ``_fwd_call_q``) and ``_bwd_dx_kernel_q`` (``:414``,
   ``_bwd_dx_call_q``), bound by operations like #5 and #6 (the packed W's
@@ -122,7 +129,7 @@ from repro_torch.kernels.common import (DTYPES, QGEMV_MAX_ROWS,
                                         check_packed, dx_plan, dx_rank_plan,
                                         fwd_plan, fwd_scratch, num_sms, ptr,
                                         qgemv_split, qmm_plan, raise_on,
-                                        route, stream)
+                                        reduce_plan, route, stream)
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
@@ -130,7 +137,6 @@ launches = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,
             "quant_matmul": 0, "quant_matmul_dx": 0}
 
 _MAX_GRID_Y = 65535 * 64          # rows of one operand a tile grid covers
-_TILE, _SLAB = 64, 16             # the tile kernel's output tile and k step
 
 
 def reset_launches() -> None:
@@ -280,30 +286,9 @@ def lora_bwd_dx(g, w, a, b, gamma: float):
     return dx, q
 
 
-def _m_split(m: int, ni: int, nj: int, device):
-    """(msplit, mchunk) for #7 / #8 over an (ni, nj) output: split the m
-    loop so that about two blocks per SM are in flight, in chunks of whole
-    k steps."""
-    tiles = -(-ni // _TILE) * -(-nj // _TILE)
-    want = max(1, min(-(-2 * num_sms(device) // tiles), -(-m // _SLAB)))
-    mchunk = -(-m // want)
-    mchunk = -(-mchunk // _SLAB) * _SLAB
-    return -(-m // mchunk), mchunk
-
-
-def _m_split_out(m: int, ni: int, nj: int, device):
-    """(out (ni, nj) fp32, partial scratch (msplit, ni, nj) fp32 or None,
-    msplit, mchunk) for #7 / #8 with the m split of :func:`_m_split`."""
-    msplit, mchunk = _m_split(m, ni, nj, device)
-    out = torch.empty(ni, nj, dtype=torch.float32, device=device)
-    partial = (torch.empty(msplit, ni, nj, dtype=torch.float32, device=device)
-               if msplit > 1 else None)
-    return out, partial, msplit, mchunk
-
-
 def lora_bwd_da(q, x, gamma: float):
     """Kernel #7: dA = gamma q^T x, (r, k) fp32, reduced over m in a fixed
-    order."""
+    order (``common.reduce_plan``'s clusters)."""
     if not route(x, "lora_matmul"):
         return lora_bwd_da_plain(q, x, gamma)
     from repro_torch.kernels.build import load
@@ -312,10 +297,11 @@ def lora_bwd_da(q, x, gamma: float):
     if q.shape[0] != m:
         raise ValueError(f"lora_bwd_da: q {tuple(q.shape)} vs x "
                          f"{tuple(x.shape)}")
-    da, partial, msplit, mchunk = _m_split_out(m, r, k, x.device)
+    c, chunk = reduce_plan(m, r, k, num_sms(x.device))
+    da = torch.empty(r, k, dtype=torch.float32, device=x.device)
     err = load().lora_bwd_da_launch(
-        q.data_ptr(), x.data_ptr(), ptr(partial), da.data_ptr(), m, k, r,
-        msplit, mchunk, float(gamma), DTYPES[x.dtype], stream(x))
+        q.data_ptr(), x.data_ptr(), da.data_ptr(), m, k, r, c, chunk,
+        float(gamma), DTYPES[x.dtype], stream(x))
     raise_on(err, "lora_bwd_da")
     launches["lora_bwd_da"] += 1
     return da
@@ -323,7 +309,7 @@ def lora_bwd_da(q, x, gamma: float):
 
 def lora_bwd_db(g, p, gamma: float):
     """Kernel #8: dB = gamma g^T p, (n, r) fp32, reduced over m in a fixed
-    order."""
+    order (``common.reduce_plan``'s clusters)."""
     if not route(g, "lora_matmul"):
         return lora_bwd_db_plain(g, p, gamma)
     from repro_torch.kernels.build import load
@@ -332,10 +318,11 @@ def lora_bwd_db(g, p, gamma: float):
     if p.shape[0] != m:
         raise ValueError(f"lora_bwd_db: p {tuple(p.shape)} vs g "
                          f"{tuple(g.shape)}")
-    db, partial, msplit, mchunk = _m_split_out(m, n, r, g.device)
+    c, chunk = reduce_plan(m, n, r, num_sms(g.device))
+    db = torch.empty(n, r, dtype=torch.float32, device=g.device)
     err = load().lora_bwd_db_launch(
-        g.data_ptr(), p.data_ptr(), ptr(partial), db.data_ptr(), m, n, r,
-        msplit, mchunk, float(gamma), DTYPES[g.dtype], stream(g))
+        g.data_ptr(), p.data_ptr(), db.data_ptr(), m, n, r, c, chunk,
+        float(gamma), DTYPES[g.dtype], stream(g))
     raise_on(err, "lora_bwd_db")
     launches["lora_bwd_db"] += 1
     return db

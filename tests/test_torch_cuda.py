@@ -81,6 +81,86 @@ def test_lora_kernels_match_plain(card, m, k, n, r, dtype):
                                     lora_bwd_db=1)
 
 
+# bench-4l (benchmarks/common.py bench_config: d_model 128, 4 heads of 32
+# with 2 kv heads, the paper's ranks up to 512) at 4 x 64 tokens: m = 256,
+# k = 128, n = 128 (q) or 64 (v), r > k from 256 on
+BENCH4L_SHAPES = [(256, 128, n, r) for n in (128, 64)
+                  for r in (4, 64, 256, 512)]
+# #7 / #8 beyond those: the training path's q and v (clusters of 7 and
+# 16), m = 4096 (a CTA loops over 16-37 slabs), m = 10 (under one slab),
+# ragged ni / nj (the scalar path), and 256 tiles of dA (c = 1: no cluster)
+GRAD_SHAPES = BENCH4L_SHAPES + [
+    (512, 2048, 2048, 64), (512, 2048, 256, 64), (4096, 2048, 256, 64),
+    (10, 128, 64, 8), (50, 70, 30, 3), (33, 65, 17, 1), (512, 2048, 256, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", GRAD_SHAPES)
+def test_lora_grads_match_plain_and_repeat(card, m, k, n, r, dtype):
+    """#7 (dA = gamma q^T x) and #8 (dB = gamma g^T p), one cluster launch
+    each, against their plain versions with fp32 and bf16 x and g; two
+    calls equal bit for bit (the clusters add their partials in rank
+    order)."""
+    lm = lora_matmul
+    x, _, _, _, g = _operands(m, k, n, r, getattr(torch, dtype), seed=r + 2)
+    rng = np.random.default_rng(m + r)
+    q, p = (torch.from_numpy(rng.standard_normal((m, r)).astype(np.float32))
+            .cuda() for _ in range(2))
+    da, da2 = lm.lora_bwd_da(q, x, 1.5), lm.lora_bwd_da(q, x, 1.5)
+    db, db2 = lm.lora_bwd_db(g, p, 1.5), lm.lora_bwd_db(g, p, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    _assert_close(da, lm.lora_bwd_da_plain(q, x, 1.5))
+    _assert_close(db, lm.lora_bwd_db_plain(g, p, 1.5))
+    assert lm.launches == _launches(lora_bwd_da=2, lora_bwd_db=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,r", BENCH4L_SHAPES)
+def test_bench4l_dense_rank_kernels_match_plain(card, m, k, n, r, dtype):
+    """#5 and #6 at bench-4l's shapes, ranks above k included, against
+    their plain versions (outputs and residuals); two calls equal bit for
+    bit."""
+    lm = lora_matmul
+    x, w, a, b, g = _operands(m, k, n, r, getattr(torch, dtype), seed=r)
+    got = lm.lora_fwd(x, w, a, b, 1.5) + lm.lora_bwd_dx(g, w, a, b, 1.5)
+    again = lm.lora_fwd(x, w, a, b, 1.5) + lm.lora_bwd_dx(g, w, a, b, 1.5)
+    want = (lm.lora_fwd_plain(x, w, a, b, 1.5)
+            + lm.lora_bwd_dx_plain(g, w, a, b, 1.5))
+    torch.cuda.synchronize()
+    for gt, ag, wt in zip(got, again, want):
+        assert torch.equal(gt, ag)
+        _assert_close(gt, wt)
+    assert lm.launches == _launches(lora_fwd=2, lora_bwd_dx=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n,r", BENCH4L_SHAPES)
+def test_bench4l_packed_rank_kernels_match_plain(card, m, k, n, r, bits,
+                                                 dtype):
+    """#9 and #10 over an int8 / int4 (group 64) W at bench-4l's shapes,
+    ranks above k included, against their plain versions (outputs and
+    residuals); two calls equal bit for bit."""
+    lm = lora_matmul
+    x, _, a, b, g = _operands(m, k, n, r, getattr(torch, dtype), seed=r)
+    wq = _packed(k, n, bits, seed=r + 1)
+    got = (lm.lora_fwd_quant(x, wq, a, b, 1.5)
+           + lm.lora_bwd_dx_quant(g, wq, a, b, 1.5))
+    again = (lm.lora_fwd_quant(x, wq, a, b, 1.5)
+             + lm.lora_bwd_dx_quant(g, wq, a, b, 1.5))
+    want = (lm.lora_fwd_quant_plain(x, wq, a, b, 1.5)
+            + lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5))
+    torch.cuda.synchronize()
+    for gt, ag, wt in zip(got, again, want):
+        assert torch.equal(gt, ag)
+        _assert_close(gt, wt)
+    assert lm.launches == _launches(lora_fwd_quant=2, lora_bwd_dx_quant=2)
+
+
 @pytest.mark.cuda
 def test_loss_gradients_reach_adapters(card):
     """The fault this slice repairs: a single adapter on the card used to go

@@ -249,21 +249,42 @@ def test_wrapper_checks_residuals_are_fp32():
                        fp32={"q": torch.zeros(6, 4)})
 
 
-@pytest.mark.parametrize("m, ni, nj, want", [
-    (512, 64, 2048, (8, 64)),      # dA at gemma-2b's q: 32 tiles
-    (512, 2048, 64, (8, 64)),      # dB at q
-    (512, 256, 64, (32, 16)),      # dB at v: 4 tiles, one step per chunk
-    (50, 3, 70, (4, 16)),          # ragged: the last chunk is short
-    (10, 64, 64, (1, 16)),         # fewer rows than one step
-    (4096, 2048, 2048, (1, 4096)),  # enough tiles: no split
-])
-def test_m_split_covers_m_in_whole_steps(monkeypatch, m, ni, nj, want):
-    """#7 / #8 split their m loop into chunks of whole 16-row steps, about
-    two blocks per SM (132 SMs here), none of them empty."""
-    monkeypatch.setattr(lora_matmul, "num_sms", lambda device: 132)
-    msplit, mchunk = lora_matmul._m_split(m, ni, nj, "cuda")
-    assert (msplit, mchunk) == want
-    assert mchunk % 16 == 0 and (msplit - 1) * mchunk < m <= msplit * mchunk
+# (m, ni, nj) of #7 / #8 and the (c, chunk) common.reduce_plan gives them on
+# a 132-SM card
+REDUCE_PLANS = [
+    ((512, 64, 2048), (7, 80)),      # dA at gemma-2b's q or v: 32 tiles
+    ((512, 2048, 64), (7, 80)),      # dB at q
+    ((512, 256, 64), (16, 32)),      # dB at v: 4 tiles, 2 slabs a chunk
+    ((50, 3, 70), (4, 16)),          # ragged: the last chunk is short
+    ((10, 64, 64), (1, 16)),         # fewer rows than one slab
+    ((4096, 2048, 2048), (1, 4096)),  # the tiles fill the SMs: no cluster
+    ((4096, 64, 2048), (7, 592)),    # large m: 37 slabs a chunk
+    ((4096, 256, 64), (16, 256)),
+    ((5, 4, 128), (1, 16)),          # bench-4l's dA at r = 4, m < 16
+    ((256, 512, 128), (8, 32)),      # bench-4l's dA at r = 512: 16 tiles
+    ((256, 128, 512), (8, 32)),      # and its dB at q
+    ((40, 64, 64), (3, 16)),         # 3 slabs: 3 chunks, none empty
+    ((8192, 64, 6400), (2, 4096)),   # 100 tiles: clusters of 2
+    ((8192, 64, 8448), (1, 8192)),   # 132 tiles: more than half the wave
+]
+
+
+@pytest.mark.parametrize("shape, want", REDUCE_PLANS)
+def test_reduce_plan_covers_m_in_whole_slabs(shape, want):
+    """#7 / #8 split their m loop into c <= 16 chunks of whole 16-row slabs,
+    none of them empty, so that the 64 x 64 tiles times c stay within 1.75
+    CTAs an SM (132 SMs here), and c = 1 once the tiles alone outnumber
+    the SMs."""
+    m, ni, nj = shape
+    c, chunk = common.reduce_plan(m, ni, nj, 132)
+    assert (c, chunk) == want
+    assert chunk % 16 == 0 and 1 <= c <= 16
+    assert (c - 1) * chunk < m <= c * chunk     # covers m, no chunk empty
+    tiles = -(-ni // 64) * -(-nj // 64)
+    assert tiles * 64 * 64 >= ni * nj           # the tiles cover the output
+    assert tiles * c <= max(tiles, 231)         # one wave of 1.75 an SM
+    if tiles > 132:
+        assert c == 1
 
 
 class _RecordingLib:
@@ -345,6 +366,41 @@ def test_fwd_wrappers_launch_with_the_plan_and_a_big_enough_scratch(
     launches = (lora_matmul.launches if name.startswith("lora")
                 else bgmv.launches)
     assert launches[name] == 1
+
+
+@pytest.mark.parametrize("m,k,n,r", [(512, 2048, 2048, 64),
+                                     (512, 2048, 256, 64),
+                                     (256, 128, 128, 512), (50, 70, 30, 3),
+                                     (10, 64, 64, 4)])
+@pytest.mark.parametrize("name", ["lora_bwd_da", "lora_bwd_db"])
+def test_grad_wrappers_launch_with_the_reduce_plan(monkeypatch, name, m, k,
+                                                   n, r):
+    """#7 and #8 hand their entry point the operands' and the output's
+    pointers, the shapes and exactly common.reduce_plan's (c, chunk) on a
+    132-SM card, then gamma, the dtype and the stream: no scratch pointer
+    (the clusters reduce in shared memory).  One launch is counted, and the
+    output is the (ni, nj) fp32 tensor the kernel was handed."""
+    from repro_torch.kernels import build
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(lora_matmul, "route", lambda t, _name: True)
+    monkeypatch.setattr(lora_matmul, "num_sms", lambda device: 132)
+    monkeypatch.setattr(lora_matmul, "stream", lambda t: 7)
+    x, _, _, _, g = _t(*_operands(m, k, n, r, seed=5))
+    res = torch.zeros(m, r)
+    if name == "lora_bwd_da":
+        out = lora_matmul.lora_bwd_da(res, x, 1.5)
+        ops, (ni, nj), shape = (res, x), (r, k), (m, k, r)
+    else:
+        out = lora_matmul.lora_bwd_db(g, res, 1.5)
+        ops, (ni, nj), shape = (g, res), (n, r), (m, n, r)
+    (entry, args), = lib.calls
+    assert entry == name + "_launch"
+    c, chunk = common.reduce_plan(m, ni, nj, 132)
+    assert args == (ops[0].data_ptr(), ops[1].data_ptr(), out.data_ptr(),
+                    *shape, c, chunk, 1.5, 0, 7)
+    assert out.shape == (ni, nj) and out.dtype == torch.float32
+    assert lora_matmul.launches == {**NO_LORA_LAUNCHES, name: 1}
 
 
 # #12's (m, k, n) on the training path (m = 512: gemma-2b's k, o, w_up,
