@@ -79,7 +79,25 @@ Phases, in order; any failure raises and the exit code is not 0:
      phase 8 over an fp32 base: #15 per admission group, #13 per decode
      step, plain tier against generate_banked wave by wave, kernel tier
      against plain tier)
- 14. result: a JSON line of per-kernel numbers, the script's time, the
+ 14. the dense configs' shapes: #1 and #2 at mistral-nemo-12b's q (5120
+     -> 4096) and v (5120 -> 1024) and llama2-7b's q / v (4096 x 4096);
+     #11 at m = 1, 4, 8 and 512 and #12 at llama2-7b's w_up (n = 11008)
+     and w_down (k = 11008) over int8 and int4; #13 at llama2-7b's 32 kv
+     heads of 128, qwen3-8b's 4 query heads a kv head and stablelm-1.6b's
+     head_dim 64; #5-#8 at llama2-7b's q / v with rank 64, 128 and a rank
+     16 padded to 128; fp32 and bf16 against the plain versions, then
+     timed beside the plain versions, one PyTorch call each and the bound
+ 15. llama2-7b at full width and depth (32 layers, 6.74 B parameters,
+     fp32): generate_banked (64 of #2 per prefill, 64 of #1 per decode
+     step), serve_scheduled over fp32 (32 of #13 per decode step) and int4
+     bases (160 of #11 per decode step), the training path (rank 64, 64 of
+     each of #5-#8 per client local step), the same run with per-client
+     ranks (16, 32, 64, 128) (every masked row exactly 0.0 after each
+     round, the plain tier, ranks all 64 bit-identical to the homogeneous
+     run) and FLoRA's stacking over those ranks (2 rounds, two kernel-tier
+     runs bit for bit, B A against the plain tier, the server step's share
+     of a round); then qwen3-8b (36 layers, fp32) through serve_scheduled
+ 16. result: a JSON line of per-kernel numbers, the script's time, the
      nvidia-smi line, and the final {"ok": true, ...} line
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
@@ -401,22 +419,28 @@ def _paged_plan_note(b, kh, mb):
             f"{'; merge' if nsplit > 1 else ''}]")
 
 
-def time_kernels():
+def _bgmv_shapes(projs):
+    """(kernel, rows a request, label, k, n) of #1 (decode) and #2 (a
+    128-token prefill) at each (label, k, n) of ``projs``."""
+    return [(kern, s, proj, k, n)
+            for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
+            for proj, k, n in projs]
+
+
+def time_kernels(shapes=None):
     """Times at the serving path's shapes (fp32, B=4 requests, rank 8,
     per-request adapters gathered: ids=None), W rotated over copies that
     together exceed L2 three times, as a decode step finds W cold: gemma-2b's
     q and v, and for #1 and #2 also recurrentgemma-9b's q / wx / wy (k = n =
     4096) and v (k = 4096, n = 256), where its hybrid decode steps and
-    prefill spend their time."""
+    prefill spend their time; or ``shapes`` (:func:`_bgmv_shapes`)."""
     phase("kernel times (fp32, B=4, r=8, W cold in L2)")
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
-    shapes = [(kern, s, proj, 2048, n)
-              for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
-              for proj, n in (("q", 2048), ("v", 256))]
-    shapes += [(kern, s, f"rg9b {proj}", 4096, n)
-               for kern, s in (("bgmv_gemv", 1), ("bgmv_matmul", 128))
-               for proj, n in (("q", 4096), ("v", 256))]
+    if shapes is None:
+        shapes = _bgmv_shapes([("q", 2048, 2048), ("v", 2048, 256),
+                               ("rg9b q", 4096, 4096),
+                               ("rg9b v", 4096, 256)])
     for kern, s, proj, k, n in shapes:
         B, r = 4, 8
         x, w, a, b, _ = _bank(gen, B, s, k, n, B, (r,) * B,
@@ -476,9 +500,8 @@ def _sync(device):
 
 
 def serving_model(cfg, device):
-    """gemma-2b at full width with seeded random weights and 4 SFed-LoRA
-    tenants (alpha 8, rank 8, B drawn at std 0.02), as run_path builds
-    them."""
+    """``cfg``'s model with seeded random weights and 4 SFed-LoRA tenants
+    (alpha 8, rank 8, B drawn at std 0.02), as run_path builds them."""
     model = build_model(cfg)
     gen = torch.Generator(device).manual_seed(0)
     params = model.init(gen, device)
@@ -756,18 +779,25 @@ def _lora_calls(x, w, a, b, g, gamma):
     }
 
 
-def check_lora_kernels():
+LORA_CASES = [("q", 512, 2048, 2048, 64, 64), ("v", 512, 2048, 256, 64, 64),
+              ("bench-4l", 256, 128, 128, 512, 512),
+              ("ragged", 50, 70, 30, 3, 3), ("ragged r=1", 33, 65, 17, 1, 1)]
+
+
+def check_lora_kernels(cases=LORA_CASES):
+    """#5-#8 at each (label, m, k, n, r, active) of ``cases``, fp32 and
+    bf16; ranks past ``active`` zero in A and B (a client padded to r)."""
     phase("LoRA matmul kernels #5-#8 vs plain (tolerance: |kernel - plain| "
           f"<= {KERNEL_RTOL} * max(1, max|plain|)); #7 and #8 also twice, "
           "bit for bit")
     gen = torch.Generator("cuda").manual_seed(3)
-    cases = [("q", 512, 2048, 2048, 64), ("v", 512, 2048, 256, 64),
-             ("bench-4l", 256, 128, 128, 512),
-             ("ragged", 50, 70, 30, 3), ("ragged r=1", 33, 65, 17, 1)]
     worst = {k: 0.0 for k in LORA_KERNELS}
-    for label, m, k, n, r in cases:
+    for label, m, k, n, r, active in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            calls = _lora_calls(*_lora_operands(gen, m, k, n, r, dtype), 1.5)
+            x, w, a, b, g = _lora_operands(gen, m, k, n, r, dtype)
+            a[active:] = 0
+            b[:, active:] = 0
+            calls = _lora_calls(x, w, a, b, g, 1.5)
             for kern, (kfn, pfn) in calls.items():
                 got, want = kfn(), pfn()
                 if kern in ("lora_bwd_da", "lora_bwd_db"):
@@ -789,7 +819,8 @@ def check_lora_kernels():
                             f"version: {err} > {KERNEL_RTOL * scale}")
                     worst[kern] = max(worst[kern], err)
                 print(f"{kern:12s} {label:10s} m={m} k={k} n={n} r={r} "
-                      f"{str(dtype)[6:]:8s} max_abs_err over outputs "
+                      f"(active {active}) {str(dtype)[6:]:8s} max_abs_err "
+                      "over outputs "
                       f"{max(float((gt - wt).abs().max()) for gt, wt in zip(got, want)):.3e}")
     print(f"launches in this phase (not the path's): {lora_matmul.launches}")
     return worst
@@ -802,18 +833,19 @@ def _bound(nbytes, flops):
                                  else "operations")
 
 
-def time_lora_kernels():
+def time_lora_kernels(k=2048, projs=(("q", 2048), ("v", 256))):
     """Times at the training path's shapes (fp32, m = 4 x 128 = 512 rows,
-    k = 2048, r = 64, gamma 1 as on the path): #5 and #6 with W rotated
-    over copies that together exceed L2 three times (a local step reads
-    each layer's W once per pass); #7 and #8 on warm inputs (x, g and the
-    residuals were just written by the pass before them)."""
-    phase("LoRA matmul kernel times (fp32, m=512, k=2048, r=64)")
+    k = 2048, r = 64, gamma 1 as on the path; or ``k`` and the (label, n)
+    of ``projs``): #5 and #6 with W rotated over copies that together
+    exceed L2 three times (a local step reads each layer's W once per
+    pass); #7 and #8 on warm inputs (x, g and the residuals were just
+    written by the pass before them)."""
+    phase(f"LoRA matmul kernel times (fp32, m=512, k={k}, r=64)")
     gen = torch.Generator("cuda").manual_seed(4)
     lm = lora_matmul
     rows = {}
-    m, k, r = 512, 2048, 64
-    for proj, n in (("q", 2048), ("v", 256)):
+    m, r = 512, 64
+    for proj, n in projs:
         x, w, a, b, g = _lora_operands(gen, m, k, n, r, torch.float32)
         copies = max(2, math.ceil(3 * L2_BYTES / w.nbytes))
         ws = [w.clone() for _ in range(copies)]
@@ -878,21 +910,25 @@ def time_lora_kernels():
 # ------------------------------------------------------- 6. training path
 
 def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
-               local_steps=2, batch=4, seq=128, rounds=3):
+               local_steps=2, batch=4, seq=128, rounds=3, params=None):
     """FederatedTrainer through the user's entry points (as
     ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
     int8 / int4, group 64) one packed by ``quantize_tree``.  ``cfg`` and
     ``device`` are arguments so the phase can be rehearsed on a CPU at a
     reduced size; the launch counts hold only on the card.  Over a packed
     base it also checks save / resume: a trainer restored from a checkpoint
-    written after round ``rounds - 1`` repeats the last round bit for bit."""
+    written after round ``rounds - 1`` repeats the last round bit for bit.
+    ``params``: the fp32 base (default: drawn from seed 0, as
+    :func:`train_base` draws it).  Returns the launch counts, the second
+    run's ms/round, and that run's history and adapters."""
     base_name = quant or "fp32"
     phase(f"training path: FederatedTrainer, {cfg.name} d_model "
           f"{cfg.d_model}, {base_name} base, fp32 activations, N={clients}, "
           f"fedsa + sfedlora, rank {rank}")
     model = build_model(cfg)
     t0 = time.monotonic()
-    params = model.init(torch.Generator(device).manual_seed(0), device)
+    if params is None:
+        params = train_base(model, device)
     if quant is not None:
         params = quantize_tree(params, quant, QUANT_GROUP)
     lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
@@ -1036,7 +1072,12 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
           f"{clients * local_steps} client local steps per round")
     if device.type == "cuda" and quant in (None, "int4"):
         profile_local_step(model, tr2)
-    return launches, ms2
+    return launches, ms2, {"history": tr2.history, "lora": tr2.lora}
+
+
+def train_base(model, device):
+    """The training paths' fp32 base: seeded random weights (seed 0)."""
+    return model.init(torch.Generator(device).manual_seed(0), device)
 
 
 def profile_local_step(model, tr):
@@ -1213,12 +1254,12 @@ def check_sched_kernels(block_size, ring, dev="cuda"):
     return worst
 
 
-def _time_paged(gen, h, mb, window, block_size, dev):
-    """#13 at B 4, h query heads on one kv head of 256, mb table columns of
+def _time_paged(gen, h, mb, window, block_size, dev, kh=1, hd=256):
+    """#13 at B 4, h query heads on kh kv heads of hd, mb table columns of
     block_size positions (_paged_case's fills), fp32 pools, warm (one
     layer's pools; 18 layers of the gemma-2b path's fit in L2), beside its
     plain version, SDPA on the gathered view and the bound."""
-    q, kp, vp, pos_pool, table, qpos = _paged_case(gen, 4, h, 1, 256,
+    q, kp, vp, pos_pool, table, qpos = _paged_case(gen, 4, h, kh, hd,
                                                    block_size, mb, dev=dev)
     pa = paged_attention
     args = [(q, kp, vp, pos_pool, table, qpos)] * 8
@@ -1229,8 +1270,8 @@ def _time_paged(gen, h, mb, window, block_size, dev):
     kg, vg, pg = (t.reshape(4, mb * block_size, *t.shape[3:])
                   for t in (kp[table.long()], vp[table.long()],
                             pos_pool[table.long()]))
-    kh_ = kg.permute(0, 2, 1, 3).expand(4, h, -1, -1).contiguous()
-    vh_ = vg.permute(0, 2, 1, 3).expand(4, h, -1, -1).contiguous()
+    kh_ = kg.permute(0, 2, 1, 3).repeat_interleave(h // kh, dim=1)
+    vh_ = vg.permute(0, 2, 1, 3).repeat_interleave(h // kh, dim=1)
     ok = (pg >= 0) & (pg <= qpos[:, None])
     if window:
         ok &= qpos[:, None] - pg < window
@@ -1242,37 +1283,43 @@ def _time_paged(gen, h, mb, window, block_size, dev):
     eager_ms = _eager_ms(lambda *a: pa.paged_attention(*a, window=window),
                          args)
     # the work this run's fill needs: pos of every table position; K and V
-    # rows (kh = 1) and q.k, p.v for the h query heads at the attendable
-    # ones only
+    # rows of the kh heads and q.k, p.v for the h query heads at the
+    # attendable ones only
     n_pos, n_valid = pg.numel(), int(mask.sum())
-    nbytes = (q.nbytes * 2 + n_pos * 4 + n_valid * 2 * 256 * 4
+    nbytes = (q.nbytes * 2 + n_pos * 4 + n_valid * 2 * kh * hd * 4
               + table.nbytes + qpos.nbytes)
-    flops = 2 * 2 * h * 256 * n_valid
+    flops = 2 * 2 * h * hd * n_valid
     bound_ms, bound_by = _bound(nbytes, flops)
-    print(f"paged_attention B=4 h={h} kh=1 hd=256 bs={block_size} mb={mb} "
+    print(f"paged_attention B=4 h={h} kh={kh} hd={hd} bs={block_size} mb={mb} "
           f"window={window}: kernel {ms * 1e3:.2f} us, plain (gather + "
           f"softmax) {plain_ms * 1e3:.2f} us, SDPA on the gathered view "
           f"{library_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by}; {nbytes / 1e6:.3f} MB, {n_valid} of {n_pos} "
           f"positions attendable), eager call with host overhead "
-          f"{eager_ms * 1e3:.2f} us {_paged_plan_note(4, 1, mb)}")
+          f"{eager_ms * 1e3:.2f} us {_paged_plan_note(4, kh, mb)}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, eager_ms=eager_ms)
 
 
-def time_sched_kernels(block_size, ring, dev="cuda"):
+def time_sched_kernels(block_size, ring, dev="cuda", projs=PROJ,
+                       paged=None, adapted=("q", "v")):
     """Times at the scheduled path's shapes (fp32 activations, B = 4, rank
     8, int8 and int4 group 64): #3, #4 and #11 with the packed W rotated
     over copies that together exceed L2 three times (a step reads each
-    layer's W once); #13 at _paged_shapes (_time_paged)."""
+    layer's W once), at ``projs``' (k, n) (#3 and #4 at ``adapted`` only);
+    #13 at ``paged``'s (label, h, mb, window, kh, hd), by default
+    _paged_shapes (_time_paged)."""
     phase("paged / quantized kernel times (fp32 activations, B=4, r=8)")
     gen = torch.Generator(dev).manual_seed(6)
     rows = {}
-    for name, h, mb, window in _paged_shapes(block_size, ring):
-        rows[("paged_attention", name)] = _time_paged(gen, h, mb, window,
-                                                      block_size, dev)
+    if paged is None:
+        paged = [shape + (1, 256) for shape in _paged_shapes(block_size,
+                                                             ring)]
+    for name, h, mb, window, kh, hd in paged:
+        rows[("paged_attention", name)] = _time_paged(
+            gen, h, mb, window, block_size, dev, kh, hd)
     for mode, bits in (("int8", 8), ("int4", 4)):
-        for proj, (k, n) in PROJ.items():
+        for proj, (k, n) in projs.items():
             w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
             wq = quantize(w, bits, QUANT_GROUP)
             wf = wq.dequantize()
@@ -1286,7 +1333,7 @@ def time_sched_kernels(block_size, ring, dev="cuda"):
                 specs = [("quant_matmul", lora_matmul.quant_matmul,
                           lora_matmul.quant_matmul_plain,
                           [(x, wi) for wi in wqs], 0, 2 * m * k * n)]
-                if proj in ("q", "v"):
+                if proj in adapted:
                     s = 1 if m == 4 else 128
                     xb = x.reshape(4, s, k)
                     a = torch.randn(4, 8, k, generator=gen,
@@ -1663,21 +1710,23 @@ def check_qtrain_kernels(dev="cuda"):
     return worst
 
 
-def time_qtrain_kernels(dev="cuda"):
+def time_qtrain_kernels(dev="cuda", projs=("q", "v", "k", "o", "w_up",
+                                            "w_down"), proj=PROJ):
     """Times at the training path's shapes (fp32 activations, m = 4 x 128 =
     512, r = 64, gamma 1, int8 and int4 group 64): #9 and #10 at q and v,
     #12 at k, o, w_up and w_down, the packed W rotated over copies that
     together exceed L2 three times (a local step reads each layer's W once
-    per pass).  The library call is one torch.matmul on the dequantized
-    fp32 W: x @ W for #9, g @ W^T for #10 and #12."""
+    per pass), or ``projs`` of ``proj``.  The library call is one
+    torch.matmul on the dequantized fp32 W: x @ W for #9, g @ W^T for #10
+    and #12."""
     phase("packed training kernel times (fp32 activations, m=512, r=64)")
     gen = torch.Generator(dev).manual_seed(10)
     lm = lora_matmul
     rows = {}
     m, r, f4 = 512, 64, 4
     for mode, bits in (("int8", 8), ("int4", 4)):
-        for proj in ("q", "v", "k", "o", "w_up", "w_down"):
-            k, n = PROJ[proj]
+        for label in projs:
+            k, n = proj[label]
             wf = quantize(torch.randn(k, n, generator=gen, device=dev)
                           * k ** -0.5, bits, QUANT_GROUP).dequantize()
             wq0 = quantize(wf, bits, QUANT_GROUP)
@@ -1692,7 +1741,7 @@ def time_qtrain_kernels(dev="cuda"):
                 lambda g_, w_: torch.matmul(g_, w_.t()),
                 [(g, wi) for wi in wqs], [(g, wi) for wi in wfs],
                 g.nbytes + wq0.nbytes + m * k * f4, 2 * m * n * k)}
-            if proj in ("q", "v"):
+            if label in ("q", "v"):
                 spec["lora_fwd_quant"] = (
                     lm.lora_fwd_quant, lm.lora_fwd_quant_plain, torch.matmul,
                     [(x, wi, a, b, 1.0) for wi in wqs],
@@ -1715,7 +1764,7 @@ def time_qtrain_kernels(dev="cuda"):
                 library_ms = _graph_ms(lfn, largs)
                 eager_ms = _eager_ms(kfn, args)
                 bound_ms, bound_by = _bound(nbytes, flops)
-                rows[(kern, f"{mode} {proj}")] = dict(
+                rows[(kern, f"{mode} {label}")] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, library_ms=library_ms,
                     eager_ms=eager_ms)
@@ -1724,7 +1773,7 @@ def time_qtrain_kernels(dev="cuda"):
                         " " + _dx_plan_note(m, k, n)
                         if kern == "quant_matmul_dx" else
                         " " + _dx_rank_plan_note(m, k, n, r))
-                print(f"{kern:17s} {mode} {proj:6s} m={m} k={k} n={n} "
+                print(f"{kern:17s} {mode} {label:6s} m={m} k={k} n={n} "
                       f"r={r}: kernel {ms * 1e3:.2f} us, plain "
                       f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 W "
                       f"{library_ms * 1e3:.2f} us, bound "
@@ -1965,6 +2014,370 @@ def hybrid_path(name):
     return fixed, sched
 
 
+# ------------------ 14. the dense configs' shapes and the llama2-7b paths
+
+LLAMA = get_config("llama2-7b")
+NEMO = get_config("mistral-nemo-12b")
+QWEN = get_config("qwen3-8b")
+STABLELM = get_config("stablelm-1.6b")
+# #1 / #2 (label, k, n): mistral-nemo-12b's q and v (heads x head_dim 4096
+# below d_model 5120), llama2-7b's q and v (MHA: both 4096 x 4096)
+DENSE_BGMV = (("nemo q", NEMO.d_model, NEMO.q_dim),
+              ("nemo v", NEMO.d_model, NEMO.kv_dim),
+              ("llama2-7b q/v", LLAMA.d_model, LLAMA.q_dim))
+# #11 / #12 at llama2-7b's MLP: n = 11008 and k = 11008, no power of two;
+# #3 / #4 (and #11) at its q / v over the int4 scheduled path's base
+LLAMA_MLP = {"llama2-7b w_up": (LLAMA.d_model, LLAMA.d_ff),
+             "llama2-7b w_down": (LLAMA.d_ff, LLAMA.d_model)}
+LLAMA_QV = {"llama2-7b q/v": (LLAMA.d_model, LLAMA.q_dim)}
+# #13 (label, query heads, kv heads, head_dim) of the dense decode steps
+DENSE_PAGED = tuple((c.name, c.num_heads, c.num_kv_heads, c.head_dim)
+                    for c in (LLAMA, QWEN, STABLELM))
+# #5-#8 at llama2-7b's q / v (m 512, k = n = 4096): rank 64 (the training
+# path), 128 (the heterogeneous paths' r_max) and a client of rank 16
+# padded to 128
+LLAMA_LORA_CASES = [("llama q/v", 512, LLAMA.d_model, LLAMA.q_dim, r, act)
+                    for r, act in ((64, 64), (128, 128), (128, 16))]
+HETERO_RANKS = (16, 32, 64, 128)
+# FLoRA on the card: the kernel tier's aggregate B A against the plain
+# tier's, max |diff| over max |plain| per client and layer.  The local
+# steps differ in the order of their sums (TRAIN_RTOL), and the SVD of the
+# stacked factors passes that on to B A at the same scale
+FLORA_RTOL = 1e-3
+
+
+def check_dense_kernels(dev="cuda"):
+    """The kernels at the dense configs' shapes, fp32 and bf16, against
+    their plain versions: #1 and #2 (rank 8, bank ids and ids=None) at
+    DENSE_BGMV; #11 over int8 and int4 (group 64) at m = 1, 4, 8 (its
+    decode GEMV; at w_down the last chunk of k = 11008 is short) and 512
+    (its forward tile), and #12 at m = 512, at llama2-7b's w_up and w_down;
+    #3 and #4 (4 requests, rank 8) at its q / v over int8 and int4; #13 at
+    DENSE_PAGED (160 positions, 10 columns of 16, plus a window of 64);
+    then #5-#8 at LLAMA_LORA_CASES (check_lora_kernels)."""
+    phase("the dense configs' shapes vs plain (tolerance: |kernel - plain| "
+          f"<= {KERNEL_RTOL} * max(1, max|plain|), + {BF16_STEP} * |plain| "
+          "for a bf16 output)")
+    gen = torch.Generator(dev).manual_seed(11)
+    worst = {}
+
+    def note(kern, err):
+        worst[kern] = max(worst.get(kern, 0.0), err)
+
+    for label, k, n in DENSE_BGMV:
+        for dt in (torch.float32, torch.bfloat16):
+            for s in (1, 128):
+                x, w, a, b, ids = _bank(gen, 4, s, k, n, 4, (8,) * 4, dt)
+                for id_mode in ("bank", "none"):
+                    a_, b_, ids_ = (a, b, ids) if id_mode == "bank" else (
+                        a.index_select(0, ids.long()).contiguous(),
+                        b.index_select(0, ids.long()).contiguous(), None)
+                    lab = (f"{label} k={k} n={n} s={s} {str(dt)[6:]} "
+                           f"ids={id_mode}")
+                    if s == 1:
+                        x1 = x[:, 0].contiguous()
+                        note("bgmv_gemv", _err(
+                            "bgmv_gemv", lab,
+                            bgmv.bgmv_gemv(x1, w, a_, b_, ids_),
+                            bgmv.bgmv_gemv_plain(x1, w, a_, b_, ids_)))
+                    else:
+                        note("bgmv_matmul", _err(
+                            "bgmv_matmul", lab,
+                            bgmv.bgmv_matmul(x, w, a_, b_, ids_),
+                            bgmv.bgmv_matmul_plain(x, w, a_, b_, ids_)))
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for label, (k, n) in LLAMA_MLP.items():
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for m, dt in itertools.product((1, 4, 8, 512),
+                                           (torch.float32, torch.bfloat16)):
+                x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                lab = f"{mode} {label} m={m} k={k} n={n} {str(dt)[6:]}"
+                got = lora_matmul.quant_matmul(x, wq)
+                again = lora_matmul.quant_matmul(x, wq)
+                assert torch.equal(got, again), f"#11 {lab}: two calls differ"
+                note("quant_matmul", _err(
+                    "quant_matmul", lab, got,
+                    lora_matmul.quant_matmul_plain(x, wq)))
+                if m == 512:
+                    g = torch.randn(m, n, generator=gen, device=dev).to(dt)
+                    note("quant_matmul_dx", _err(
+                        "quant_matmul_dx", lab,
+                        lora_matmul.quant_matmul_dx(g, wq),
+                        lora_matmul.quant_matmul_dx_plain(g, wq)))
+            del wq
+        for label, (k, n) in LLAMA_QV.items():
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for s_, dt in itertools.product((1, 128),
+                                            (torch.float32, torch.bfloat16)):
+                x, _, a, b, ids = _bank(gen, 4, s_, k, n, 4, (8,) * 4, dt)
+                lab = f"{mode} {label} B=4 s={s_} k={k} n={n} {str(dt)[6:]}"
+                if s_ == 1:
+                    x1 = x[:, 0].contiguous()
+                    note("bgmv_gemv_quant", _err(
+                        "bgmv_gemv_quant", lab,
+                        bgmv.bgmv_gemv_quant(x1, wq, a, b, ids),
+                        bgmv.bgmv_gemv_quant_plain(x1, wq, a, b, ids)))
+                else:
+                    note("bgmv_matmul_quant", _err(
+                        "bgmv_matmul_quant", lab,
+                        bgmv.bgmv_matmul_quant(x, wq, a, b, ids),
+                        bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids)))
+            del wq
+    for label, h, kh, hd in DENSE_PAGED:
+        q, kp, vp, *rest = _paged_case(gen, 4, h, kh, hd, 16, 10, dev=dev)
+        for dt, window in itertools.product((torch.float32, torch.bfloat16),
+                                            (None, 64)):
+            args = [t.to(dt) for t in (q, kp, vp)] + rest
+            got = paged_attention.paged_attention(*args, window=window)
+            again = paged_attention.paged_attention(*args, window=window)
+            assert torch.equal(got, again), f"#13 {label}: two calls differ"
+            note("paged_attention", _err(
+                "paged_attention",
+                f"{label} B4 h{h} kh{kh} hd{hd} bs16 mb10 {str(dt)[6:]} "
+                f"w={window}", got,
+                paged_attention.paged_attention_plain(*args,
+                                                      window=window)))
+    for kern, err in check_lora_kernels(LLAMA_LORA_CASES).items():
+        note(kern, err)
+    return worst
+
+
+def time_dense_kernels(block_size=16, ring=160):
+    """Times at the dense configs' shapes: #1 and #2 at DENSE_BGMV
+    (time_kernels), #5-#8 at llama2-7b's q / v (time_lora_kernels), #11 at
+    m = 4 and 512 and #12 at llama2-7b's w_up and w_down over int8 and int4
+    (time_sched_kernels, time_qtrain_kernels), #3, #4 and #11 at its q / v
+    and #13 at DENSE_PAGED over the scheduled path's 10 columns
+    (time_sched_kernels)."""
+    rows = time_kernels(_bgmv_shapes(DENSE_BGMV))
+    rows.update(time_lora_kernels(LLAMA.d_model,
+                                  (("llama2-7b q/v", LLAMA.q_dim),)))
+    mb = -(-ring // block_size)
+    rows.update(time_sched_kernels(
+        block_size, ring, projs={**LLAMA_MLP, **LLAMA_QV},
+        paged=[(label, h, mb, None, kh, hd)
+               for label, h, kh, hd in DENSE_PAGED],
+        adapted=tuple(LLAMA_QV)))
+    rows.update(time_qtrain_kernels(projs=tuple(LLAMA_MLP), proj=LLAMA_MLP))
+    return rows
+
+
+def _ab_nodes(tree):
+    """The {"a", "b"} nodes of a LoRA tree, in key order."""
+    if isinstance(tree, dict):
+        if set(tree) == {"a", "b"}:
+            return [tree]
+        return [n for k in sorted(tree) for n in _ab_nodes(tree[k])]
+    return []
+
+
+def _masked_rows_zero(tr):
+    """True when every client i's rank rows r_i.. of A and columns r_i..
+    of B are exactly 0.0 (compared on the device)."""
+    return all(bool((node["a"][i][..., r_i:, :] == 0).all())
+               and bool((node["b"][i][..., :, r_i:] == 0).all())
+               for node in _ab_nodes(tr.lora)
+               for i, r_i in enumerate(tr.ranks))
+
+
+def _product_rel_diff(lora1, lora2):
+    """max over clients and adapted layers of max |B1 A1 - B2 A2| / max
+    |B2 A2|."""
+    worst = 0.0
+    for n1, n2 in zip(_ab_nodes(lora1), _ab_nodes(lora2)):
+        for c in range(n1["a"].shape[0]):
+            p1 = n1["b"][c] @ n1["a"][c]
+            p2 = n2["b"][c] @ n2["a"][c]
+            worst = max(worst, float((p1 - p2).abs().max())
+                        / max(float(p2.abs().max()), 1e-30))
+    return worst
+
+
+def hetero_train_path(name, cfg, device, params, hom=None, *,
+                      strategy="fedsa", ranks=HETERO_RANKS, rounds=3,
+                      clients=4, local_steps=2, batch=4, seq=128,
+                      equal_rank=64):
+    """FederatedTrainer over heterogeneous per-client ranks (``ranks``,
+    padded to r_max under a rank mask, client i at gamma_i = alpha
+    sqrt(N / r_i)), fp32 base ``params``, the traffic of train_path: the
+    launch counts of #5-#8, every masked row of A and column of B exactly
+    0.0 after each round, the plain tier within TRAIN_RTOL in loss and
+    grad-norm, ms/round.  ``strategy`` flora: a second kernel-tier run bit
+    for bit, the aggregate's B A against the plain tier's (FLORA_RTOL) and
+    the server step's share of a round.  ``hom`` (train_path's run): ranks
+    all ``equal_rank`` must give its bits.  ``cfg`` and ``device`` are
+    arguments so the phase can be rehearsed on a CPU at a reduced size."""
+    phase(f"heterogeneous training path: FederatedTrainer, {cfg.name} "
+          f"d_model {cfg.d_model}, fp32 base, N={clients}, {strategy} + "
+          f"sfedlora, ranks {ranks}")
+    model = build_model(cfg)
+
+    def trainer(rk):
+        ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
+                              batch_per_client=batch, seed=0)
+        return federated.FederatedTrainer(
+            model, ds,
+            lora_cfg=LoRAConfig(rank=max(rk), ranks=rk, alpha=8.0,
+                                scaling="sfedlora",
+                                targets=cfg.lora_targets),
+            fed_cfg=FederatedConfig(num_clients=clients,
+                                    local_steps=local_steps, rounds=rounds,
+                                    aggregation=strategy),
+            opt_cfg=OptimizerConfig(name="sgd", lr=5e-3), seed=0,
+            base_params=params, device=device)
+
+    def run(tr):
+        ms = []
+        for _ in range(rounds):
+            _sync(device)
+            t = time.monotonic()
+            tr.run_round()
+            _sync(device)
+            ms.append((time.monotonic() - t) * 1e3)
+            assert _masked_rows_zero(tr), \
+                f"round {tr.round_idx}: a masked rank row is not 0.0"
+        return ms
+
+    def same(tr_a, hist_b, lora_b):
+        return (tr_a.history == hist_b and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(tr_a.lora),
+                                              tree_leaves(lora_b))))
+
+    tr1 = trainer(ranks)
+    want = [8.0 * math.sqrt(clients / r) for r in ranks]
+    print(f"r_max {tr1.lora_cfg.rank}, rank mask {tr1.rank_mask.shape}, "
+          f"gamma_i = 8 sqrt(N / r_i) = "
+          f"{[round(g, 4) for g in tr1.gammas]}; gamma "
+          f"{tr1.gamma} (mixed)")
+    assert tr1.lora_cfg.rank == max(ranks) and tr1.gamma is None
+    assert all(abs(g - w) <= 1e-6 * w for g, w in zip(tr1.gammas, want))
+    assert _masked_rows_zero(tr1), "a masked rank row is not 0.0 at init"
+
+    # the counted run: counts to 0 just before, read just after
+    _reset_launches()
+    dispatch.reset_stats()
+    ms1 = run(tr1)
+    _sync(device)
+    launches = _launch_counts()
+    n_adapted = len(cfg.lora_targets) * cfg.num_layers
+    steps = clients * local_steps * rounds
+    expect = dict.fromkeys(launches, 0)
+    expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected {n_adapted} of each of #5-#8 per client local step x "
+          f"{steps}); dispatch {dispatch.stats}")
+    assert launches == expect, (launches, expect)
+    for h in tr1.history:
+        print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6e}")
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+    print(f"every masked rank row of A and column of B exactly 0.0 after "
+          f"each of {rounds} rounds (and at init)")
+
+    if strategy == "flora":
+        tr2 = trainer(ranks)
+        run(tr2)
+        ok = same(tr2, tr1.history, tr1.lora)
+        print(f"second kernel-tier run: trajectory and adapters "
+              f"{'bit-identical' if ok else 'DIFFER'}")
+        assert ok, "two kernel-tier flora runs differ"
+        del tr2
+        # the server step alone on the final state: QR of the stacked
+        # factors, the SVD of their (N r_max)-wide core, redistribution
+        strat = get_strategy("flora")
+        svds = sum(n["a"][0].numel() // (n["a"].shape[-1] * n["a"].shape[-2])
+                   for n in _ab_nodes(tr1.lora))
+        _sync(device)
+        t = time.monotonic()
+        strat.aggregate(tr1.lora, rounds, rank_mask=tr1.rank_mask)
+        _sync(device)
+        agg = (time.monotonic() - t) * 1e3
+        core = clients * max(ranks)
+        print(f"flora server step: {agg:.1f} ms for {svds} SVDs of {core} x "
+              f"{core} cores (the stacked factors of {svds} adapted "
+              f"{cfg.d_model}-wide projections, QR'd in float64), "
+              f"{agg / ms1[-1]:.3f} of the last {ms1[-1]:.1f} ms round")
+
+    # the plain tier on the same device
+    _reset_launches()
+    with dispatch.plain_tier():
+        tr3 = trainer(ranks)
+        run(tr3)
+    assert not any(_launch_counts().values()), _launch_counts()
+    worst = 0.0
+    for hk, hp in zip(tr1.history, tr3.history):
+        for key in ("loss", "grad_norm"):
+            d = abs(hk[key] - hp[key])
+            rel = d / max(abs(hp[key]), 1e-30)
+            worst = max(worst, rel)
+            print(f"round {hk['round']} {key}: kernel {hk[key]:.8g}, plain "
+                  f"{hp[key]:.8g}, |diff| {d:.3e} (relative {rel:.3e})")
+    print(f"kernel vs plain tier: worst relative diff of loss and grad_norm "
+          f"{worst:.3e} (bound {TRAIN_RTOL})")
+    assert worst <= TRAIN_RTOL
+    if strategy == "flora":
+        rel = _product_rel_diff(tr1.lora, tr3.lora)
+        print(f"flora aggregate, kernel vs plain tier: max |B A diff| / "
+              f"max |B A| {rel:.3e} over every client and layer (bound "
+              f"{FLORA_RTOL})")
+        assert rel <= FLORA_RTOL
+    del tr3
+
+    if hom is not None:
+        tr4 = trainer((equal_rank,) * clients)
+        run(tr4)
+        ok = same(tr4, hom["history"], hom["lora"])
+        print(f"ranks {(equal_rank,) * clients}: trajectory and adapters "
+              f"{'bit-identical' if ok else 'DIFFER'} to the homogeneous "
+              f"rank-{equal_rank} run")
+        assert ok, "equal ranks differ from the homogeneous run"
+        del tr4
+    print(f"heterogeneous training path on {name} ({strategy}, ranks "
+          f"{ranks}): ms/round {[round(t, 1) for t in ms1]}; "
+          f"{clients * local_steps} client local steps per round")
+    return launches, ms1
+
+
+def llama_paths(name):
+    """llama2-7b at full width and depth (32 layers, fp32, seeded random
+    weights), the model freed after each path: generate_banked (64 of #2
+    per prefill, 64 of #1 per decode step), serve_scheduled over an fp32
+    base (32 of #13 per decode step) and an int4 one (#3, #4, and 160 of
+    #11 per decode step: k, o, w_gate, w_up, w_down), training (train_path,
+    64 of each of #5-#8 per client local step), heterogeneous ranks (fedsa,
+    and flora for 2 rounds)."""
+    dev = torch.device("cuda")
+    run_path(name, LLAMA, dev)
+    _free()
+    model, params, bank = serving_model(LLAMA, dev)
+    for mode in ("fp32", "int4"):
+        sched_path(name, model, params, bank, mode)
+        _free()
+    del model, params, bank
+    _free()
+    params = train_base(build_model(LLAMA), dev)
+    _, _, hom = train_path(name, LLAMA, dev, params=params)
+    _free()
+    hetero_train_path(name, LLAMA, dev, params, hom)
+    del hom
+    _free()
+    hetero_train_path(name, LLAMA, dev, params, strategy="flora", rounds=2)
+    del params
+    _free()
+
+
+def qwen_path(name):
+    """qwen3-8b at full width and depth (36 layers, fp32) through
+    serve_scheduled: #13 at 4 query heads a kv head, qk_norm in the
+    model, v at 4096 x 1024."""
+    model, params, bank = serving_model(QWEN, torch.device("cuda"))
+    sched_path(name, model, params, bank, "fp32")
+    del model, params, bank
+    _free()
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -1984,8 +2397,8 @@ def main():
     _free()                           # the serving path's weights
     worst.update(check_lora_kernels())
     rows.update(time_lora_kernels())
-    train_launches, _ = train_path(name, get_config("gemma-2b"),
-                                   torch.device("cuda"))
+    train_launches, _, _ = train_path(name, get_config("gemma-2b"),
+                                      torch.device("cuda"))
     launches.update({k: train_launches[k] for k in LORA_KERNELS})
     _free()
     ring = SCHED["plen"] + SCHED["steps"]
@@ -2009,8 +2422,8 @@ def main():
     rows.update(time_qtrain_kernels())
     _free()
     for mode in ("int8", "int4"):
-        qtrain_launches, _ = train_path(name, get_config("gemma-2b"),
-                                        torch.device("cuda"), quant=mode)
+        qtrain_launches, _, _ = train_path(name, get_config("gemma-2b"),
+                                           torch.device("cuda"), quant=mode)
         _free()
         if mode == "int4":
             launches.update({k: qtrain_launches[k] for k in QTRAIN_KERNELS})
@@ -2021,6 +2434,12 @@ def main():
     _free()
     hybrid_fixed, _ = hybrid_path(name)
     launches["rglru_scan"] = hybrid_fixed["rglru_scan"]
+    for kern, err in check_dense_kernels().items():
+        worst[kern] = max(worst[kern], err)
+    rows.update(time_dense_kernels())
+    _free()
+    llama_paths(name)
+    qwen_path(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH):

@@ -128,12 +128,14 @@ def params_from_numpy(tree, device="cuda", dtype=None):
 
 def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
                          *, generator_state=None, data_state: str = None,
-                         partition_state: str = None,
+                         partition_state: str = None, rank_mask=None,
                          adapter_meta: dict = None):
     """Checkpoint one federated run under the JAX package's keys (``base``,
     ``lora``, ``opt``, ``round``, ``data_state``, ``partition_state``,
-    ``adapter_meta``), so ``repro.checkpoint.io.load_federated_state`` reads
-    the file.
+    ``rank_mask``, ``adapter_meta``), so
+    ``repro.checkpoint.io.load_federated_state`` reads the file.
+    ``rank_mask`` is the (N, r_max) mask of heterogeneous per-client ranks,
+    None for a homogeneous run.
 
     ``generator_state`` (``torch.Generator.get_state()`` of the trainer's
     participation generator) and ``data_state`` (the host dataset's
@@ -145,7 +147,8 @@ def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
     # them
     tree = {"base": base, "lora": lora, "opt": opt_state, "round": round_idx,
             "generator_state": generator_state, "data_state": data_state,
-            "partition_state": partition_state, "adapter_meta": adapter_meta}
+            "partition_state": partition_state, "rank_mask": rank_mask,
+            "adapter_meta": adapter_meta}
     tree = {k: v for k, v in tree.items() if v is not None}
     save_pytree(path, tree)
 

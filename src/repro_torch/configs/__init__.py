@@ -12,13 +12,16 @@ from repro_torch.configs.base import (FederatedConfig, LoRAConfig,
 ARCHS = {
     "gemma-2b": "gemma_2b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "llama2-7b": "llama2_7b",
+    "qwen3-8b": "qwen3_8b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "stablelm-1.6b": "stablelm_1_6b",
 }
 
 # the JAX package's other architectures (repro/configs/__init__.py)
 NOT_YET_PORTED = (
-    "mistral-nemo-12b", "paligemma-3b", "whisper-medium", "xlstm-1.3b",
-    "qwen3-8b", "qwen2-moe-a2.7b", "granite-moe-1b-a400m", "stablelm-1.6b",
-    "llama2-7b", "roberta-large",
+    "paligemma-3b", "whisper-medium", "xlstm-1.3b", "qwen2-moe-a2.7b",
+    "granite-moe-1b-a400m", "roberta-large",
 )
 
 

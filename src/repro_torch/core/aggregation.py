@@ -18,11 +18,15 @@ Registered strategies:
           SFed-LoRA)
   rolora  alternating rounds: train+aggregate A with B frozen, then B with
           A frozen (RoLoRA)
+  flora   stacking aggregation (FLoRA): the server forms the weighted mean
+          update sum_i w_i B_i A_i from the stacked factors and hands every
+          client its top-r singular components
 
-In the JAX package the flags may be traced; here round indices are python
-ints and flags python bools.  ``flora`` (stacking aggregation), the
-buffered wrapper of the async engine and rank-aware aggregation
-(heterogeneous ranks) are not yet ported and raise.
+Every strategy takes a (N, r) rank mask for heterogeneous per-client ranks
+(the padded representation, ``core/lora.rank_mask``).  In the JAX package
+the flags may be traced; here round indices are python ints and flags
+python bools.  The buffered wrapper of the async engine is not yet ported
+and raises.
 """
 from __future__ import annotations
 
@@ -33,8 +37,7 @@ import torch
 
 from repro_torch.core.lora import AdapterSet
 from repro_torch.core.lora import _walk_ab as _map_ab
-
-NOT_YET_PORTED = ("flora",)
+from repro_torch.core.lora import rank_leaf_mask as _rank_weight
 
 
 def _unwrap_adapters(tree, rank_mask):
@@ -51,6 +54,23 @@ def _rows(v, x):
     """A (N,) per-client vector as a tensor broadcast over leaf ``x``."""
     t = torch.as_tensor(v, device=x.device)
     return t.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def _map_ab_pairs(tree, fn_pair):
+    """Apply ``fn_pair({"a": .., "b": ..}) -> node`` to every adapter node.
+    Strategies that couple A and B (stacking) need both matrices: an a-only
+    or b-only node raises rather than stay unaggregated."""
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) <= {"a", "b"} and node:
+                if set(node) != {"a", "b"}:
+                    raise ValueError(
+                        "pair-coupled aggregation (e.g. flora stacking) "
+                        f"needs both 'a' and 'b'; got {sorted(node)}")
+                return fn_pair(node)
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return walk(tree)
 
 
 def _map_ab2(t1, t2, fn_a, fn_b):
@@ -97,27 +117,33 @@ def aggregate_clients(lora_stacked, agg_a, agg_b, *, axis: int = 0,
 
     ``weights`` (N,): weight-0 clients are excluded from the mean but still
     receive the aggregate; a leaf whose total weight is zero keeps its
-    previous values.  ``rank_mask`` (heterogeneous per-client ranks) is not
-    yet ported and raises."""
-    if rank_mask is not None:
-        raise NotImplementedError(
-            "rank-aware aggregation (heterogeneous per-client ranks) is not "
-            "yet ported to repro_torch")
+    previous values.
 
-    def agg(flag):
+    ``rank_mask`` (N, r), heterogeneous per-client ranks in the padded
+    representation: each rank row is averaged only over the clients active
+    in it, and each client receives the aggregate re-masked to its own
+    rows, so inactive rows stay exactly zero.  A rank row no sampled client
+    holds keeps its previous per-client values."""
+    def agg(flag, which):
         def f(x):
             if not flag:
                 return x
-            if weights is None:
+            if weights is None and rank_mask is None:
                 return x.mean(dim=axis, keepdim=True).expand_as(x).clone()
-            w = _rows(weights, x).to(x.dtype)
+            w = torch.ones((1,) * x.ndim, dtype=x.dtype, device=x.device)
+            if weights is not None:
+                w = w * _rows(weights, x).to(x.dtype)
+            if rank_mask is not None:
+                w = w * _rank_weight(rank_mask, x, which)
             den = w.sum(dim=axis, keepdim=True)
             # multiply by the reciprocal, as the JAX package does
-            mean = (x * w).sum(dim=axis, keepdim=True) * (
-                1.0 / torch.clamp(den, min=1e-9))
-            return torch.where(den > 0, mean.expand_as(x), x)
+            mean = ((x * w).sum(dim=axis, keepdim=True) * (
+                1.0 / torch.clamp(den, min=1e-9))).expand_as(x)
+            if rank_mask is not None:
+                mean = mean * _rank_weight(rank_mask, x, which)
+            return torch.where(den > 0, mean, x)
         return f
-    return _map_ab(lora_stacked, agg(agg_a), agg(agg_b))
+    return _map_ab(lora_stacked, agg(agg_a, "a"), agg(agg_b, "b"))
 
 
 def upload_bytes(lora_stacked, agg_a, agg_b) -> int:
@@ -230,25 +256,102 @@ class AlternatingStrategy(Strategy):
         return self.train_flags(round_idx)
 
 
+@dataclasses.dataclass(frozen=True)
+class StackingStrategy(Strategy):
+    """FLoRA's stacking aggregation.
+
+    Stacking the weighted B_i along columns and the A_i along rows makes
+    the stacked product the exact weighted sum of the client updates, m =
+    sum_i w_i B_i A_i (weights normalized to sum 1; a plain mean without
+    weights).  The server redistributes m's truncated SVD, sqrt(s) split
+    between the factors, so every client continues from identical adapters
+    of the original shape.  Components past the smaller side of m are
+    zero, as are those of zero singular value.
+
+    The SVD is taken through the stacked factors rather than of m itself:
+    QR factorizations B_s = Q_b R_b and A_s^T = Q_a R_a reduce it to the SVD
+    of the (N r)-wide core R_b R_a^T, whose singular values are m's, with
+    U = Q_b U_core and V^T = V_core^T Q_a^T.  At llama2-7b's q that is a
+    512 x 512 SVD for N = 4 at r = 128 in place of one of 4096 x 4096.  It
+    runs in float64 (a truncation between close singular values amplifies
+    rounding by |m| / gap) and the result is rounded to the adapters'
+    dtype.  Singular vectors are fixed only up to a sign per pair: each
+    pair is flipped so that the largest entry of its left vector is
+    positive, so the result does not depend on the solver's choice and
+    aggregating identical clients twice leaves the factors where they are.
+    Another implementation may flip a row of A with the column of B it
+    multiplies, so B A is what compares across implementations.
+
+    With a ``rank_mask`` the inactive rows of every client are zero, so
+    the stacked product sums the true rank-r_i products, and each client
+    keeps the top-r_i components: the best rank-r_i approximation of the
+    mean update."""
+
+    def aggregate(self, lora_stacked, round_idx, *, weights=None,
+                  rank_mask=None):
+        lora_stacked, rank_mask, aset = _unwrap_adapters(lora_stacked,
+                                                         rank_mask)
+
+        def redistribute(node):
+            a, b = node["a"], node["b"]          # (N,...,r,di), (N,...,do,r)
+            n, r = a.shape[0], a.shape[-2]
+            f64 = torch.float64
+            if weights is None:
+                w = torch.full((n,), 1.0 / n, dtype=f64, device=a.device)
+            else:
+                w = torch.as_tensor(weights, device=a.device).to(f64)
+                w = w / torch.clamp(w.sum(), min=1e-9)
+            # the stacked factors: B_s (..., do, N r), A_s (..., N r, di)
+            b_s = (b.to(f64) * _rows(w, b)).movedim(0, -2).flatten(-2)
+            a_s = a.to(f64).movedim(0, -3).flatten(-3, -2)
+            q_b, r_b = torch.linalg.qr(b_s)
+            q_a, r_a = torch.linalg.qr(a_s.transpose(-1, -2))
+            u, s, vh = torch.linalg.svd(r_b @ r_a.transpose(-1, -2),
+                                        full_matrices=False)
+            k = min(r, s.shape[-1])
+            u = q_b @ u[..., :, :k]
+            vh = vh[..., :k, :] @ q_a.transpose(-1, -2)
+            # one sign per pair: the largest entry of u's column positive
+            top = u.gather(-2, u.abs().argmax(dim=-2, keepdim=True))
+            sign = torch.where(top < 0, -1.0, 1.0).to(f64)
+            sr = torch.sqrt(s[..., :k])
+            a_new = (sr * sign[..., 0, :])[..., :, None] * vh
+            b_new = u * (sr[..., None, :] * sign)
+            if k < r:                    # rank beyond the matrix's sides
+                a_new = torch.cat([a_new, a_new.new_zeros(
+                    a_new.shape[:-2] + (r - k, a_new.shape[-1]))], dim=-2)
+                b_new = torch.cat([b_new, b_new.new_zeros(
+                    b_new.shape[:-1] + (r - k,))], dim=-1)
+            out = {"a": a_new.to(a.dtype).expand_as(a).clone(),
+                   "b": b_new.to(b.dtype).expand_as(b).clone()}
+            if rank_mask is not None:
+                out["a"] = out["a"] * _rank_weight(rank_mask, out["a"], "a")
+                out["b"] = out["b"] * _rank_weight(rank_mask, out["b"], "b")
+            return out
+
+        out = _map_ab_pairs(lora_stacked, redistribute)
+        return out if aset is None else dataclasses.replace(aset, lora=out)
+
+    def agg_leaf_flags(self, round_idx):
+        # the redistribution rewrites both factors for every client
+        return (True, True)
+
+
 REGISTRY = {
     "fedit": FlagStrategy("fedit", True, True, True, True),
     "ffa": FlagStrategy("ffa", False, True, False, True),
     "fedsa": FlagStrategy("fedsa", True, True, True, False),
     "rolora": AlternatingStrategy("rolora"),
+    "flora": StackingStrategy("flora"),
 }
 
-# every strategy name the JAX package knows; NOT_YET_PORTED ones raise
-STRATEGIES = tuple(REGISTRY) + NOT_YET_PORTED
+STRATEGIES = tuple(REGISTRY)
 
 
 def get_strategy(name) -> Strategy:
     """Look up a strategy by name (a Strategy instance passes through)."""
     if isinstance(name, Strategy):
         return name
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"strategy '{name}' is not yet ported to repro_torch; ported: "
-            f"{sorted(REGISTRY)}")
     try:
         return REGISTRY[name]
     except KeyError:

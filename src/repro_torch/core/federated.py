@@ -15,12 +15,23 @@ The scaling factor gamma = scaling_factor(scheme, alpha, r, N) is folded
 into B inside the loss (``AdapterSet.prepared``), so autograd takes the
 gradient through that multiply and the kernels see gamma 1.0, as in JAX.
 
+Heterogeneous clients (``lora_cfg.ranks``, one rank per client) use the
+JAX package's padded representation: every client holds r_max =
+max(ranks) rank rows under a (N, r_max) rank mask; client i's rows r_i..
+r_max start at zero, its gradients are masked to its rows in every local
+step, and the rank-aware aggregate re-masks what it hands back, so those
+rows stay exactly zero.  Client i trains with its own gamma_i =
+scaling(alpha, r_i, N), a python float that its AdapterSet folds into B
+inside the loss, as the homogeneous gamma is: with equal ranks the mask is
+all ones (no mask) and the gammas one float, so the run is the homogeneous
+one, bit for bit.
+
 The frozen base may be packed (``core/quant.quantize_tree``): every
 projection over it goes through the packed kernels on CUDA (#9-#12 with #7
 and #8) and dequantizes on the CPU.
 
 Not yet ported, and raising: ``data_mode="device"``, meshes, the watchdog,
-the async buffered engine and faults, heterogeneous ranks.
+the async buffered engine and faults.
 """
 from __future__ import annotations
 
@@ -35,8 +46,9 @@ from repro_torch.checkpoint.io import (load_federated_state,
                                        params_from_numpy,
                                        save_federated_state)
 from repro_torch.core.aggregation import get_strategy
-from repro_torch.core.lora import AdapterSet, init_lora
-from repro_torch.core.scaling import scaling_factor
+from repro_torch.core.lora import (AdapterSet, apply_rank_mask, init_lora,
+                                   mask_rank_tree, rank_mask)
+from repro_torch.core.scaling import per_client_gammas, scaling_factor
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           global_norm, make_optimizer)
 from repro_torch.tree import tree_leaves, tree_map
@@ -71,7 +83,8 @@ def _make_client_local(model, strat, opt_cfg):
     on one client's adapter state)."""
     _, opt_update = make_optimizer(opt_cfg)
 
-    def client_local(base, lora, opt_state, batches, round_idx, gamma):
+    def client_local(base, lora, opt_state, batches, round_idx, gamma,
+                     mask_row=None):
         losses, gnorms = [], []
         for batch in batches:
             leaves = tree_map(lambda x: x.detach().requires_grad_(True),
@@ -85,6 +98,8 @@ def _make_client_local(model, strat, opt_cfg):
             grads = tree_map(lambda _: next(it), leaves)
             gnorm = global_norm(grads)
             grads = strat.mask_grads(grads, round_idx)
+            if mask_row is not None:
+                grads = mask_rank_tree(grads, mask_row)
             if opt_cfg.grad_clip:
                 grads = clip_by_global_norm(grads, opt_cfg.grad_clip)
             updates, opt_state = opt_update(grads, opt_state, lora)
@@ -101,13 +116,17 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     """Returns round_body(base, adapters, opt_N, batches, round_idx,
     weights).
 
-    ``adapters`` is a client-stacked :class:`AdapterSet` with a float
-    gamma: its ``lora`` tree and ``opt_N`` carry a leading client dim,
-    ``batches`` is (N, local_steps, batch, seq).  Returns (adapters',
+    ``adapters`` is a client-stacked :class:`AdapterSet`: its ``lora``
+    tree and ``opt_N`` carry a leading client dim, ``batches`` is (N,
+    local_steps, batch, seq).  Its gamma is one float or (N,) per-client
+    factors, each client training with its own; its ``rank_mask`` (N,
+    r_max), where set, masks each client's gradients to its rank rows and
+    makes the aggregate rank-aware.  Returns (adapters',
     opt_N', metrics) with metrics "loss" and "grad_norm" (means over
     clients and local steps, as 0-d tensors) and, with
     ``track_update_norm``, "update_norm": |gamma| times the norm of the
-    post-aggregation adapter movement.
+    post-aggregation adapter movement (the mean |gamma_i| for per-client
+    factors).
 
     ``weights`` (N,) non-negative: 0 = not sampled (keeps its local state
     and only receives the aggregate); positive values also weight the
@@ -118,13 +137,12 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
 
     def round_body(base, adapters, opt_N, batches, round_idx, weights=None):
         lora_N = adapters.lora
-        g = adapters.gamma
-        if not isinstance(g, float) or adapters.rank_mask is not None:
-            _not_yet("per-client gammas and rank masks (heterogeneous "
-                     "clients)")
+        g, mask_N = adapters.gamma, adapters.rank_mask
         n = tree_leaves(lora_N)[0].shape[0]
-        outs = [client_local(base, _client(lora_N, i), _client(opt_N, i),
-                             batches[i], round_idx, g) for i in range(n)]
+        outs = [client_local(
+            base, _client(lora_N, i), _client(opt_N, i), batches[i],
+            round_idx, g if isinstance(g, float) else float(g[i]),
+            None if mask_N is None else mask_N[i]) for i in range(n)]
         new_lora = _stack([o[0] for o in outs])
         new_opt = _stack([o[1] for o in outs])
         if weights is not None:
@@ -133,12 +151,15 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
                 return torch.where(keep, new, old)
             new_lora = tree_map(sel, new_lora, lora_N)
             new_opt = tree_map(sel, new_opt, opt_N)
-        new_lora = strat.aggregate(new_lora, round_idx, weights=weights)
+        new_lora = strat.aggregate(new_lora, round_idx, weights=weights,
+                                   rank_mask=mask_N)
         metrics = {"loss": torch.stack([o[2]["loss"] for o in outs]).mean(),
                    "grad_norm": torch.stack(
                        [o[2]["grad_norm"] for o in outs]).mean()}
         if track_update_norm:
-            metrics["update_norm"] = abs(g) * global_norm(
+            g_scale = abs(g) if isinstance(g, float) \
+                else float(np.abs(g).mean())
+            metrics["update_norm"] = g_scale * global_norm(
                 tree_map(lambda a, b: a - b, new_lora, lora_N))
         return dataclasses.replace(adapters, lora=new_lora), new_opt, metrics
 
@@ -156,9 +177,15 @@ class FederatedTrainer:
 
     ``base_params``: the frozen base (a tree of tensors, or of numpy
     arrays, placed on ``device``); drawn from the seed when None.
-    ``lora_init``: one client's initial A/B tree (tensors or numpy), the
-    JAX package's ``init_lora`` draw carried across; drawn from the seed
-    when None.  All clients start from it (FedSA init: the same A, B = 0).
+    ``lora_init``: one client's initial A/B tree (tensors or numpy) at the
+    (padded) rank, the JAX package's ``init_lora`` draw carried across;
+    drawn from the seed when None.  All clients start from it (FedSA init:
+    the same A, B = 0), each masked to its own rank.
+
+    ``lora_cfg.ranks`` (one rank per client) switches on heterogeneous
+    ranks: ``ranks``, ``rank_mask`` (N, r_max) and ``gammas`` hold them,
+    ``lora_cfg`` shows the padded rank r_max, and ``gamma`` is None when
+    the gammas differ.
 
     Randomness: base and adapter init draw, in that order, from one
     ``torch.Generator`` seeded with ``seed``; participation sampling from
@@ -184,8 +211,6 @@ class FederatedTrainer:
             _not_yet("training on a mesh")
         if watchdog is not None:
             _not_yet("the collapse watchdog")
-        if lora_cfg.ranks is not None:
-            _not_yet("heterogeneous per-client ranks (lora_cfg.ranks)")
         if model.cfg.family != "dense":
             _not_yet(f"training the '{model.cfg.family}' family (the "
                      "RG-LRU scan kernel has no backward yet)")
@@ -194,12 +219,26 @@ class FederatedTrainer:
         self.dataset = dataset
         self.fed_cfg = fed_cfg
         self.opt_cfg = opt_cfg
-        self.lora_cfg = lora_cfg
         self.track_stability = track_stability
         n = fed_cfg.num_clients
-        self.gamma = scaling_factor(lora_cfg.scaling, lora_cfg.alpha,
-                                    lora_cfg.rank, n)
-        self.gammas = (self.gamma,) * n
+        self.ranks, self.rank_mask = lora_cfg.ranks, None
+        if self.ranks is not None:
+            self.ranks = tuple(int(r) for r in self.ranks)
+            if len(self.ranks) != n:
+                raise ValueError(
+                    f"lora_cfg.ranks has {len(self.ranks)} entries but "
+                    f"num_clients={n}")
+            self.rank_mask = rank_mask(self.ranks)
+            self.gammas = per_client_gammas(lora_cfg.scaling, lora_cfg.alpha,
+                                            self.ranks, n)
+            self.gamma = (self.gammas[0] if len(set(self.gammas)) == 1
+                          else None)
+            lora_cfg = dataclasses.replace(lora_cfg, rank=max(self.ranks))
+        else:
+            self.gamma = scaling_factor(lora_cfg.scaling, lora_cfg.alpha,
+                                        lora_cfg.rank, n)
+            self.gammas = (self.gamma,) * n
+        self.lora_cfg = lora_cfg      # the padded rank under mixed ranks
         gen = torch.Generator(self.device).manual_seed(seed)
         if base_params is None:
             base_params = model.init(gen, self.device)
@@ -214,6 +253,9 @@ class FederatedTrainer:
             lora1 = tree_map(lambda x: x.detach().to(self.device), lora_init)
         self.lora = tree_map(
             lambda x: x.expand((n,) + tuple(x.shape)).clone(), lora1)
+        if self.rank_mask is not None:
+            # client i's rows r_i..r_max of A start (and stay) exactly zero
+            self.lora = apply_rank_mask(self.lora, self.rank_mask)
         opt_init, _ = make_optimizer(opt_cfg)
         opt1 = opt_init(lora1)
         self.opt_state = tree_map(
@@ -239,16 +281,21 @@ class FederatedTrainer:
 
     @property
     def adapters(self) -> AdapterSet:
-        """The client-stacked AdapterSet: the A/B state plus gamma and
-        rank/alpha metadata as one value."""
-        return AdapterSet(lora=self.lora, gamma=self.gamma,
+        """The client-stacked AdapterSet: the A/B state plus the gamma(s),
+        the rank mask and rank/alpha metadata as one value."""
+        return AdapterSet(lora=self.lora, gamma=self.gammas,
+                          rank_mask=self.rank_mask,
                           rank=self.lora_cfg.rank, alpha=self.lora_cfg.alpha)
 
     def client_adapters(self, client: int) -> AdapterSet:
-        """Client ``client``'s personalized AdapterSet."""
-        return AdapterSet(lora=_client(self.lora, client),
-                          gamma=self.gammas[client],
-                          rank=self.lora_cfg.rank, alpha=self.lora_cfg.alpha)
+        """Client ``client``'s personalized AdapterSet (its own gamma_i,
+        rank and rank-mask row)."""
+        return AdapterSet(
+            lora=_client(self.lora, client), gamma=self.gammas[client],
+            rank_mask=(None if self.rank_mask is None
+                       else self.rank_mask[client]),
+            rank=self.ranks[client] if self.ranks else self.lora_cfg.rank,
+            alpha=self.lora_cfg.alpha)
 
     def client_gamma(self, client: int) -> float:
         return self.gammas[client]
@@ -313,39 +360,45 @@ class FederatedTrainer:
     def save(self, path: str) -> None:
         """Checkpoint the base (packed leaves as packed), the client-stacked
         adapters and optimizer state, the round index, the participation
-        generator's state, the dataset's RNG streams and partition, and the
-        AdapterSet's metadata (``adapter_meta``: gammas, alpha, rank, ranks,
-        scaling), under the JAX package's keys."""
+        generator's state, the dataset's RNG streams and partition, the
+        per-client rank mask and the AdapterSet's metadata
+        (``adapter_meta``: gammas, alpha, rank, ranks, scaling), under the
+        JAX package's keys."""
         n = self.fed_cfg.num_clients
         meta = {"gammas": np.asarray(self.gammas, np.float32),
                 "alpha": float(self.lora_cfg.alpha),
                 "rank": int(self.lora_cfg.rank),
-                "ranks": np.asarray((self.lora_cfg.rank,) * n, np.int64),
+                "ranks": np.asarray(self.ranks or (self.lora_cfg.rank,) * n,
+                                    np.int64),
                 "scaling": self.lora_cfg.scaling}
         save_federated_state(
             path, self.base, self.lora, self.opt_state, self.round_idx,
             generator_state=self._part_gen.get_state(),
             data_state=self.dataset.rng_state(),
             partition_state=self.dataset.partition_state(),
-            adapter_meta=meta)
+            rank_mask=self.rank_mask, adapter_meta=meta)
 
     def restore(self, path: str) -> None:
         """Load a checkpoint written by :meth:`save` or by the JAX trainer.
 
         The data partition is restored (and checked against the dataset's
         seed-derived tables, which raises on a mismatch), as the JAX
-        trainer does.  A file with a per-client rank mask raises:
-        heterogeneous ranks are not ported.  The port's participation
+        trainer does.  The file's per-client rank mask must equal this
+        trainer's (no mask on either side, or the same one), else it
+        raises.  The port's participation
         generator resumes from its saved state; a JAX-written file carries a
         ``jax.random`` key instead, whose stream the port cannot continue,
         so it restores only at participation 1.0, where no round draws from
         it."""
         base, lora, opt, rnd, state = load_federated_state(path)
-        if "rank_mask" in state:
+        ck_mask = state.get("rank_mask")
+        if (ck_mask is None) != (self.rank_mask is None) or (
+                ck_mask is not None
+                and not np.array_equal(ck_mask, self.rank_mask)):
             raise ValueError(
                 "checkpoint per-client rank mask does not match this "
-                "trainer's configured ranks (heterogeneous ranks are not yet "
-                "ported to repro_torch)")
+                "trainer's configured ranks: restore with the same "
+                "lora_cfg.ranks the run was saved with")
         gen_state = state.get("generator_state")
         if gen_state is None and self.fed_cfg.participation < 1.0:
             raise ValueError(

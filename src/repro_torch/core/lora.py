@@ -179,19 +179,26 @@ def _like(x: torch.Tensor, values) -> torch.Tensor:
     return torch.as_tensor(values, dtype=x.dtype, device=x.device)
 
 
+def rank_leaf_mask(mask, x, which: str) -> torch.Tensor:
+    """A (N, r) rank mask (numpy or a tensor) broadcast against a
+    client-stacked adapter leaf ``x``, in its dtype and on its device: the
+    rank dim is axis -2 of an "a" leaf ((N, ..., r, d_in)) and axis -1 of a
+    "b" leaf ((N, ..., d_out, r))."""
+    n, r = mask.shape
+    if which == "a":
+        shape = (n,) + (1,) * (x.ndim - 3) + (r, 1)
+    else:
+        shape = (n,) + (1,) * (x.ndim - 2) + (r,)
+    return _like(x, mask.reshape(shape))
+
+
 def apply_rank_mask(lora_stacked, mask):
     """Zero the inactive rank rows of A / columns of B per client: leaves
     carry a leading client dim (a (N, ..., r, d_in), b (N, ..., d_out, r));
     ``mask`` is (N, r), numpy or a tensor."""
-    n, r = mask.shape
-
-    def fa(x):
-        return x * _like(x, mask.reshape((n,) + (1,) * (x.ndim - 3) + (r, 1)))
-
-    def fb(x):
-        return x * _like(x, mask.reshape((n,) + (1,) * (x.ndim - 2) + (r,)))
-
-    return _walk_ab(lora_stacked, fa, fb)
+    return _walk_ab(lora_stacked,
+                    lambda x: x * rank_leaf_mask(mask, x, "a"),
+                    lambda x: x * rank_leaf_mask(mask, x, "b"))
 
 
 def mask_rank_tree(lora, mask_row):

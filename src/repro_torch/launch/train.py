@@ -8,6 +8,11 @@ On the CPU, at smoke scale (the plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --rounds 2
 
+Heterogeneous clients (per-client ranks, each client training with its own
+gamma_i = alpha sqrt(N / r_i)), aggregated by FedSA or by FLoRA's stacking:
+  ... --arch llama2-7b --clients 4 --ranks 16,32,64,128 --strategy fedsa
+  ... --arch llama2-7b --clients 4 --ranks 16,32,64,128 --strategy flora
+
 Over a packed frozen base (int8 per channel, or int4 in groups of
 ``--quant-group``), checkpointed and resumed:
   ... --quant int4 --quant-group 64 --save ck.npz
@@ -15,9 +20,9 @@ Over a packed frozen base (int8 per channel, or int4 in groups of
 
 It prints the JAX launcher's ``# ...`` header, its round lines and the
 final held-out perplexity.  Flags of the JAX launcher whose machinery is
-not ported yet (``--ranks``, ``--mesh``, ``--faults``, ``--buffer``,
-``--watchdog``, ``--data-mode device``) are accepted by the parser and
-raise "not yet ported".
+not ported yet (``--mesh``, ``--faults``, ``--buffer``, ``--watchdog``,
+``--data-mode device``) are accepted by the parser and raise "not yet
+ported".
 """
 from __future__ import annotations
 
@@ -38,8 +43,7 @@ from repro_torch.models.api import build_model
 
 
 def _reject_unported(args):
-    unported = {"--ranks": bool(args.ranks),
-                "--mesh": bool(args.mesh),
+    unported = {"--mesh": bool(args.mesh),
                 "--faults": bool(args.faults),
                 "--buffer": args.buffer is not None,
                 "--watchdog": args.watchdog is not None,
@@ -58,7 +62,11 @@ def main(argv=None):
                     help="smoke-scale variant (CPU)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--rank", type=int, default=8)
-    ap.add_argument("--ranks", default="", help="not yet ported")
+    ap.add_argument("--ranks", default="",
+                    help="comma-separated per-client ranks (heterogeneous "
+                         "clients, one rank per client; overrides --rank: "
+                         "clients pad to max(ranks) with a rank mask and "
+                         "train with their own gamma_i)")
     ap.add_argument("--alpha", type=float, default=8.0)
     ap.add_argument("--scaling", default="sfedlora",
                     choices=("lora", "rslora", "sfedlora", "za", "zb"))
@@ -118,7 +126,10 @@ def main(argv=None):
                           partition=args.partition,
                           dirichlet_alpha=args.dirichlet_alpha,
                           seed=args.seed)
-    lora_cfg = LoRAConfig(rank=args.rank, alpha=args.alpha,
+    ranks = (tuple(int(r) for r in args.ranks.split(","))
+             if args.ranks else None)
+    lora_cfg = LoRAConfig(rank=max(ranks) if ranks else args.rank,
+                          ranks=ranks, alpha=args.alpha,
                           scaling=args.scaling, targets=cfg.lora_targets)
     base_params = lora_init = None
     if args.quant != "none":
@@ -151,9 +162,13 @@ def main(argv=None):
         tr.base = apply_quant_flag(tr.base, args.quant, args.quant_group,
                                    source=f"checkpoint '{args.resume}'")
         print(f"# resumed from {args.resume} at round {tr.round_idx}")
+    gamma_str = (f"gamma={tr.adapters.gamma:.4f} rank={args.rank}"
+                 if ranks is None else
+                 "gammas=" + ",".join(f"{g:.3f}" for g in tr.gammas)
+                 + f" ranks={args.ranks}")
     print(f"# {args.arch}{' (reduced)' if args.reduced else ''}  "
           f"strategy={args.strategy} scaling={args.scaling} "
-          f"gamma={tr.adapters.gamma:.4f} rank={args.rank} N={args.clients}"
+          f"{gamma_str} N={args.clients}"
           + (" weight-by-size" if args.weight_by_size else "")
           + (f" quant={args.quant}" if args.quant != "none" else ""))
     tr.run(args.rounds, log_every=max(1, args.rounds // 10))

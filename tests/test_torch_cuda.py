@@ -219,6 +219,9 @@ PAGED_CASES = [
     (4, 8, 1, 256, 32, 10),     # 2 sub-blocks a column
     (140, 4, 1, 64, 16, 6),     # b kh fills the card: unsplit
     (2, 3, 1, 70, 7, 9),        # hd off every vector multiple: element path
+    (4, 32, 32, 128, 16, 10),   # llama2-7b: MHA, hd 128 (b kh fills the card)
+    (4, 32, 8, 128, 16, 10),    # qwen3-8b: 4 query heads a kv head
+    (4, 32, 32, 64, 16, 10),    # stablelm-1.6b: MHA, hd 64
 ]
 
 
@@ -840,3 +843,91 @@ def test_hybrid_prefill_scans_once_per_rglru_layer(card):
             assert bgmv.launches["bgmv_gemv"] == 10 * n
     for got, want in zip(out[False], out[True]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------- the dense configs' widths
+
+# #11 at llama2-7b's MLP: w_up (k 4096, n 11008 = 43 column blocks of 256)
+# and w_down (k 11008: its decode GEMV's last chunk of k is short, 768 of
+# 1024 rows on a 132-SM card; int4 holds 172 groups of 64 rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", [(4096, 11008), (11008, 4096)])
+@pytest.mark.parametrize("m", [1, 4, 8, 512])
+def test_quant_matmul_at_llama_mlp_matches_plain_and_repeats(card, m, k, n,
+                                                             bits):
+    wq = _packed(k, n, bits, seed=m + k)
+    x = torch.randn(m, k, device="cuda")
+    got, again = lora_matmul.quant_matmul(x, wq), lora_matmul.quant_matmul(
+        x, wq)
+    want = lora_matmul.quant_matmul_plain(x, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want)
+    assert lora_matmul.launches == _launches(quant_matmul=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,active", [(64, 64), (128, 128), (128, 16)])
+def test_lora_kernels_at_llama_qv_match_plain_and_repeat(card, r, active,
+                                                         dtype):
+    """#5-#8 at llama2-7b's q and v (m = 4 x 128, k = n = 4096), rank 64
+    and 128, and a client of rank 16 padded to 128 (rows of A and columns
+    of B past 16 zero, as the heterogeneous trainer holds them): against
+    their plain versions, each called twice with results equal bit for bit;
+    the padded rows' gradients come out zero where the plain versions' do."""
+    lm = lora_matmul
+    x, w, a, b, g = _operands(512, 4096, 4096, r, getattr(torch, dtype),
+                              seed=r + active)
+    a[active:] = 0
+    b[:, active:] = 0
+    outs = {}
+    for name, call in (
+            ("fwd", lambda: lm.lora_fwd(x, w, a, b, 1.5)),
+            ("dx", lambda: lm.lora_bwd_dx(g, w, a, b, 1.5))):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), name
+        outs[name] = got
+    (y, p), (dx, q) = outs["fwd"], outs["dx"]
+    y_want, p_want = lm.lora_fwd_plain(x, w, a, b, 1.5)
+    dx_want, q_want = lm.lora_bwd_dx_plain(g, w, a, b, 1.5)
+    da, da2 = lm.lora_bwd_da(q_want, x, 1.5), lm.lora_bwd_da(q_want, x, 1.5)
+    db, db2 = lm.lora_bwd_db(g, p_want, 1.5), lm.lora_bwd_db(g, p_want, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    for got, want in ((y, y_want), (p, p_want), (dx, dx_want), (q, q_want),
+                      (da, lm.lora_bwd_da_plain(q_want, x, 1.5)),
+                      (db, lm.lora_bwd_db_plain(g, p_want, 1.5))):
+        _assert_close(got, want)
+    assert bool((p[:, active:] == 0).all())
+    assert bool((q[:, active:] == 0).all())
+    assert bool((da[active:] == 0).all()) and bool((db[:, active:] == 0).all())
+    assert lm.launches == _launches(lora_fwd=2, lora_bwd_dx=2, lora_bwd_da=2,
+                                    lora_bwd_db=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(5120, 4096), (5120, 1024), (4096, 4096)])
+def test_bgmv_at_the_dense_configs_matches_plain_and_repeats(card, k, n,
+                                                             dtype):
+    """#1 (4 decode rows) and #2 (4 x 128 prefill rows) at mistral-nemo-12b's
+    q (5120 -> 4096) and v (5120 -> 1024) and llama2-7b's q / v (4096 ->
+    4096), rank 8, with bank ids and ids=None, each called twice with
+    results equal bit for bit."""
+    dt = getattr(torch, dtype)
+    x, bank, gathered = _gemv_bank(4, k, n, 8, dt, k + n)
+    w = (torch.randn(k, n, device="cuda") * k ** -0.5).to(dt)
+    _gemv_checks(bgmv.bgmv_gemv, bgmv.bgmv_gemv_plain, x, w,
+                 (bank, gathered))
+    x3 = (torch.randn(4, 128, k, device="cuda")).to(dt)
+    for a, b, ids in (bank, gathered):
+        got, again = (bgmv.bgmv_matmul(x3, w, a, b, ids) for _ in range(2))
+        want = bgmv.bgmv_matmul_plain(x3, w, a, b, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, want)
+    assert bgmv.launches == {"bgmv_matmul": 4, "bgmv_gemv": 4,
+                             "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 0}

@@ -77,7 +77,7 @@ def test_config_matches_jax():
     j.pop("use_pallas")
     assert j == t
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get_config("qwen3-8b")
+        tconfigs.get_config("qwen2-moe-a2.7b")
 
 
 def test_bank_matches_jax(pair):

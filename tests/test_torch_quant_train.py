@@ -50,6 +50,12 @@ from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map             # noqa: E402
 
 FN_TOL = dict(rtol=2e-5, atol=2e-4)
+
+
+@pytest.fixture(autouse=True)
+def _clean_counters():
+    """The launch counts start at 0: the CPU-tier tests assert none."""
+    lora_matmul.reset_launches()
 RAGGED_TOL = dict(rtol=1e-6, atol=1e-6)
 TRAJ_RTOL = 1e-4
 ROUNDS = 3
@@ -456,8 +462,9 @@ def test_jax_checkpoint_with_partial_participation_raises(small, tmp_path):
 
 
 def test_restore_refuses_a_rank_mask(small, tmp_path):
-    """A checkpoint of heterogeneous clients (the JAX trainer's per-client
-    rank mask) raises: the port has no heterogeneous ranks yet."""
+    """A checkpoint of heterogeneous clients (a per-client rank mask)
+    raises in a homogeneous trainer: the masks differ (no mask here, one in
+    the file)."""
     _, ttr = _trainers(small, "int8")
     path = str(tmp_path / "mask.npz")
     tio.save_pytree(path, {"base": ttr.base, "lora": ttr.lora,

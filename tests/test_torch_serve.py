@@ -102,7 +102,7 @@ def test_cli_runs_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "qwen3-8b"], ["--arch", "paligemma-3b"],
+    ["--arch", "granite-moe-1b-a400m"], ["--arch", "paligemma-3b"],
     ["--arch", "qwen2-moe-a2.7b"], ["--arch", "whisper-medium"],
     ["--arch", "xlstm-1.3b"]])
 def test_cli_unported_flags_raise(flags):

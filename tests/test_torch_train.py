@@ -204,12 +204,7 @@ def test_strategy_aggregate_matches_jax(strategy, weighted):
 
 def test_unported_strategies_and_async_fields_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tagg.get_strategy("flora")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         tagg.buffered("fedsa")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tagg.aggregate_clients({"a": torch.zeros(2, 3)}, True, True,
-                               rank_mask=np.ones((2, 3), np.float32))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tbase.FederatedConfig(buffer_size=2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -385,9 +380,6 @@ def test_trainer_rejects_unported_modes(small):
                   {"watchdog": object()}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tfed.FederatedTrainer(model, ds, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfed.FederatedTrainer(model, ds, **{
-            **kw, "lora_cfg": tbase.LoRAConfig(ranks=(4, 8))})
 
 
 # ---------------------------------------------------------------------- CLI
@@ -406,10 +398,13 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ranks", "4,8"], ["--mesh", "4x2"],
+    pytest.param(["--arch", "recurrentgemma-9b"], id="--arch-hybrid"),
+    ["--mesh", "4x2"],
     ["--faults", "dropout=0.1"], ["--buffer", "2"], ["--watchdog", "2"],
     ["--data-mode", "device"],
-    ["--strategy", "flora"], ["--arch", "qwen3-8b"],
+    pytest.param(["--faults", "straggle=geom:0.3", "--buffer", "2"],
+                 id="--faults-buffered"),
+    ["--arch", "qwen2-moe-a2.7b"],
 ], ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
