@@ -97,7 +97,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      run) and FLoRA's stacking over those ranks (2 rounds, two kernel-tier
      runs bit for bit, B A against the plain tier, the server step's share
      of a round); then qwen3-8b (36 layers, fp32) through serve_scheduled
- 16. result: a JSON line of per-kernel numbers, the script's time, the
+ 16. the hybrid's training widths: #15's backward against its plain
+     reverse loop bit for bit (and a repeat) at the scan phase's three
+     shapes and s = 1, fp32 and bf16; #9, #10, #7 and #8 at
+     recurrentgemma-9b's q / wx / wy (4096 x 4096) and v (4096 x 256), rank
+     64, and #11 (m = 4 and 512) and #12 at its MLP (4096 <-> 12288), over
+     int8 and int4; then their times beside the plain versions, one PyTorch
+     call where there is one and the card's bound (#3 and #4 at q / wx / wy
+     and v as well)
+ 17. hybrid training, fp32 base: FederatedTrainer on recurrentgemma-9b at
+     full width and depth (38 layers, 9.40 B parameters, seeded random
+     weights), LoRA at q, v, wx and wy, fedsa + sfedlora, N = 4, rank 64,
+     3 rounds: launch counts (76 of each of #5-#8, 26 of #15 and 26 of its
+     backward per client local step), the plain tier, a bit-identical
+     repeat, ms/round, peak memory and a profile of one local step
+ 18. hybrid training over an int4 base packed on the card from the same
+     fp32 base (freed once packed): the checks of 17 with #9-#12, and save
+     / resume bit for bit
+ 19. hybrid serving over an int4 base: generate_banked (#3, #4, #11, #15)
+     and serve_scheduled (#13 as well), with the checks of 13
+ 20. result: a JSON line of per-kernel numbers, the script's time, the
      nvidia-smi line, and the final {"ok": true, ...} line
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
@@ -126,7 +145,8 @@ from repro_torch.core import federated                      # noqa: E402
 from repro_torch.core.aggregation import get_strategy       # noqa: E402
 from repro_torch.core.lora import (AdapterBank, LiveAdapterBank,  # noqa: E402
                                    init_adapter_set, split_ab)
-from repro_torch.core.quant import (quant_footprint, quantize,  # noqa: E402
+from repro_torch.core.quant import (apply_quant_flag,  # noqa: E402
+                                    quant_footprint, quantize,
                                     quantize_tree)
 from repro_torch.data.synthetic import FederatedDataset     # noqa: E402
 from repro_torch.kernels import (bgmv, build, common,  # noqa: E402
@@ -151,7 +171,7 @@ BF16_ATOL = 1e-3               # beside BF16_STEP, for outputs near zero
 LOGIT_ATOL = 1e-3              # teacher-forced logits, kernel vs plain tier
 # training path: kernel-tier vs plain-tier per-round loss and grad-norm.
 # Both run fp32 with the same data; only the order of the sums differs (the
-# kernels' tiles vs cuBLAS), and 24 SGD steps through 18 layers carry that
+# kernels' tiles vs cuBLAS), and 24 SGD steps through 18-38 layers carry that
 # forward, so the bound is relative and well above fp32 rounding
 TRAIN_RTOL = 1e-3
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -169,7 +189,8 @@ SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/qgemv.cu",
            "lora_bwd_dx_quant": CSRC + "packed_dx.cu",
            "quant_matmul_dx": CSRC + "packed_dx.cu",
            "rglru_scan": CSRC + "rglru_scan.cu",
-           "flash_attention": CSRC + "flash_attention.cu"}
+           "flash_attention": CSRC + "flash_attention.cu",
+           "rglru_scan_bwd": CSRC + "rglru_scan.cu"}
 REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "bgmv_matmul": "src/repro/kernels/bgmv.py:59",
             "lora_fwd": "src/repro/kernels/lora_matmul.py:55",
@@ -184,7 +205,9 @@ REPLACES = {"bgmv_gemv": "src/repro/kernels/bgmv.py:114",
             "lora_bwd_dx_quant": "src/repro/kernels/lora_matmul.py:414",
             "quant_matmul_dx": "src/repro/kernels/lora_matmul.py:544",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:21",
-            "flash_attention": "src/repro/kernels/flash_attention.py:22"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:22",
+            # no Pallas body: JAX differentiates associative_scan there
+            "rglru_scan_bwd": "src/repro/models/rglru.py:61"}
 # the row of each kernel's times that the kernels line reports
 ROW = {"bgmv_gemv": "q", "bgmv_matmul": "q", "lora_fwd": "q",
        "lora_bwd_dx": "q", "lora_bwd_da": "q", "lora_bwd_db": "q",
@@ -192,11 +215,14 @@ ROW = {"bgmv_gemv": "q", "bgmv_matmul": "q", "lora_fwd": "q",
        "bgmv_gemv_quant": "int4 q m=4", "quant_matmul": "int4 w_up m=4",
        "lora_fwd_quant": "int4 q", "lora_bwd_dx_quant": "int4 q",
        "quant_matmul_dx": "int4 w_up", "rglru_scan": "path",
-       "flash_attention": "recurrentgemma-9b"}
+       "flash_attention": "recurrentgemma-9b", "rglru_scan_bwd": "path"}
+
+
+T_START = time.monotonic()
 
 
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} [{time.monotonic() - T_START:.1f} s]", flush=True)
 
 
 # ------------------------------------------------------------ 1. environment
@@ -530,13 +556,45 @@ def _n_adapted(bank):
             + len(tree_leaves(stack.get("tail", {})))) // 2
 
 
-def run_path(name, cfg, device, *, steps=32, plen=128):
-    """generate_banked through the user's entry points.  ``cfg`` and
-    ``device`` are arguments so the phase can be rehearsed on a CPU at a
-    reduced size; the launch counts hold only on the card."""
-    phase(f"path: generate_banked, {cfg.name} d_model {cfg.d_model}, fp32")
+# each block kind's own GEMM projections, and the MLP's
+OWN_PROJ = {"attn": ("q", "k", "v", "o"), "rglru": ("wx", "wy")}
+MLP_PROJ = ("w_gate", "w_up", "w_down")
+
+
+def _proj_counts(cfg):
+    """(adapted, unadapted, unadapted reading the stack's input): the GEMM
+    projections of the stack that core/quant packs, per token, with and
+    without a LoRA target, and those of layer 0 without one that read the
+    embedding (no gradient reaches it, so #12 skips them).  The RG-LRU
+    block's w_a, w_i and w_out are never packed (gemma-2b: 36, 90, 1;
+    recurrentgemma-9b: 76, 138, 0)."""
+    mlp = MLP_PROJ if cfg.mlp_variant in ("geglu", "swiglu") else MLP_PROJ[1:]
+    adapted = unadapted = 0
+    for kind in _layer_kinds(cfg):
+        for proj in OWN_PROJ[kind] + mlp:
+            if proj in cfg.lora_targets:
+                adapted += 1
+            else:
+                unadapted += 1
+    first = _layer_kinds(cfg)[0]
+    reads_input = [p for p in OWN_PROJ[first] if p != "o"]
+    return adapted, unadapted, sum(p not in cfg.lora_targets
+                                   for p in reads_input)
+
+
+def run_path(name, cfg, device, *, steps=32, plen=128, quant=None):
+    """generate_banked through the user's entry points, over an fp32 base
+    or (``quant`` int8 / int4, group 64) that base packed, the fp32 one
+    then dropped.  ``cfg`` and ``device`` are arguments so the phase can be
+    rehearsed on a CPU at a reduced size; the launch counts hold only on
+    the card."""
+    phase(f"path: generate_banked, {cfg.name} d_model {cfg.d_model}, "
+          f"{quant or 'fp32'} base")
     t0 = time.monotonic()
     model, params, bank = serving_model(cfg, device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if quant is not None:
+        params = quantize_tree(params, quant, QUANT_GROUP)
     n_tenants = bank.size
     ids = torch.arange(n_tenants, device=device, dtype=torch.int32)
     prompt = torch.randint(0, cfg.vocab_size, (n_tenants, plen),
@@ -544,7 +602,6 @@ def run_path(name, cfg, device, *, steps=32, plen=128):
                            device=device)
     max_len = plen + steps
     _sync(device)
-    n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters, {n_tenants} tenants "
           f"(gamma folded), init "
@@ -560,12 +617,22 @@ def run_path(name, cfg, device, *, steps=32, plen=128):
     n_adapted = _n_adapted(bank)
     n_rglru = _layer_kinds(cfg).count("rglru")
     expect = dict.fromkeys(launches, 0)
-    expect.update(bgmv_matmul=n_adapted, bgmv_gemv=n_adapted * (steps - 1),
-                  rglru_scan=n_rglru)
+    if quant is None:
+        expect.update(bgmv_matmul=n_adapted,
+                      bgmv_gemv=n_adapted * (steps - 1), rglru_scan=n_rglru)
+        per = (f"{n_adapted} of #2 and {n_rglru} of #15 per prefill, "
+               f"{n_adapted} of #1 per decode step")
+    else:
+        n_un = _proj_counts(cfg)[1]
+        expect.update(bgmv_matmul_quant=n_adapted,
+                      bgmv_gemv_quant=n_adapted * (steps - 1),
+                      quant_matmul=n_un * steps, rglru_scan=n_rglru)
+        per = (f"{n_adapted} of #3 and {n_rglru} of #15 per prefill, "
+               f"{n_adapted} of #4 per decode step, {n_un} of #11 in "
+               "each")
     print(f"launches: { {k: v for k, v in launches.items() if v} } "
           f"(expected { {k: v for k, v in expect.items() if v} }: "
-          f"{n_adapted} of #2 and {n_rglru} of #15 per prefill, "
-          f"{n_adapted} of #1 per decode step); dispatch {dispatch.stats}")
+          f"{per}); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
     assert tuple(seq.shape) == (n_tenants, plen + steps)
     new = seq[:, plen:]
@@ -622,7 +689,8 @@ def run_path(name, cfg, device, *, steps=32, plen=128):
 
     t1, t32 = timed(1), timed(steps)
     decode_ms = (t32 - t1) * 1e3 / (steps - 1)
-    print(f"path on {name}: {t32 * 1e3 / steps:.2f} ms/token over a "
+    print(f"path on {name} ({quant or 'fp32'} base): "
+          f"{t32 * 1e3 / steps:.2f} ms/token over a "
           f"{steps}-token generation (batch {n_tenants}, prompt {plen}); "
           f"prefill + first token {t1 * 1e3:.1f} ms; decode "
           f"{decode_ms:.2f} ms/step")
@@ -731,7 +799,11 @@ def _print_profile(label, wall, events, per, unit):
               ("#7 and #8 (the cluster-reduced gradient kernel)",
                lambda name: "lora_grad_kernel<" in name),
               ("paged attention #13 (split kernel and merge)",
-               lambda name: "paged_" in name))
+               lambda name: "paged_" in name),
+              ("the RG-LRU scan #15",
+               lambda name: "rglru_scan_kernel<" in name),
+              ("#15's backward",
+               lambda name: "rglru_scan_bwd_kernel<" in name))
     for label_, match in groups:
         fam = [e for e in events if match(e.name)]
         if fam:
@@ -913,7 +985,8 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
                local_steps=2, batch=4, seq=128, rounds=3, params=None):
     """FederatedTrainer through the user's entry points (as
     ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
-    int8 / int4, group 64) one packed by ``quantize_tree``.  ``cfg`` and
+    int8 / int4, group 64) one packed by ``quantize_tree`` (or ``params``
+    packed already, so that a caller can drop the fp32 base).  ``cfg`` and
     ``device`` are arguments so the phase can be rehearsed on a CPU at a
     reduced size; the launch counts hold only on the card.  Over a packed
     base it also checks save / resume: a trainer restored from a checkpoint
@@ -930,7 +1003,7 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     if params is None:
         params = train_base(model, device)
     if quant is not None:
-        params = quantize_tree(params, quant, QUANT_GROUP)
+        params = apply_quant_flag(params, quant, QUANT_GROUP)
     lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
                       targets=cfg.lora_targets)
     fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
@@ -975,13 +1048,16 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
 
     # the counted run: counts to 0 just before, read just after
     tr1 = trainer()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     dispatch.reset_stats()
     ms1 = run(tr1)
     ppl = tr1.eval_perplexity()
     _sync(device)
     launches = _launch_counts()
-    n_adapted = len(cfg.lora_targets) * cfg.num_layers
+    n_adapted, n_base, n_no_grad = _proj_counts(cfg)
+    n_rglru = _layer_kinds(cfg).count("rglru")
     steps = clients * local_steps * rounds
     expect = dict.fromkeys(launches, 0)
     if quant is None:
@@ -989,20 +1065,28 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
         expect["lora_fwd"] += n_adapted                  # one eval forward
         per_step = f"{n_adapted} of each of #5-#8"
     else:
-        # k, o, w_gate, w_up, w_down; layer 0's k has an input without grad
-        n_base = (7 - len(cfg.lora_targets)) * cfg.num_layers
+        # the unadapted projections; those of layer 0 that read the
+        # embedding have an input without grad, so no #12
         expect.update({k: n_adapted * steps for k in QTRAIN_PATH_KERNELS})
         expect["quant_matmul"] = n_base * steps
-        expect["quant_matmul_dx"] = (n_base - 1) * steps
+        expect["quant_matmul_dx"] = (n_base - n_no_grad) * steps
         expect["lora_fwd_quant"] += n_adapted            # one eval forward
         expect["quant_matmul"] += n_base
         per_step = (f"{n_adapted} of each of #9, #10, #7, #8, {n_base} of "
-                    f"#11 and {n_base - 1} of #12")
+                    f"#11 and {n_base - n_no_grad} of #12")
+    if n_rglru:
+        expect["rglru_scan"] = n_rglru * (steps + 1)     # + the eval forward
+        expect["rglru_scan_bwd"] = n_rglru * steps
+        per_step += f", {n_rglru} of #15 and {n_rglru} of its backward"
     print(f"launches: { {k: v for k, v in launches.items() if v} } "
           f"(expected { {k: v for k, v in expect.items() if v} }: "
           f"{per_step} per client local step x {steps}, plus the eval "
           f"forward); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
+    if device.type == "cuda":
+        print(f"peak device memory over the counted run: "
+              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)")
     for h in tr1.history:
         print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
               f"{h['grad_norm']:.6e}")
@@ -1431,7 +1515,9 @@ def _forced_paged(model, params, bank, ids, prompts, toks, plain):
 
 def sched_path(name, model, params, bank, mode):
     """serve_scheduled through the user's entry points, over an fp32 base
-    or one packed by ``quantize_tree`` (``mode`` int8 / int4, group 64).
+    or one packed by ``quantize_tree`` (``mode`` int8 / int4, group 64;
+    ``params`` may come packed already, so that a caller can drop the fp32
+    base).
     Traffic: 8 requests of 128-token prompts and 32 greedy tokens, 4
     tenants, the last with deadline_steps 12; max_batch 4, block 16, chunk
     8, wait=False: two waves that recycle slots and blocks."""
@@ -1440,12 +1526,12 @@ def sched_path(name, model, params, bank, mode):
     phase(f"scheduled path: serve_scheduled, {cfg.name} d_model "
           f"{cfg.d_model}, {mode} base, {sc['n_req']} requests x "
           f"{sc['plen']}-token prompts x {sc['steps']} tokens")
-    base = params if mode == "fp32" else quantize_tree(params, mode,
-                                                       QUANT_GROUP)
-    fp, fq = quant_footprint(params), quant_footprint(base)
+    base = params if mode == "fp32" else apply_quant_flag(params, mode,
+                                                          QUANT_GROUP)
+    fq = quant_footprint(base)
     print(f"base GEMM weights: {fq['base_bytes'] / 1e9:.4f} GB {mode}, "
-          f"{fp['base_bytes'] / 1e9:.4f} GB fp32 "
-          f"({fp['base_bytes'] / fq['base_bytes']:.2f}x); whole tree "
+          f"{fq['base_fp_bytes'] / 1e9:.4f} GB fp32 "
+          f"({fq['base_fp_bytes'] / fq['base_bytes']:.2f}x); whole tree "
           f"{fq['total_bytes'] / 1e9:.4f} GB")
     rng = np.random.default_rng(7)
     prompts = rng.integers(0, cfg.vocab_size, (sc["n_req"], sc["plen"]))
@@ -1485,8 +1571,7 @@ def sched_path(name, model, params, bank, mode):
     del model.prefill, model.decode_step
     kinds = _layer_kinds(cfg)
     n_ad = _n_adapted(bank)
-    # dense stacks: k, o, w_up, w_gate, w_down of every layer
-    n_un = (7 - len(cfg.lora_targets)) * cfg.num_layers
+    n_un = _proj_counts(cfg)[1]
     groups, steps = calls["prefill"], calls["decode_step"]
     chunks_per_wave = -(-(sc["steps"] - 1) // sc["chunk"])
     assert groups == 2 and steps == 2 * chunks_per_wave * sc["chunk"], \
@@ -1711,14 +1796,15 @@ def check_qtrain_kernels(dev="cuda"):
 
 
 def time_qtrain_kernels(dev="cuda", projs=("q", "v", "k", "o", "w_up",
-                                            "w_down"), proj=PROJ):
+                                            "w_down"), proj=PROJ,
+                        adapted=("q", "v")):
     """Times at the training path's shapes (fp32 activations, m = 4 x 128 =
     512, r = 64, gamma 1, int8 and int4 group 64): #9 and #10 at q and v,
     #12 at k, o, w_up and w_down, the packed W rotated over copies that
     together exceed L2 three times (a local step reads each layer's W once
-    per pass), or ``projs`` of ``proj``.  The library call is one
-    torch.matmul on the dequantized fp32 W: x @ W for #9, g @ W^T for #10
-    and #12."""
+    per pass), or ``projs`` of ``proj`` (#9 and #10 at ``adapted``).  The
+    library call is one torch.matmul on the dequantized fp32 W: x @ W for
+    #9, g @ W^T for #10 and #12."""
     phase("packed training kernel times (fp32 activations, m=512, r=64)")
     gen = torch.Generator(dev).manual_seed(10)
     lm = lora_matmul
@@ -1741,7 +1827,7 @@ def time_qtrain_kernels(dev="cuda", projs=("q", "v", "k", "o", "w_up",
                 lambda g_, w_: torch.matmul(g_, w_.t()),
                 [(g, wi) for wi in wqs], [(g, wi) for wi in wfs],
                 g.nbytes + wq0.nbytes + m * k * f4, 2 * m * n * k)}
-            if label in ("q", "v"):
+            if label in adapted:
                 spec["lora_fwd_quant"] = (
                     lm.lora_fwd_quant, lm.lora_fwd_quant_plain, torch.matmul,
                     [(x, wi, a, b, 1.0) for wi in wqs],
@@ -2378,6 +2464,176 @@ def qwen_path(name):
     _free()
 
 
+# ------------------------ 16-19. the RG-LRU hybrid trained and packed
+
+RG = get_config("recurrentgemma-9b")
+# (bt, s, d) of #15's backward: the scan phase's shapes (the hybrid's
+# training and prefill shape first) and s = 1
+SCAN_BWD_SHAPES = {**SCAN_SHAPES, "s=1": (4, 1, 4096)}
+# the hybrid's packed GEMMs (k, n): q, wx and wy, v (one kv head of 256),
+# and the MLP's w_gate / w_up and w_down
+HYBRID_PROJ = {"hybrid q/wx/wy": (RG.d_model, RG.q_dim),
+               "hybrid v": (RG.d_model, RG.kv_dim),
+               "hybrid w_up": (RG.d_model, RG.d_ff),
+               "hybrid w_down": (RG.d_ff, RG.d_model)}
+HYBRID_ADAPTED = ("hybrid q/wx/wy", "hybrid v")
+
+
+def check_hybrid_kernels(dev="cuda"):
+    """#15's backward at SCAN_BWD_SHAPES, fp32 and bf16, against its plain
+    reverse loop bit for bit, and a second call against the first; #9,
+    #10, #7 and #8 (rank 64, m = 512; #7 and #8 on the plain versions'
+    residuals) at HYBRID_ADAPTED, and #11 at m = 4 and 512 and #12 at m =
+    512 at the MLP, over int8 and int4, fp32 and bf16 activations, against
+    their plain versions, each called twice with results equal bit for
+    bit."""
+    phase("the hybrid's training widths vs plain: #15's backward bit for "
+          f"bit; #9-#12, #7, #8 (tolerance: |kernel - plain| <= "
+          f"{KERNEL_RTOL} * max(1, max|plain|))")
+    gen = torch.Generator(dev).manual_seed(14)
+    rs, lm = rglru_scan, lora_matmul
+    worst = {}
+
+    def note(kern, label, kfn, pfn):
+        got, again = kfn(), kfn()
+        _sync(torch.device(dev))
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"{kern} {label}: two calls differ")
+        err = _check_pair(kern, label, got, pfn())
+        worst[kern] = max(worst.get(kern, 0.0), err)
+        return got
+
+    for label, shape in SCAN_BWD_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = _scan_operands(gen, shape, dt, dev)
+            g = torch.randn(shape, generator=gen, device=dev).to(dt)
+            h = rs.rglru_scan_plain(a, b)
+            lab = f"{label} {shape} {str(dt)[6:]}"
+            want = rs.rglru_scan_bwd_plain(a, h, g)
+            got = note("rglru_scan_bwd", lab, lambda: rs.rglru_scan_bwd(
+                a, h, g), lambda: want)
+            if not all(torch.equal(u, v) for u, v in zip(got, want)):
+                raise AssertionError(f"rglru_scan_bwd {lab}: not bit-"
+                                     "identical to the plain reverse loop")
+            print(f"rglru_scan_bwd    {lab}: da, db bit-identical to the "
+                  "plain reverse loop and on a repeat")
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for label in HYBRID_ADAPTED:
+            k, n = HYBRID_PROJ[label]
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for dt in (torch.float32, torch.bfloat16):
+                x, _, a, b, g = _lora_operands(gen, 512, k, n, 64, dt, dev)
+                _, p = lm.lora_fwd_quant_plain(x, wq, a, b, 1.5)
+                _, q = lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5)
+                calls = _qtrain_calls(x, wq, a, b, g)
+                del calls["quant_matmul_dx"]
+                calls["lora_bwd_da"] = (lambda: lm.lora_bwd_da(q, x, 1.5),
+                                        lambda: lm.lora_bwd_da_plain(q, x,
+                                                                     1.5))
+                calls["lora_bwd_db"] = (lambda: lm.lora_bwd_db(g, p, 1.5),
+                                        lambda: lm.lora_bwd_db_plain(g, p,
+                                                                     1.5))
+                for kern, (kfn, pfn) in calls.items():
+                    note(kern, f"{mode} {label} m=512 k={k} n={n} r=64 "
+                         f"{str(dt)[6:]}", kfn, pfn)
+            del wq
+        for label in ("hybrid w_up", "hybrid w_down"):
+            k, n = HYBRID_PROJ[label]
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for m, dt in itertools.product((4, 512),
+                                           (torch.float32, torch.bfloat16)):
+                x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                lab = f"{mode} {label} m={m} k={k} n={n} {str(dt)[6:]}"
+                note("quant_matmul", lab, lambda: lm.quant_matmul(x, wq),
+                     lambda: lm.quant_matmul_plain(x, wq))
+                if m == 512:
+                    g = torch.randn(m, n, generator=gen, device=dev).to(dt)
+                    note("quant_matmul_dx", lab,
+                         lambda: lm.quant_matmul_dx(g, wq),
+                         lambda: lm.quant_matmul_dx_plain(g, wq))
+            del wq
+    print(f"launches in this phase (not the path's): "
+          f"{ {k: v for k, v in _launch_counts().items() if v} }")
+    return worst
+
+
+def time_hybrid_kernels():
+    """fp32 times: #15's backward at the training path's and the bench's
+    shapes over 6 input copies (a, h, g: 151 MB, three times L2, as a local
+    step's backward finds them cold), beside its plain reverse loop and
+    the bound (no single PyTorch call computes it); #3, #4 and #11 at
+    HYBRID_PROJ (time_sched_kernels) and #9, #10 and #12 there
+    (time_qtrain_kernels)."""
+    phase("#15's backward times (fp32)")
+    gen = torch.Generator("cuda").manual_seed(15)
+    rows = {}
+    for label in ("path", "bench"):
+        shape = SCAN_SHAPES[label]
+        args = []
+        for _ in range(6):
+            a, b = _scan_operands(gen, shape, torch.float32)
+            args.append((a, rglru_scan.rglru_scan_plain(a, b),
+                         torch.randn(shape, generator=gen, device="cuda")))
+        ms = _graph_ms(rglru_scan.rglru_scan_bwd, args)
+        plain_ms = _graph_ms(rglru_scan.rglru_scan_bwd_plain, args[:2],
+                             reps=2)
+        a = args[0][0]
+        nbytes = 5 * a.nbytes                # a, h, g read; da, db written
+        bound_ms, bound_by = _bound(nbytes, 3 * a.numel())
+        rows[("rglru_scan_bwd", label)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        print(f"rglru_scan_bwd {label} {shape}: kernel {ms * 1e3:.2f} us, "
+              f"plain (a reverse loop of {shape[1]} steps) "
+              f"{plain_ms * 1e3:.2f} us, no single library call, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB; "
+              f"{bound_ms / ms:.2f} of it)")
+        del args
+    rows.update(time_sched_kernels(SCHED["block_size"], 0, projs=HYBRID_PROJ,
+                                   paged=[], adapted=HYBRID_ADAPTED))
+    rows.update(time_qtrain_kernels(projs=tuple(HYBRID_PROJ),
+                                    proj=HYBRID_PROJ,
+                                    adapted=HYBRID_ADAPTED))
+    return rows
+
+
+def hybrid_train_paths(name):
+    """recurrentgemma-9b trained at full width and depth (38 layers, 26
+    RG-LRU and 12 attention, 9.40 B parameters, fp32 seeded random base):
+    train_path over the fp32 base, then over that base packed int4 on the
+    card, the fp32 base dropped once packed.  Returns the two runs' launch
+    counts."""
+    dev = torch.device("cuda")
+    params = train_base(build_model(RG), dev)
+    fp32, _, _ = train_path(name, RG, dev, params=params)
+    _free()
+    params = quantize_tree(params, "int4", QUANT_GROUP)
+    _free()
+    int4, _, _ = train_path(name, RG, dev, quant="int4", params=params)
+    del params
+    _free()
+    return fp32, int4
+
+
+def hybrid_packed_serving(name):
+    """recurrentgemma-9b served over an int4 base (packed on the card from
+    the seeded fp32 weights, which are then dropped): generate_banked and
+    serve_scheduled, with the 4 SFed-LoRA tenants of phase 13."""
+    dev = torch.device("cuda")
+    run_path(name, RG, dev, quant="int4")
+    _free()
+    model, params, bank = serving_model(RG, dev)
+    params = quantize_tree(params, "int4", QUANT_GROUP)
+    _free()
+    sched_path(name, model, params, bank, "int4")
+    del model, params, bank
+    _free()
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -2386,7 +2642,6 @@ def _free():
 
 
 def main():
-    t_start = time.monotonic()
     smi, name = environment()
     build_kernels()
     worst = check_kernels()
@@ -2440,9 +2695,17 @@ def main():
     _free()
     llama_paths(name)
     qwen_path(name)
+    for kern, err in check_hybrid_kernels().items():
+        worst[kern] = max(worst.get(kern, 0.0), err)
+    rows.update(time_hybrid_kernels())
+    _free()
+    hybrid_launches, _ = hybrid_train_paths(name)
+    launches["rglru_scan_bwd"] = hybrid_launches["rglru_scan_bwd"]
+    hybrid_packed_serving(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
-                 + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH):
+                 + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH
+                 + ("rglru_scan_bwd",)):
         row = rows[(kern, ROW[kern])]
         kernels.append({
             "name": kern, "route": "cuda", "source": SOURCES[kern],
@@ -2450,7 +2713,7 @@ def main():
             "max_abs_err": worst[kern], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    print(f"\nchip_smoke.py: {time.monotonic() - t_start:.1f} s from start "
+    print(f"\nchip_smoke.py: {time.monotonic() - T_START:.1f} s from start "
           "to result, the kernels' build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))

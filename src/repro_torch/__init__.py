@@ -12,12 +12,13 @@ synchronous federated LoRA training (``launch/train.py``,
 (``kernels/lora_matmul.py``); continuous-batching serving over a paged KV
 pool (``serve_scheduled``, ``kernels/paged_attention.py``), optionally
 over a packed int8 / int4 frozen base (``core/quant.py``, the quantized
-BGMV kernels and the packed GEMM); serving of the RG-LRU hybrid family
-(recurrentgemma-9b, ``models/rglru.py``), whose prefill recurrence runs
-the scan kernel (``kernels/rglru_scan.py``); and the public kernel API
+BGMV kernels and the packed GEMM); serving and training of the RG-LRU
+hybrid family (recurrentgemma-9b, ``models/rglru.py``), over an fp or a
+packed base, whose recurrence runs the scan kernel and its backward
+(``kernels/rglru_scan.py``); and the public kernel API
 (``kernels/ops.py``), with flash attention (``kernels/flash_attention.py``)
-behind it.  All fifteen kernels are written by hand in CUDA C++ for
-``sm_90a``.
+behind it.  All fifteen TPU kernels have a counterpart written by hand in
+CUDA C++ for ``sm_90a``, and so has the scan's backward.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing

@@ -9,7 +9,9 @@ federated round (paper section 3):
 Where the JAX package vmaps the client-local loop over a client dim and
 scans rounds on the device, this module loops over clients and rounds in
 Python on the client-stacked state; every adapted projection of a local
-step goes through the LoRA matmul Function (kernels #5-#8 on CUDA).
+step goes through the LoRA matmul Function (kernels #5-#8 on CUDA), and
+every RG-LRU recurrence of the hybrid family through the scan Function
+(#15 and its backward).
 
 The scaling factor gamma = scaling_factor(scheme, alpha, r, N) is folded
 into B inside the loss (``AdapterSet.prepared``), so autograd takes the
@@ -211,9 +213,6 @@ class FederatedTrainer:
             _not_yet("training on a mesh")
         if watchdog is not None:
             _not_yet("the collapse watchdog")
-        if model.cfg.family != "dense":
-            _not_yet(f"training the '{model.cfg.family}' family (the "
-                     "RG-LRU scan kernel has no backward yet)")
         self.device = resolve_device(device)
         self.model = model
         self.dataset = dataset

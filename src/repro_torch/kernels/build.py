@@ -55,6 +55,7 @@ SIGNATURES = {
     "paged_attention_launch": (_P,) * 8 + (_I,) * 11 + (_F, _F, _I, _P),
     # csrc/rglru_scan.cu
     "rglru_scan_launch": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "rglru_scan_bwd_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     # csrc/flash_attention.cu
     "flash_attention_launch": (_P,) * 4 + (_I,) * 7 + (_F, _I, _P),
 }

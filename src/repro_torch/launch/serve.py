@@ -8,7 +8,7 @@ and v by default; q, v, wx and wy for recurrentgemma-9b) runs the BGMV
 kernels of ``kernels/bgmv.py`` on the card: the matmul form in the
 prefill, the GEMV form in each decode step.  The RG-LRU blocks of the
 hybrid family run their prefill recurrence through the scan kernel of
-``kernels/rglru_scan.py``.
+``kernels/rglru_scan.py``, over an fp or a packed base alike.
 
 ``serve_scheduled`` serves a stream: KV state lives in shared paged pools
 (``Model.init_paged_cache``) handed out block by block by a
@@ -676,10 +676,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    if args.quant != "none" and cfg.family != "dense":
-        raise NotImplementedError(
-            f"--quant over the '{cfg.family}' family is not yet ported to "
-            "repro_torch (only dense decoders serve a packed base)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

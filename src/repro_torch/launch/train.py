@@ -8,6 +8,10 @@ On the CPU, at smoke scale (the plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --rounds 2
 
+The RG-LRU hybrid trains the same way, LoRA at q, v, wx and wy (on the
+CPU: ``--arch recurrentgemma-9b --reduced --device cpu``):
+  ... --arch recurrentgemma-9b --rank 64 --clients 4 --rounds 3 --seq 128
+
 Heterogeneous clients (per-client ranks, each client training with its own
 gamma_i = alpha sqrt(N / r_i)), aggregated by FedSA or by FLoRA's stacking:
   ... --arch llama2-7b --clients 4 --ranks 16,32,64,128 --strategy fedsa
@@ -114,10 +118,6 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the '{cfg.family}' family is not "
-            "yet ported to repro_torch (only dense decoders train)")
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)

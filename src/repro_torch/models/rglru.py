@@ -2,13 +2,15 @@
 
 The port of ``repro/models/rglru.py``.  The JAX module computes the
 diagonal linear recurrence h_t = a_t h_{t-1} + b_t with
-``jax.lax.associative_scan``; PyTorch has none, and a scan on the hot path
-is a kernel: here every full-sequence and prefill recurrence goes through
-kernel #15 (``kernels/rglru_scan.py``: the CUDA kernel on the card, its
-sequential plain version on the CPU and under ``dispatch.plain_tier()``).  The two orders of summation differ
-only in rounding.  Decode keeps O(1) state, the recurrence hidden h plus
-the last ``CONV_WIDTH - 1`` inputs of the causal convolution, and its step
-is the elementwise ``a * h + b``, with no kernel, as in JAX.
+``jax.lax.associative_scan`` and trains through it by autodiff; PyTorch
+has no scan, and a scan on the hot path is a kernel: here every
+full-sequence and prefill recurrence goes through the ``RGLRUScan``
+Function (``kernels/rglru_scan.py``): kernel #15 forward and its
+hand-written backward on the card, their sequential plain versions on the
+CPU and under ``dispatch.plain_tier()``.  The two orders of summation
+differ only in rounding.  Decode keeps O(1) state, the recurrence hidden h
+plus the last ``CONV_WIDTH - 1`` inputs of the causal convolution, and its
+step is the elementwise ``a * h + b``, with no kernel, as in JAX.
 
 As with the attention caches, a prefill or decode step updates its cache
 in place (and returns it).
@@ -18,9 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import dispatch
-from repro_torch.kernels.rglru_scan import rglru_scan as _scan_kernel
-from repro_torch.kernels.rglru_scan import rglru_scan_plain
+from repro_torch.kernels.rglru_scan import RGLRUScan
 from repro_torch.models.layers import linear
 
 CONV_WIDTH = 4
@@ -87,13 +87,14 @@ def _gates(params, xb):
 def rglru_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t over axis 1 of a, b (b, s, dr), from ``h0``
     (b, dr) or zeros: ``h0`` folds into a new ``b[:, 0]`` (``b[:, 0] +
-    a[:, 0] * h0``, as the JAX module does), then kernel #15 runs (its
-    plain version on the CPU and on the plain tier)."""
+    a[:, 0] * h0``, as the JAX module does, outside the Function so that
+    autograd carries it), then the ``RGLRUScan`` Function runs (#15 and
+    its backward; their plain versions on the CPU and on the plain
+    tier)."""
     if h0 is not None:
         b = b.clone()
         b[:, 0] = b[:, 0] + a[:, 0] * h0
-    scan = _scan_kernel if dispatch._use_kernel(a) else rglru_scan_plain
-    return scan(a.contiguous(), b.contiguous())
+    return RGLRUScan.apply(a, b)
 
 
 def _gelu(y):

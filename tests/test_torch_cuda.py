@@ -931,3 +931,119 @@ def test_bgmv_at_the_dense_configs_matches_plain_and_repeats(card, k, n,
         _assert_close(got, want)
     assert bgmv.launches == {"bgmv_matmul": 4, "bgmv_gemv": 4,
                              "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 0}
+
+
+# --------------------------------- the RG-LRU hybrid's training widths
+
+# #15's backward: the hybrid's training and prefill shape, the kernel
+# bench's long sequence, a ragged shape and s = 1
+SCAN_BWD_SHAPES = [(4, 128, 4096), (4, 2048, 256), (3, 100, 1000), (2, 1, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bt,s,d", SCAN_BWD_SHAPES)
+def test_rglru_scan_bwd_equals_plain_and_repeats(card, bt, s, d, dtype):
+    """One rounded product and one rounded sum per step of the reverse
+    chain, one rounded product for da, an fp32 carry: the kernel equals the
+    plain reverse loop bit for bit, and a second call the first."""
+    rng = np.random.default_rng(bt * s + d + 1)
+    a, b, g = _cuda(rng.uniform(0.5, 0.999, (bt, s, d)),
+                    rng.standard_normal((bt, s, d)),
+                    rng.standard_normal((bt, s, d)), dtype=dtype)
+    h = rs.rglru_scan_plain(a, b)
+    got, again = rs.rglru_scan_bwd(a, h, g), rs.rglru_scan_bwd(a, h, g)
+    want = rs.rglru_scan_bwd_plain(a, h, g)
+    torch.cuda.synchronize()
+    for gt, ag, wt in zip(got, again, want):
+        assert gt.dtype == a.dtype
+        assert torch.equal(gt, ag) and torch.equal(gt, wt)
+    assert rs.launches == {"rglru_scan": 0, "rglru_scan_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_function_on_card_equals_plain_tier(card, dtype):
+    """The differentiable scan on the card (#15 forward, its backward
+    kernel) against the same Function under the plain tier, with an
+    initial state folded in as the model folds it and a strided
+    cotangent: h and the gradients of a, b and h0 bit for bit; the plain
+    tier launches nothing."""
+    from repro_torch.models.rglru import rglru_scan as model_scan
+    rng = np.random.default_rng(4)
+    a, b, h0, g = _cuda(rng.uniform(0.5, 0.999, (4, 128, 4096)),
+                        rng.standard_normal((4, 128, 4096)),
+                        rng.standard_normal((4, 4096)),
+                        rng.standard_normal((4, 4096, 128)), dtype=dtype)
+    g = g.transpose(1, 2)
+    out = {}
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+        with dispatch.plain_tier() if plain else torch.enable_grad():
+            h = model_scan(*leaves)
+            h.backward(g)
+        out[plain] = [h.detach()] + [t.grad for t in leaves]
+        if not plain:
+            assert rs.launches == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    torch.cuda.synchronize()
+    assert rs.launches == {"rglru_scan": 1, "rglru_scan_bwd": 1}
+    for got, want in zip(out[False], out[True]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_packed_lora_kernels_at_hybrid_widths_match_plain(card, bits, dtype):
+    """#9, #10, #7 and #8 at recurrentgemma-9b's wx / wy / q (m = 4 x 128,
+    k = n = 4096, rank 64) over int8 and int4 (group 64) bases: against
+    their plain versions, each called twice with results equal bit for
+    bit."""
+    lm = lora_matmul
+    x, _, a, b, g = _operands(512, 4096, 4096, 64, getattr(torch, dtype),
+                              seed=bits)
+    wq = _packed(4096, 4096, bits, seed=40 + bits)
+    for kfn, pfn, args in (
+            (lm.lora_fwd_quant, lm.lora_fwd_quant_plain, (x, wq, a, b, 1.5)),
+            (lm.lora_bwd_dx_quant, lm.lora_bwd_dx_quant_plain,
+             (g, wq, a, b, 1.5))):
+        got, again = kfn(*args), kfn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        for gt, wt in zip(got, pfn(*args)):
+            _assert_close(gt, wt)
+    _, p = lm.lora_fwd_quant_plain(x, wq, a, b, 1.5)
+    _, q = lm.lora_bwd_dx_quant_plain(g, wq, a, b, 1.5)
+    da, da2 = lm.lora_bwd_da(q, x, 1.5), lm.lora_bwd_da(q, x, 1.5)
+    db, db2 = lm.lora_bwd_db(g, p, 1.5), lm.lora_bwd_db(g, p, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    _assert_close(da, lm.lora_bwd_da_plain(q, x, 1.5))
+    _assert_close(db, lm.lora_bwd_db_plain(g, p, 1.5))
+    assert lm.launches == _launches(lora_fwd_quant=2, lora_bwd_dx_quant=2,
+                                    lora_bwd_da=2, lora_bwd_db=2)
+
+
+# #11 and #12 at recurrentgemma-9b's MLP: w_up / w_gate (k 4096, n 12288 =
+# 48 column blocks of 256) and w_down (k 12288 = 192 int4 groups of 64)
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (12288, 4096)])
+def test_packed_base_kernels_at_hybrid_mlp_match_plain(card, k, n, bits):
+    """#11 at m = 4 (its packed GEMV) and 512 (the forward tile) and #12 at
+    m = 512, over int8 and int4 bases: against their plain versions, each
+    called twice with results equal bit for bit."""
+    lm = lora_matmul
+    wq = _packed(k, n, bits, seed=k + bits)
+    for m in (4, 512):
+        x = torch.randn(m, k, device="cuda")
+        got, again = lm.quant_matmul(x, wq), lm.quant_matmul(x, wq)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, lm.quant_matmul_plain(x, wq))
+    g = torch.randn(512, n, device="cuda")
+    got, again = lm.quant_matmul_dx(g, wq), lm.quant_matmul_dx(g, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, lm.quant_matmul_dx_plain(g, wq))
+    assert lm.launches == _launches(quant_matmul=4, quant_matmul_dx=2)

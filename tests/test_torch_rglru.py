@@ -38,6 +38,7 @@ from repro_torch.core import federated as tfed                 # noqa: E402
 from repro_torch.core import lora as tlora                     # noqa: E402
 from repro_torch.data.synthetic import FederatedDataset        # noqa: E402
 from repro_torch.kernels import dispatch                       # noqa: E402
+from repro_torch.kernels import rglru_scan as tscan            # noqa: E402
 from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.models import rglru as trglru                 # noqa: E402
@@ -367,9 +368,9 @@ def test_kernel_routes_on_cpu_count_the_scan_per_rglru_layer(models,
     ids = np.array([0, 1], np.int32)
     want = tserve.generate_banked(tm, tp, tbank, ids, prompt, 4, 9)
     calls = []
-    orig = trglru._scan_kernel
+    orig = tscan.rglru_scan
     monkeypatch.setattr(dispatch, "_use_kernel", lambda x: True)
-    monkeypatch.setattr(trglru, "_scan_kernel",
+    monkeypatch.setattr(tscan, "rglru_scan",
                         lambda *a: calls.append(1) or orig(*a))
     dispatch.reset_stats()
     got = tserve.generate_banked(tm, tp, tbank, ids, prompt, 4, 9)
@@ -401,9 +402,20 @@ def _tree_shapes(tree):
 
 
 def test_training_the_hybrid_is_not_yet_ported(models):
-    _, _, tm, _, _, _ = models(*PAIR)
+    """The trainer builds on the reduced hybrid (the name is older than
+    the port of its training) and runs a round on the CPU: finite loss,
+    LoRA at q, v, wx and wy, B no longer zero, no kernel launched."""
+    _, _, tm, tp, _, _ = models(*PAIR)
     ds = FederatedDataset(96, 2, seq_len=8, batch_per_client=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfed.FederatedTrainer(tm, ds, lora_cfg=LoRAConfig(),
-                              fed_cfg=FederatedConfig(num_clients=2),
-                              opt_cfg=OptimizerConfig(), device="cpu")
+    tscan.reset_launches()
+    tr = tfed.FederatedTrainer(
+        tm, ds, lora_cfg=LoRAConfig(rank=4, targets=tm.cfg.lora_targets),
+        fed_cfg=FederatedConfig(num_clients=2),
+        opt_cfg=OptimizerConfig(lr=0.5), base_params=tp, device="cpu")
+    tr.run_round()
+    assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
+    rep = tr.lora["stack"]["repeat"]
+    assert set(rep["p0"]["attn"]) == {"q", "v"}
+    assert set(rep["p1"]["rglru"]) == {"wx", "wy"}
+    assert float(rep["p1"]["rglru"]["wx"]["b"].abs().max()) > 0
+    assert not any(tscan.launches.values())

@@ -148,16 +148,49 @@ def test_cli_serves_the_hybrid_on_cpu(extra, capsys):
         assert tuple(out.shape) == (2, 7) and "ms/token on cpu" in text
 
 
-def test_cli_refuses_what_the_hybrid_does_not_run_yet():
-    """Training the hybrid and serving it over a packed base are later
-    slices: both CLIs say so."""
+HYBRID_CPU = ["--arch", "recurrentgemma-9b", "--reduced", "--device", "cpu"]
+
+
+def test_cli_refuses_what_the_hybrid_does_not_run_yet(capsys):
+    """What both CLIs once refused now runs (the name is older than the
+    port of either): the train CLI trains the reduced hybrid for 2 rounds,
+    and the serve CLI serves it over an int8 base."""
     from repro_torch.launch import train as ttrain
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.main(["--arch", "recurrentgemma-9b", "--reduced", "--device",
-                     "cpu", "--rounds", "1"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(["--arch", "recurrentgemma-9b", "--reduced", "--device",
-                     "cpu", "--quant", "int8"])
+    tr = ttrain.main(HYBRID_CPU + ["--rounds", "2", "--seq", "16",
+                                   "--clients", "2"])
+    assert len(tr.history) == 2
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    out = tserve.main(HYBRID_CPU + ["--quant", "int8", "--steps", "3",
+                                    "--batch", "2"])
+    assert tuple(out.shape) == (2, 7)
+    text = capsys.readouterr().out
+    assert text.startswith("# recurrentgemma-9b (reduced)")
+    assert "ms/token on cpu" in text
+
+
+@pytest.mark.parametrize("cli,extra", [
+    ("train", ["--quant", "int4"]),
+    ("serve", ["--quant", "int4"]),
+    ("serve", ["--quant", "int4", "--arrival-trace", "poisson:50:6"]),
+], ids=["train-int4", "serve-int4", "serve-int4-scheduled"])
+def test_cli_runs_the_hybrid_over_a_packed_base(capsys, cli, extra):
+    """The reduced hybrid over an int4 base through both CLIs: training (2
+    rounds), fixed-batch serving and a scheduled Poisson stream."""
+    from repro_torch.launch import train as ttrain
+    if cli == "train":
+        tr = ttrain.main(HYBRID_CPU + ["--rounds", "2", "--seq", "16",
+                                       "--clients", "2", *extra])
+        assert len(tr.history) == 2
+        assert all(np.isfinite(h["loss"]) for h in tr.history)
+        assert capsys.readouterr().out.splitlines()[0].endswith("quant=int4")
+        return
+    out = tserve.main(HYBRID_CPU + ["--steps", "3", "--batch", "2", *extra])
+    text = capsys.readouterr().out
+    if "--arrival-trace" in extra:
+        assert len(out) == 6 and all(len(r.tokens) > 0 for r in out)
+        assert "recurrentgemma-9b scheduled serve: 6 requests" in text
+    else:
+        assert tuple(out.shape) == (2, 7) and "ms/token on cpu" in text
 
 
 def test_cli_cuda_without_cuda_raises():

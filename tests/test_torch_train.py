@@ -398,7 +398,9 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    pytest.param(["--arch", "recurrentgemma-9b"], id="--arch-hybrid"),
+    # the id names the case before the hybrid trained; xLSTM's recurrent
+    # family is still unported
+    pytest.param(["--arch", "xlstm-1.3b"], id="--arch-hybrid"),
     ["--mesh", "4x2"],
     ["--faults", "dropout=0.1"], ["--buffer", "2"], ["--watchdog", "2"],
     ["--data-mode", "device"],
