@@ -104,7 +104,7 @@ Phases, in order; any failure raises and the exit code is not 0:
      64, and #11 (m = 4 and 512) and #12 at its MLP (4096 <-> 12288), over
      int8 and int4; then their times beside the plain versions, one PyTorch
      call where there is one and the card's bound (#3 and #4 at q / wx / wy
-     and v as well)
+     and v as well, #5-#8 at v over fp32)
  17. hybrid training, fp32 base: FederatedTrainer on recurrentgemma-9b at
      full width and depth (38 layers, 9.40 B parameters, seeded random
      weights), LoRA at q, v, wx and wy, fedsa + sfedlora, N = 4, rank 64,
@@ -118,6 +118,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      and serve_scheduled (#13 as well), with the checks of 13
  20. result: a JSON line of per-kernel numbers, the script's time, the
      nvidia-smi line, and the final {"ok": true, ...} line
+ 21. the fault-tolerant engine (run right after phase 6, on its base and
+     against its run): FederatedTrainer's buffered engine on gemma-2b at
+     full width (N = 4, rank 64, 2 local steps of 4 x 128, fedsa): at null
+     faults bit-identical to phase 6's synchronous run, with its #5-#8
+     launches per client local step; publish_adapters into a
+     LiveAdapterBank (2 hot slots, 4 tenants) and phase 8's traffic through
+     serve_scheduled, tokens equal to a static AdapterBank's (#1, #2, #13
+     counted); faults dropout=0.2, straggle=geom:0.3, corrupt=0.25 (nan)
+     over 4 rounds in chunks of 2 (every leaf finite after every round, a
+     bit-identical repeat, save after round 2 and resume bit for bit, the
+     plain tier within 1e-3); noise-mode corruption screened as norm
+     outliers; the collapse watchdog on scaling lora (collapse -> rescale,
+     the run finishing under sfedlora gammas), its snapshot and rollback
+     cost, phase 6's stability_report(); ms/round of each
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -143,6 +157,7 @@ from repro_torch.configs import (FederatedConfig, LoRAConfig,  # noqa: E402
                                  OptimizerConfig, get_config)
 from repro_torch.core import federated                      # noqa: E402
 from repro_torch.core.aggregation import get_strategy       # noqa: E402
+from repro_torch.core.faults import parse_faults            # noqa: E402
 from repro_torch.core.lora import (AdapterBank, LiveAdapterBank,  # noqa: E402
                                    init_adapter_set, split_ab)
 from repro_torch.core.quant import (apply_quant_flag,  # noqa: E402
@@ -982,7 +997,8 @@ def time_lora_kernels(k=2048, projs=(("q", 2048), ("v", 256))):
 # ------------------------------------------------------- 6. training path
 
 def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
-               local_steps=2, batch=4, seq=128, rounds=3, params=None):
+               local_steps=2, batch=4, seq=128, rounds=3, params=None,
+               track_stability=False):
     """FederatedTrainer through the user's entry points (as
     ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
     int8 / int4, group 64) one packed by ``quantize_tree`` (or ``params``
@@ -992,8 +1008,10 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     base it also checks save / resume: a trainer restored from a checkpoint
     written after round ``rounds - 1`` repeats the last round bit for bit.
     ``params``: the fp32 base (default: drawn from seed 0, as
-    :func:`train_base` draws it).  Returns the launch counts, the second
-    run's ms/round, and that run's history and adapters."""
+    :func:`train_base` draws it).  ``track_stability``: the trainers
+    record update_norm (phase 21 compares against it).  Returns the launch
+    counts, the second run's ms/round, and that run's history, adapters,
+    optimizer state and (``track_stability``) ``stability_report()``."""
     base_name = quant or "fp32"
     phase(f"training path: FederatedTrainer, {cfg.name} d_model "
           f"{cfg.d_model}, {base_name} base, fp32 activations, N={clients}, "
@@ -1016,7 +1034,8 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
                               batch_per_client=batch, seed=0)
         return federated.FederatedTrainer(
             model, ds, lora_cfg=lcfg, fed_cfg=fcfg, opt_cfg=ocfg, seed=0,
-            base_params=params, device=device)
+            base_params=params, device=device,
+            track_stability=track_stability)
 
     def b_max(tr):
         return max(float(t.abs().max())
@@ -1156,7 +1175,12 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
           f"{clients * local_steps} client local steps per round")
     if device.type == "cuda" and quant in (None, "int4"):
         profile_local_step(model, tr2)
-    return launches, ms2, {"history": tr2.history, "lora": tr2.lora}
+    # the trainer itself stays here: it holds the base, which a caller
+    # that drops its own reference expects freed
+    return launches, ms2, {"history": tr2.history, "lora": tr2.lora,
+                           "opt": tr2.opt_state,
+                           "report": (tr2.stability_report()
+                                      if track_stability else None)}
 
 
 def train_base(model, device):
@@ -2565,8 +2589,9 @@ def time_hybrid_kernels():
     """fp32 times: #15's backward at the training path's and the bench's
     shapes over 6 input copies (a, h, g: 151 MB, three times L2, as a local
     step's backward finds them cold), beside its plain reverse loop and
-    the bound (no single PyTorch call computes it); #3, #4 and #11 at
-    HYBRID_PROJ (time_sched_kernels) and #9, #10 and #12 there
+    the bound (no single PyTorch call computes it); #5-#8 at the hybrid's
+    v (time_lora_kernels); #3, #4 and #11 at HYBRID_PROJ
+    (time_sched_kernels) and #9, #10 and #12 there
     (time_qtrain_kernels)."""
     phase("#15's backward times (fp32)")
     gen = torch.Generator("cuda").manual_seed(15)
@@ -2593,6 +2618,10 @@ def time_hybrid_kernels():
               f"{bound_ms * 1e3:.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB; "
               f"{bound_ms / ms:.2f} of it)")
         del args
+    # #5-#8 at the hybrid's v (4096 -> 256; its q / wx / wy are llama2-7b's
+    # q / v shape, timed in phase 14)
+    rows.update(time_lora_kernels(k=RG.d_model,
+                                  projs=(("hybrid v", RG.kv_dim),)))
     rows.update(time_sched_kernels(SCHED["block_size"], 0, projs=HYBRID_PROJ,
                                    paged=[], adapted=HYBRID_ADAPTED))
     rows.update(time_qtrain_kernels(projs=tuple(HYBRID_PROJ),
@@ -2634,6 +2663,338 @@ def hybrid_packed_serving(name):
     _free()
 
 
+# ------------------------------------------ 21. the fault-tolerant engine
+
+FT_ROUNDS = 4
+FT_FAULTS = "dropout=0.2,straggle=geom:0.3,corrupt=0.25"
+FT_NOISE = "corrupt=0.25,mode=noise"
+FT_NOISE_ROUNDS = 6
+
+
+def _trees_equal(t1, t2):
+    la, lb = tree_leaves(t1), tree_leaves(t2)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _state_equal(a, b):
+    """Two trainers' adapters, optimizer state and async carry, bit for
+    bit."""
+    return _trees_equal({"l": a.lora, "o": a.opt_state, "x": a.async_state},
+                        {"l": b.lora, "o": b.opt_state, "x": b.async_state})
+
+
+def _check_finite_each_round(tr):
+    """Wrap ``tr``'s round body so that every adapter leaf is checked
+    finite after every round (one host read a round: the counted run
+    only; the repeat and the timings run unwrapped)."""
+    body = tr._round_body
+
+    def checked(*args, **kw):
+        out = body(*args, **kw)
+        bad = [i for i, x in enumerate(tree_leaves(out[0].lora))
+               if not bool(torch.isfinite(x).all())]
+        assert not bad, f"round {args[6]}: non-finite adapter leaves {bad}"
+        return out
+    tr._round_body = checked
+
+
+def _timed_chunks(tr, rounds, chunk, device):
+    """``rounds`` rounds in chunks of ``chunk``: ms/round of each chunk."""
+    ms = []
+    for _ in range(rounds // chunk):
+        _sync(device)
+        t = time.monotonic()
+        tr.run(chunk)
+        _sync(device)
+        ms.append((time.monotonic() - t) * 1e3 / chunk)
+    return ms
+
+
+def _publish_then_serve(model, tr, live, device):
+    """``publish_adapters`` into ``live`` (2 hot slots for the 4 tenants),
+    then phase 8's traffic through serve_scheduled over it, against a
+    static AdapterBank stacked from the same round.  The tenants go in
+    pairs (0, 0, 1, 1, 2, 2, 3, 3), so each wave's two tenants fit the hot
+    slots: both banks admit the same groups, the kernels see the same
+    shapes, and the tokens must be equal.  Returns the launches of the
+    live run."""
+    clients = tr.fed_cfg.num_clients
+    n = tr.publish_adapters(live)
+    print(f"publish_adapters: {n} tenants, {live.swaps} swapped on the "
+          f"device, versions {[live.tenant_version(t) for t in range(n)]}")
+    assert n == clients and live.swaps == 2
+    static = AdapterBank.from_sets([tr.client_adapters(c)
+                                    for c in range(clients)])
+    sc, cfg = SCHED, model.cfg
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab_size, (sc["n_req"], sc["plen"]))
+    ids = [(i // 2) % clients for i in range(sc["n_req"])]
+    last = sc["n_req"] - 1
+
+    def run(bank):
+        reqs = [serve.Request(rid=i, prompt=prompts[i].astype(np.int32),
+                              steps=sc["steps"], adapter_id=ids[i],
+                              deadline_steps=sc["deadline"] if i == last
+                              else None) for i in range(sc["n_req"])]
+        return serve.serve_scheduled(
+            model, tr.base, reqs, bank=bank, max_batch=sc["max_batch"],
+            block_size=sc["block_size"], chunk=sc["chunk"], wait=False)
+
+    calls = {"prefill": 0, "decode_step": 0}
+    orig = {k: getattr(model, k) for k in calls}
+
+    def counting(key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return orig[key](*a, **k)
+        return wrapped
+
+    model.prefill, model.decode_step = (counting("prefill"),
+                                        counting("decode_step"))
+    _reset_launches()
+    _sync(device)
+    t = time.monotonic()
+    served = run(live)
+    _sync(device)
+    wall = time.monotonic() - t
+    launches = _launch_counts()
+    del model.prefill, model.decode_step
+    groups, steps = calls["prefill"], calls["decode_step"]
+    n_ad = _n_adapted(live.bank)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(bgmv_matmul=n_ad * groups, bgmv_gemv=n_ad * steps,
+                  paged_attention=_layer_kinds(cfg).count("attn") * steps)
+    print(f"served over the live bank: {groups} admission groups, {steps} "
+          f"decode steps, {wall:.3f} s; {live.promotions} promotions, "
+          f"{live.demotions} demotions; launches #2 {launches['bgmv_matmul']}"
+          f", #1 {launches['bgmv_gemv']}, #13 {launches['paged_attention']} "
+          f"(expected { {k: v for k, v in expect.items() if v} })")
+    assert launches == expect, (launches, expect)
+    assert live.promotions > 0
+    want = run(static)
+    same = [a.tokens == b.tokens for a, b in zip(served, want)]
+    print(f"tokens over the live bank vs a static AdapterBank of the same "
+          f"round: {sum(same)} of {len(same)} requests equal "
+          f"({sum(len(r.tokens) for r in served)} tokens)")
+    assert all(same)
+    return launches
+
+
+def fault_tolerant_paths(name, cfg, device, params, sync, *, clients=4,
+                         rank=64, local_steps=2, batch=4, seq=128):
+    """Phase 21 on phase 6's base ``params`` and against its synchronous
+    run ``sync`` (train_path's result with track_stability, plus its
+    counted ``launches`` and ``ms``): the buffered engine at null faults, under nan and noise faults, the watchdog, and the publish hook
+    into a live serving bank.  ``cfg`` and ``device`` are arguments so the
+    phase can be rehearsed on a CPU at a reduced size."""
+    phase(f"fault-tolerant engine: buffered at null faults, {cfg.name} "
+          f"d_model {cfg.d_model}, fp32, N={clients}, fedsa, rank {rank}")
+    model = build_model(cfg)
+    rounds = len(sync["history"])
+    n_adapted = _proj_counts(cfg)[0]
+
+    def trainer(scaling="sfedlora", chunk_rounds=0, watchdog=None, **fed):
+        ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
+                              batch_per_client=batch, seed=0)
+        return federated.FederatedTrainer(
+            model, ds, lora_cfg=LoRAConfig(rank=rank, alpha=8.0,
+                                           scaling=scaling,
+                                           targets=cfg.lora_targets),
+            fed_cfg=FederatedConfig(num_clients=clients,
+                                    local_steps=local_steps,
+                                    rounds=FT_ROUNDS, aggregation="fedsa",
+                                    **fed),
+            opt_cfg=OptimizerConfig(name="sgd", lr=5e-3), seed=0,
+            base_params=params, device=device, chunk_rounds=chunk_rounds,
+            watchdog=watchdog, track_stability=True)
+
+    def lora_launches(n_rounds):
+        out = dict.fromkeys(_launch_counts(), 0)
+        out.update({k: n_adapted * clients * local_steps * n_rounds
+                    for k in LORA_KERNELS})
+        return out
+
+    # 1. buffer 0 (no cap), no faults: the synchronous run, bit for bit
+    tr = trainer(buffer_size=0)
+    live = LiveAdapterBank.from_sets(
+        [tr.client_adapters(c) for c in range(clients)], hot_slots=2,
+        device=device)
+    _reset_launches()
+    ms_null = []
+    for _ in range(rounds):
+        _sync(device)
+        t = time.monotonic()
+        tr.run_round()
+        _sync(device)
+        ms_null.append((time.monotonic() - t) * 1e3)
+    launches = _launch_counts()
+    assert launches == lora_launches(rounds), (launches, rounds)
+    steps = clients * local_steps * rounds
+    per_step = {k: launches[k] / steps for k in LORA_KERNELS}
+    # phase 6's counted run, its eval forward's #5 taken out
+    sync_per_step = {k: (sync["launches"][k]
+                         - (n_adapted if k == "lora_fwd" else 0)) / steps
+                     for k in LORA_KERNELS}
+    print(f"launches per client local step {per_step} (synchronous run: "
+          f"{sync_per_step})")
+    assert per_step == sync_per_step
+    same = _trees_equal({"l": tr.lora, "o": tr.opt_state},
+                        {"l": sync["lora"], "o": sync["opt"]}) and all(
+        hb[k] == hs[k] for hb, hs in zip(tr.history, sync["history"])
+        for k in ("loss", "grad_norm", "update_norm"))
+    for h in tr.history:
+        print(f"round {h['round']}: loss {h['loss']:.6f}, n_eff "
+              f"{h['n_eff']:g}, gamma_scale {h['gamma_scale']:g}, "
+              f"delivered {h['delivered']:g}, stale {h['stale']:g}")
+    print(f"buffered at null faults vs the synchronous run of phase 6: "
+          f"trajectory and state {'bit-identical' if same else 'DIFFER'}; "
+          f"gamma_eff {tr.gamma_eff:.6g} (gamma {tr.gamma:.6g})")
+    assert same and tr.gamma_eff == tr.gamma
+    phase("fault-tolerant engine: train to serve (publish_adapters into a "
+          "LiveAdapterBank of 2 hot slots, 4 tenants; serve_scheduled)")
+    serve_launches = _publish_then_serve(model, tr, live, device)
+    del tr, live
+    _free()
+
+    # 2. nan faults in chunks of 2, screening on
+    faults = parse_faults(FT_FAULTS)
+    phase(f"fault-tolerant engine: faults [{FT_FAULTS}], buffer 0, chunks "
+          f"of 2, {FT_ROUNDS} rounds")
+    tr_a = trainer(buffer_size=0, faults=faults, chunk_rounds=2)
+    _check_finite_each_round(tr_a)
+    _reset_launches()
+    ms_a = _timed_chunks(tr_a, FT_ROUNDS, 2, device)
+    launches = _launch_counts()
+    assert launches == lora_launches(FT_ROUNDS), launches
+    for h in tr_a.history:
+        print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6e}, n_eff {h['n_eff']:g}, delivered "
+              f"{h['delivered']:g}, rejected {h['rejected']:g}, stale "
+              f"{h['stale']:g}, gamma_scale {h['gamma_scale']:.6g}")
+    print(f"every adapter leaf finite after every round; gamma_eff "
+          f"{tr_a.gamma_eff:.6g} (gamma {tr_a.gamma:.6g}); launches "
+          f"{ {k: v for k, v in launches.items() if v} } (every client "
+          "trains, in flight or not)")
+    tr_b = trainer(buffer_size=0, faults=faults, chunk_rounds=2)
+    ms_b = _timed_chunks(tr_b, FT_ROUNDS, 2, device)
+    same = _state_equal(tr_a, tr_b) and tr_a.history == tr_b.history
+    print(f"second faulted run: {'bit-identical' if same else 'DIFFERS'}")
+    assert same
+    del tr_b
+    ckpt = ROOT / "build" / "chip_smoke_faults.npz"
+    tr_c = trainer(buffer_size=0, faults=faults, chunk_rounds=2)
+    tr_c.run(2)
+    _sync(device)
+    t = time.monotonic()
+    tr_c.save(str(ckpt))
+    save_s = time.monotonic() - t
+    tr_c.run(FT_ROUNDS - 2)
+    tr_d = trainer(buffer_size=0, faults=faults, chunk_rounds=2)
+    t = time.monotonic()
+    tr_d.restore(str(ckpt))
+    _sync(device)
+    restore_s = time.monotonic() - t
+    mb = ckpt.stat().st_size / 1e6
+    ckpt.unlink()
+    tr_d.run(FT_ROUNDS - 2)
+    same = (_state_equal(tr_d, tr_c) and _state_equal(tr_c, tr_a)
+            and tr_d.history == tr_c.history[2:])
+    print(f"save after round 2 ({mb:.1f} MB in {save_s:.1f} s), restored in "
+          f"{restore_s:.1f} s; rounds 3-{FT_ROUNDS} "
+          f"{'bit-identical' if same else 'DIFFER'} to the uninterrupted "
+          "run")
+    assert same
+    del tr_c, tr_d
+    _free()
+    _reset_launches()
+    with dispatch.plain_tier():
+        tr_e = trainer(buffer_size=0, faults=faults, chunk_rounds=2)
+        tr_e.run(FT_ROUNDS)
+    assert not any(_launch_counts().values()), _launch_counts()
+    worst = 0.0
+    for hk, hp in zip(tr_a.history, tr_e.history):
+        for key in ("delivered", "rejected", "stale"):
+            assert hk[key] == hp[key], (key, hk, hp)
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(hk[key] - hp[key])
+                        / max(abs(hp[key]), 1e-30))
+    print(f"kernel vs plain tier under faults: worst relative diff of loss "
+          f"and grad_norm {worst:.3e} (bound {TRAIN_RTOL}); delivered / "
+          "rejected / stale equal every round")
+    assert worst <= TRAIN_RTOL
+    del tr_e
+    _free()
+
+    # 3. noise-mode corruption: finite norm bombs, screened against the
+    # candidates' lower median
+    phase(f"fault-tolerant engine: faults [{FT_NOISE}], {FT_NOISE_ROUNDS} "
+          "rounds in chunks of 2")
+    tr_n = trainer(buffer_size=0, faults=parse_faults(FT_NOISE),
+                   chunk_rounds=2)
+    _check_finite_each_round(tr_n)
+    ms_n = _timed_chunks(tr_n, FT_NOISE_ROUNDS, 2, device)
+    fm = tr_n.fault_model
+    expect = []
+    for r in range(FT_NOISE_ROUNDS):
+        c = int(fm.sample(fm.round_generator(0, r, device),
+                          clients)["corrupt"].sum())
+        # the lower median of the N candidates is clean while the clean
+        # ones outnumber its index; a corrupted majority goes unrejected
+        expect.append(c if clients - c > (clients - 1) // 2 else 0)
+    rejected = [int(h["rejected"]) for h in tr_n.history]
+    print(f"corrupted uploads a round (redrawn from the round generators) "
+          f"screened: rejected {rejected}, expected {expect}")
+    assert rejected == expect and sum(rejected) >= 1
+    del tr_n
+
+    # 4. the watchdog: classic LoRA gamma = alpha / r at r = 64, N = 4
+    phase(f"fault-tolerant engine: watchdog (scaling lora, rank {rank}, "
+          "max_retries 2, chunks of 2)")
+    tr_w = trainer(scaling="lora", buffer_size=0, chunk_rounds=2,
+                   watchdog=federated.WatchdogConfig(max_retries=2))
+    cost = {"snapshot": [], "rollback": []}
+    for key in cost:
+        fn = getattr(tr_w, f"_{key}")
+
+        def timed(*a, fn=fn, key=key):
+            _sync(device)
+            t = time.monotonic()
+            out = fn(*a)
+            _sync(device)
+            cost[key].append((time.monotonic() - t) * 1e3)
+            return out
+        setattr(tr_w, f"_{key}", timed)
+    gamma0 = tr_w.gamma
+    tr_w.run(FT_ROUNDS)
+    for ev in tr_w.watchdog_events:
+        print(f"# watchdog: round {ev['round']} verdict={ev['verdict']} -> "
+              f"{ev['action']} ({ev['detail']}, retry {ev['retry']})")
+    ev = tr_w.watchdog_events[0]
+    rep = tr_w.stability_report()
+    print(f"gamma {gamma0:.4g} (lora) -> {tr_w.gamma:.4g} "
+          f"({tr_w.lora_cfg.scaling}); {len(tr_w.history)} rounds kept; "
+          f"final report: {rep}")
+    print(f"snapshot {[round(x, 3) for x in cost['snapshot']]} ms, rollback "
+          f"{[round(x, 3) for x in cost['rollback']]} ms")
+    assert ev["verdict"] == "collapse" and ev["action"] == "rescale"
+    assert tr_w.lora_cfg.scaling == "sfedlora"
+    assert math.isclose(tr_w.gamma, 8.0 * math.sqrt(clients / rank))
+    assert len(tr_w.history) == FT_ROUNDS and tr_w.round_idx == FT_ROUNDS
+    print(f"stability_report() of phase 6's synchronous run: "
+          f"{sync['report']}")
+    del tr_w
+    _free()
+    sync_ms = sync["ms"]
+    print(f"fault-tolerant engine on {name}: ms/round synchronous (phase 6) "
+          f"{[round(x, 1) for x in sync_ms]}, buffered at null faults "
+          f"{[round(x, 1) for x in ms_null]}, faults [{FT_FAULTS}] "
+          f"{[round(x, 1) for x in ms_a]} (first run) "
+          f"{[round(x, 1) for x in ms_b]} (second), noise mode "
+          f"{[round(x, 1) for x in ms_n]}; each a chunk's mean")
+    return serve_launches
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -2652,9 +3013,16 @@ def main():
     _free()                           # the serving path's weights
     worst.update(check_lora_kernels())
     rows.update(time_lora_kernels())
-    train_launches, _, _ = train_path(name, get_config("gemma-2b"),
-                                      torch.device("cuda"))
+    gemma, dev = get_config("gemma-2b"), torch.device("cuda")
+    params = train_base(build_model(gemma), dev)
+    train_launches, sync_ms, sync = train_path(name, gemma, dev,
+                                               params=params,
+                                               track_stability=True)
     launches.update({k: train_launches[k] for k in LORA_KERNELS})
+    # phase 21 runs here, on phase 6's base and against its run
+    fault_tolerant_paths(name, gemma, dev, params,
+                         dict(sync, launches=train_launches, ms=sync_ms))
+    del params, sync
     _free()
     ring = SCHED["plen"] + SCHED["steps"]
     worst.update(check_sched_kernels(SCHED["block_size"], ring))

@@ -17,7 +17,10 @@ hybrid family (recurrentgemma-9b, ``models/rglru.py``), over an fp or a
 packed base, whose recurrence runs the scan kernel and its backward
 (``kernels/rglru_scan.py``); and the public kernel API
 (``kernels/ops.py``), with flash attention (``kernels/flash_attention.py``)
-behind it.  All fifteen TPU kernels have a counterpart written by hand in
+behind it; and the fault-tolerant federated engine (buffered aggregation,
+fault injection, screening, the Theorem 4.2 sentinel and its collapse
+watchdog: ``core/federated.py``, ``core/faults.py``,
+``analysis/stability_check.py``) with the train-to-serve publish hook.  All fifteen TPU kernels have a counterpart written by hand in
 CUDA C++ for ``sm_90a``, and so has the scan's backward.
 
 Device rule: entry points run on ``cuda`` unless the caller passes

@@ -129,13 +129,15 @@ def params_from_numpy(tree, device="cuda", dtype=None):
 def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
                          *, generator_state=None, data_state: str = None,
                          partition_state: str = None, rank_mask=None,
-                         adapter_meta: dict = None):
+                         adapter_meta: dict = None, async_state: dict = None):
     """Checkpoint one federated run under the JAX package's keys (``base``,
     ``lora``, ``opt``, ``round``, ``data_state``, ``partition_state``,
-    ``rank_mask``, ``adapter_meta``), so
+    ``rank_mask``, ``adapter_meta``, ``async_state``), so
     ``repro.checkpoint.io.load_federated_state`` reads the file.
     ``rank_mask`` is the (N, r_max) mask of heterogeneous per-client ranks,
-    None for a homogeneous run.
+    None for a homogeneous run; ``async_state`` the buffered engine's carry
+    ({"tau": (N,) int32, "rho": scalar float32}), None for the synchronous
+    one.
 
     ``generator_state`` (``torch.Generator.get_state()`` of the trainer's
     participation generator) and ``data_state`` (the host dataset's
@@ -148,7 +150,7 @@ def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
     tree = {"base": base, "lora": lora, "opt": opt_state, "round": round_idx,
             "generator_state": generator_state, "data_state": data_state,
             "partition_state": partition_state, "rank_mask": rank_mask,
-            "adapter_meta": adapter_meta}
+            "adapter_meta": adapter_meta, "async_state": async_state}
     tree = {k: v for k, v in tree.items() if v is not None}
     save_pytree(path, tree)
 
@@ -158,11 +160,14 @@ def load_federated_state(path: str):
     numpy trees, the round as an int, and ``state`` a dict of what a resumed
     run reads, where the file has it: "generator_state" (the port's
     participation generator), "prng_key" (the JAX trainer's key data),
-    "rank_mask", and the dataset's "data_state" and "partition_state" as
-    strings."""
+    "rank_mask", "async_state" ({"tau", "rho"} numpy arrays), and the
+    dataset's "data_state" and "partition_state" as strings."""
     t = load_pytree(path)
     state = {k: np.asarray(t[k])
              for k in ("generator_state", "prng_key", "rank_mask") if k in t}
+    if "async_state" in t:
+        state["async_state"] = {k: np.asarray(v)
+                                for k, v in t["async_state"].items()}
     for key in ("data_state", "partition_state"):
         if key in t:
             state[key] = str(np.asarray(t[key]))

@@ -130,25 +130,15 @@ class FederatedConfig:
     # weight the server aggregate by per-client example counts
     # (dataset.size_weights) instead of a plain client mean
     weight_by_size: bool = False
-    # --- async buffered aggregation and fault injection (JAX package:
-    # repro/core/federated.py).  Not yet ported: any value other than the
-    # default raises.
-    buffer_size: Optional[int] = None
-    staleness_beta: float = 0.5
-    screen_updates: bool = True
-    screen_norm_mult: float = 10.0
-    faults: Optional[object] = None
-
-    def __post_init__(self):
-        defaults = {"buffer_size": None, "staleness_beta": 0.5,
-                    "screen_updates": True, "screen_norm_mult": 10.0,
-                    "faults": None}
-        for name, default in defaults.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"FederatedConfig.{name}={getattr(self, name)!r}: the "
-                    "async buffered engine and fault injection are not yet "
-                    "ported to repro_torch (only the synchronous engine is)")
+    # --- async buffered aggregation and fault injection
+    # (core/federated.make_buffered_round_body): buffer_size None with
+    # faults None is the synchronous engine; anything else switches the
+    # trainer to the buffered one.
+    buffer_size: Optional[int] = None   # max accepted uploads a round; 0 = N
+    staleness_beta: float = 0.5    # staleness discount (1 + tau) ** -beta
+    screen_updates: bool = True    # reject non-finite / norm-outlier uploads
+    screen_norm_mult: float = 10.0  # outlier: norm > mult x round median
+    faults: Optional[object] = None  # core.faults.FaultConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,12 +25,13 @@ Registered strategies:
 Every strategy takes a (N, r) rank mask for heterogeneous per-client ranks
 (the padded representation, ``core/lora.rank_mask``).  In the JAX package
 the flags may be traced; here round indices are python ints and flags
-python bools.  The buffered wrapper of the async engine is not yet ported
-and raises.
+python bools.  :func:`buffered` wraps any of them for the async buffered
+engine (``core/federated.make_buffered_round_body``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ import torch
 from repro_torch.core.lora import AdapterSet
 from repro_torch.core.lora import _walk_ab as _map_ab
 from repro_torch.core.lora import rank_leaf_mask as _rank_weight
+from repro_torch.tree import tree_leaves
 
 
 def _unwrap_adapters(tree, rank_mask):
@@ -54,6 +56,12 @@ def _rows(v, x):
     """A (N,) per-client vector as a tensor broadcast over leaf ``x``."""
     t = torch.as_tensor(v, device=x.device)
     return t.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def negate_flag(flag) -> bool:
+    """NOT over a strategy flag.  The port's flags are python bools (the
+    JAX package's may be traced, where ``not`` would raise)."""
+    return not flag
 
 
 def _map_ab_pairs(tree, fn_pair):
@@ -103,6 +111,28 @@ def combine_received(local, aggregated, receive, agg_a, agg_b):
     return _map_ab2(local, aggregated, comb(agg_a), comb(agg_b))
 
 
+def per_client_finite(tree):
+    """(N,) bool: does client i's slice of every leaf hold only finite
+    values?  The server's non-finite screen over a stacked upload."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    ok = torch.ones((n,), dtype=torch.bool, device=leaves[0].device)
+    for x in leaves:
+        ok = ok & torch.isfinite(x).reshape(n, -1).all(dim=1)
+    return ok
+
+
+def per_client_norm(tree):
+    """(N,) float32 L2 norm of client i's slice across all leaves, summed
+    leaf by leaf in sorted-key order."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    sq = torch.zeros((n,), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        sq = sq + x.float().square().reshape(n, -1).sum(dim=1)
+    return torch.sqrt(sq)
+
+
 def mask_grads(grads, train_a, train_b):
     """Zero the gradients of frozen matrices (multiplied by 0.0, as in the
     JAX package, so a non-finite gradient stays visible)."""
@@ -129,14 +159,22 @@ def aggregate_clients(lora_stacked, agg_a, agg_b, *, axis: int = 0,
             if not flag:
                 return x
             if weights is None and rank_mask is None:
-                return x.mean(dim=axis, keepdim=True).expand_as(x).clone()
+                # sum * (1/n), as JAX lowers x.mean: torch's mean rounds
+                # differently, and the buffered engine's all-ones weighted
+                # mean below must equal this bit for bit
+                n = x.shape[axis]
+                return (x.sum(dim=axis, keepdim=True) * (1.0 / n)
+                        ).expand_as(x).clone()
             w = torch.ones((1,) * x.ndim, dtype=x.dtype, device=x.device)
             if weights is not None:
                 w = w * _rows(weights, x).to(x.dtype)
             if rank_mask is not None:
                 w = w * _rank_weight(rank_mask, x, which)
-            den = w.sum(dim=axis, keepdim=True)
-            # multiply by the reciprocal, as the JAX package does
+            # the weights' total in client order, as XLA sums it: torch
+            # reduces a short contiguous dim in another order
+            den = functools.reduce(torch.add, w.unbind(axis)).unsqueeze(axis)
+            # multiply by the reciprocal, as the JAX package does: with all
+            # weights 1 this is the unweighted path above, bit for bit
             mean = ((x * w).sum(dim=axis, keepdim=True) * (
                 1.0 / torch.clamp(den, min=1e-9))).expand_as(x)
             if rank_mask is not None:
@@ -359,7 +397,76 @@ def get_strategy(name) -> Strategy:
             from None
 
 
-def buffered(inner, **kwargs):
-    """The JAX package's async buffered wrapper: not yet ported."""
-    raise NotImplementedError(
-        "buffered (async) aggregation is not yet ported to repro_torch")
+@dataclasses.dataclass(frozen=True)
+class BufferedStrategy(Strategy):
+    """FedBuff-style async wrapper around any registered strategy.
+
+    The buffered engine (``core/federated.make_buffered_round_body``)
+    aggregates at most ``buffer_size`` accepted uploads a round (0: no
+    cap); an upload tau rounds in flight is discounted by ``(1 + tau) **
+    -beta`` in the server mean.  ``screen`` rejects non-finite uploads and
+    finite ones whose update norm exceeds ``screen_mult`` x the lower
+    median of the round's candidates (when more than one arrived).  Every
+    strategy concern (flags, the aggregate, comm accounting) is the
+    ``inner`` strategy's."""
+    inner: Strategy = None
+    buffer_size: int = 0
+    beta: float = 0.5
+    screen: bool = True
+    screen_mult: float = 10.0
+
+    def __post_init__(self):
+        if not isinstance(self.inner, Strategy):
+            raise ValueError(
+                "BufferedStrategy needs inner=<Strategy>; build one via "
+                "aggregation.buffered(name, ...)")
+        if self.buffer_size < 0:
+            raise ValueError(
+                f"buffer_size must be >= 0 (0 = no cap), got "
+                f"{self.buffer_size}")
+
+    def train_flags(self, round_idx):
+        return self.inner.train_flags(round_idx)
+
+    def agg_flags(self, round_idx):
+        return self.inner.agg_flags(round_idx)
+
+    def agg_leaf_flags(self, round_idx):
+        return self.inner.agg_leaf_flags(round_idx)
+
+    def mask_grads(self, grads, round_idx):
+        return self.inner.mask_grads(grads, round_idx)
+
+    def aggregate(self, lora_stacked, round_idx, *, weights=None,
+                  rank_mask=None):
+        return self.inner.aggregate(lora_stacked, round_idx,
+                                    weights=weights, rank_mask=rank_mask)
+
+    def upload_bytes(self, lora_stacked, round_idx: int = 0) -> int:
+        return self.inner.upload_bytes(lora_stacked, round_idx)
+
+    def upload_bytes_per_client(self, lora_stacked, round_idx: int = 0, *,
+                                ranks):
+        return self.inner.upload_bytes_per_client(lora_stacked, round_idx,
+                                                  ranks=ranks)
+
+
+def buffered(inner, **kwargs) -> BufferedStrategy:
+    """Wrap a strategy (name or instance) for the async buffered engine."""
+    inner = get_strategy(inner)
+    return BufferedStrategy(name=f"buffered:{inner.name}", inner=inner,
+                            **kwargs)
+
+
+def strategy_flags(name: str, round_idx):
+    """((train_a, train_b), (agg_a, agg_b)) of a flag-expressible
+    strategy.  Raises for one whose server step is not a flag pair (flora's
+    stacking): its flags fed to ``aggregate_clients`` would compute plain
+    means."""
+    s = get_strategy(name)
+    if type(s).aggregate is not Strategy.aggregate:
+        raise ValueError(
+            f"strategy '{s.name}' is not flag-expressible (it overrides "
+            "aggregate()); use get_strategy(name) and its "
+            "mask_grads/aggregate/upload_bytes methods")
+    return s.train_flags(round_idx), s.agg_flags(round_idx)

@@ -1,7 +1,7 @@
-"""Federated LoRA fine-tuning: the synchronous engine.
+"""Federated LoRA fine-tuning: the synchronous and the buffered engine.
 
-The port of the synchronous path of ``repro/core/federated.py``.  One
-federated round (paper section 3):
+The port of ``repro/core/federated.py``.  One federated round (paper
+section 3):
   1. every client runs ``local_steps`` SGD/AdamW steps on its LoRA params,
   2. the server aggregates per the strategy (FedSA/SFed: mean of A only),
   3. the aggregate is broadcast back.
@@ -11,7 +11,8 @@ scans rounds on the device, this module loops over clients and rounds in
 Python on the client-stacked state; every adapted projection of a local
 step goes through the LoRA matmul Function (kernels #5-#8 on CUDA), and
 every RG-LRU recurrence of the hybrid family through the scan Function
-(#15 and its backward).
+(#15 and its backward).  Rounds run in chunks of ``chunk_rounds``, as the
+JAX trainer's scans do: the metrics come to the host once a chunk.
 
 The scaling factor gamma = scaling_factor(scheme, alpha, r, N) is folded
 into B inside the loss (``AdapterSet.prepared``), so autograd takes the
@@ -32,8 +33,18 @@ The frozen base may be packed (``core/quant.quantize_tree``): every
 projection over it goes through the packed kernels on CUDA (#9-#12 with #7
 and #8) and dequantizes on the CPU.
 
-Not yet ported, and raising: ``data_mode="device"``, meshes, the watchdog,
-the async buffered engine and faults.
+The buffered engine (``fed_cfg.buffer_size`` or ``fed_cfg.faults`` set;
+:func:`make_buffered_round_body`) is the JAX package's FedBuff-style round:
+uploads may be dropped, delayed or corrupted (``core/faults.py``), the
+server screens them, caps its buffer, discounts stale ones and carries the
+Theorem 4.2 correction gamma_eff = gamma sqrt(N_eff / N) into the next
+chunk.  With no faults and no cap it is the synchronous engine, bit for
+bit.  The collapse watchdog (:class:`WatchdogConfig`) judges every chunk
+with the sentinel of ``analysis/stability_check.py`` and rolls a failed
+chunk back; :meth:`FederatedTrainer.publish_adapters` hands a round's
+adapters to a live serving bank.
+
+Not yet ported, and raising: ``data_mode="device"`` and meshes.
 """
 from __future__ import annotations
 
@@ -44,10 +55,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.stability_check import (ScalingCollapseError,
+                                                  recovery_action,
+                                                  stability_report)
 from repro_torch.checkpoint.io import (load_federated_state,
                                        params_from_numpy,
                                        save_federated_state)
-from repro_torch.core.aggregation import get_strategy
+from repro_torch.core.aggregation import (BufferedStrategy, buffered,
+                                          combine_received, get_strategy,
+                                          per_client_finite, per_client_norm)
+from repro_torch.core.faults import FaultModel
 from repro_torch.core.lora import (AdapterSet, apply_rank_mask, init_lora,
                                    mask_rank_tree, rank_mask)
 from repro_torch.core.scaling import per_client_gammas, scaling_factor
@@ -78,6 +95,12 @@ def _stack(trees):
 
 def _client(tree, i: int):
     return tree_map(lambda x: x[i], tree)
+
+
+def _tree_where(row_mask, new, old):
+    """Per-client row select over two identically shaped stacked trees."""
+    return tree_map(lambda a, b: torch.where(
+        row_mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b), new, old)
 
 
 def _make_client_local(model, strat, opt_cfg):
@@ -114,6 +137,42 @@ def _make_client_local(model, strat, opt_cfg):
     return client_local
 
 
+def _make_train_clients(model, strat, opt_cfg):
+    """Every client's local training in one round, shared by the
+    synchronous and the buffered round bodies (the two engines differ only
+    on the server side, never in client compute).  Returns train(base,
+    adapters, opt_N, batches, round_idx) -> (new_lora, new_opt, metrics):
+    the metrics "loss" and "grad_norm" are means over all N clients and
+    their local steps, as JAX's vmapped ones."""
+    client_local = _make_client_local(model, strat, opt_cfg)
+
+    def train(base, adapters, opt_N, batches, round_idx):
+        lora_N = adapters.lora
+        g, mask_N = adapters.gamma, adapters.rank_mask
+        n = tree_leaves(lora_N)[0].shape[0]
+        outs = [client_local(
+            base, _client(lora_N, i), _client(opt_N, i), batches[i],
+            round_idx, g if isinstance(g, float) else float(g[i]),
+            None if mask_N is None else mask_N[i]) for i in range(n)]
+        metrics = {"loss": torch.stack([o[2]["loss"] for o in outs]).mean(),
+                   "grad_norm": torch.stack(
+                       [o[2]["grad_norm"] for o in outs]).mean()}
+        return (_stack([o[0] for o in outs]), _stack([o[1] for o in outs]),
+                metrics)
+
+    return train
+
+
+def _update_norm(gamma, new_lora, lora_N):
+    """|gamma| times the norm of the post-aggregation adapter movement (the
+    mean |gamma_i| for per-client factors): the series the collapse
+    sentinel judges."""
+    g_scale = abs(gamma) if isinstance(gamma, float) \
+        else float(np.abs(gamma).mean())
+    return g_scale * global_norm(tree_map(lambda a, b: a - b, new_lora,
+                                          lora_N))
+
+
 def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     """Returns round_body(base, adapters, opt_N, batches, round_idx,
     weights).
@@ -126,56 +185,220 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     makes the aggregate rank-aware.  Returns (adapters',
     opt_N', metrics) with metrics "loss" and "grad_norm" (means over
     clients and local steps, as 0-d tensors) and, with
-    ``track_update_norm``, "update_norm": |gamma| times the norm of the
-    post-aggregation adapter movement (the mean |gamma_i| for per-client
-    factors).
+    ``track_update_norm``, "update_norm" (:func:`_update_norm`).
 
     ``weights`` (N,) non-negative: 0 = not sampled (keeps its local state
     and only receives the aggregate); positive values also weight the
     server mean.  Every client trains, sampled or not, and the metrics
     average over all of them, as in the JAX engine."""
     strat = get_strategy(strategy)
-    client_local = _make_client_local(model, strat, opt_cfg)
+    train = _make_train_clients(model, strat, opt_cfg)
 
     def round_body(base, adapters, opt_N, batches, round_idx, weights=None):
-        lora_N = adapters.lora
-        g, mask_N = adapters.gamma, adapters.rank_mask
-        n = tree_leaves(lora_N)[0].shape[0]
-        outs = [client_local(
-            base, _client(lora_N, i), _client(opt_N, i), batches[i],
-            round_idx, g if isinstance(g, float) else float(g[i]),
-            None if mask_N is None else mask_N[i]) for i in range(n)]
-        new_lora = _stack([o[0] for o in outs])
-        new_opt = _stack([o[1] for o in outs])
+        lora_N, mask_N = adapters.lora, adapters.rank_mask
+        new_lora, new_opt, metrics = train(base, adapters, opt_N, batches,
+                                           round_idx)
         if weights is not None:
-            def sel(new, old):
-                keep = weights.reshape((-1,) + (1,) * (new.ndim - 1)) > 0
-                return torch.where(keep, new, old)
-            new_lora = tree_map(sel, new_lora, lora_N)
-            new_opt = tree_map(sel, new_opt, opt_N)
+            sampled = weights > 0
+            new_lora = _tree_where(sampled, new_lora, lora_N)
+            new_opt = _tree_where(sampled, new_opt, opt_N)
         new_lora = strat.aggregate(new_lora, round_idx, weights=weights,
                                    rank_mask=mask_N)
-        metrics = {"loss": torch.stack([o[2]["loss"] for o in outs]).mean(),
-                   "grad_norm": torch.stack(
-                       [o[2]["grad_norm"] for o in outs]).mean()}
         if track_update_norm:
-            g_scale = abs(g) if isinstance(g, float) \
-                else float(np.abs(g).mean())
-            metrics["update_norm"] = g_scale * global_norm(
-                tree_map(lambda a, b: a - b, new_lora, lora_N))
+            metrics["update_norm"] = _update_norm(adapters.gamma, new_lora,
+                                                  lora_N)
         return dataclasses.replace(adapters, lora=new_lora), new_opt, metrics
 
     return round_body
 
 
+def _quantize_rho(rho: float) -> float:
+    """The carried gamma correction rho = sqrt(N_eff / N) as the trainer
+    folds it into the next chunk's gamma: two decimals (the JAX engine
+    compiles one executable per distinct gamma, so it bounds their number
+    at about 100; the port keeps the values, so both fold the same gamma),
+    floored at 0.01; rho >= 0.995 passes as exactly 1.0, so the
+    staleness-0 fold is a no-op."""
+    rho = float(rho)
+    if rho >= 0.995:
+        return 1.0
+    return max(round(rho, 2), 0.01)
+
+
+def make_buffered_round_body(model, *, strategy, opt_cfg, fault_model=None,
+                             track_update_norm=False):
+    """The async FedBuff-style round body: returns round_body(base,
+    adapters, opt_N, tau, rho, batches, round_idx, faults=None, part=None,
+    size_w=None, expected=None) -> (adapters', opt_N', tau', rho',
+    metrics).
+
+    ``strategy`` is a :class:`~repro_torch.core.aggregation.
+    BufferedStrategy`; ``tau`` (N,) int32 the rounds each client's upload
+    has been in flight, ``rho`` the carried correction (0-d float32);
+    ``faults`` the round's draws of ``fault_model`` (:meth:`FaultModel.
+    draw`: masks and, in noise mode, the noise leaves), None for no faults;
+    ``part`` (N,) the participation mask (None: every client);
+    ``size_w`` (N,) the size weights; ``expected`` the round's sampled
+    count (default N).  The JAX body's steps, one for one:
+
+      1. every sampled client WITHOUT an in-flight upload trains locally;
+         in-flight clients hold their pending update;
+      2. the faults apply: drops and stragglers among the attempting
+         clients, corruption of a COPY of the arriving uploads;
+      3. the server screens the arrivals (non-finite always rejected; with
+         screening on, norms above ``screen_mult`` x the candidates' lower
+         median when more than one arrived), caps the accepted buffer at
+         ``buffer_size`` in client-index order (the overflow stays in
+         flight), and aggregates the accepted uploads with the weights
+         ``(1 + tau) ** -beta`` x the size weights;
+      4. clients still in flight (stragglers and overflow) bump tau and
+         keep their state; everyone else resets tau and receives the
+         broadcast on the leaves the inner strategy aggregates
+         (``agg_leaf_flags``), so dropped and rejected clients resync;
+      5. rho' = sqrt(max(mass, 1) / expected), the Theorem 4.2 staleness
+         correction gamma_eff = gamma rho.  The trainer folds it into gamma
+         at the next CHUNK start, as JAX does; within a chunk every round
+         trains with the chunk-start gamma.
+
+    Metrics: "loss", "grad_norm", "n_eff", "gamma_scale" (rho'),
+    "delivered", "rejected", "stale" and, with ``track_update_norm``,
+    "update_norm".  Everything stays an (N,) or 0-d tensor on the device:
+    no host read happens per client or per round.
+    """
+    strat = get_strategy(strategy)
+    if not isinstance(strat, BufferedStrategy):
+        raise ValueError(
+            "make_buffered_round_body needs a BufferedStrategy (wrap the "
+            "inner method with aggregation.buffered(...))")
+    inner = strat.inner
+    fault_model = fault_model or FaultModel()
+    train = _make_train_clients(model, strat, opt_cfg)
+
+    def round_body(base, adapters, opt_N, tau, rho, batches, round_idx,
+                   faults=None, part=None, size_w=None, expected=None):
+        lora_N, mask_N = adapters.lora, adapters.rank_mask
+        n = tau.shape[0]
+        expected = n if expected is None else expected
+        dev = tau.device
+        # (a) every client trains, in-flight ones too: JAX vmaps all N and
+        # its loss / grad_norm average over all N; the in-flight results
+        # are discarded just below
+        new_lora, new_opt, metrics = train(base, adapters, opt_N, batches,
+                                           round_idx)
+        sampled = (torch.ones((n,), dtype=torch.bool, device=dev)
+                   if part is None else part > 0)
+        in_flight = tau > 0
+        trained = sampled & ~in_flight
+        local_lora = _tree_where(trained, new_lora, lora_N)
+        local_opt = _tree_where(trained, new_opt, opt_N)
+
+        # (c) the fault draws come in as an argument, as participation does
+        off = torch.zeros((n,), dtype=torch.bool, device=dev)
+        fr = faults or {}
+        attempting = sampled | in_flight
+        dropped = attempting & fr.get("drop", off)
+        straggling = attempting & ~dropped & fr.get("straggle", off)
+        arrived = attempting & ~dropped & ~straggling
+        upload = fault_model.corrupt_tree(
+            local_lora, arrived & fr.get("corrupt", off), fr.get("noise"))
+
+        rejected = off
+        if strat.screen:
+            finite = per_client_finite(upload)
+            norms = per_client_norm(tree_map(lambda u, o: u - o, upload,
+                                             lora_N))
+            cand = arrived & finite
+            cnt = cand.sum()
+            # judged against the candidates' lower MEDIAN, not their mean:
+            # a finite norm bomb inflates the mean by about its norm / N
+            order = torch.sort(torch.where(
+                cand, norms, torch.full_like(norms, math.inf))).values
+            med = order.gather(0, (torch.clamp(cnt - 1, min=0) // 2)
+                               .reshape(1))
+            outlier = (norms > strat.screen_mult * med) & (cnt > 1)
+            rejected = arrived & (~finite | outlier)
+        accepted = arrived & ~rejected
+        overflow = off
+        if strat.buffer_size:
+            # (d) the cap in client-index order, as a device cumsum
+            csum = torch.cumsum(accepted.to(torch.int32), 0)
+            in_buf = accepted & (csum <= strat.buffer_size)
+            overflow = accepted & ~in_buf
+            accepted = in_buf
+
+        disc = (1.0 + tau.to(torch.float32)) ** (-strat.beta)
+        w_up = accepted.to(torch.float32) * disc
+        if size_w is not None:
+            w_up = w_up * size_w
+        # (b) at staleness 0 every weight is 1.0 and (1 + 0) ** -beta is
+        # 1.0, so the weighted mean is the synchronous engine's unweighted
+        # one bit for bit (aggregation.aggregate_clients).  Rows not
+        # accepted are replaced by the local state: they drop out of the
+        # mean by weight 0, and a NaN upload would poison it even so
+        san = _tree_where(accepted, upload, local_lora)
+        agg = inner.aggregate(san, round_idx, weights=w_up,
+                              rank_mask=mask_N)
+        pend = straggling | overflow
+        fa, fb = inner.agg_leaf_flags(round_idx)
+        out_lora = combine_received(local_lora, agg, ~pend, fa, fb)
+        tau_next = torch.where(pend, tau + 1, 0).to(tau.dtype)
+        mass = (accepted.to(torch.float32) * disc).sum()
+        # floored at one effective client: a fully lost round must not zero
+        # the next chunk's gamma
+        rho_next = torch.sqrt(torch.clamp(mass, min=1.0) / expected)
+        metrics.update({
+            "n_eff": n * mass / expected, "gamma_scale": rho_next,
+            "delivered": accepted.sum().to(torch.float32),
+            "rejected": rejected.sum().to(torch.float32),
+            "stale": pend.sum().to(torch.float32)})
+        if track_update_norm:
+            metrics["update_norm"] = _update_norm(adapters.gamma, out_lora,
+                                                  lora_N)
+        return (dataclasses.replace(adapters, lora=out_lora), local_opt,
+                tau_next, rho_next, metrics)
+
+    return round_body
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchdogConfig:
+    """Collapse-watchdog policy for :class:`FederatedTrainer`.
+
+    At every chunk boundary the watchdog judges the chunk's per-round
+    ``update_norm`` series with ``stability_report`` (Theorem 4.2).  On a
+    failed verdict it rolls the trainer back to the snapshot taken before
+    the chunk and retries with the action of ``recovery_action``:
+
+      - ``rescale`` (the config half violated): adopt the paper's gamma =
+        alpha sqrt(N / r) (per client under mixed ranks); disabled by
+        ``rescale_gamma=False``, when every recovery is a backoff;
+      - ``backoff`` (measured drift): multiply participation by
+        ``backoff`` (floored at one client) and advance the fault seed.
+
+    After ``max_retries`` failed retries of one chunk it raises
+    :class:`~repro_torch.analysis.stability_check.ScalingCollapseError`.
+    A verdict needs two norms: a chunk of one round is judged on the
+    trailing two-round window once there is one.
+    """
+    max_retries: int = 2
+    backoff: float = 0.5
+    rescale_gamma: bool = True
+    scale_tol: float = 4.0
+    trend_tol: float = 8.0
+
+
 class FederatedTrainer:
-    """Host-level orchestration: state, rounds, evaluation.
+    """Host-level orchestration: state, chunked rounds, evaluation.
 
     Keeps the JAX trainer's interface: ``run``, ``run_round``,
     ``history``, ``adapters``, ``client_adapters``, ``client_gamma``,
-    ``gamma`` and ``eval_perplexity``.  Batches come from
-    ``dataset.round_batch`` on the host, in the order the JAX trainer
-    stages them.
+    ``gamma``, ``gamma_eff``, ``stability_report``, ``publish_adapters``,
+    ``watchdog_events``, ``async_state`` and ``eval_perplexity``.  Batches
+    come from ``dataset.round_batch`` on the host, in the order the JAX
+    trainer stages them.  ``chunk_rounds`` caps the rounds of one chunk
+    (default: the ``log_every`` stride, else the whole ``run``); the
+    metrics come to the host once a chunk, the buffered engine folds its
+    correction into gamma at chunk starts, and the watchdog judges chunks.
 
     ``base_params``: the frozen base (a tree of tensors, or of numpy
     arrays, placed on ``device``); drawn from the seed when None.
@@ -189,11 +412,17 @@ class FederatedTrainer:
     ``lora_cfg`` shows the padded rank r_max, and ``gamma`` is None when
     the gammas differ.
 
+    ``fed_cfg.buffer_size`` or ``fed_cfg.faults`` switches on the buffered
+    engine (``async_mode``), which carries ``async_state`` = {"tau": (N,)
+    int32, "rho": 0-d float32}.  ``watchdog`` (a :class:`WatchdogConfig`)
+    turns on the collapse watchdog, and with it ``track_stability``.
+
     Randomness: base and adapter init draw, in that order, from one
     ``torch.Generator`` seeded with ``seed``; participation sampling from
-    one seeded with ``seed + 31337``.  The numbers differ from
+    one seeded with ``seed + 31337``; round r's faults from one seeded
+    from (``seed``, the fault seed, r).  The numbers differ from
     ``jax.random``'s, so parity runs inject the JAX draws (``lora_init=``,
-    ``run_round(weights=)``).
+    ``run_round(weights=, faults=)``, ``run(draws=)``).
 
     ``save`` / ``restore`` checkpoint the state in the JAX package's file
     format (``checkpoint/io.save_federated_state``): a restored run
@@ -202,7 +431,7 @@ class FederatedTrainer:
 
     def __init__(self, model, dataset, *, lora_cfg, fed_cfg, opt_cfg,
                  seed: int = 0, base_params=None, lora_init=None,
-                 data_mode: str = "host", mesh=None,
+                 data_mode: str = "host", chunk_rounds: int = 0, mesh=None,
                  track_stability: bool = False, watchdog=None,
                  device="cuda"):
         if data_mode == "device":
@@ -211,14 +440,19 @@ class FederatedTrainer:
             raise ValueError(f"unknown data_mode '{data_mode}'")
         if mesh is not None:
             _not_yet("training on a mesh")
-        if watchdog is not None:
-            _not_yet("the collapse watchdog")
         self.device = resolve_device(device)
         self.model = model
         self.dataset = dataset
         self.fed_cfg = fed_cfg
         self.opt_cfg = opt_cfg
-        self.track_stability = track_stability
+        self.seed = seed
+        self.chunk_rounds = chunk_rounds
+        self.watchdog = watchdog
+        self.watchdog_events = []
+        # the watchdog judges every chunk on the update_norm metric
+        self.track_stability = track_stability or watchdog is not None
+        self.async_mode = (fed_cfg.buffer_size is not None
+                           or fed_cfg.faults is not None)
         n = fed_cfg.num_clients
         self.ranks, self.rank_mask = lora_cfg.ranks, None
         if self.ranks is not None:
@@ -265,16 +499,48 @@ class FederatedTrainer:
                 raise ValueError(
                     "fed_cfg.weight_by_size needs a dataset exposing "
                     "size_weights (per-client example counts)")
-            self.client_weights = torch.as_tensor(
-                np.asarray(dataset.size_weights, np.float32),
-                device=self.device)
-        self._round_body = make_round_body(
-            model, strategy=fed_cfg.aggregation, opt_cfg=opt_cfg,
-            track_update_norm=track_stability)
+            self.client_weights = self._size_weights()
+        self._build_engine()
+        # the staleness correction the NEXT chunk's gamma is folded with
+        # (the quantized host mirror of async_state["rho"]; 1.0 = sync)
+        self._rho_host = 1.0
+        self.async_state = self._fresh_async_state() if self.async_mode \
+            else None
         self._part_gen = torch.Generator(self.device).manual_seed(
             seed + 31337)
         self.round_idx = 0
         self.history = []
+
+    def _size_weights(self):
+        return torch.as_tensor(np.asarray(self.dataset.size_weights,
+                                          np.float32), device=self.device)
+
+    def _fresh_async_state(self):
+        return {"tau": torch.zeros((self.fed_cfg.num_clients,),
+                                   dtype=torch.int32, device=self.device),
+                "rho": torch.ones((), dtype=torch.float32,
+                                  device=self.device)}
+
+    def _build_engine(self):
+        """(Re)build the round body from the current config (the watchdog's
+        backoff changes the fault seed)."""
+        fed = self.fed_cfg
+        self.fault_model = None
+        if self.async_mode:
+            strategy = buffered(fed.aggregation,
+                                buffer_size=fed.buffer_size or 0,
+                                beta=fed.staleness_beta,
+                                screen=fed.screen_updates,
+                                screen_mult=fed.screen_norm_mult)
+            self.fault_model = FaultModel(fed.faults)
+            self._round_body = make_buffered_round_body(
+                self.model, strategy=strategy, opt_cfg=self.opt_cfg,
+                fault_model=self.fault_model,
+                track_update_norm=self.track_stability)
+        else:
+            self._round_body = make_round_body(
+                self.model, strategy=fed.aggregation, opt_cfg=self.opt_cfg,
+                track_update_norm=self.track_stability)
 
     # ------------------------------------------------------------- adapters
 
@@ -299,50 +565,262 @@ class FederatedTrainer:
     def client_gamma(self, client: int) -> float:
         return self.gammas[client]
 
+    @property
+    def gamma_eff(self) -> float:
+        """The staleness-corrected scaling factor the NEXT chunk trains
+        with: gamma x the quantized rho of the last buffered round (plain
+        gamma when synchronous or before any round; the mean gamma_i under
+        mixed gammas)."""
+        base = (self.gamma if self.gamma is not None
+                else float(np.mean(self.gammas)))
+        return base * self._rho_host
+
     # -------------------------------------------------------------- running
 
-    def _round_weights(self, weights):
-        """The round's (N,) aggregation weights: the given participation
-        mask, else one sampled at the configured participation (None at
-        1.0), composed with the size weights."""
+    def _participation(self, weights):
+        """The round's (N,) participation mask: the given one, else one
+        sampled at the configured participation (None at 1.0)."""
         n = self.fed_cfg.num_clients
         if weights is not None:
-            weights = torch.tensor(weights, dtype=torch.float32,
-                                   device=self.device)
-        elif self.fed_cfg.participation < 1.0:
-            num_sampled = max(1, int(round(self.fed_cfg.participation * n)))
-            weights = participation_weights(self._part_gen, n, num_sampled)
-        if self.client_weights is not None:
-            weights = (self.client_weights if weights is None
-                       else weights * self.client_weights)
-        return weights
+            return torch.tensor(weights, dtype=torch.float32,
+                                device=self.device)
+        if self.fed_cfg.participation < 1.0:
+            return participation_weights(self._part_gen, n,
+                                         self._num_sampled())
+        return None
 
-    def run_round(self, weights=None):
-        """One federated round.  ``weights`` (N,) 0/1, optional: this
-        round's participation mask instead of a sampled one (the parity
-        tests inject the JAX engine's draws)."""
-        batches = torch.as_tensor(
-            self.dataset.round_batch(self.fed_cfg.local_steps),
-            device=self.device)
-        aset, self.opt_state, ms = self._round_body(
-            self.base, self.adapters, self.opt_state, batches,
-            self.round_idx, self._round_weights(weights))
-        self.lora = aset.lora
-        self.round_idx += 1
-        m = {k: float(v) for k, v in ms.items()}
-        m["round"] = self.round_idx
-        self.history.append(m)
-        return m
+    def _num_sampled(self) -> int:
+        n = self.fed_cfg.num_clients
+        return max(1, int(round(self.fed_cfg.participation * n)))
 
-    def run(self, rounds=None, log_every: int = 0):
+    def _train_adapters(self) -> AdapterSet:
+        """The AdapterSet the next chunk trains with: the staleness
+        correction rho folded into gamma (gamma_eff = gamma rho, Theorem
+        4.2's alpha sqrt(N_eff / r)) at the chunk start, as JAX folds it;
+        at rho 1.0 the adapters themselves, so the staleness-0 path is the
+        synchronous one."""
+        aset = self.adapters
+        if self.async_state is None or self._rho_host == 1.0:
+            return aset
+        # from the python-float gammas, as JAX folds them
+        return dataclasses.replace(
+            aset, gamma=tuple(g * self._rho_host for g in self.gammas))
+
+    def _run_one_chunk(self, num_rounds: int, draws=None):
+        """``num_rounds`` rounds with the chunk-start gamma_eff.  ``draws``
+        (round index -> dict) may inject a round's participation mask
+        ("weights") and fault draws ("faults", as ``FaultModel.draw``
+        returns them); what it leaves out is drawn here."""
+        aset = self._train_adapters()
+        opt = self.opt_state
+        if self.async_mode:
+            tau, rho = self.async_state["tau"], self.async_state["rho"]
+        stacked = []
+        for i in range(num_rounds):
+            ridx = self.round_idx + i
+            inject = draws(ridx) if draws is not None else {}
+            batches = torch.as_tensor(
+                self.dataset.round_batch(self.fed_cfg.local_steps),
+                device=self.device)
+            part = self._participation(inject.get("weights"))
+            if self.async_mode:
+                faults = inject.get("faults")
+                if faults is None and not self.fault_model.cfg.null:
+                    faults = self.fault_model.draw(
+                        self.fault_model.round_generator(
+                            self.seed, ridx, self.device), aset.lora)
+                aset, opt, tau, rho, ms = self._round_body(
+                    self.base, aset, opt, tau, rho, batches, ridx, faults,
+                    part=part, size_w=self.client_weights,
+                    expected=self._num_sampled())
+            else:
+                weights = part
+                if self.client_weights is not None:
+                    weights = (self.client_weights if part is None
+                               else part * self.client_weights)
+                aset, opt, ms = self._round_body(self.base, aset, opt,
+                                                 batches, ridx, weights)
+            stacked.append(ms)
+        # only the A/B tree is engine state: gamma is config
+        self.lora, self.opt_state = aset.lora, opt
+        if self.async_mode:
+            self.async_state = {"tau": tau, "rho": rho}
+            # the one host read of the chunk besides its metrics
+            self._rho_host = _quantize_rho(float(rho))
+        keys = list(stacked[0])
+        values = torch.stack([torch.stack([m[k].float() for k in keys])
+                              for m in stacked]).tolist()
+        out = []
+        for row in values:
+            self.round_idx += 1
+            m = dict(zip(keys, row))
+            m["round"] = self.round_idx
+            self.history.append(m)
+            out.append(m)
+        return out
+
+    # ------------------------------------------------------------- watchdog
+
+    def _snapshot(self):
+        """Everything a chunk changes, taken before it runs: device clones
+        of the adapter, optimizer and async state (cheap beside a round),
+        the generator's and the dataset's RNG states, the round, the
+        history's length and the fold mirror."""
+        clone = lambda t: tree_map(torch.clone, t)      # noqa: E731
+        snap = {"lora": clone(self.lora), "opt": clone(self.opt_state),
+                "gen": self._part_gen.get_state(), "round": self.round_idx,
+                "hist": len(self.history),
+                "events": len(self.watchdog_events),
+                "rho_host": self._rho_host,
+                "data_state": self.dataset.rng_state()}
+        if self.async_state is not None:
+            snap["async"] = clone(self.async_state)
+        return snap
+
+    def _rollback(self, snap):
+        """Restore the last-good snapshot (state, RNG streams, history)."""
+        self.lora, self.opt_state = snap["lora"], snap["opt"]
+        self._part_gen.set_state(snap["gen"])
+        self.round_idx = snap["round"]
+        del self.history[snap["hist"]:]
+        self._rho_host = snap["rho_host"]
+        if "async" in snap:
+            self.async_state = snap["async"]
+        self.dataset.set_rng_state(snap["data_state"])
+
+    def _chunk_report(self, chunk_len: int):
+        """The verdict over the chunk just run (its own norms only, so a
+        mid-run rescale does not straddle two regimes); the trailing two
+        rounds for a chunk of one; None without two norms yet."""
+        wd = self.watchdog
+        norms = [h["update_norm"] for h in self.history
+                 if "update_norm" in h]
+        norms = norms[-max(chunk_len, 2):]
+        if len(norms) < 2:
+            return None
+        gamma = (self.gamma if self.gamma is not None
+                 else float(np.mean(self.gammas)))
+        return stability_report(
+            norms, gamma=gamma, r=self.lora_cfg.rank,
+            n_clients=self.fed_cfg.num_clients, alpha=self.lora_cfg.alpha,
+            scale_tol=wd.scale_tol, trend_tol=wd.trend_tol)
+
+    def _recover(self, report, retries: int):
+        """Apply the retry policy for a failed chunk verdict."""
+        wd = self.watchdog
+        action = recovery_action(report, scale_tol=wd.scale_tol)
+        n = self.fed_cfg.num_clients
+        if action == "rescale" and wd.rescale_gamma:
+            # the paper's factor, per client gamma_i under mixed ranks; the
+            # next chunk reads it off the adapters
+            if self.ranks is not None:
+                self.gammas = per_client_gammas(
+                    "sfedlora", self.lora_cfg.alpha, self.ranks, n)
+                self.gamma = (self.gammas[0]
+                              if len(set(self.gammas)) == 1 else None)
+            else:
+                self.gamma = scaling_factor(
+                    "sfedlora", self.lora_cfg.alpha, self.lora_cfg.rank, n)
+                self.gammas = (self.gamma,) * n
+            self.lora_cfg = dataclasses.replace(self.lora_cfg,
+                                                scaling="sfedlora")
+            detail = f"gamma->{(self.gamma or self.gammas[0]):.4g} (sfedlora)"
+        else:
+            action = "backoff"
+            p = max(self.fed_cfg.participation * wd.backoff, 1.0 / n)
+            faults = self.fed_cfg.faults
+            if faults is not None:
+                faults = dataclasses.replace(faults, seed=faults.seed + 1)
+            self.fed_cfg = dataclasses.replace(self.fed_cfg,
+                                               participation=p,
+                                               faults=faults)
+            self._build_engine()
+            detail = f"participation->{p:.3g}, fault seed advanced"
+        self.watchdog_events.append(
+            {"round": self.round_idx, "verdict": report.verdict,
+             "action": action, "detail": detail, "retry": retries + 1})
+
+    def _run_chunk_watched(self, chunk: int, draws=None):
+        """One chunk under the watchdog: snapshot, run, judge; on a failed
+        verdict roll back, recover and retry, at most ``max_retries``
+        times."""
+        if self.watchdog is None:
+            return self._run_one_chunk(chunk, draws)
+        retries = 0
+        while True:
+            snap = self._snapshot()
+            out = self._run_one_chunk(chunk, draws)
+            report = self._chunk_report(chunk)
+            if report is None or report.ok:
+                return out
+            if retries >= self.watchdog.max_retries:
+                raise ScalingCollapseError(
+                    f"watchdog: chunk ending at round {self.round_idx} "
+                    f"still '{report.verdict}' after {retries} "
+                    f"retries: {report}")
+            self._rollback(snap)
+            self._recover(report, retries)
+            retries += 1
+
+    def run_round(self, weights=None, faults=None):
+        """One federated round (a chunk of one).  ``weights`` (N,) 0/1 and
+        ``faults`` (``FaultModel.draw``'s dict), optional: this round's
+        participation mask and fault draws in place of drawn ones (the
+        parity tests inject the JAX engine's)."""
+        draws = None
+        if weights is not None or faults is not None:
+            draws = lambda _: {"weights": weights,                # noqa: E731
+                               "faults": faults}
+        return self._run_chunk_watched(1, draws)[0]
+
+    def run(self, rounds=None, log_every: int = 0, draws=None):
+        """``rounds`` rounds (default ``fed_cfg.rounds``) in chunks of
+        ``min(chunk_rounds or log_every or rounds, rounds left)``.
+        ``draws``: see :meth:`_run_one_chunk`."""
         rounds = rounds or self.fed_cfg.rounds
-        for _ in range(rounds):
-            m = self.run_round()
-            if log_every and m["round"] % log_every == 0:
-                print(f"round {m['round']:4d}  loss {m['loss']:.4f}  "
-                      f"|g| {m['grad_norm']:.3e}  "
-                      f"ppl {math.exp(m['loss']):.2f}")
+        done = 0
+        while done < rounds:
+            chunk = min(self.chunk_rounds or log_every or rounds,
+                        rounds - done)
+            for m in self._run_chunk_watched(chunk, draws):
+                if log_every and m["round"] % log_every == 0:
+                    print(f"round {m['round']:4d}  loss {m['loss']:.4f}  "
+                          f"|g| {m['grad_norm']:.3e}  "
+                          f"ppl {math.exp(m['loss']):.2f}")
+            done += chunk
         return self.history
+
+    def stability_report(self, **kwargs):
+        """The run's per-round ``update_norm`` series judged against the
+        Theorem 4.2 moment scale (needs ``track_stability=True``; see
+        ``analysis/stability_check.py``)."""
+        norms = [h["update_norm"] for h in self.history
+                 if "update_norm" in h]
+        if len(norms) < 2:
+            raise ValueError(
+                "stability_report needs >= 2 rounds of update_norm history "
+                "— construct the trainer with track_stability=True and run "
+                "at least two rounds")
+        gamma = (self.gamma if self.gamma is not None
+                 else float(np.mean(self.gammas)))
+        return stability_report(
+            norms, gamma=gamma, r=self.lora_cfg.rank,
+            n_clients=self.fed_cfg.num_clients, alpha=self.lora_cfg.alpha,
+            **kwargs)
+
+    def publish_adapters(self, live, clients=None) -> int:
+        """Push the current adapters into a live serving bank (a
+        :class:`~repro_torch.core.lora.LiveAdapterBank`): each client's
+        own AdapterSet (:meth:`client_adapters`) under its index as the
+        tenant id; resident tenants swap on the device, the rest land in
+        the host store.  Returns the number published."""
+        clients = (range(self.fed_cfg.num_clients) if clients is None
+                   else clients)
+        n = 0
+        for c in clients:
+            live.publish(int(c), self.client_adapters(int(c)))
+            n += 1
+        return n
 
     @torch.no_grad()
     def eval_perplexity(self, batch: int = 16, client: int = 0) -> float:
@@ -360,9 +838,10 @@ class FederatedTrainer:
         """Checkpoint the base (packed leaves as packed), the client-stacked
         adapters and optimizer state, the round index, the participation
         generator's state, the dataset's RNG streams and partition, the
-        per-client rank mask and the AdapterSet's metadata
-        (``adapter_meta``: gammas, alpha, rank, ranks, scaling), under the
-        JAX package's keys."""
+        per-client rank mask, the AdapterSet's metadata (``adapter_meta``:
+        gammas, alpha, rank, ranks, scaling) and the buffered engine's
+        ``async_state`` (tau, rho), under the JAX package's keys.  The fault
+        schedule needs nothing: it derives from the seed and the round."""
         n = self.fed_cfg.num_clients
         meta = {"gammas": np.asarray(self.gammas, np.float32),
                 "alpha": float(self.lora_cfg.alpha),
@@ -375,7 +854,8 @@ class FederatedTrainer:
             generator_state=self._part_gen.get_state(),
             data_state=self.dataset.rng_state(),
             partition_state=self.dataset.partition_state(),
-            rank_mask=self.rank_mask, adapter_meta=meta)
+            rank_mask=self.rank_mask, adapter_meta=meta,
+            async_state=self.async_state)
 
     def restore(self, path: str) -> None:
         """Load a checkpoint written by :meth:`save` or by the JAX trainer.
@@ -388,7 +868,9 @@ class FederatedTrainer:
         generator resumes from its saved state; a JAX-written file carries a
         ``jax.random`` key instead, whose stream the port cannot continue,
         so it restores only at participation 1.0, where no round draws from
-        it."""
+        it.  A buffered trainer takes the file's ``async_state``, or a
+        fresh one (tau 0, rho 1.0) from a file without it, and recomputes
+        the fold mirror from rho, as JAX does."""
         base, lora, opt, rnd, state = load_federated_state(path)
         ck_mask = state.get("rank_mask")
         if (ck_mask is None) != (self.rank_mask is None) or (
@@ -411,9 +893,7 @@ class FederatedTrainer:
         if "partition_state" in state:
             self.dataset.set_partition_state(state["partition_state"])
             if self.client_weights is not None:
-                self.client_weights = torch.as_tensor(
-                    np.asarray(self.dataset.size_weights, np.float32),
-                    device=self.device)
+                self.client_weights = self._size_weights()
         self.base = params_from_numpy(base, self.device)
         self.lora = params_from_numpy(lora, self.device)
         self.opt_state = params_from_numpy(opt, self.device)
@@ -425,6 +905,16 @@ class FederatedTrainer:
             self._part_gen.set_state(torch.from_numpy(gen_state))
         if "data_state" in state:
             self.dataset.set_rng_state(state["data_state"])
+        if self.async_mode:
+            ck = state.get("async_state")
+            self.async_state = self._fresh_async_state() if ck is None else {
+                "tau": torch.as_tensor(np.asarray(ck["tau"], np.int32),
+                                       device=self.device),
+                "rho": torch.as_tensor(np.asarray(ck["rho"], np.float32),
+                                       device=self.device)}
+            # the mirror is derived, not stored: the resumed chunk folds the
+            # gamma_eff the uninterrupted run would have
+            self._rho_host = _quantize_rho(float(self.async_state["rho"]))
 
 
 def _is_numpy_tree(tree) -> bool:

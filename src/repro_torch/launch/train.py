@@ -22,9 +22,16 @@ Over a packed frozen base (int8 per channel, or int4 in groups of
   ... --quant int4 --quant-group 64 --save ck.npz
   ... --quant int4 --resume ck.npz
 
-It prints the JAX launcher's ``# ...`` header, its round lines and the
-final held-out perplexity.  Flags of the JAX launcher whose machinery is
-not ported yet (``--mesh``, ``--faults``, ``--buffer``, ``--watchdog``,
+The fault-tolerant engine: buffered aggregation (``--buffer M``, 0 = no
+cap), injected faults, server screening, the Theorem 4.2 staleness
+correction and the collapse watchdog, in chunks of ``--chunk-rounds``:
+  ... --chunk-rounds 4 --buffer 3 \
+      --faults dropout=0.2,straggle=geom:0.3,corrupt=0.1 --watchdog 2
+  ... --scaling lora --rank 64 --clients 8 --watchdog 2  # collapse -> rescale
+
+It prints the JAX launcher's ``# ...`` header, its round lines, the
+``# async:`` and ``# watchdog:`` lines and the final held-out perplexity.
+Flags of the JAX launcher whose machinery is not ported yet (``--mesh``,
 ``--data-mode device``) are accepted by the parser and raise "not yet
 ported".
 """
@@ -39,7 +46,8 @@ from repro_torch.configs import ARCHS, NOT_YET_PORTED, get_config
 from repro_torch.configs.base import (FederatedConfig, LoRAConfig,
                                       OptimizerConfig)
 from repro_torch.core.aggregation import STRATEGIES
-from repro_torch.core.federated import FederatedTrainer
+from repro_torch.core.faults import parse_faults
+from repro_torch.core.federated import FederatedTrainer, WatchdogConfig
 from repro_torch.core.lora import init_lora
 from repro_torch.core.quant import apply_quant_flag, quantize_tree
 from repro_torch.data.synthetic import FederatedDataset
@@ -48,9 +56,6 @@ from repro_torch.models.api import build_model
 
 def _reject_unported(args):
     unported = {"--mesh": bool(args.mesh),
-                "--faults": bool(args.faults),
-                "--buffer": args.buffer is not None,
-                "--watchdog": args.watchdog is not None,
                 "--data-mode device": args.data_mode == "device"}
     for flag, given in unported.items():
         if given:
@@ -93,6 +98,10 @@ def main(argv=None):
                     help="weight the server aggregate by per-client "
                          "example counts instead of a plain mean")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk-rounds", type=int, default=0,
+                    help="rounds per chunk: the metrics reach the host, the "
+                         "staleness correction folds and the watchdog "
+                         "judges once a chunk (0: one chunk per log stride)")
     ap.add_argument("--data-mode", default="host", choices=("host", "device"),
                     help="host: dataset batches from the host; device: not "
                          "yet ported")
@@ -104,11 +113,31 @@ def main(argv=None):
                          "(core/quant.py)")
     ap.add_argument("--quant-group", type=int, default=64,
                     help="int4 group size (power of two <= 128)")
-    ap.add_argument("--faults", default="", help="not yet ported")
+    ap.add_argument("--faults", default="",
+                    help="deterministic fault injection, e.g. "
+                         "'dropout=0.1,straggle=geom:0.3,corrupt=0.01' "
+                         "(core/faults.parse_faults); implies the async "
+                         "buffered engine")
     ap.add_argument("--buffer", type=int, default=None, metavar="M",
-                    help="not yet ported")
+                    help="async buffered aggregation: cap the per-round "
+                         "buffer at M accepted uploads (0 = no cap, M = N: "
+                         "bit-identical to the synchronous engine at zero "
+                         "faults)")
+    ap.add_argument("--staleness-beta", type=float, default=0.5,
+                    help="staleness discount exponent: an upload tau "
+                         "rounds old aggregates with weight (1+tau)^-beta")
+    ap.add_argument("--no-screen", action="store_true",
+                    help="disable server-side screening of non-finite / "
+                         "norm-outlier uploads before aggregation")
+    ap.add_argument("--screen-mult", type=float, default=10.0,
+                    help="reject finite uploads whose norm exceeds this "
+                         "multiple of the round median")
     ap.add_argument("--watchdog", type=int, default=None, metavar="RETRIES",
-                    help="not yet ported")
+                    help="collapse watchdog: judge every chunk against the "
+                         "Theorem 4.2 sentinel; on a failed verdict roll "
+                         "back to the chunk-start snapshot and retry "
+                         "(rescale gamma / back off participation) up to "
+                         "RETRIES times before raising")
     ap.add_argument("--save", default=None, help="checkpoint path (.npz)")
     ap.add_argument("--resume", default=None,
                     help="checkpoint to restore (round, adapters, optimizer "
@@ -142,6 +171,9 @@ def main(argv=None):
                               targets=lora_cfg.targets)
         base_params = quantize_tree(fp_base, args.quant, args.quant_group)
         del fp_base
+    faults = parse_faults(args.faults) if args.faults else None
+    watchdog = (WatchdogConfig(max_retries=args.watchdog)
+                if args.watchdog is not None else None)
     tr = FederatedTrainer(
         model, ds, lora_cfg=lora_cfg,
         fed_cfg=FederatedConfig(num_clients=args.clients,
@@ -151,10 +183,15 @@ def main(argv=None):
                                 partition=args.partition,
                                 dirichlet_alpha=args.dirichlet_alpha,
                                 participation=args.participation,
-                                weight_by_size=args.weight_by_size),
+                                weight_by_size=args.weight_by_size,
+                                buffer_size=args.buffer,
+                                staleness_beta=args.staleness_beta,
+                                screen_updates=not args.no_screen,
+                                screen_norm_mult=args.screen_mult,
+                                faults=faults),
         opt_cfg=OptimizerConfig(name=args.optimizer, lr=args.lr),
         seed=args.seed, base_params=base_params, lora_init=lora_init,
-        device=device)
+        chunk_rounds=args.chunk_rounds, watchdog=watchdog, device=device)
     if args.resume:
         tr.restore(args.resume)
         # an fp checkpoint restored under --quant is packed once here; a
@@ -170,8 +207,20 @@ def main(argv=None):
           f"strategy={args.strategy} scaling={args.scaling} "
           f"{gamma_str} N={args.clients}"
           + (" weight-by-size" if args.weight_by_size else "")
-          + (f" quant={args.quant}" if args.quant != "none" else ""))
+          + (f" quant={args.quant}" if args.quant != "none" else "")
+          + (f" buffer={'N' if args.buffer == 0 else args.buffer}"
+             if tr.async_mode else "")
+          + (f" faults[{args.faults}]" if args.faults else "")
+          + (f" watchdog(retries={args.watchdog})" if watchdog else ""))
     tr.run(args.rounds, log_every=max(1, args.rounds // 10))
+    if tr.async_mode:
+        last = tr.history[-1]
+        print(f"# async: gamma_eff={tr.gamma_eff:.4f} "
+              f"n_eff={last['n_eff']:.2f} delivered={last['delivered']:.0f} "
+              f"rejected={last['rejected']:.0f} stale={last['stale']:.0f}")
+    for ev in tr.watchdog_events:
+        print(f"# watchdog: round {ev['round']} verdict={ev['verdict']} "
+              f"-> {ev['action']} ({ev['detail']}, retry {ev['retry']})")
     ppl = tr.eval_perplexity()
     print(f"# final held-out perplexity: {ppl:.3f}")
     if args.save:

@@ -1047,3 +1047,94 @@ def test_packed_base_kernels_at_hybrid_mlp_match_plain(card, k, n, bits):
     assert torch.equal(got, again)
     _assert_close(got, lm.quant_matmul_dx_plain(g, wq))
     assert lm.launches == _launches(quant_matmul=4, quant_matmul_dx=2)
+
+
+# --------------------------------------- the fault-tolerant engine on card
+
+FT_MODEL = dict(name="ft-card", family="dense", num_layers=2, d_model=128,
+                num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256,
+                vocab_size=256)
+
+
+def _ft_trainer(**fed):
+    from repro_torch.configs import base as tbase
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.synthetic import FederatedDataset
+    from repro_torch.models.api import build_model
+    model = build_model(tbase.ModelConfig(**FT_MODEL))
+    n = 4
+    return FederatedTrainer(
+        model, FederatedDataset(256, n, seq_len=32, batch_per_client=2,
+                                seed=0),
+        lora_cfg=tbase.LoRAConfig(rank=8, alpha=8.0),
+        fed_cfg=tbase.FederatedConfig(num_clients=n, local_steps=2,
+                                      aggregation="fedsa", **fed),
+        opt_cfg=tbase.OptimizerConfig(name="sgd", lr=0.05), seed=0,
+        chunk_rounds=2, track_stability=True, device="cuda")
+
+
+def _ft_state(tr):
+    from repro_torch.tree import tree_leaves
+    extra = tr.async_state if tr.async_state is not None else {}
+    return tree_leaves({"l": tr.lora, "o": tr.opt_state, "x": extra})
+
+
+@pytest.mark.cuda
+def test_buffered_null_faults_equals_sync_on_kernel_tier(card):
+    """Buffer 0 (no cap) and no faults on the card: the synchronous engine,
+    bit for bit, through #5-#8."""
+    sync = _ft_trainer()
+    sync.run(4)
+    n_sync = dict(lora_matmul.launches)
+    lora_matmul.reset_launches()
+    buf = _ft_trainer(buffer_size=0)
+    buf.run(4)
+    assert dict(lora_matmul.launches) == n_sync and n_sync["lora_fwd"] > 0
+    for a, b in zip(_ft_state(sync), _ft_state(buf)):
+        assert torch.equal(a, b)
+    assert [h["loss"] for h in sync.history] == [h["loss"] for h in
+                                                 buf.history]
+    assert all(h["n_eff"] == 4.0 and h["gamma_scale"] == 1.0
+               for h in buf.history)
+
+
+FT_FAULTS = dict(dropout=0.2, straggle=0.3, corrupt=0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nan", "noise"])
+def test_faulted_rounds_repeat_bit_for_bit(card, mode):
+    from repro_torch.core.faults import FaultConfig
+    faults = FaultConfig(**FT_FAULTS, corrupt_mode=mode)
+    runs = []
+    for _ in range(2):
+        tr = _ft_trainer(buffer_size=0, faults=faults)
+        tr.run(4)
+        runs.append(tr)
+    assert runs[0].history == runs[1].history
+    for a, b in zip(_ft_state(runs[0]), _ft_state(runs[1])):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(x).all()) for x in _ft_state(runs[0]))
+    assert lora_matmul.launches["lora_fwd"] > 0
+
+
+@pytest.mark.cuda
+def test_faulted_kernel_tier_matches_plain_tier(card):
+    """The same fault schedule (the round generators live on the card in
+    both) on the kernel and the plain tier: the same delivered / rejected /
+    stale counts, loss and grad-norm within 1e-3 relative."""
+    from repro_torch.core.faults import FaultConfig
+    faults = FaultConfig(**FT_FAULTS)
+    kern = _ft_trainer(buffer_size=2, faults=faults)
+    kern.run(4)
+    assert lora_matmul.launches["lora_fwd"] > 0
+    lora_matmul.reset_launches()
+    with dispatch.plain_tier():
+        plain = _ft_trainer(buffer_size=2, faults=faults)
+        plain.run(4)
+    assert not any(lora_matmul.launches.values())
+    for hk, hp in zip(kern.history, plain.history):
+        for key in ("delivered", "rejected", "stale"):
+            assert hk[key] == hp[key]
+        for key in ("loss", "grad_norm"):
+            assert abs(hk[key] - hp[key]) <= 1e-3 * abs(hp[key])

@@ -24,6 +24,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
+new = {"repro_torch.core.faults", "repro_torch.core.stability",
+       "repro_torch.analysis.stability_check"}
+assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -35,7 +38,7 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 31
+    assert n_modules >= 46
 
 
 def _imports(path):

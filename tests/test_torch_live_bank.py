@@ -9,6 +9,12 @@
     tenants) equal the static bank's.
   * ``publish_adapter_state`` streams a checkpoint's clients into a live bank
     as the JAX package does.
+  * ``FederatedTrainer.publish_adapters`` (the train-to-serve hook) pushes a
+    round's clients into a live bank as the JAX trainer's does: the same
+    swaps, versions and stores; serve-side logits through the live bank
+    equal the trainer's own stacked adapters bit for bit across the swap
+    (``tests/test_lifecycle.py``), and scheduled tokens equal a static
+    bank's of the same round.
 """
 import dataclasses
 
@@ -20,14 +26,20 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 from repro.checkpoint import io as jio                         # noqa: E402
+from repro.configs import base as jbase                        # noqa: E402
+from repro.core import federated as jfed                       # noqa: E402
+from repro.data import synthetic as jsyn                       # noqa: E402
 from repro.configs.base import LoRAConfig as JLoRAConfig       # noqa: E402
 from repro.configs.base import ModelConfig as JModelConfig     # noqa: E402
 from repro.core import lora as jlora                           # noqa: E402
 from repro.models import api as japi                           # noqa: E402
 from repro_torch.checkpoint import io as tio                   # noqa: E402
+from repro_torch.configs import base as tbase                  # noqa: E402
 from repro_torch.configs.base import ModelConfig               # noqa: E402
+from repro_torch.core import federated as tfed                 # noqa: E402
 from repro_torch.core import lora as tlora                     # noqa: E402
 from repro_torch.launch import serve as tserve                 # noqa: E402
+from repro_torch.data import synthetic as tsyn                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves                       # noqa: E402
 
@@ -178,3 +190,95 @@ def test_publish_adapter_state_round_trip(setup, tmp_path):
     _assert_bank_equal(tl.bank, jl.bank)
     for a, b in zip(tree_leaves(base), tree_leaves(tp), strict=True):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ train -> serve
+
+def _trainers(setup, n=3):
+    """``tests/test_lifecycle.py``'s tiny trainer in both packages, the port
+    starting from the JAX trainer's adapters."""
+    jm, jp, tm, _, _, _ = setup
+    kw = dict(lora=dict(rank=4, alpha=8.0),
+              fed=dict(num_clients=n, local_steps=1, aggregation="fedsa"),
+              opt=dict(name="sgd", lr=0.05))
+    jtr = jfed.FederatedTrainer(
+        jm, jsyn.FederatedDataset(64, n, seq_len=16, batch_per_client=2,
+                                  seed=3),
+        lora_cfg=jbase.LoRAConfig(**kw["lora"]),
+        fed_cfg=jbase.FederatedConfig(**kw["fed"]),
+        opt_cfg=jbase.OptimizerConfig(**kw["opt"]), seed=3, base_params=jp)
+    ttr = tfed.FederatedTrainer(
+        tm, tsyn.FederatedDataset(64, n, seq_len=16, batch_per_client=2,
+                                  seed=3),
+        lora_cfg=tbase.LoRAConfig(**kw["lora"]),
+        fed_cfg=tbase.FederatedConfig(**kw["fed"]),
+        opt_cfg=tbase.OptimizerConfig(**kw["opt"]), seed=3,
+        base_params=_np(jp), device="cpu",
+        lora_init=jax.tree.map(lambda x: np.asarray(x[0]), jtr.lora))
+    return jtr, ttr
+
+
+def test_trainer_publish_logit_parity_across_swap(setup):
+    """After two rounds the trainer publishes into a live bank (2 hot
+    swaps, 1 host write, as the JAX trainer's); logits through the live
+    bank equal the trainer's own stacked adapters bit for bit for every
+    tenant, resident or promoted from the host."""
+    jtr, tr = _trainers(setup)
+    live = tlora.LiveAdapterBank.from_sets(
+        [tr.client_adapters(c) for c in range(3)], hot_slots=2, device="cpu")
+    jlive = jlora.LiveAdapterBank.from_sets(
+        [jtr.client_adapters(c) for c in range(3)], hot_slots=2)
+    tr.run(2)
+    jtr.run(2)
+    assert tr.publish_adapters(live) == jtr.publish_adapters(jlive) == 3
+    assert live.swaps == jlive.swaps == 2
+    assert [live.tenant_version(t) for t in range(3)] == [1, 1, 1]
+    for t in range(3):
+        for a, b in zip(tree_leaves(live.store[t]["lora"]),
+                        jax.tree.leaves(jlive.store[t]["lora"]),
+                        strict=True):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-4)
+    toks = torch.from_numpy(tr.dataset.eval_batch(2))
+    static = tlora.AdapterBank.from_adapter_set(tr.adapters)
+    with torch.no_grad():
+        for c in range(3):
+            slot = live.acquire([c], ())[c]
+            serve_side, _ = tr.model.forward(
+                tr.base, {"tokens": toks},
+                adapters=live.bank.gather(torch.tensor([slot] * 2)))
+            train_side, _ = tr.model.forward(
+                tr.base, {"tokens": toks},
+                adapters=static.gather(torch.tensor([c] * 2)))
+            assert torch.equal(serve_side, train_side)
+    assert tr.publish_adapters(live, clients=[1]) == 1
+    assert live.tenant_version(1) == 2 and live.tenant_version(0) == 1
+
+
+def test_published_round_serves_as_the_static_bank(setup):
+    """A round published into 2 hot slots for 4 tenants (one tenant more
+    than the federation, registered before training) serves the same
+    scheduled tokens as a static bank stacked from the same round."""
+    _, _, tm, tp, _, tsets = setup
+    _, tr = _trainers(setup)
+    live = tlora.LiveAdapterBank.from_sets(
+        [tr.client_adapters(c) for c in range(3)] + [tsets[1]],
+        hot_slots=2, device="cpu")
+    tr.run(1)
+    tr.publish_adapters(live)
+    static = tlora.AdapterBank.from_sets(
+        [tr.client_adapters(c) for c in range(3)] + [tsets[1]])
+    prompts = np.random.default_rng(5).integers(0, 64, (6, 5)).astype(
+        np.int32)
+    ids = [0, 1, 2, 3, 2, 0]
+
+    def run(bank):
+        reqs = [tserve.Request(rid=i, prompt=prompts[i], steps=6,
+                               adapter_id=ids[i]) for i in range(6)]
+        done = tserve.serve_scheduled(tm, tr.base, reqs, bank=bank,
+                                      wait=False, max_batch=4, block_size=4,
+                                      chunk=3)
+        return [r.tokens for r in done]
+
+    assert run(live) == run(static)
+    assert live.promotions > 0 and live.swaps > 0

@@ -203,12 +203,15 @@ def test_strategy_aggregate_matches_jax(strategy, weighted):
 
 
 def test_unported_strategies_and_async_fields_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tagg.buffered("fedsa")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.FederatedConfig(buffer_size=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbase.FederatedConfig(staleness_beta=1.0)
+    """The async fields and the buffered wrapper were unported and raised;
+    they are ported now (``tests/test_torch_faults.py`` holds them against
+    the JAX package), so this checks that they build what JAX's do."""
+    s = tagg.buffered("fedsa", buffer_size=2)
+    assert isinstance(s, tagg.BufferedStrategy)
+    assert (s.name, s.buffer_size) == (jagg.buffered("fedsa").name, 2)
+    fed = tbase.FederatedConfig(buffer_size=2, staleness_beta=1.0)
+    jfed_cfg = jbase.FederatedConfig(buffer_size=2, staleness_beta=1.0)
+    assert dataclasses.asdict(fed) == dataclasses.asdict(jfed_cfg)
 
 
 # --------------------------------------------------------------------- data
@@ -376,8 +379,7 @@ def test_trainer_rejects_unported_modes(small):
                                batch_per_client=1)
     kw = dict(lora_cfg=tbase.LoRAConfig(), fed_cfg=tbase.FederatedConfig(
         num_clients=2), opt_cfg=tbase.OptimizerConfig(), device="cpu")
-    for extra in ({"data_mode": "device"}, {"mesh": object()},
-                  {"watchdog": object()}):
+    for extra in ({"data_mode": "device"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tfed.FederatedTrainer(model, ds, **kw, **extra)
 
@@ -402,16 +404,30 @@ def test_cli_trains_on_cpu(capsys):
     # family is still unported
     pytest.param(["--arch", "xlstm-1.3b"], id="--arch-hybrid"),
     ["--mesh", "4x2"],
-    ["--faults", "dropout=0.1"], ["--buffer", "2"], ["--watchdog", "2"],
     ["--data-mode", "device"],
-    pytest.param(["--faults", "straggle=geom:0.3", "--buffer", "2"],
-                 id="--faults-buffered"),
     ["--arch", "qwen2-moe-a2.7b"],
 ], ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.main(["--reduced", "--device", "cpu", "--rounds", "1",
                      *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--faults", "dropout=0.1"], ["--buffer", "2"], ["--watchdog", "2"],
+    pytest.param(["--faults", "straggle=geom:0.3", "--buffer", "2"],
+                 id="--faults-buffered"),
+], ids=lambda f: f[0])
+def test_cli_async_flags_run(flags, capsys):
+    """The flags that raised "not yet ported" before the fault-tolerant
+    engine was ported now run, with the JAX CLI's header suffixes."""
+    tr = ttrain.main(["--reduced", "--device", "cpu", "--rounds", "2",
+                      "--seq", "8", "--clients", "2", *flags])
+    head = capsys.readouterr().out.splitlines()[0]
+    assert len(tr.history) == 2
+    assert tr.async_mode == (flags != ["--watchdog", "2"])
+    assert ("buffer=" in head) == tr.async_mode
+    assert ("watchdog(retries=2)" in head) == ("--watchdog" in flags)
 
 
 def test_cli_defaults_to_cuda():
