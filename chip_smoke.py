@@ -87,16 +87,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      head_dim 64; #5-#8 at llama2-7b's q / v with rank 64, 128 and a rank
      16 padded to 128; fp32 and bf16 against the plain versions, then
      timed beside the plain versions, one PyTorch call each and the bound
- 15. llama2-7b at full width and depth (32 layers, 6.74 B parameters,
-     fp32): generate_banked (64 of #2 per prefill, 64 of #1 per decode
-     step), serve_scheduled over fp32 (32 of #13 per decode step) and int4
-     bases (160 of #11 per decode step), the training path (rank 64, 64 of
-     each of #5-#8 per client local step), the same run with per-client
+ 15. llama2-7b at full width and half depth (16 of its 32 layers, fp32;
+     the whole script's time limit, see LLAMA_PATHS): generate_banked (32
+     of #2 per prefill, 32 of #1 per decode step), serve_scheduled over
+     fp32 (16 of #13 per decode step) and int4 bases (80 of #11 per decode
+     step), the training path (rank 64, 32 of each of #5-#8 per client
+     local step), the same run with per-client
      ranks (16, 32, 64, 128) (every masked row exactly 0.0 after each
      round, the plain tier, ranks all 64 bit-identical to the homogeneous
      run) and FLoRA's stacking over those ranks (2 rounds, two kernel-tier
      runs bit for bit, B A against the plain tier, the server step's share
-     of a round); then qwen3-8b (36 layers, fp32) through serve_scheduled
+     of a round); then qwen3-8b (18 of its 36 layers, fp32) through
+     serve_scheduled
  16. the hybrid's training widths: #15's backward against its plain
      reverse loop bit for bit (and a repeat) at the scan phase's three
      shapes and s = 1, fp32 and bf16; #9, #10, #7 and #8 at
@@ -111,11 +113,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      3 rounds: launch counts (76 of each of #5-#8, 26 of #15 and 26 of its
      backward per client local step), the plain tier, a bit-identical
      repeat, ms/round, peak memory and a profile of one local step
- 18. hybrid training over an int4 base packed on the card from the same
-     fp32 base (freed once packed): the checks of 17 with #9-#12, and save
-     / resume bit for bit
- 19. hybrid serving over an int4 base: generate_banked (#3, #4, #11, #15)
-     and serve_scheduled (#13 as well), with the checks of 13
+ 18. hybrid training over an int4 base packed on the card from a seeded
+     fp32 base of half the depth (19 layers, RG_PACKED; freed once
+     packed): the checks of 17 with #9-#12, and save / resume bit for bit
+ 19. hybrid serving over an int4 base at that half depth: generate_banked
+     (#3, #4, #11, #15) and serve_scheduled (#13 as well), with the checks
+     of 13
  20. result: a JSON line of per-kernel numbers, the script's time, the
      nvidia-smi line, and the final {"ok": true, ...} line
  21. the fault-tolerant engine (run right after phase 6, on its base and
@@ -132,6 +135,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      outliers; the collapse watchdog on scaling lora (collapse -> rescale,
      the run finishing under sfedlora gammas), its snapshot and rollback
      cost, phase 6's stability_report(); ms/round of each
+ 22. the MoE archs' shapes (run after phase 19): #1 and #2 at
+     granite-moe-1b-a400m's q (1024 -> 1024) and v (1024 -> 512) and
+     qwen2-moe-a2.7b's q / v (2048 -> 2048), #5-#8 there, at ranks 8 and
+     64; #13 at qwen2-moe's 16 kv heads of 128 and granite's 16 query
+     heads on 8 of 64; #3, #4, #9-#12 at granite's q / k / v / o over int8
+     and int4; fp32 and bf16 against the plain versions, then timed beside
+     the plain versions, one PyTorch call each and the bound
+ 23. qwen2-moe-a2.7b at full width and depth (24 layers, 60 experts padded
+     to 64, 15.15 B parameters, fp32), every earlier model freed first:
+     generate_banked (48 of #2 per prefill, 48 of #1 per decode step),
+     serve_scheduled over fp32 (24 of #13 per decode step) and the
+     training path (48 of each of #5-#8 per client local step), each with
+     the router's top-k choices that differ between the kernel and the
+     plain tier, peak memory, and the expert bmms' share of a local step
+ 24. granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+     top-8, 1.34 B parameters) over an int4 base (q / k / v / o packed):
+     serve_scheduled (#3, #4, #11, #13), and training with data_mode
+     "device" at N = 16 over a Dirichlet partition, 4 rounds in chunks of
+     2 (#9, #10, #7, #8, #11, #12 counted, two kernel-tier runs and a
+     resume after round 2 bit for bit, the plain tier within 1e-3)
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -168,6 +191,7 @@ from repro_torch.kernels import (bgmv, build, common,  # noqa: E402
                                  dispatch, flash_attention, lora_matmul, ops,
                                  paged_attention, rglru_scan)
 from repro_torch.launch import serve                        # noqa: E402
+from repro_torch.models import moe, transformer             # noqa: E402
 from repro_torch.models.api import build_model              # noqa: E402
 from repro_torch.models.transformer import stack_layout     # noqa: E402
 from repro_torch.tree import tree_leaves                    # noqa: E402
@@ -581,9 +605,11 @@ def _proj_counts(cfg):
     projections of the stack that core/quant packs, per token, with and
     without a LoRA target, and those of layer 0 without one that read the
     embedding (no gradient reaches it, so #12 skips them).  The RG-LRU
-    block's w_a, w_i and w_out are never packed (gemma-2b: 36, 90, 1;
-    recurrentgemma-9b: 76, 138, 0)."""
-    mlp = MLP_PROJ if cfg.mlp_variant in ("geglu", "swiglu") else MLP_PROJ[1:]
+    block's w_a, w_i and w_out are never packed, nor is the MoE block's
+    router or experts (gemma-2b: 36, 90, 1; recurrentgemma-9b: 76, 138, 0;
+    the MoE archs: 48, 48, 1)."""
+    mlp = (() if cfg.moe is not None else MLP_PROJ
+           if cfg.mlp_variant in ("geglu", "swiglu") else MLP_PROJ[1:])
     adapted = unadapted = 0
     for kind in _layer_kinds(cfg):
         for proj in OWN_PROJ[kind] + mlp:
@@ -595,6 +621,67 @@ def _proj_counts(cfg):
     reads_input = [p for p in OWN_PROJ[first] if p != "o"]
     return adapted, unadapted, sum(p not in cfg.lora_targets
                                    for p in reads_input)
+
+
+@contextlib.contextmanager
+def _routing(log, replay=None):
+    """Within the block, every MoE layer appends its router's probabilities
+    and top-k experts (recomputed from the layer's input by ``moe.route``)
+    to ``log``; a dense model appends nothing.  ``replay`` (another run's
+    log of the same calls) makes each call dispatch to that run's experts
+    (``moe_apply(top_i=)``), while ``log`` still records this run's own
+    choice: the plain tier replays the kernel tier's routing, so the tiers
+    are held to each other on the same dispatch, and the choices a router
+    near-tie would have flipped are counted, not hidden."""
+    orig = transformer.moe_apply
+
+    def wrapped(cfg, params, x, adapters=None):
+        with torch.no_grad():
+            probs, _, top_i = moe.route(cfg, params,
+                                        x.reshape(-1, x.shape[-1]))
+        log.append((probs, top_i))
+        forced = None if replay is None else replay[len(log) - 1][1]
+        return orig(cfg, params, x, adapters=adapters, top_i=forced)
+
+    transformer.moe_apply = wrapped
+    try:
+        yield log
+    finally:
+        transformer.moe_apply = orig
+
+
+def _routing_report(label, kern, plain, k):
+    """Print how many top-k choices of the router differ between two logs
+    of the same MoE calls (the kernel tier's, and the plain tier's own
+    choices while it replays them), over how many, and the smallest
+    plain-tier top-k margin (p_k - p_k+1) among the tokens whose choices
+    differ.  Returns the number that differ."""
+    assert len(kern) == len(plain), (len(kern), len(plain))
+    n_diff, n_tok, margin, n_tie, tie_p = 0, 0, None, 0, 0.0
+    for (pk, ik), (pp, ip) in zip(kern, plain):
+        e = pk.shape[-1]
+        per_tok = (torch.nn.functional.one_hot(ik, e).sum(1)
+                   != torch.nn.functional.one_hot(ip, e).sum(1)).sum(-1) // 2
+        n_diff += int(per_tok.sum())
+        n_tok += ik.shape[0]
+        bad = per_tok > 0
+        if bool(bad.any()):
+            top = torch.sort(pp[bad], dim=-1, descending=True).values
+            gaps = top[:, k - 1] - top[:, k]
+            m = float(gaps.min())
+            margin = m if margin is None else min(margin, m)
+            tied = gaps == 0
+            n_tie += int(tied.sum())
+            if bool(tied.any()):
+                tie_p = max(tie_p, float(top[tied, k - 1].max()))
+    print(f"router, {label}: {n_diff} of {n_tok * k} top-{k} choices "
+          f"differ between the tiers over {len(kern)} MoE calls"
+          + ("" if margin is None else
+             f"; smallest plain-tier top-k margin among them {margin:.3e}")
+          + ("" if not n_tie else
+             f"; {n_tie} of those tokens at an exact fp32 tie of the k-th "
+             f"and next probability (largest tied value {tie_p:.3e})"))
+    return n_diff
 
 
 def run_path(name, cfg, device, *, steps=32, plen=128, quant=None):
@@ -681,7 +768,14 @@ def run_path(name, cfg, device, *, steps=32, plen=128, quant=None):
                     out.append(lg[:, -1])
         return torch.stack(out, 1)[..., :cfg.vocab_size]
 
-    kern_logits, plain_logits = forced(False), forced(True)
+    with _routing([]) as log_k:
+        kern_logits = forced(False)
+    with _routing([], replay=log_k) as log_p:
+        plain_logits = forced(True)
+    if cfg.moe is not None:
+        _routing_report("teacher-forced prefill and decode", log_k, log_p,
+                        cfg.moe.top_k)
+    del log_k, log_p
     per_step = (kern_logits - plain_logits).abs().amax(dim=(0, 2))
     scale = float(plain_logits.abs().max())
     print(f"teacher-forced logits, kernel vs plain tier over {steps} steps: "
@@ -1071,7 +1165,8 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
         torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     dispatch.reset_stats()
-    ms1 = run(tr1)
+    with _routing([]) as log_k:
+        ms1 = run(tr1)
     ppl = tr1.eval_perplexity()
     _sync(device)
     launches = _launch_counts()
@@ -1150,10 +1245,14 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
 
     # the plain tier on the same device
     _reset_launches()
-    with dispatch.plain_tier():
+    with dispatch.plain_tier(), _routing([], replay=log_k) as log_p:
         tr3 = trainer()
         run(tr3)
     assert not any(_launch_counts().values()), _launch_counts()
+    if cfg.moe is not None:
+        _routing_report(f"{rounds} training rounds", log_k, log_p,
+                        cfg.moe.top_k)
+    del log_k, log_p
     worst = 0.0
     for hk, hp in zip(tr1.history, tr3.history):
         for key in ("loss", "grad_norm"):
@@ -1204,6 +1303,43 @@ def profile_local_step(model, tr):
 
     step()
     _print_profile("local step", *_profiled(step), 1, "step")
+    if model.cfg.moe is not None:
+        _moe_share(step, moe.padded_experts(model.cfg.moe))
+
+
+# the hand-written kernels' device functions (csrc/*.cu)
+HAND_WRITTEN = ("fwd_kernel<", "fwd_sum_kernel", "gemv_kernel<",
+                "bgmv_pass_kernel", "lora_grad_kernel<", "paged_split_kernel",
+                "paged_merge_kernel", "rglru_scan", "flash_kernel")
+
+
+def _moe_share(fn, ep):
+    """One profiled call of ``fn``: the device time of the expert products
+    (``aten::bmm`` over the ``ep`` padded experts, forward and backward)
+    and of the hand-written kernels, each beside the device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(dev) / 1e3
+    bmm_us = 0.0
+    for e in events:
+        if (e.name == "aten::bmm" and e.input_shapes
+                and e.input_shapes[0] and e.input_shapes[0][0] == ep):
+            bmm_us += e.device_time_total
+    hand = _busy_us([e for e in dev
+                     if any(h in e.name for h in HAND_WRITTEN)]) / 1e3
+    if not busy:
+        print("MoE share: device time not measured (no CUDA events)")
+        return
+    print(f"MoE local step: device busy {busy:.2f} ms; expert bmm "
+          f"(aten::bmm over {ep} experts, forward and backward) "
+          f"{bmm_us / 1e3:.2f} ms ({bmm_us / 1e3 / busy:.3f}); hand-written "
+          f"kernels {hand:.2f} ms ({hand / busy:.3f})")
 
 
 
@@ -1537,14 +1673,15 @@ def _forced_paged(model, params, bank, ids, prompts, toks, plain):
     return torch.stack(out, 1)[..., :model.cfg.vocab_size]
 
 
-def sched_path(name, model, params, bank, mode):
+def sched_path(name, model, params, bank, mode, profile=True):
     """serve_scheduled through the user's entry points, over an fp32 base
     or one packed by ``quantize_tree`` (``mode`` int8 / int4, group 64;
     ``params`` may come packed already, so that a caller can drop the fp32
     base).
     Traffic: 8 requests of 128-token prompts and 32 greedy tokens, 4
     tenants, the last with deadline_steps 12; max_batch 4, block 16, chunk
-    8, wait=False: two waves that recycle slots and blocks."""
+    8, wait=False: two waves that recycle slots and blocks.  ``profile``:
+    profile one wave's prefill and 8 decode steps."""
     cfg, device = model.cfg, tree_leaves(params)[0].device
     sc = SCHED
     phase(f"scheduled path: serve_scheduled, {cfg.name} d_model "
@@ -1589,7 +1726,8 @@ def sched_path(name, model, params, bank, mode):
     _reset_launches()
     dispatch.reset_stats()
     serve.reset_timeout_meter()
-    done = run()
+    with _routing([]) as log_k:
+        done = run()
     _sync(device)
     launches = _launch_counts()
     del model.prefill, model.decode_step
@@ -1648,34 +1786,67 @@ def sched_path(name, model, params, bank, mode):
           f"{sc['max_batch']} slots")
 
     # the plain tier: no kernel, and each wave equals generate_banked on it
+    # (a dense model: an MoE router's capacity couples the requests of a
+    # decode batch, and a deadline's idle slot changes that batch, so the
+    # MoE archs hold the scheduled tokens against the plain tier's instead,
+    # the plain tier dispatching to the kernel tier's experts)
     _reset_launches()
     with dispatch.plain_tier():
-        plain = run()
-        waves = [serve.generate_banked(
-            model, base, bank, ids[w:w + 4],
-            torch.as_tensor(prompts[w:w + 4], device=device), sc["steps"],
-            sc["plen"] + sc["steps"])[:, sc["plen"]:].cpu().numpy()
-            for w in (0, 4)]
+        with _routing([], replay=log_k) as log_p:
+            plain = run()
+        if cfg.moe is None:
+            waves = [serve.generate_banked(
+                model, base, bank, ids[w:w + 4],
+                torch.as_tensor(prompts[w:w + 4], device=device),
+                sc["steps"], sc["plen"] + sc["steps"])[:, sc["plen"]:]
+                .cpu().numpy() for w in (0, 4)]
     _sync(device)
     assert not any(_launch_counts().values()), _launch_counts()
-    fixed = np.concatenate(waves)
-    for r in plain:
-        assert r.tokens == fixed[r.rid, :len(r.tokens)].tolist(), \
-            f"plain tier: request {r.rid} differs from generate_banked"
-    print("plain tier: each wave's tokens equal generate_banked on that wave "
-          "bit for bit (the deadline request: its first "
-          f"{sc['deadline']} tokens)")
+    if cfg.moe is None:
+        fixed = np.concatenate(waves)
+        for r in plain:
+            assert r.tokens == fixed[r.rid, :len(r.tokens)].tolist(), \
+                f"plain tier: request {r.rid} differs from generate_banked"
+        print("plain tier: each wave's tokens equal generate_banked on that "
+              f"wave bit for bit (the deadline request: its first "
+              f"{sc['deadline']} tokens)")
+    else:
+        _routing_report("scheduled run", log_k, log_p, cfg.moe.top_k)
+        # the teacher-forced waves below take the kernel tier's scheduled
+        # tokens (the deadline's cut request padded with token 0)
+        fixed = np.zeros((sc["n_req"], sc["steps"]), np.int64)
+        for r in done:
+            fixed[r.rid, :len(r.tokens)] = r.tokens
+        parted = [(k.rid, next(t for t, (a, b) in enumerate(
+            zip(k.tokens, p.tokens)) if a != b))
+            for k, p in zip(done, plain) if k.tokens != p.tokens]
+        print("kernel vs plain tier, scheduled tokens: "
+              f"{len(plain) - len(parted)} of {len(plain)} requests equal"
+              + "".join(f"; request {rid} parts at token {t}"
+                        for rid, t in parted))
+        assert not parted, parted
+    del log_k, log_p
 
     # kernel tier vs plain tier: teacher-forced logits on the plain tokens
     worst, ties = 0.0, []
     for w in (0, 4):
         p_t = torch.as_tensor(prompts[w:w + 4], device=device)
         toks = torch.as_tensor(fixed[w:w + 4], device=device)
-        lk = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks, False)
-        lp = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks, True)
+        with _routing([]) as log_k:
+            lk = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks,
+                               False)
+        with _routing([], replay=log_k) as log_p:
+            lp = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks,
+                               True)
+        worst = max(worst, float((lk - lp).abs().max()))
+        if cfg.moe is not None:
+            _routing_report(f"teacher-forced wave {w // 4 + 1}", log_k,
+                            log_p, cfg.moe.top_k)
+            del lk, lp, log_k, log_p
+            continue
+        del log_k, log_p
         assert torch.equal(lp.argmax(-1).cpu(), toks.cpu()), \
             "teacher-forced plain tier does not reproduce its tokens"
-        worst = max(worst, float((lk - lp).abs().max()))
         for i in range(4):
             r, want = done[w + i], fixed[w + i, :len(done[w + i].tokens)]
             diff = [t for t, (a, b) in enumerate(zip(r.tokens, want))
@@ -1692,7 +1863,7 @@ def sched_path(name, model, params, bank, mode):
               f"top-2 margin {margin:.3e}")
         assert margin < LOGIT_ATOL, (rid, t, margin)
     assert worst <= LOGIT_ATOL, worst
-    if device.type == "cuda":
+    if device.type == "cuda" and profile:
         # where the time goes: one wave's prefill and 8 decode steps
         p_t = torch.as_tensor(prompts[:4], device=device)
         toks = torch.as_tensor(fixed[:4, :9], device=device)
@@ -2127,8 +2298,14 @@ def hybrid_path(name):
 # ------------------ 14. the dense configs' shapes and the llama2-7b paths
 
 LLAMA = get_config("llama2-7b")
+# The script runs in a fixed time on one card: with the MoE phases
+# (22-24) at full depth, llama2-7b's and qwen3-8b's paths (phase 15) and
+# the hybrid over int4 (phases 18-19) run at half depth, at full width, so
+# that the whole stays inside that time on the slower hosts measured
+LLAMA_PATHS = dataclasses.replace(LLAMA, num_layers=16)
 NEMO = get_config("mistral-nemo-12b")
 QWEN = get_config("qwen3-8b")
+QWEN_PATH = dataclasses.replace(QWEN, num_layers=18)    # as LLAMA_PATHS
 STABLELM = get_config("stablelm-1.6b")
 # #1 / #2 (label, k, n): mistral-nemo-12b's q and v (heads x head_dim 4096
 # below d_model 5120), llama2-7b's q and v (MHA: both 4096 x 4096)
@@ -2451,38 +2628,39 @@ def hetero_train_path(name, cfg, device, params, hom=None, *,
 
 
 def llama_paths(name):
-    """llama2-7b at full width and depth (32 layers, fp32, seeded random
-    weights), the model freed after each path: generate_banked (64 of #2
-    per prefill, 64 of #1 per decode step), serve_scheduled over an fp32
-    base (32 of #13 per decode step) and an int4 one (#3, #4, and 160 of
-    #11 per decode step: k, o, w_gate, w_up, w_down), training (train_path,
-    64 of each of #5-#8 per client local step), heterogeneous ranks (fedsa,
-    and flora for 2 rounds)."""
+    """llama2-7b at full width and half depth (LLAMA_PATHS: 16 of its 32
+    layers, fp32, seeded random weights), the model freed after each path:
+    generate_banked (32 of #2 per prefill, 32 of #1 per decode step),
+    serve_scheduled over an fp32 base (16 of #13 per decode step) and an
+    int4 one (#3, #4, and 80 of #11 per decode step: k, o, w_gate, w_up,
+    w_down), training (train_path, 32 of each of #5-#8 per client local
+    step), heterogeneous ranks (fedsa, and flora for 2 rounds)."""
     dev = torch.device("cuda")
-    run_path(name, LLAMA, dev)
+    run_path(name, LLAMA_PATHS, dev)
     _free()
-    model, params, bank = serving_model(LLAMA, dev)
+    model, params, bank = serving_model(LLAMA_PATHS, dev)
     for mode in ("fp32", "int4"):
         sched_path(name, model, params, bank, mode)
         _free()
     del model, params, bank
     _free()
-    params = train_base(build_model(LLAMA), dev)
-    _, _, hom = train_path(name, LLAMA, dev, params=params)
+    params = train_base(build_model(LLAMA_PATHS), dev)
+    _, _, hom = train_path(name, LLAMA_PATHS, dev, params=params)
     _free()
-    hetero_train_path(name, LLAMA, dev, params, hom)
+    hetero_train_path(name, LLAMA_PATHS, dev, params, hom)
     del hom
     _free()
-    hetero_train_path(name, LLAMA, dev, params, strategy="flora", rounds=2)
+    hetero_train_path(name, LLAMA_PATHS, dev, params, strategy="flora",
+                      rounds=2)
     del params
     _free()
 
 
 def qwen_path(name):
-    """qwen3-8b at full width and depth (36 layers, fp32) through
-    serve_scheduled: #13 at 4 query heads a kv head, qk_norm in the
-    model, v at 4096 x 1024."""
-    model, params, bank = serving_model(QWEN, torch.device("cuda"))
+    """qwen3-8b at full width and half depth (QWEN_PATH: 18 of its 36
+    layers, fp32) through serve_scheduled: #13 at 4 query heads a kv head,
+    qk_norm in the model, v at 4096 x 1024."""
+    model, params, bank = serving_model(QWEN_PATH, torch.device("cuda"))
     sched_path(name, model, params, bank, "fp32")
     del model, params, bank
     _free()
@@ -2491,6 +2669,9 @@ def qwen_path(name):
 # ------------------------ 16-19. the RG-LRU hybrid trained and packed
 
 RG = get_config("recurrentgemma-9b")
+# phases 18-19 at half depth (see LLAMA_PATHS): 6 repeats of (rglru,
+# rglru, attn) and one rglru, 13 RG-LRU and 6 attention layers
+RG_PACKED = dataclasses.replace(RG, num_layers=19)
 # (bt, s, d) of #15's backward: the scan phase's shapes (the hybrid's
 # training and prefill shape first) and s = 1
 SCAN_BWD_SHAPES = {**SCAN_SHAPES, "s=1": (4, 1, 4096)}
@@ -2631,31 +2812,35 @@ def time_hybrid_kernels():
 
 
 def hybrid_train_paths(name):
-    """recurrentgemma-9b trained at full width and depth (38 layers, 26
-    RG-LRU and 12 attention, 9.40 B parameters, fp32 seeded random base):
-    train_path over the fp32 base, then over that base packed int4 on the
-    card, the fp32 base dropped once packed.  Returns the two runs' launch
-    counts."""
+    """recurrentgemma-9b trained at full width: train_path over a fp32
+    seeded random base at full depth (38 layers, 26 RG-LRU and 12
+    attention, 9.40 B parameters), then over a base of RG_PACKED's half
+    depth (19 layers) packed int4 on the card, the fp32 tree dropped once
+    packed.  Returns the two runs' launch counts."""
     dev = torch.device("cuda")
     params = train_base(build_model(RG), dev)
     fp32, _, _ = train_path(name, RG, dev, params=params)
+    del params
     _free()
-    params = quantize_tree(params, "int4", QUANT_GROUP)
+    params = quantize_tree(train_base(build_model(RG_PACKED), dev), "int4",
+                           QUANT_GROUP)
     _free()
-    int4, _, _ = train_path(name, RG, dev, quant="int4", params=params)
+    int4, _, _ = train_path(name, RG_PACKED, dev, quant="int4",
+                            params=params)
     del params
     _free()
     return fp32, int4
 
 
 def hybrid_packed_serving(name):
-    """recurrentgemma-9b served over an int4 base (packed on the card from
-    the seeded fp32 weights, which are then dropped): generate_banked and
-    serve_scheduled, with the 4 SFed-LoRA tenants of phase 13."""
+    """recurrentgemma-9b at RG_PACKED's half depth served over an int4 base
+    (packed on the card from the seeded fp32 weights, which are then
+    dropped): generate_banked and serve_scheduled, with the 4 SFed-LoRA
+    tenants of phase 13."""
     dev = torch.device("cuda")
-    run_path(name, RG, dev, quant="int4")
+    run_path(name, RG_PACKED, dev, quant="int4")
     _free()
-    model, params, bank = serving_model(RG, dev)
+    model, params, bank = serving_model(RG_PACKED, dev)
     params = quantize_tree(params, "int4", QUANT_GROUP)
     _free()
     sched_path(name, model, params, bank, "int4")
@@ -2995,6 +3180,347 @@ def fault_tolerant_paths(name, cfg, device, params, sync, *, clients=4,
     return serve_launches
 
 
+# ----------------------------------------- 22-24. the MoE family
+
+QWEN_MOE = get_config("qwen2-moe-a2.7b")
+GRANITE = get_config("granite-moe-1b-a400m")
+# #1 / #2 and #5-#8 (label, k, n): the MoE archs' adapted q and v
+MOE_QV = (("granite q", GRANITE.d_model, GRANITE.q_dim),
+          ("granite v", GRANITE.d_model, GRANITE.kv_dim),
+          ("qwen2-moe q/v", QWEN_MOE.d_model, QWEN_MOE.q_dim))
+MOE_RANKS = (8, 64)
+# #3, #4 and #9-#12 at granite-moe's packed projections (k, n): its base
+# over int4 packs q, k, v and o only (the router and experts stay fp32)
+GRANITE_PROJ = {"granite q": (GRANITE.d_model, GRANITE.q_dim),
+                "granite k": (GRANITE.d_model, GRANITE.kv_dim),
+                "granite v": (GRANITE.d_model, GRANITE.kv_dim),
+                "granite o": (GRANITE.q_dim, GRANITE.d_model)}
+GRANITE_ADAPTED = ("granite q", "granite v")
+# the two (k, n) among them, as timed: q and o (1024 x 1024), k and v
+# (1024 x 512); #3, #4, #9 and #10 time at both (q and v)
+GRANITE_TIMED = {"granite q/o": (GRANITE.d_model, GRANITE.q_dim),
+                 "granite k/v": (GRANITE.d_model, GRANITE.kv_dim)}
+# #13 (label, query heads, kv heads, head_dim) of the MoE decode steps
+MOE_PAGED = tuple((c.name, c.num_heads, c.num_kv_heads, c.head_dim)
+                  for c in (QWEN_MOE, GRANITE))
+# granite-moe's device-data training: N clients over a Dirichlet
+# partition, one local step a round (the path is host-bound at about 0.25
+# s a local step), rounds in chunks, a save after the first chunk
+DD_TRAIN = dict(clients=16, local_steps=1, rounds=4, chunk=2)
+
+
+def check_moe_kernels(dev="cuda"):
+    """The kernels at the MoE archs' shapes, fp32 and bf16, against their
+    plain versions: #1 and #2 (4 requests, bank ids and ids=None) at
+    MOE_QV with ranks 8 and 64; #13 at MOE_PAGED (160 positions, 10
+    columns of 16, plus a window of 64); #11 at m = 1, 4, 8 and 512, #12 at
+    m = 512, and at q and v #3 and #4 (rank 8) and #9 and #10 (ranks 8 and
+    64), over int8 and int4 (group 64) at GRANITE_PROJ; then #5-#8 at
+    MOE_QV with ranks 8 and 64 (check_lora_kernels)."""
+    phase("the MoE archs' shapes vs plain (tolerance: |kernel - plain| <= "
+          f"{KERNEL_RTOL} * max(1, max|plain|), + {BF16_STEP} * |plain| for "
+          "a bf16 output)")
+    gen = torch.Generator(dev).manual_seed(12)
+    worst = {}
+    dts = (torch.float32, torch.bfloat16)
+
+    def note(kern, err):
+        worst[kern] = max(worst.get(kern, 0.0), err)
+
+    for (label, k, n), r, dt, s in itertools.product(MOE_QV, MOE_RANKS, dts,
+                                                     (1, 128)):
+        x, w, a, b, ids = _bank(gen, 4, s, k, n, 4, (r,) * 4, dt)
+        for id_mode in ("bank", "none"):
+            a_, b_, ids_ = (a, b, ids) if id_mode == "bank" else (
+                a.index_select(0, ids.long()).contiguous(),
+                b.index_select(0, ids.long()).contiguous(), None)
+            lab = f"{label} k={k} n={n} r={r} s={s} {str(dt)[6:]} ids={id_mode}"
+            if s == 1:
+                x1 = x[:, 0].contiguous()
+                note("bgmv_gemv", _err(
+                    "bgmv_gemv", lab, bgmv.bgmv_gemv(x1, w, a_, b_, ids_),
+                    bgmv.bgmv_gemv_plain(x1, w, a_, b_, ids_)))
+            else:
+                note("bgmv_matmul", _err(
+                    "bgmv_matmul", lab, bgmv.bgmv_matmul(x, w, a_, b_, ids_),
+                    bgmv.bgmv_matmul_plain(x, w, a_, b_, ids_)))
+    for label, h, kh, hd in MOE_PAGED:
+        q, kp, vp, *rest = _paged_case(gen, 4, h, kh, hd, 16, 10, dev=dev)
+        for dt, window in itertools.product(dts, (None, 64)):
+            args = [t.to(dt) for t in (q, kp, vp)] + rest
+            got = paged_attention.paged_attention(*args, window=window)
+            again = paged_attention.paged_attention(*args, window=window)
+            assert torch.equal(got, again), f"#13 {label}: two calls differ"
+            note("paged_attention", _err(
+                "paged_attention",
+                f"{label} B4 h{h} kh{kh} hd{hd} bs16 mb10 {str(dt)[6:]} "
+                f"w={window}", got,
+                paged_attention.paged_attention_plain(*args, window=window)))
+    for mode, bits in (("int8", 8), ("int4", 4)):
+        for label, (k, n) in GRANITE_PROJ.items():
+            wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                          * k ** -0.5, bits, QUANT_GROUP)
+            for m, dt in itertools.product((1, 4, 8, 512), dts):
+                x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+                lab = f"{mode} {label} m={m} k={k} n={n} {str(dt)[6:]}"
+                got = lora_matmul.quant_matmul(x, wq)
+                assert torch.equal(got, lora_matmul.quant_matmul(x, wq)), \
+                    f"#11 {lab}: two calls differ"
+                note("quant_matmul", _err(
+                    "quant_matmul", lab, got,
+                    lora_matmul.quant_matmul_plain(x, wq)))
+                if m == 512:
+                    g = torch.randn(m, n, generator=gen, device=dev).to(dt)
+                    note("quant_matmul_dx", _err(
+                        "quant_matmul_dx", lab,
+                        lora_matmul.quant_matmul_dx(g, wq),
+                        lora_matmul.quant_matmul_dx_plain(g, wq)))
+            if label not in GRANITE_ADAPTED:
+                continue
+            for s_, dt in itertools.product((1, 128), dts):
+                x, _, a, b, ids = _bank(gen, 4, s_, k, n, 4, (8,) * 4, dt)
+                lab = f"{mode} {label} B=4 s={s_} k={k} n={n} {str(dt)[6:]}"
+                if s_ == 1:
+                    x1 = x[:, 0].contiguous()
+                    note("bgmv_gemv_quant", _err(
+                        "bgmv_gemv_quant", lab,
+                        bgmv.bgmv_gemv_quant(x1, wq, a, b, ids),
+                        bgmv.bgmv_gemv_quant_plain(x1, wq, a, b, ids)))
+                else:
+                    note("bgmv_matmul_quant", _err(
+                        "bgmv_matmul_quant", lab,
+                        bgmv.bgmv_matmul_quant(x, wq, a, b, ids),
+                        bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids)))
+            for r, dt in itertools.product(MOE_RANKS, dts):
+                x, _, a, b, g = _lora_operands(gen, 512, k, n, r, dt, dev)
+                calls = _qtrain_calls(x, wq, a, b, g)
+                for kern in ("lora_fwd_quant", "lora_bwd_dx_quant"):
+                    kfn, pfn = calls[kern]
+                    note(kern, _check_pair(
+                        kern, f"{mode} {label} m=512 k={k} n={n} r={r} "
+                        f"{str(dt)[6:]}", kfn(), pfn()))
+            del wq
+    for kern, err in check_lora_kernels(
+            [(label, 512, k, n, r, r) for label, k, n in MOE_QV
+             for r in MOE_RANKS]).items():
+        note(kern, err)
+    return worst
+
+
+def time_moe_kernels(block_size=16, ring=160):
+    """Times at the MoE archs' shapes: #1 and #2 at MOE_QV (time_kernels,
+    rank 8), #5-#8 at MOE_QV (time_lora_kernels, rank 64), #3, #4 and #11
+    at GRANITE_PROJ and #13 at MOE_PAGED over the scheduled path's 10
+    columns (time_sched_kernels), #9, #10 and #12 at GRANITE_PROJ
+    (time_qtrain_kernels); GRANITE_PROJ's four projections have two
+    shapes, timed once each (GRANITE_TIMED)."""
+    rows = time_kernels(_bgmv_shapes(MOE_QV))
+    rows.update(time_lora_kernels(
+        GRANITE.d_model, (("granite q", GRANITE.q_dim),
+                          ("granite v", GRANITE.kv_dim))))
+    rows.update(time_lora_kernels(QWEN_MOE.d_model,
+                                  (("qwen2-moe q/v", QWEN_MOE.q_dim),)))
+    mb = -(-ring // block_size)
+    rows.update(time_sched_kernels(
+        block_size, ring, projs=GRANITE_TIMED,
+        paged=[(label, h, mb, None, kh, hd)
+               for label, h, kh, hd in MOE_PAGED],
+        adapted=tuple(GRANITE_TIMED)))
+    rows.update(time_qtrain_kernels(projs=tuple(GRANITE_TIMED),
+                                    proj=GRANITE_TIMED,
+                                    adapted=tuple(GRANITE_TIMED)))
+    return rows
+
+
+def _peak(label, device):
+    """Print and reset the peak device memory since the last reset."""
+    print(f"peak device memory, {label}: "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
+          "(torch.cuda.max_memory_allocated)")
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def qwen_moe_paths(name):
+    """qwen2-moe-a2.7b at full width and depth (24 layers, 60 experts
+    padded to 64, top-4, 4 shared experts, an untied head: 15.15 B
+    parameters, 60.6 GB in fp32, seeded random weights), every earlier
+    model freed first: generate_banked (48 of #2 per prefill, 48 of #1 per
+    decode step), serve_scheduled over the fp32 base (24 of #13 per decode
+    step), and training (train_path: 48 of each of #5-#8 per client local
+    step; no checkpoint, which would be about 61 GB), with peak memory and
+    the expert bmms' share of a local step."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run_path(name, QWEN_MOE, dev)
+    _peak("qwen2-moe fixed-batch serving", dev)
+    _free()
+    model, params, bank = serving_model(QWEN_MOE, dev)
+    sched_path(name, model, params, bank, "fp32")
+    _peak("qwen2-moe scheduled serving", dev)
+    del model, bank
+    _free()
+    # serving_model draws the base first from seed 0, as train_base does
+    train_path(name, QWEN_MOE, dev, params=params)
+    del params
+    _free()
+    _peak("qwen2-moe training", dev)
+
+
+def device_data_train_path(name, cfg, device, params, *, clients=16,
+                           rank=64, local_steps=2, batch=4, seq=128,
+                           rounds=4, chunk=2):
+    """FederatedTrainer with ``data_mode="device"`` (every round's batches
+    drawn on the card from the trainer's own generator, a Dirichlet
+    partition of ``clients`` clients) over ``params`` (a packed base),
+    ``rounds`` rounds in chunks of ``chunk``: the launch counts, a second
+    kernel-tier run, saved after its first chunk and finished by a trainer
+    restored from that checkpoint, bit for bit the first, and the plain
+    tier within TRAIN_RTOL."""
+    phase(f"device-data training path: FederatedTrainer(data_mode="
+          f"'device'), {cfg.name} d_model {cfg.d_model}, packed base, "
+          f"N={clients} (dirichlet), fedsa + sfedlora, rank {rank}, "
+          f"{rounds} rounds in chunks of {chunk}")
+    model = build_model(cfg)
+    lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
+                      targets=cfg.lora_targets)
+    fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
+                           rounds=rounds, aggregation="fedsa",
+                           partition="dirichlet")
+    ocfg = OptimizerConfig(name="sgd", lr=5e-3)
+    ckpt = ROOT / "build" / "chip_smoke_device_data.npz"
+
+    def trainer():
+        ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
+                              batch_per_client=batch,
+                              partition="dirichlet", seed=0)
+        return federated.FederatedTrainer(
+            model, ds, lora_cfg=lcfg, fed_cfg=fcfg, opt_cfg=ocfg, seed=0,
+            base_params=params, data_mode="device", chunk_rounds=chunk,
+            device=device)
+
+    def run(tr, n=rounds):
+        ms = []
+        for _ in range(n // chunk):
+            _sync(device)
+            t = time.monotonic()
+            tr.run(chunk)
+            _sync(device)
+            ms.append((time.monotonic() - t) * 1e3 / chunk)
+        return ms
+
+    # the counted run: counts to 0 just before, read just after
+    tr1 = trainer()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    dispatch.reset_stats()
+    with _routing([]) as log_k:
+        ms1 = run(tr1)
+    ppl = tr1.eval_perplexity()
+    _sync(device)
+    launches = _launch_counts()
+    n_adapted, n_base, n_no_grad = _proj_counts(cfg)
+    steps = clients * local_steps * rounds
+    expect = dict.fromkeys(launches, 0)
+    expect.update({k: n_adapted * steps for k in QTRAIN_PATH_KERNELS})
+    expect["quant_matmul"] = n_base * (steps + 1)
+    expect["quant_matmul_dx"] = (n_base - n_no_grad) * steps
+    expect["lora_fwd_quant"] += n_adapted                 # one eval forward
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected { {k: v for k, v in expect.items() if v} }: "
+          f"{n_adapted} of each of #9, #10, #7, #8, {n_base} of #11 and "
+          f"{n_base - n_no_grad} of #12 per client local step x {steps}, "
+          f"plus the eval forward); dispatch {dispatch.stats}")
+    assert launches == expect, (launches, expect)
+    if device.type == "cuda":
+        print(f"peak device memory over the counted run: "
+              f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)")
+    for h in tr1.history:
+        print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6e}")
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+    print(f"held-out perplexity {ppl:.3f}")
+    assert math.isfinite(ppl)
+
+    # a second kernel-tier run, saved after its first chunk and resumed
+    # from that checkpoint by a fresh trainer: bit for bit the first run
+    tr2 = trainer()
+    ms2 = run(tr2, chunk)
+    tr2.save(str(ckpt))
+    first_half = tr2.history == tr1.history[:chunk]
+    del tr2
+    t = time.monotonic()
+    tr3 = trainer()
+    tr3.restore(str(ckpt))
+    mb = ckpt.stat().st_size / 1e6
+    ckpt.unlink()
+    _sync(device)
+    restore_s = time.monotonic() - t
+    ms2 += run(tr3, rounds - chunk)
+    resumed = (tr3.history == tr1.history[chunk:]
+               and all(torch.equal(x, y) for x, y in
+                       zip(tree_leaves(tr3.lora), tree_leaves(tr1.lora))))
+    print(f"second kernel-tier run: rounds 1-{chunk} "
+          f"{'bit-identical' if first_half else 'DIFFER'}; checkpoint after "
+          f"round {chunk} ({mb:.1f} MB, the data generator's state in it), "
+          f"restored in {restore_s:.1f} s; rounds {chunk + 1}-{rounds} and "
+          f"the adapters {'bit-identical' if resumed else 'DIFFER'} to the "
+          "first run's")
+    assert first_half, "two kernel-tier device-data runs differ"
+    assert resumed, "the resumed rounds differ from the uninterrupted run"
+    del tr3
+
+    # the plain tier on the same device draws the same batches
+    _reset_launches()
+    with dispatch.plain_tier(), _routing([], replay=log_k) as log_p:
+        tr4 = trainer()
+        run(tr4)
+    assert not any(_launch_counts().values()), _launch_counts()
+    _routing_report(f"{rounds} device-data training rounds", log_k, log_p,
+                    cfg.moe.top_k)
+    del log_k, log_p
+    worst = 0.0
+    for hk, hp in zip(tr1.history, tr4.history):
+        for key in ("loss", "grad_norm"):
+            d = abs(hk[key] - hp[key])
+            rel = d / max(abs(hp[key]), 1e-30)
+            worst = max(worst, rel)
+            print(f"round {hk['round']} {key}: kernel {hk[key]:.8g}, plain "
+                  f"{hp[key]:.8g}, |diff| {d:.3e} (relative {rel:.3e})")
+    print(f"kernel vs plain tier: worst relative diff of loss and grad_norm "
+          f"{worst:.3e} (bound {TRAIN_RTOL})")
+    assert worst <= TRAIN_RTOL
+    print(f"device-data training path on {name}: ms/round "
+          f"{[round(x, 1) for x in ms1]} (first run, a chunk's mean), "
+          f"{[round(x, 1) for x in ms2]} (second run, resumed after its "
+          f"first chunk); "
+          f"{clients * local_steps} client local steps per round")
+    return launches
+
+
+def granite_paths(name):
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+    top-8, 1.34 B parameters, seeded random weights, packed int4 on the
+    card and the fp32 tree dropped): serve_scheduled (#3, #4, #13 and 48 of
+    #11 per decode step at k and o), then device-data training at N = 16
+    (#9, #10, #7, #8 at q and v, #11 and #12 at k and o; DD_TRAIN)."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params, bank = serving_model(GRANITE, dev)
+    params = quantize_tree(params, "int4", QUANT_GROUP)
+    _free()
+    sched_path(name, model, params, bank, "int4", profile=False)
+    del model, bank
+    _free()
+    device_data_train_path(name, GRANITE, dev, params, **DD_TRAIN)
+    del params
+    _free()
+    _peak("granite-moe scheduled serving and device-data training", dev)
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -3070,6 +3596,13 @@ def main():
     hybrid_launches, _ = hybrid_train_paths(name)
     launches["rglru_scan_bwd"] = hybrid_launches["rglru_scan_bwd"]
     hybrid_packed_serving(name)
+    _free()
+    for kern, err in check_moe_kernels().items():
+        worst[kern] = max(worst.get(kern, 0.0), err)
+    rows.update(time_moe_kernels())
+    _free()
+    qwen_moe_paths(name)
+    granite_paths(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

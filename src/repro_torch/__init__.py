@@ -20,7 +20,10 @@ packed base, whose recurrence runs the scan kernel and its backward
 behind it; and the fault-tolerant federated engine (buffered aggregation,
 fault injection, screening, the Theorem 4.2 sentinel and its collapse
 watchdog: ``core/federated.py``, ``core/faults.py``,
-``analysis/stability_check.py``) with the train-to-serve publish hook.  All fifteen TPU kernels have a counterpart written by hand in
+``analysis/stability_check.py``) with the train-to-serve publish hook;
+and the MoE family (qwen2-moe, granite-moe: ``models/moe.py``), served and
+trained, with federated batches drawn on the device
+(``data/synthetic.DeviceFederatedData``, ``data_mode="device"``).  All fifteen TPU kernels have a counterpart written by hand in
 CUDA C++ for ``sm_90a``, and so has the scan's backward.
 
 Device rule: entry points run on ``cuda`` unless the caller passes

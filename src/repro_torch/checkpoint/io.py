@@ -10,7 +10,8 @@ a numpy tree (a loaded checkpoint, or the JAX package's parameters and
 adapters as numpy arrays) on a device as tensors.  A federated run's state
 goes through :func:`save_federated_state` / :func:`load_federated_state`
 under the JAX package's keys, plus ``generator_state`` (the port's
-participation generator), which the JAX package ignores.
+participation generator) and ``data_generator_state`` (its device-data
+generator), which the JAX package ignores.
 """
 from __future__ import annotations
 
@@ -127,7 +128,8 @@ def params_from_numpy(tree, device="cuda", dtype=None):
 
 
 def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
-                         *, generator_state=None, data_state: str = None,
+                         *, generator_state=None, data_generator_state=None,
+                         data_state: str = None,
                          partition_state: str = None, rank_mask=None,
                          adapter_meta: dict = None, async_state: dict = None):
     """Checkpoint one federated run under the JAX package's keys (``base``,
@@ -140,15 +142,19 @@ def save_federated_state(path: str, base, lora, opt_state, round_idx: int,
     one.
 
     ``generator_state`` (``torch.Generator.get_state()`` of the trainer's
-    participation generator) and ``data_state`` (the host dataset's
-    serialized RNG streams) make a restored run continue bit for bit.  The
+    participation generator), ``data_generator_state`` (that of the
+    trainer's device-data generator, in ``data_mode="device"``) and
+    ``data_state`` (the host dataset's serialized RNG streams) make a
+    restored run continue bit for bit.  The
     JAX package keeps a ``prng_key`` in its place, whose ``jax.random``
     stream the port cannot continue (:meth:`FederatedTrainer.restore`)."""
     # leaves that are not tensors (the round, the state strings, the
     # metadata) become numpy arrays in _flatten, as the JAX package stores
     # them
     tree = {"base": base, "lora": lora, "opt": opt_state, "round": round_idx,
-            "generator_state": generator_state, "data_state": data_state,
+            "generator_state": generator_state,
+            "data_generator_state": data_generator_state,
+            "data_state": data_state,
             "partition_state": partition_state, "rank_mask": rank_mask,
             "adapter_meta": adapter_meta, "async_state": async_state}
     tree = {k: v for k, v in tree.items() if v is not None}
@@ -159,12 +165,14 @@ def load_federated_state(path: str):
     """(base, lora, opt, round, state) of a file written by either package:
     numpy trees, the round as an int, and ``state`` a dict of what a resumed
     run reads, where the file has it: "generator_state" (the port's
-    participation generator), "prng_key" (the JAX trainer's key data),
+    participation generator), "data_generator_state" (its device-data
+    generator), "prng_key" (the JAX trainer's key data),
     "rank_mask", "async_state" ({"tau", "rho"} numpy arrays), and the
     dataset's "data_state" and "partition_state" as strings."""
     t = load_pytree(path)
     state = {k: np.asarray(t[k])
-             for k in ("generator_state", "prng_key", "rank_mask") if k in t}
+             for k in ("generator_state", "data_generator_state", "prng_key",
+                       "rank_mask") if k in t}
     if "async_state" in t:
         state["async_state"] = {k: np.asarray(v)
                                 for k, v in t["async_state"].items()}

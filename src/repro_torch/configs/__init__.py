@@ -16,12 +16,13 @@ ARCHS = {
     "qwen3-8b": "qwen3_8b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 # the JAX package's other architectures (repro/configs/__init__.py)
 NOT_YET_PORTED = (
-    "paligemma-3b", "whisper-medium", "xlstm-1.3b", "qwen2-moe-a2.7b",
-    "granite-moe-1b-a400m", "roberta-large",
+    "paligemma-3b", "whisper-medium", "xlstm-1.3b", "roberta-large",
 )
 
 

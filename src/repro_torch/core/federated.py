@@ -44,7 +44,9 @@ with the sentinel of ``analysis/stability_check.py`` and rolls a failed
 chunk back; :meth:`FederatedTrainer.publish_adapters` hands a round's
 adapters to a live serving bank.
 
-Not yet ported, and raising: ``data_mode="device"`` and meshes.
+``data_mode="device"`` draws each round's batches on the trainer's device
+(``data/synthetic.DeviceFederatedData``) from a generator of its own.
+Not yet ported, and raising: meshes.
 """
 from __future__ import annotations
 
@@ -68,9 +70,14 @@ from repro_torch.core.faults import FaultModel
 from repro_torch.core.lora import (AdapterSet, apply_rank_mask, init_lora,
                                    mask_rank_tree, rank_mask)
 from repro_torch.core.scaling import per_client_gammas, scaling_factor
+from repro_torch.data.synthetic import DeviceFederatedData
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           global_norm, make_optimizer)
 from repro_torch.tree import tree_leaves, tree_map
+
+
+# the device-mode data generator's seed is the trainer's seed plus this
+DATA_SEED_OFFSET = 7919
 
 
 def _not_yet(what: str):
@@ -393,9 +400,15 @@ class FederatedTrainer:
     Keeps the JAX trainer's interface: ``run``, ``run_round``,
     ``history``, ``adapters``, ``client_adapters``, ``client_gamma``,
     ``gamma``, ``gamma_eff``, ``stability_report``, ``publish_adapters``,
-    ``watchdog_events``, ``async_state`` and ``eval_perplexity``.  Batches
-    come from ``dataset.round_batch`` on the host, in the order the JAX
-    trainer stages them.  ``chunk_rounds`` caps the rounds of one chunk
+    ``watchdog_events``, ``async_state`` and ``eval_perplexity``.
+
+    ``data_mode``: "host" takes batches from ``dataset.round_batch`` on the
+    host, in the order the JAX trainer stages them; "device" draws them on
+    the trainer's device from :class:`DeviceFederatedData` (the dataset's
+    topic tables and client mixtures, the same law as JAX's device data,
+    other bits), so no batch crosses from the host.
+
+    ``chunk_rounds`` caps the rounds of one chunk
     (default: the ``log_every`` stride, else the whole ``run``); the
     metrics come to the host once a chunk, the buffered engine folds its
     correction into gamma at chunk starts, and the watchdog judges chunks.
@@ -419,7 +432,8 @@ class FederatedTrainer:
 
     Randomness: base and adapter init draw, in that order, from one
     ``torch.Generator`` seeded with ``seed``; participation sampling from
-    one seeded with ``seed + 31337``; round r's faults from one seeded
+    one seeded with ``seed + 31337``; device-mode data from one seeded
+    with ``seed + DATA_SEED_OFFSET``; round r's faults from one seeded
     from (``seed``, the fault seed, r).  The numbers differ from
     ``jax.random``'s, so parity runs inject the JAX draws (``lora_init=``,
     ``run_round(weights=, faults=)``, ``run(draws=)``).
@@ -434,15 +448,14 @@ class FederatedTrainer:
                  data_mode: str = "host", chunk_rounds: int = 0, mesh=None,
                  track_stability: bool = False, watchdog=None,
                  device="cuda"):
-        if data_mode == "device":
-            _not_yet("data_mode='device' (DeviceFederatedData)")
-        if data_mode != "host":
+        if data_mode not in ("host", "device"):
             raise ValueError(f"unknown data_mode '{data_mode}'")
         if mesh is not None:
             _not_yet("training on a mesh")
         self.device = resolve_device(device)
         self.model = model
         self.dataset = dataset
+        self.data_mode = data_mode
         self.fed_cfg = fed_cfg
         self.opt_cfg = opt_cfg
         self.seed = seed
@@ -508,6 +521,12 @@ class FederatedTrainer:
             else None
         self._part_gen = torch.Generator(self.device).manual_seed(
             seed + 31337)
+        self.device_data = self._data_gen = None
+        if data_mode == "device":
+            self.device_data = DeviceFederatedData.from_host(dataset,
+                                                             self.device)
+            self._data_gen = torch.Generator(self.device).manual_seed(
+                seed + DATA_SEED_OFFSET)
         self.round_idx = 0
         self.history = []
 
@@ -619,9 +638,7 @@ class FederatedTrainer:
         for i in range(num_rounds):
             ridx = self.round_idx + i
             inject = draws(ridx) if draws is not None else {}
-            batches = torch.as_tensor(
-                self.dataset.round_batch(self.fed_cfg.local_steps),
-                device=self.device)
+            batches = self._round_batches()
             part = self._participation(inject.get("weights"))
             if self.async_mode:
                 faults = inject.get("faults")
@@ -659,26 +676,41 @@ class FederatedTrainer:
             out.append(m)
         return out
 
+    def _round_batches(self):
+        """One round's (N, local_steps, batch, seq) int32 tokens on the
+        trainer's device: drawn there in device mode, else the dataset's
+        next host batch."""
+        if self.data_mode == "device":
+            return self.device_data.sample_round(self._data_gen,
+                                                 self.fed_cfg.local_steps)
+        return torch.as_tensor(
+            self.dataset.round_batch(self.fed_cfg.local_steps),
+            device=self.device)
+
     # ------------------------------------------------------------- watchdog
 
     def _snapshot(self):
         """Everything a chunk changes, taken before it runs: device clones
         of the adapter, optimizer and async state (cheap beside a round),
-        the generator's and the dataset's RNG states, the round, the
+        the generators' and the host dataset's RNG states, the round, the
         history's length and the fold mirror."""
         clone = lambda t: tree_map(torch.clone, t)      # noqa: E731
         snap = {"lora": clone(self.lora), "opt": clone(self.opt_state),
                 "gen": self._part_gen.get_state(), "round": self.round_idx,
                 "hist": len(self.history),
                 "events": len(self.watchdog_events),
-                "rho_host": self._rho_host,
-                "data_state": self.dataset.rng_state()}
+                "rho_host": self._rho_host}
+        if self.data_mode == "device":
+            snap["data_gen"] = self._data_gen.get_state()
+        else:
+            snap["data_state"] = self.dataset.rng_state()
         if self.async_state is not None:
             snap["async"] = clone(self.async_state)
         return snap
 
     def _rollback(self, snap):
-        """Restore the last-good snapshot (state, RNG streams, history)."""
+        """Restore the last-good snapshot (state, RNG streams, history):
+        a rolled-back chunk redraws the same batches."""
         self.lora, self.opt_state = snap["lora"], snap["opt"]
         self._part_gen.set_state(snap["gen"])
         self.round_idx = snap["round"]
@@ -686,7 +718,10 @@ class FederatedTrainer:
         self._rho_host = snap["rho_host"]
         if "async" in snap:
             self.async_state = snap["async"]
-        self.dataset.set_rng_state(snap["data_state"])
+        if "data_gen" in snap:
+            self._data_gen.set_state(snap["data_gen"])
+        else:
+            self.dataset.set_rng_state(snap["data_state"])
 
     def _chunk_report(self, chunk_len: int):
         """The verdict over the chunk just run (its own norms only, so a
@@ -837,7 +872,8 @@ class FederatedTrainer:
     def save(self, path: str) -> None:
         """Checkpoint the base (packed leaves as packed), the client-stacked
         adapters and optimizer state, the round index, the participation
-        generator's state, the dataset's RNG streams and partition, the
+        generator's state, the host dataset's RNG streams (device mode: the
+        data generator's state in their place) and partition, the
         per-client rank mask, the AdapterSet's metadata (``adapter_meta``:
         gammas, alpha, rank, ranks, scaling) and the buffered engine's
         ``async_state`` (tau, rho), under the JAX package's keys.  The fault
@@ -849,10 +885,13 @@ class FederatedTrainer:
                 "ranks": np.asarray(self.ranks or (self.lora_cfg.rank,) * n,
                                     np.int64),
                 "scaling": self.lora_cfg.scaling}
+        device = self.data_mode == "device"
         save_federated_state(
             path, self.base, self.lora, self.opt_state, self.round_idx,
             generator_state=self._part_gen.get_state(),
-            data_state=self.dataset.rng_state(),
+            data_generator_state=(self._data_gen.get_state() if device
+                                  else None),
+            data_state=None if device else self.dataset.rng_state(),
             partition_state=self.dataset.partition_state(),
             rank_mask=self.rank_mask, adapter_meta=meta,
             async_state=self.async_state)
@@ -868,7 +907,11 @@ class FederatedTrainer:
         generator resumes from its saved state; a JAX-written file carries a
         ``jax.random`` key instead, whose stream the port cannot continue,
         so it restores only at participation 1.0, where no round draws from
-        it.  A buffered trainer takes the file's ``async_state``, or a
+        it.  In device mode every round draws from the data generator, so
+        a file without its state (one written by the JAX trainer, or in
+        host mode) raises, and the sampler's tables are rebuilt from the
+        restored partition.  A buffered trainer takes the file's
+        ``async_state``, or a
         fresh one (tau 0, rho 1.0) from a file without it, and recomputes
         the fold mirror from rho, as JAX does."""
         base, lora, opt, rnd, state = load_federated_state(path)
@@ -890,10 +933,24 @@ class FederatedTrainer:
                 + f"but participation is {self.fed_cfg.participation} < 1, "
                 "so the resumed rounds could not sample the clients the "
                 "uninterrupted run would")
+        data_gen_state = state.get("data_generator_state")
+        if self.data_mode == "device" and data_gen_state is None:
+            raise ValueError(
+                f"checkpoint '{path}' has no device-data generator state "
+                + ("(it was written by the JAX trainer, whose jax.random key "
+                   "repro_torch cannot continue) " if "prng_key" in state
+                   else "(it was written in host data mode) ")
+                + "but this trainer draws its batches on the device "
+                "(data_mode='device'), so the resumed rounds could not draw "
+                "the batches the uninterrupted run would")
         if "partition_state" in state:
             self.dataset.set_partition_state(state["partition_state"])
             if self.client_weights is not None:
                 self.client_weights = self._size_weights()
+            if self.data_mode == "device":
+                # the sampler's mixtures come from the restored partition
+                self.device_data = DeviceFederatedData.from_host(
+                    self.dataset, self.device)
         self.base = params_from_numpy(base, self.device)
         self.lora = params_from_numpy(lora, self.device)
         self.opt_state = params_from_numpy(opt, self.device)
@@ -903,6 +960,8 @@ class FederatedTrainer:
         self.history = [h for h in self.history if h["round"] <= rnd]
         if gen_state is not None:
             self._part_gen.set_state(torch.from_numpy(gen_state))
+        if self.data_mode == "device":
+            self._data_gen.set_state(torch.from_numpy(data_gen_state))
         if "data_state" in state:
             self.dataset.set_rng_state(state["data_state"])
         if self.async_mode:

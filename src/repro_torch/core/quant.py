@@ -174,6 +174,9 @@ def dequantize(q: QuantizedLinear) -> torch.Tensor:
 
 # (parent key, leaf key) pairs eligible for quantization: the frozen GEMM
 # weights that route through kernels/dispatch.lora_linear
+# (the JAX package's list).  The MoE block's leaves sit under "moe" and
+# none is listed: over --quant the router, the expert stacks and the shared
+# experts stay fp, as in JAX, and only q / k / v / o are packed
 ELIGIBLE = {
     "attn": ("q", "k", "v", "o"),
     "cross": ("q", "k", "v", "o"),

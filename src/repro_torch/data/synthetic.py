@@ -1,20 +1,20 @@
 """Synthetic federated LM data.
 
-A copy of ``repro/data/synthetic.py`` (numpy only), so the port draws
-bit-identical batches from the same seed.  The paper's datasets (Alpaca,
-GSM8K, GLUE) are not available offline; this is a structured synthetic
-language whose next-token distribution is *learnable* (so convergence
-curves are meaningful) and which supports IID and Dirichlet non-IID client
-partitions over "topic" mixtures.
-
-The JAX package's ``DeviceFederatedData`` (batches drawn with
-``jax.random`` inside the scan) is not yet ported.
+A copy of ``repro/data/synthetic.py``: the host classes in numpy only, so
+the port draws bit-identical host batches from the same seed, and
+:class:`DeviceFederatedData`, which draws each round's batches on the
+trainer's device from a ``torch.Generator`` (same law, other bits).
+The paper's datasets (Alpaca, GSM8K, GLUE) are not available offline;
+this is a structured synthetic language whose next-token distribution is
+*learnable* (so convergence curves are meaningful) and which supports IID
+and Dirichlet non-IID client partitions over "topic" mixtures.
 """
 from __future__ import annotations
 
 import json
 
 import numpy as np
+import torch
 
 
 class SyntheticLM:
@@ -180,3 +180,69 @@ class FederatedDataset:
                 f"{self.mix.shape[0]} x {self.mix.shape[1]}")
         self.mix = mix
         self.sizes = sizes
+
+
+class DeviceFederatedData:
+    """On-device mirror of :class:`FederatedDataset`: the same topic
+    transition tables and client mixtures, sampled with a
+    ``torch.Generator`` on its own device, so large-N runs make their data
+    where they consume it.
+
+    The law is the JAX package's ``DeviceFederatedData``: for each client
+    and local step a topic ~ Categorical(mix_i), first tokens uniform, then
+    each next token ``succ[topic][prev, uniform branch]``, or with
+    probability ``noise`` a uniform token.  The bits differ from
+    ``jax.random``'s; parity is by distribution.  A round's random numbers
+    come from a few calls on the generator, then ``seq_len - 1`` gathers;
+    nothing is read back to the host and torch's global RNG is untouched.
+    """
+
+    def __init__(self, succ, mix, noise: float, batch: int, seq_len: int, *,
+                 device="cuda"):
+        self.succ = torch.as_tensor(succ, dtype=torch.long,
+                                    device=device)    # (topics, vocab, branch)
+        self.mix = torch.as_tensor(mix, dtype=torch.float32,
+                                   device=device)     # (clients, topics)
+        self.noise = float(noise)
+        self.batch = batch
+        self.seq_len = seq_len
+        self.vocab = int(self.succ.shape[1])
+
+    @classmethod
+    def from_host(cls, ds: "FederatedDataset",
+                  device="cuda") -> "DeviceFederatedData":
+        return cls(ds.lm.succ, ds.mix, ds.lm.noise, ds.batch, ds.seq_len,
+                   device=device)
+
+    def sample_round(self, generator: torch.Generator, local_steps: int = 1):
+        """(num_clients, local_steps, batch, seq) int32 on the generator's
+        device (the tables' device)."""
+        n = self.mix.shape[0]
+        topics, vocab, branch = self.succ.shape
+        dev = self.succ.device
+        b, steps = self.batch, self.seq_len - 1
+        shape = (n, local_steps, b)
+        # Categorical(mix_i) by inverse CDF: torch.multinomial checks its
+        # input on the host, which would sync with the card every round
+        cdf = torch.cumsum(self.mix, dim=-1)
+        u = torch.rand((n, local_steps), generator=generator, device=dev)
+        topic = torch.searchsorted(cdf, u * cdf[:, -1:], right=True).clamp_(
+            max=topics - 1)                                   # (n, L)
+        first = torch.randint(0, vocab, shape, generator=generator,
+                              device=dev)
+        pick = torch.randint(0, branch, (steps,) + shape,
+                             generator=generator, device=dev)
+        noisy = torch.rand((steps,) + shape, generator=generator,
+                           device=dev) < self.noise
+        uniform = torch.randint(0, vocab, (steps,) + shape,
+                                generator=generator, device=dev)
+        table = self.succ.reshape(-1)
+        # flat index of succ[topic, prev, pick]
+        row = (topic * vocab)[:, :, None].expand(shape)
+        toks = [first]
+        prev = first
+        for t in range(steps):
+            nxt = table[(row + prev) * branch + pick[t]]
+            prev = torch.where(noisy[t], uniform[t], nxt)
+            toks.append(prev)
+        return torch.stack(toks, -1).to(torch.int32)

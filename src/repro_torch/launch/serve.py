@@ -27,6 +27,7 @@ slots, and ``--deadline-steps D`` caps each request's tokens.
   # adapters start as a no-op, as in the JAX package):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
 
   # a Poisson request stream over an int4 base, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\

@@ -12,6 +12,14 @@ The RG-LRU hybrid trains the same way, LoRA at q, v, wx and wy (on the
 CPU: ``--arch recurrentgemma-9b --reduced --device cpu``):
   ... --arch recurrentgemma-9b --rank 64 --clients 4 --rounds 3 --seq 128
 
+So do the MoE archs (the router's aux loss joins the gradient; over
+``--quant`` only q / k / v / o are packed, the experts stay fp, as in JAX):
+  ... --arch qwen2-moe-a2.7b --rank 64 --clients 4 --rounds 3 --seq 128
+  ... --arch granite-moe-1b-a400m --quant int4 --clients 16 --data-mode device
+
+``--data-mode device`` draws every round's batches on the device from a
+generator of the trainer's own (``data/synthetic.DeviceFederatedData``).
+
 Heterogeneous clients (per-client ranks, each client training with its own
 gamma_i = alpha sqrt(N / r_i)), aggregated by FedSA or by FLoRA's stacking:
   ... --arch llama2-7b --clients 4 --ranks 16,32,64,128 --strategy fedsa
@@ -31,9 +39,8 @@ correction and the collapse watchdog, in chunks of ``--chunk-rounds``:
 
 It prints the JAX launcher's ``# ...`` header, its round lines, the
 ``# async:`` and ``# watchdog:`` lines and the final held-out perplexity.
-Flags of the JAX launcher whose machinery is not ported yet (``--mesh``,
-``--data-mode device``) are accepted by the parser and raise "not yet
-ported".
+The JAX launcher's ``--mesh`` is not ported yet: the parser accepts it and
+it raises "not yet ported".
 """
 from __future__ import annotations
 
@@ -55,12 +62,8 @@ from repro_torch.models.api import build_model
 
 
 def _reject_unported(args):
-    unported = {"--mesh": bool(args.mesh),
-                "--data-mode device": args.data_mode == "device"}
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to repro_torch")
+    if args.mesh:
+        raise NotImplementedError("--mesh is not yet ported to repro_torch")
 
 
 def main(argv=None):
@@ -103,8 +106,9 @@ def main(argv=None):
                          "staleness correction folds and the watchdog "
                          "judges once a chunk (0: one chunk per log stride)")
     ap.add_argument("--data-mode", default="host", choices=("host", "device"),
-                    help="host: dataset batches from the host; device: not "
-                         "yet ported")
+                    help="host: dataset batches from the host; device: "
+                         "batches drawn on the device each round "
+                         "(DeviceFederatedData)")
     ap.add_argument("--mesh", default="", help="not yet ported")
     ap.add_argument("--quant", default="none", choices=("none", "int8", "int4"),
                     help="store the frozen base packed (int8 per channel / "
@@ -191,7 +195,8 @@ def main(argv=None):
                                 faults=faults),
         opt_cfg=OptimizerConfig(name=args.optimizer, lr=args.lr),
         seed=args.seed, base_params=base_params, lora_init=lora_init,
-        chunk_rounds=args.chunk_rounds, watchdog=watchdog, device=device)
+        data_mode=args.data_mode, chunk_rounds=args.chunk_rounds,
+        watchdog=watchdog, device=device)
     if args.resume:
         tr.restore(args.resume)
         # an fp checkpoint restored under --quant is packed once here; a

@@ -1,8 +1,8 @@
 """Public model API: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / loss / init_cache / prefill / decode_step.
 
-The port of ``repro/models/api.py`` for dense decoders and the RG-LRU
-hybrid family (recurrentgemma).  As in the JAX
+The port of ``repro/models/api.py`` for dense decoders, the MoE family
+(qwen2-moe, granite-moe) and the RG-LRU hybrid family (recurrentgemma).  As in the JAX
 package the embedding is not scaled by sqrt(d_model), the head is tied
 (``embed.T``) unless the config says otherwise, and the vocabulary is
 padded to a multiple of 256 (``pad_vocab``).
@@ -27,7 +27,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 class Model:
@@ -35,7 +35,7 @@ class Model:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family '{cfg.family}' is not yet ported to "
-                f"repro_torch (only {' and '.join(FAMILIES)} are)")
+                f"repro_torch (only {', '.join(FAMILIES)} are)")
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab_size)
 
@@ -102,9 +102,10 @@ class Model:
         return self._head(params, x), aux
 
     def loss(self, params, batch, adapters=None, *, chunked_ce=False):
-        """Next-token cross-entropy over the text segment (+ the aux loss,
-        0 for the dense block): returns (loss, {"ce", "aux"}), as the JAX
-        package's dense branch does.  The logsumexp runs in fp32 over the
+        """Next-token cross-entropy over the text segment (+ the aux loss:
+        the MoE router's, summed over layers, 0 for the dense and RG-LRU
+        blocks): returns (loss, {"ce", "aux"}), as the JAX package's
+        decoder branch does; the gradient takes both terms.  The logsumexp runs in fp32 over the
         padded vocabulary.  ``adapters``: None or an AdapterSet; gradients
         reach its A/B leaves through the LoRA matmul Function.
 

@@ -1,10 +1,11 @@
 """Block-stack transformer machinery.
 
-The port of ``repro/models/transformer.py`` for the dense ``"attn"`` block
-and the RG-LRU ``"rglru"`` block (recurrent temporal mix + MLP, the hybrid
-family).  Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail":
-{...}}``, with the leading layer dim on repeat leaves, so carrying weights
-across is a plain copy.  Where JAX scans over the layer dim, this module
+The port of ``repro/models/transformer.py`` for the ``"attn"`` block
+(attention + MLP, or + the MoE MLP when ``cfg.moe`` is set) and the RG-LRU
+``"rglru"`` block (recurrent temporal mix + MLP, the hybrid family).
+Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail": {...}}``,
+with the leading layer dim on repeat leaves, so carrying weights across is
+a plain copy.  Where JAX scans over the layer dim, this module
 loops over it in Python.  Other block kinds are not ported yet and raise.
 
   init_block(cfg, generator, kind)                -> params
@@ -31,17 +32,17 @@ from repro_torch.models.attention import (attention_decode,
                                           paged_decode_index)
 from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_params,
                                        norm_params)
+from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.tree import tree_leaves, tree_map
 
 KINDS = ("attn", "rglru")
 
 
 def _check_kind(cfg, kind: str):
-    if kind not in KINDS or cfg.moe is not None:
-        what = "moe" if kind == "attn" else kind
+    if kind not in KINDS or (kind == "rglru" and cfg.moe is not None):
         raise NotImplementedError(
-            f"block '{what}' is not yet ported to repro_torch (only the "
-            "dense 'attn' and the 'rglru' blocks are)")
+            f"block '{kind}' is not yet ported to repro_torch (only the "
+            "'attn' block, dense or MoE, and the 'rglru' block are)")
 
 
 # ---------------------------------------------------------------- block init
@@ -57,7 +58,10 @@ def init_block(cfg, generator, kind: str, *, lead=()):
     else:
         p["attn"] = attn_params(cfg, generator, lead=lead)
     p.update(norm_params(cfg, d, "ln2", device=dev, lead=lead))
-    p["mlp"] = mlp_params(cfg, generator, d, cfg.d_ff, lead=lead)
+    if cfg.moe is not None:
+        p["moe"] = moe_params(cfg, generator, lead=lead)
+    else:
+        p["mlp"] = mlp_params(cfg, generator, d, cfg.d_ff, lead=lead)
     return p
 
 
@@ -91,8 +95,8 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
     """``mode``: "fullseq" (no cache), "prefill" (whole prompt, cache
     filled as the token-by-token decode would have), "decode" (one token
     against the cache).  Prefill and decode return (x, aux, cache);
-    fullseq returns (x, aux).  ``aux`` (the MoE router loss in the JAX
-    package) is 0.0 for the dense and RG-LRU blocks.
+    fullseq returns (x, aux).  ``aux`` is the MoE router's load-balance
+    loss in every mode, and 0.0 for the dense and RG-LRU blocks.
 
     A paged attention cache (``k_pool`` leaves instead of per-request ``k``
     rings) takes the paged prefill / decode and requires ``table``: in
@@ -112,10 +116,16 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
         a, cache = _attn_mix(cfg, p["attn"], h1, adapters.get("attn"), mode,
                              cache, positions, pos, table, causal)
     x = x + a
-    x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, x, p, "ln2"))
+    h2 = apply_norm(cfg, x, p, "ln2")
+    aux = 0.0
+    if cfg.moe is not None:
+        mo, aux = moe_apply(cfg, p["moe"], h2, adapters=adapters.get("moe"))
+        x = x + mo
+    else:
+        x = x + mlp_apply(cfg, p["mlp"], h2)
     if mode == "fullseq":
-        return x, 0.0
-    return x, 0.0, cache
+        return x, aux
+    return x, aux, cache
 
 
 def _attn_mix(cfg, p, h1, adapters, mode, cache, positions, pos, table,

@@ -222,6 +222,8 @@ PAGED_CASES = [
     (4, 32, 32, 128, 16, 10),   # llama2-7b: MHA, hd 128 (b kh fills the card)
     (4, 32, 8, 128, 16, 10),    # qwen3-8b: 4 query heads a kv head
     (4, 32, 32, 64, 16, 10),    # stablelm-1.6b: MHA, hd 64
+    (4, 16, 16, 128, 16, 10),   # qwen2-moe-a2.7b: MHA, hd 128
+    (4, 16, 8, 64, 16, 10),     # granite-moe-1b-a400m: 2 query heads a kv
 ]
 
 
@@ -1138,3 +1140,180 @@ def test_faulted_kernel_tier_matches_plain_tier(card):
             assert hk[key] == hp[key]
         for key in ("loss", "grad_norm"):
             assert abs(hk[key] - hp[key]) <= 1e-3 * abs(hp[key])
+
+
+# ------------------------------------------------ the MoE family's widths
+
+# (k, n) of the adapted projections: granite-moe-1b-a400m's q (1024 ->
+# 1024) and v (1024 -> 512), qwen2-moe-a2.7b's q = v (2048 -> 2048)
+MOE_QV = [(1024, 1024), (1024, 512), (2048, 2048)]
+# granite-moe-1b-a400m's packed q / k / v / o (k, n)
+GRANITE_QKVO = [(1024, 1024), (1024, 512), (1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [8, 64])
+@pytest.mark.parametrize("k,n", MOE_QV)
+def test_bgmv_at_moe_shapes_matches_plain_and_repeats(card, k, n, r, dtype):
+    """#1 (4 decode rows) and #2 (4 x 128 prefill rows) at the MoE archs'
+    q and v, ranks 8 and 64, with bank ids and ids=None, each called twice
+    with results equal bit for bit."""
+    dt = getattr(torch, dtype)
+    x, bank, gathered = _gemv_bank(4, k, n, r, dt, k + n + r)
+    w = (torch.randn(k, n, device="cuda") * k ** -0.5).to(dt)
+    _gemv_checks(bgmv.bgmv_gemv, bgmv.bgmv_gemv_plain, x, w,
+                 (bank, gathered))
+    x3 = (torch.randn(4, 128, k, device="cuda")).to(dt)
+    for a, b, ids in (bank, gathered):
+        got, again = (bgmv.bgmv_matmul(x3, w, a, b, ids) for _ in range(2))
+        want = bgmv.bgmv_matmul_plain(x3, w, a, b, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, want)
+    assert bgmv.launches == {"bgmv_matmul": 4, "bgmv_gemv": 4,
+                             "bgmv_matmul_quant": 0, "bgmv_gemv_quant": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [8, 64])
+@pytest.mark.parametrize("k,n", MOE_QV)
+def test_lora_kernels_at_moe_shapes_match_plain_and_repeat(card, k, n, r,
+                                                           dtype):
+    """#5-#8 at the MoE archs' q and v (m = 4 x 128), ranks 8 and 64:
+    against their plain versions, each called twice with results equal bit
+    for bit."""
+    lm = lora_matmul
+    x, w, a, b, g = _operands(512, k, n, r, getattr(torch, dtype),
+                              seed=k + n + r)
+    got = {}
+    for name, call in (("fwd", lambda: lm.lora_fwd(x, w, a, b, 1.5)),
+                       ("dx", lambda: lm.lora_bwd_dx(g, w, a, b, 1.5))):
+        first, again = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(first, again)), name
+        got[name] = first
+    (y, p), (dx, q) = got["fwd"], got["dx"]
+    y_want, p_want = lm.lora_fwd_plain(x, w, a, b, 1.5)
+    dx_want, q_want = lm.lora_bwd_dx_plain(g, w, a, b, 1.5)
+    da, da2 = lm.lora_bwd_da(q_want, x, 1.5), lm.lora_bwd_da(q_want, x, 1.5)
+    db, db2 = lm.lora_bwd_db(g, p_want, 1.5), lm.lora_bwd_db(g, p_want, 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    for gt, want in ((y, y_want), (p, p_want), (dx, dx_want), (q, q_want),
+                     (da, lm.lora_bwd_da_plain(q_want, x, 1.5)),
+                     (db, lm.lora_bwd_db_plain(g, p_want, 1.5))):
+        _assert_close(gt, want)
+    assert lm.launches == _launches(lora_fwd=2, lora_bwd_dx=2, lora_bwd_da=2,
+                                    lora_bwd_db=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", sorted(set(GRANITE_QKVO)))
+def test_packed_kernels_at_granite_widths_match_plain(card, k, n, bits):
+    """Over granite-moe's int8 / int4 (group 64) q / k / v / o: #3 and #4
+    (rank 8 bank), #9 and #10 (rank 64), #11 at m = 4 and 512 and #12 at
+    m = 512, against their plain versions, each called twice with results
+    equal bit for bit."""
+    lm = lora_matmul
+    wq = _packed(k, n, bits, seed=k + n + bits)
+    x, bank, gathered = _gemv_bank(4, k, n, 8, torch.float32, k + n)
+    _gemv_checks(bgmv.bgmv_gemv_quant, bgmv.bgmv_gemv_quant_plain, x, wq,
+                 (bank, gathered))
+    x3 = torch.randn(4, 128, k, device="cuda")
+    for a, b, ids in (bank, gathered):
+        got, again = (bgmv.bgmv_matmul_quant(x3, wq, a, b, ids)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, bgmv.bgmv_matmul_quant_plain(x3, wq, a, b, ids))
+    x2, _, a, b, g = _operands(512, k, n, 64, torch.float32, seed=bits)
+    for kfn, pfn, args in (
+            (lm.lora_fwd_quant, lm.lora_fwd_quant_plain, (x2, wq, a, b, 1.5)),
+            (lm.lora_bwd_dx_quant, lm.lora_bwd_dx_quant_plain,
+             (g, wq, a, b, 1.5))):
+        got, again = kfn(*args), kfn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        for gt, wt in zip(got, pfn(*args)):
+            _assert_close(gt, wt)
+    for m in (4, 512):
+        xm = torch.randn(m, k, device="cuda")
+        got, again = lm.quant_matmul(xm, wq), lm.quant_matmul(xm, wq)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, lm.quant_matmul_plain(xm, wq))
+    got, again = lm.quant_matmul_dx(g, wq), lm.quant_matmul_dx(g, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, lm.quant_matmul_dx_plain(g, wq))
+    assert bgmv.launches["bgmv_gemv_quant"] == 4
+    assert bgmv.launches["bgmv_matmul_quant"] == 4
+    assert lm.launches == _launches(lora_fwd_quant=2, lora_bwd_dx_quant=2,
+                                    quant_matmul=4, quant_matmul_dx=2)
+
+
+MOE_CARD = dict(name="moe-card", family="moe", num_layers=2, d_model=128,
+                num_heads=2, num_kv_heads=1, head_dim=64, d_ff=64,
+                vocab_size=256)
+
+
+def _moe_cfg(**moe):
+    from repro_torch.configs import base as tbase
+    kw = dict(num_experts=20, top_k=4, num_shared_experts=1, d_ff_expert=64,
+              d_ff_shared=128)
+    kw.update(moe)
+    return tbase.ModelConfig(**MOE_CARD, moe=tbase.MoEConfig(**kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_apply_on_card_repeats_and_matches_cpu(card, cf):
+    """The MoE MLP on the card (index_add dispatch, bmm experts, gather
+    back): two calls and two backward passes bit for bit (the drop slot,
+    whose atomics run in any order, is never read), and the CPU's output
+    and input gradient within 1e-4."""
+    from repro_torch.models import moe
+    cfg = _moe_cfg(capacity_factor=cf)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_params(cfg, gen)
+    x = torch.randn(4, 32, 128, generator=gen)
+    g = torch.randn(4, 32, 128, generator=gen)
+    out = {}
+    for dev in ("cuda", "cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        xd = x.to(dev).requires_grad_(True)
+        y, aux = moe.moe_apply(cfg, p, xd)
+        (y * g.to(dev)).sum().add(aux).backward()
+        out.setdefault(dev, []).append((y.detach().cpu(), aux.detach().cpu(),
+                                        xd.grad.cpu()))
+    (y1, a1, g1), (y2, a2, g2) = out["cuda"]
+    assert torch.equal(y1, y2) and torch.equal(a1, a2) and torch.equal(g1, g2)
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_device_data_draws_on_card_without_host_sync(card):
+    """DeviceFederatedData on a CUDA generator: int32 tokens on the card in
+    range, the same state giving the same tokens, and no host
+    synchronisation while a round is drawn."""
+    from repro_torch.data.synthetic import (DeviceFederatedData,
+                                            FederatedDataset)
+    ds = FederatedDataset(256, 16, seq_len=128, batch_per_client=4,
+                          partition="dirichlet", seed=0)
+    dd = DeviceFederatedData.from_host(ds, "cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    state = gen.get_state()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = dd.sample_round(gen, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert toks.device.type == "cuda" and toks.dtype == torch.int32
+    assert tuple(toks.shape) == (16, 2, 4, 128)
+    assert 0 <= int(toks.min()) and int(toks.max()) < 256
+    gen.set_state(state)
+    assert torch.equal(dd.sample_round(gen, 2), toks)

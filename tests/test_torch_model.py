@@ -77,7 +77,7 @@ def test_config_matches_jax():
     j.pop("use_pallas")
     assert j == t
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get_config("qwen2-moe-a2.7b")
+        tconfigs.get_config("xlstm-1.3b")
 
 
 def test_bank_matches_jax(pair):

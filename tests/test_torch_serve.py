@@ -102,11 +102,17 @@ def test_cli_runs_on_cpu(extra, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch", "granite-moe-1b-a400m"], ["--arch", "paligemma-3b"],
+    ["--arch", "roberta-large"], ["--arch", "paligemma-3b"],
     ["--arch", "qwen2-moe-a2.7b"], ["--arch", "whisper-medium"],
     ["--arch", "xlstm-1.3b"]])
-def test_cli_unported_flags_raise(flags):
-    """--arch values whose block kinds the port does not run yet raise."""
+def test_cli_unported_flags_raise(flags, capsys):
+    """--arch values whose block kinds the port does not run yet raise;
+    the MoE family, ported since, serves (the case keeps its place)."""
+    if flags[1] in tconfigs.ARCHS:
+        seq = tserve.main(_CLI + flags)
+        assert tuple(seq.shape) == (2, 6)
+        assert f"# {flags[1]} banked decode" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tserve.main(_CLI + flags)
 

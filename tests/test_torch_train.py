@@ -379,9 +379,8 @@ def test_trainer_rejects_unported_modes(small):
                                batch_per_client=1)
     kw = dict(lora_cfg=tbase.LoRAConfig(), fed_cfg=tbase.FederatedConfig(
         num_clients=2), opt_cfg=tbase.OptimizerConfig(), device="cpu")
-    for extra in ({"data_mode": "device"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tfed.FederatedTrainer(model, ds, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tfed.FederatedTrainer(model, ds, **kw, mesh=object())
 
 
 # ---------------------------------------------------------------------- CLI
@@ -400,12 +399,12 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    # the id names the case before the hybrid trained; xLSTM's recurrent
-    # family is still unported
+    # the ids name the cases before the hybrid, device data and the MoE
+    # family were ported; xLSTM, whisper and paligemma are still unported
     pytest.param(["--arch", "xlstm-1.3b"], id="--arch-hybrid"),
     ["--mesh", "4x2"],
-    ["--data-mode", "device"],
-    ["--arch", "qwen2-moe-a2.7b"],
+    pytest.param(["--arch", "whisper-medium"], id="--data-mode"),
+    pytest.param(["--arch", "paligemma-3b"], id="--arch"),
 ], ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
