@@ -155,10 +155,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      "device" at N = 16 over a Dirichlet partition, 4 rounds in chunks of
      2 (#9, #10, #7, #8, #11, #12 counted, two kernel-tier runs and a
      resume after round 2 bit for bit, the plain tier within 1e-3)
+ 25. xlstm-1.3b at full width and depth (48 layers alternating mLSTM and
+     sLSTM, d_model 2048, 1.21 B parameters, fp32), every earlier model
+     freed first: generate_banked (48 of #2 per prefill, 48 of #1 per
+     decode step: q and v of the 24 mLSTM layers), serve_scheduled over
+     fp32 (fresh per-slot mLSTM and sLSTM state at each admission; no #13,
+     nothing packed) and the training path (48 of each of #5-#8 per
+     client local step; XLSTM_TRAIN), with peak memory and profiles
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
 """
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -595,8 +603,13 @@ def _n_adapted(bank):
             + len(tree_leaves(stack.get("tail", {})))) // 2
 
 
-# each block kind's own GEMM projections, and the MLP's
-OWN_PROJ = {"attn": ("q", "k", "v", "o"), "rglru": ("wx", "wy")}
+# each block kind's own GEMM projections that core/quant packs, and the
+# MLP's; an xLSTM block packs none and has no MLP, and of its projections
+# only the mLSTM's q, k and v take an adapter through dispatch (its o and
+# ogate are plain matmuls, as in the JAX package)
+OWN_PROJ = {"attn": ("q", "k", "v", "o"), "rglru": ("wx", "wy"),
+            "mlstm": (), "slstm": ()}
+ADAPTED_ONLY = {"mlstm": ("q", "k", "v")}
 MLP_PROJ = ("w_gate", "w_up", "w_down")
 
 
@@ -606,17 +619,21 @@ def _proj_counts(cfg):
     without a LoRA target, and those of layer 0 without one that read the
     embedding (no gradient reaches it, so #12 skips them).  The RG-LRU
     block's w_a, w_i and w_out are never packed, nor is the MoE block's
-    router or experts (gemma-2b: 36, 90, 1; recurrentgemma-9b: 76, 138, 0;
-    the MoE archs: 48, 48, 1)."""
+    router or experts, nor any xLSTM projection; the mLSTM's q and v count
+    as adapted (gemma-2b: 36, 90, 1; recurrentgemma-9b: 76, 138, 0; the MoE
+    archs: 48, 48, 1; xlstm-1.3b: 48, 0, 0)."""
     mlp = (() if cfg.moe is not None else MLP_PROJ
            if cfg.mlp_variant in ("geglu", "swiglu") else MLP_PROJ[1:])
     adapted = unadapted = 0
     for kind in _layer_kinds(cfg):
-        for proj in OWN_PROJ[kind] + mlp:
+        for proj in OWN_PROJ[kind] + (mlp if kind in ("attn", "rglru")
+                                      else ()):
             if proj in cfg.lora_targets:
                 adapted += 1
             else:
                 unadapted += 1
+        adapted += sum(p in cfg.lora_targets
+                       for p in ADAPTED_ONLY.get(kind, ()))
     first = _layer_kinds(cfg)[0]
     reads_input = [p for p in OWN_PROJ[first] if p != "o"]
     return adapted, unadapted, sum(p not in cfg.lora_targets
@@ -648,6 +665,121 @@ def _routing(log, replay=None):
         yield log
     finally:
         transformer.moe_apply = orig
+
+
+# The xLSTM family at full depth on seeded random weights amplifies
+# rounding about 1.3x a layer: the plain tier against itself, the embedding
+# scaled by 1 + 1e-7, moves the prefill's logits by O(1) (run_path prints
+# it).  No end-to-end comparison of two tiers can hold such a model to
+# LOGIT_ATOL, so for these families the plain tier is pinned to the kernel
+# tier layer by layer, as the MoE paths replay the router's choices: each
+# block takes the kernel tier's input to it in value (the gradient still
+# reaches the block before), and each block's output is held against the
+# kernel tier's within PIN_RTOL of max(1, max|output|).  Each block's own
+# kernel error is what stays.
+PINNED_FAMILIES = ("ssm",)
+PIN_RTOL = 1e-3
+
+
+class _Pinned(torch.autograd.Function):
+    """``value`` in the forward; the gradient passes to ``x`` unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@contextlib.contextmanager
+def _pinning(cfg, log, replay=None):
+    """For a family of PINNED_FAMILIES (else a no-op), every block call
+    (``transformer.apply_block``) appends to ``log``: its input and output,
+    or, under ``replay`` (the kernel tier's log of the same calls), the
+    call takes that log's input and appends its output's max |difference|
+    from the logged output and the logged output's max |value| (device
+    scalars: no host sync)."""
+    if cfg.family not in PINNED_FAMILIES:
+        yield log
+        return
+    orig = transformer.apply_block
+
+    def wrapped(cfg_, kind, p, x, **kw):
+        if replay is not None:
+            value = replay[len(log)][0]
+            x = _Pinned.apply(x, value) if x.requires_grad else value
+        out = orig(cfg_, kind, p, x, **kw)
+        y = out[0].detach()
+        if replay is None:
+            log.append((x.detach().clone(), y.clone()))
+        else:
+            want = replay[len(log)][1]
+            log.append(((y - want).abs().amax(), want.abs().amax()))
+        return out
+
+    transformer.apply_block = wrapped
+    try:
+        yield log
+    finally:
+        transformer.apply_block = orig
+
+
+def _pin_report(label, log):
+    """Print and check a pinned plain-tier log: the worst block output's
+    max |difference| from the kernel tier's, relative to max(1,
+    max|output|).  Returns it (0.0 for a log that is empty: no pinning)."""
+    if not log:
+        return 0.0
+    diff = torch.stack([d for d, _ in log])
+    rel = diff / torch.stack([s for _, s in log]).clamp_min(1.0)
+    worst = int(rel.argmax())
+    print(f"pinned blocks, {label}: {len(log)} block calls, worst "
+          f"|diff| {float(rel[worst]):.3e} of max(1, max|output|) at call "
+          f"{worst} (absolute {float(diff[worst]):.3e}; median "
+          f"{float(rel.median()):.3e}), tolerance {PIN_RTOL}")
+    assert float(rel[worst]) <= PIN_RTOL, (label, float(rel[worst]))
+    return float(rel[worst])
+
+
+def _pin_control(model, params, adapters, prompt, max_len, pin_k):
+    """The pinned check's control, at full depth: the plain tier's prefill
+    pinned to the kernel tier's blocks (``pin_k``, whose first calls are
+    the prefill's), with the LoRA term of the last adapted layer dropped
+    (its B zeroed), where the residual stream, and so the check's absolute
+    tolerance, is largest.  That block must fail the check."""
+    cfg = model.cfg
+    period = len(cfg.block_pattern)
+    layer = max(i for i, k in enumerate(_layer_kinds(cfg))
+                if k in ADAPTED_ONLY)
+    rep, pos = divmod(layer, period)
+
+    def drop(t):
+        if set(t) == {"a", "b"}:
+            b = t["b"].clone()
+            b[:, rep] = 0
+            return {"a": t["a"], "b": b}
+        return {k: drop(v) for k, v in t.items()}
+
+    stack = adapters.lora["stack"]
+    repeat = dict(stack["repeat"], **{f"p{pos}": drop(
+        stack["repeat"][f"p{pos}"])})
+    dropped = dataclasses.replace(
+        adapters, lora=dict(adapters.lora, stack=dict(stack, repeat=repeat)))
+    with (torch.inference_mode(), dispatch.plain_tier(),
+          _pinning(cfg, [], replay=pin_k) as log):
+        model.prefill(params, model.init_cache(prompt.shape[0], max_len,
+                                               device=prompt.device),
+                      prompt, dropped, last_only=True)
+    diff, scale = (float(v) for v in log[layer])
+    rel = diff / max(1.0, scale)
+    print(f"pinned check's control: the plain tier's prefill with layer "
+          f"{layer}'s adapter dropped differs at that block by "
+          f"{rel:.3e} of max(1, max|output|) (absolute {diff:.3e}, max "
+          f"|output| {scale:.3f}), {rel / PIN_RTOL:.1f}x the tolerance")
+    assert rel > PIN_RTOL, ("the pinned check misses a dropped adapter",
+                            rel)
 
 
 def _routing_report(label, kern, plain, k):
@@ -768,14 +900,20 @@ def run_path(name, cfg, device, *, steps=32, plen=128, quant=None):
                     out.append(lg[:, -1])
         return torch.stack(out, 1)[..., :cfg.vocab_size]
 
-    with _routing([]) as log_k:
+    with _routing([]) as log_k, _pinning(cfg, []) as pin_k:
         kern_logits = forced(False)
-    with _routing([], replay=log_k) as log_p:
+    with (_routing([], replay=log_k) as log_p,
+          _pinning(cfg, [], replay=pin_k) as pin_p):
         plain_logits = forced(True)
     if cfg.moe is not None:
         _routing_report("teacher-forced prefill and decode", log_k, log_p,
                         cfg.moe.top_k)
-    del log_k, log_p
+    if pin_k:
+        _pin_report("teacher-forced prefill and decode", pin_p)
+        _pin_control(model, params, bank.gather(ids), prompt, max_len, pin_k)
+        _amplification(model, params, bank, ids, prompt, kern_logits,
+                       forced(True))
+    del log_k, log_p, pin_k, pin_p
     per_step = (kern_logits - plain_logits).abs().amax(dim=(0, 2))
     scale = float(plain_logits.abs().max())
     print(f"teacher-forced logits, kernel vs plain tier over {steps} steps: "
@@ -808,8 +946,40 @@ def run_path(name, cfg, device, *, steps=32, plen=128, quant=None):
     return launches
 
 
-def _profiled(fn):
-    """(host wall seconds, device events) of ``fn()`` under torch.profiler."""
+def _amplification(model, params, bank, ids, prompt, kern_logits, free):
+    """What pinning sets aside, printed for the record: the plain tier run
+    free (``free``, its teacher-forced logits) against the kernel tier's,
+    and the plain tier's prefill against itself with the embedding scaled
+    by 1 + 1e-7 (one fp32 rounding step of a value near 1)."""
+    cfg = model.cfg
+    dev = prompt.device
+    out = []
+    with torch.inference_mode(), dispatch.plain_tier():
+        for scale in (1.0, 1.0 + 1e-7):
+            p = dict(params, embed=params["embed"] * scale)
+            cache = model.init_cache(prompt.shape[0], prompt.shape[1],
+                                     device=dev)
+            lg, _ = model.prefill(p, cache, prompt, bank.gather(ids))
+            out.append(lg[..., :cfg.vocab_size])
+    print(f"unpinned, for the record: plain tier vs kernel tier, teacher-"
+          f"forced logits max |diff| "
+          f"{float((free - kern_logits).abs().max()):.3e}; plain tier vs "
+          f"itself with the embedding x (1 + 1e-7), prefill logits max "
+          f"|diff| {float((out[1] - out[0]).abs().max()):.3e} (max |logit| "
+          f"{float(out[0].abs().max()):.3f})")
+
+
+_DeviceEvent = collections.namedtuple("_DeviceEvent", "name time_range")
+
+
+def _profiled(fn, check_reader=False):
+    """(host wall seconds, device events) of ``fn()`` under torch.profiler.
+    The events are read from the profiler's raw trace as (name,
+    time_range) records, in us: building its FunctionEvents takes minutes
+    for the 219 k kernels of an xLSTM local step.  ``check_reader``: also
+    build them, and check that both readers give the same device events
+    and busy time."""
+    from torch.autograd.profiler_util import Interval
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -818,8 +988,22 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    raw = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    base = min((e.start_ns() for e in raw), default=0)
+    events = [_DeviceEvent(e.name(), Interval((e.start_ns() - base) / 1e3,
+                                              (e.end_ns() - base) / 1e3))
+              for e in raw]
+    if check_reader:
+        old = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, busy_old = _busy_us(events), _busy_us(old)
+        print(f"profiler readers: raw trace {len(events)} device events, "
+              f"{busy:.3f} us busy; FunctionEvents {len(old)}, "
+              f"{busy_old:.3f} us")
+        assert len(old) == len(events), (len(old), len(events))
+        assert abs(busy - busy_old) <= 1e-6 * busy_old, (busy, busy_old)
+    return wall, events
 
 
 def where_time_goes(model, params, adapters, prompt, seq, n_steps=4):
@@ -848,7 +1032,9 @@ def where_time_goes(model, params, adapters, prompt, seq, n_steps=4):
     with torch.inference_mode():
         for label, fn, per in (("prefill", prefill, 1),
                                ("decode", decode, n_steps)):
-            _print_profile(label, *_profiled(fn), per,
+            # the decode window (a few thousand kernels) also checks the
+            # raw-trace reader against torch's FunctionEvents
+            _print_profile(label, *_profiled(fn, check_reader=per > 1), per,
                            "prefill" if per == 1 else "step")
 
 
@@ -1092,7 +1278,7 @@ def time_lora_kernels(k=2048, projs=(("q", 2048), ("v", 256))):
 
 def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
                local_steps=2, batch=4, seq=128, rounds=3, params=None,
-               track_stability=False):
+               track_stability=False, b0=None):
     """FederatedTrainer through the user's entry points (as
     ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
     int8 / int4, group 64) one packed by ``quantize_tree`` (or ``params``
@@ -1103,7 +1289,10 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     written after round ``rounds - 1`` repeats the last round bit for bit.
     ``params``: the fp32 base (default: drawn from seed 0, as
     :func:`train_base` draws it).  ``track_stability``: the trainers
-    record update_norm (phase 21 compares against it).  Returns the launch
+    record update_norm (phase 21 compares against it).  ``b0``: every
+    trainer starts from B drawn at that std (seed 1) instead of init_lora's
+    zero B, so that the first step's rank terms of #5-#7 are not zero, and
+    gamma (xA^T)B^T reaches the loss.  Returns the launch
     counts, the second run's ms/round, and that run's history, adapters,
     optimizer state and (``track_stability``) ``stability_report()``."""
     base_name = quant or "fp32"
@@ -1126,10 +1315,14 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     def trainer():
         ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
                               batch_per_client=batch, seed=0)
-        return federated.FederatedTrainer(
+        tr = federated.FederatedTrainer(
             model, ds, lora_cfg=lcfg, fed_cfg=fcfg, opt_cfg=ocfg, seed=0,
             base_params=params, device=device,
             track_stability=track_stability)
+        if b0 is not None:
+            tr.lora = _nonzero_b(tr.lora,
+                                 torch.Generator(device).manual_seed(1), b0)
+        return tr
 
     def b_max(tr):
         return max(float(t.abs().max())
@@ -1152,7 +1345,8 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     _sync(device)
     print(f"init {time.monotonic() - t0:.1f} s; gamma = alpha*sqrt(N/r) = "
           f"{trainer().gamma:.4f}; {clients} clients x {local_steps} local "
-          f"steps x batch {batch} x seq {seq} per round, {rounds} rounds")
+          f"steps x batch {batch} x seq {seq} per round, {rounds} rounds"
+          + ("" if b0 is None else f"; B drawn at std {b0} at the start"))
     if quant is not None:
         fq = quant_footprint(params)
         print(f"base GEMM weights: {fq['base_bytes'] / 1e9:.4f} GB {quant} "
@@ -1165,7 +1359,7 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
         torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     dispatch.reset_stats()
-    with _routing([]) as log_k:
+    with _routing([]) as log_k, _pinning(cfg, []) as pin_k:
         ms1 = run(tr1)
     ppl = tr1.eval_perplexity()
     _sync(device)
@@ -1245,14 +1439,16 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
 
     # the plain tier on the same device
     _reset_launches()
-    with dispatch.plain_tier(), _routing([], replay=log_k) as log_p:
+    with (dispatch.plain_tier(), _routing([], replay=log_k) as log_p,
+          _pinning(cfg, [], replay=pin_k) as pin_p):
         tr3 = trainer()
         run(tr3)
     assert not any(_launch_counts().values()), _launch_counts()
     if cfg.moe is not None:
         _routing_report(f"{rounds} training rounds", log_k, log_p,
                         cfg.moe.top_k)
-    del log_k, log_p
+    _pin_report(f"{rounds} training rounds (forward)", pin_p)
+    del log_k, log_p, pin_k, pin_p
     worst = 0.0
     for hk, hp in zip(tr1.history, tr3.history):
         for key in ("loss", "grad_norm"):
@@ -1690,9 +1886,10 @@ def sched_path(name, model, params, bank, mode, profile=True):
     base = params if mode == "fp32" else apply_quant_flag(params, mode,
                                                           QUANT_GROUP)
     fq = quant_footprint(base)
+    ratio = (f" ({fq['base_fp_bytes'] / fq['base_bytes']:.2f}x)"
+             if fq["base_bytes"] else " (no eligible GEMM weight)")
     print(f"base GEMM weights: {fq['base_bytes'] / 1e9:.4f} GB {mode}, "
-          f"{fq['base_fp_bytes'] / 1e9:.4f} GB fp32 "
-          f"({fq['base_fp_bytes'] / fq['base_bytes']:.2f}x); whole tree "
+          f"{fq['base_fp_bytes'] / 1e9:.4f} GB fp32{ratio}; whole tree "
           f"{fq['total_bytes'] / 1e9:.4f} GB")
     rng = np.random.default_rng(7)
     prompts = rng.integers(0, cfg.vocab_size, (sc["n_req"], sc["plen"]))
@@ -1726,7 +1923,7 @@ def sched_path(name, model, params, bank, mode, profile=True):
     _reset_launches()
     dispatch.reset_stats()
     serve.reset_timeout_meter()
-    with _routing([]) as log_k:
+    with _routing([]) as log_k, _pinning(cfg, []) as pin_k:
         done = run()
     _sync(device)
     launches = _launch_counts()
@@ -1786,14 +1983,20 @@ def sched_path(name, model, params, bank, mode, profile=True):
           f"{sc['max_batch']} slots")
 
     # the plain tier: no kernel, and each wave equals generate_banked on it
-    # (a dense model: an MoE router's capacity couples the requests of a
-    # decode batch, and a deadline's idle slot changes that batch, so the
-    # MoE archs hold the scheduled tokens against the plain tier's instead,
-    # the plain tier dispatching to the kernel tier's experts)
+    # (a dense or xLSTM model: an MoE router's capacity couples the
+    # requests of a decode batch, and a deadline's idle slot changes that
+    # batch, so the MoE archs hold the scheduled tokens against the plain
+    # tier's instead, the plain tier dispatching to the kernel tier's
+    # experts; a pinned family holds them against a second plain-tier run
+    # pinned to the kernel tier's blocks)
     _reset_launches()
     with dispatch.plain_tier():
         with _routing([], replay=log_k) as log_p:
             plain = run()
+        if pin_k:
+            # the kernel tier's tokens against the pinned plain tier's
+            with _pinning(cfg, [], replay=pin_k) as pin_p:
+                pinned = run()
         if cfg.moe is None:
             waves = [serve.generate_banked(
                 model, base, bank, ids[w:w + 4],
@@ -1810,8 +2013,12 @@ def sched_path(name, model, params, bank, mode, profile=True):
         print("plain tier: each wave's tokens equal generate_banked on that "
               f"wave bit for bit (the deadline request: its first "
               f"{sc['deadline']} tokens)")
-    else:
-        _routing_report("scheduled run", log_k, log_p, cfg.moe.top_k)
+    if cfg.moe is not None or pin_k:
+        if cfg.moe is not None:
+            _routing_report("scheduled run", log_k, log_p, cfg.moe.top_k)
+        else:
+            _pin_report("scheduled run", pin_p)
+            plain = pinned
         # the teacher-forced waves below take the kernel tier's scheduled
         # tokens (the deadline's cut request padded with token 0)
         fixed = np.zeros((sc["n_req"], sc["steps"]), np.int64)
@@ -1825,26 +2032,29 @@ def sched_path(name, model, params, bank, mode, profile=True):
               + "".join(f"; request {rid} parts at token {t}"
                         for rid, t in parted))
         assert not parted, parted
-    del log_k, log_p
+    del log_k, log_p, pin_k
 
     # kernel tier vs plain tier: teacher-forced logits on the plain tokens
     worst, ties = 0.0, []
     for w in (0, 4):
         p_t = torch.as_tensor(prompts[w:w + 4], device=device)
         toks = torch.as_tensor(fixed[w:w + 4], device=device)
-        with _routing([]) as log_k:
+        with _routing([]) as log_k, _pinning(cfg, []) as pin_k:
             lk = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks,
                                False)
-        with _routing([], replay=log_k) as log_p:
+        with (_routing([], replay=log_k) as log_p,
+              _pinning(cfg, [], replay=pin_k) as pin_p):
             lp = _forced_paged(model, base, bank, ids[w:w + 4], p_t, toks,
                                True)
         worst = max(worst, float((lk - lp).abs().max()))
-        if cfg.moe is not None:
-            _routing_report(f"teacher-forced wave {w // 4 + 1}", log_k,
-                            log_p, cfg.moe.top_k)
-            del lk, lp, log_k, log_p
+        if cfg.moe is not None or pin_k:
+            if cfg.moe is not None:
+                _routing_report(f"teacher-forced wave {w // 4 + 1}", log_k,
+                                log_p, cfg.moe.top_k)
+            _pin_report(f"teacher-forced wave {w // 4 + 1}", pin_p)
+            del lk, lp, log_k, log_p, pin_k, pin_p
             continue
-        del log_k, log_p
+        del log_k, log_p, pin_k, pin_p
         assert torch.equal(lp.argmax(-1).cpu(), toks.cpu()), \
             "teacher-forced plain tier does not reproduce its tokens"
         for i in range(4):
@@ -3521,6 +3731,49 @@ def granite_paths(name):
     _peak("granite-moe scheduled serving and device-data training", dev)
 
 
+# ------------------------------------------------- 25. the xLSTM family
+
+XLSTM = get_config("xlstm-1.3b")
+# training: 4 clients x 1 local step of 4 x 128, one round (a local step
+# runs the sLSTM's 128-step loop forward and back in 24 layers, seconds on
+# the host).  One round: at random init the 48-layer stack's gradient norm
+# is O(1e5) (it grows with depth, in the JAX package as here), so a round of
+# SGD at lr 5e-3 throws B to O(100), and a second round would hold two
+# tiers whose adapters already part, not the kernels.  So that the one
+# compared step runs every rank term (a zero B zeroes #5's and #6's and all
+# of #7), B starts at std 0.02, as the serving tenants' does.
+XLSTM_TRAIN = dict(local_steps=1, rounds=1, b0=0.02)
+
+
+def xlstm_paths(name):
+    """xlstm-1.3b at full width and depth (48 layers, d_model 2048, 4 heads
+    of 512; 1.21 B parameters, 4.84 GB fp32; seeded random weights), every
+    earlier model freed first: generate_banked (48 of #2 per prefill, 48
+    of #1 per decode step), serve_scheduled over the fp32 base (per-slot
+    mLSTM and sLSTM state drawn fresh at each admission; no #13, nothing
+    packed; not profiled: run_path profiles the same prefill and decode),
+    and training (train_path: 48 of each of #5-#8 per client local step;
+    XLSTM_TRAIN), with peak memory."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    run_path(name, XLSTM, dev)
+    _peak("xlstm-1.3b fixed-batch serving", dev)
+    _free()
+    model, params, bank = serving_model(XLSTM, dev)
+    sched_path(name, model, params, bank, "fp32", profile=False)
+    _peak("xlstm-1.3b scheduled serving", dev)
+    del model, bank
+    _free()
+    # serving_model draws the base first from seed 0, as train_base does
+    launches, _, _ = train_path(name, XLSTM, dev, params=params,
+                                **XLSTM_TRAIN)
+    del params
+    _free()
+    _peak("xlstm-1.3b training", dev)
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 def _free():
@@ -3603,6 +3856,7 @@ def main():
     _free()
     qwen_moe_paths(name)
     granite_paths(name)
+    xlstm_paths(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

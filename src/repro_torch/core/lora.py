@@ -79,8 +79,9 @@ def lora_tree_for_model(model, generator: torch.Generator, lora_cfg, *,
                         device="cuda"):
     """LoRA tree from the model config alone, without drawing base weights
     (the JAX package does this with ``eval_shape``): the targeted
-    projections of every block (attention q/k/v/o, RG-LRU wx/wy), as
-    zero-stride stand-ins that carry only shape, dtype and device."""
+    projections of every block (attention and mLSTM q/k/v/o, RG-LRU
+    wx/wy; the sLSTM has none), as zero-stride stand-ins that carry only
+    shape, dtype and device."""
     from repro_torch import resolve_device
     from repro_torch.models.transformer import stack_layout
     cfg = model.cfg
@@ -89,7 +90,10 @@ def lora_tree_for_model(model, generator: torch.Generator, lora_cfg, *,
     d, dr = cfg.d_model, cfg.rglru_d_state or cfg.d_model
     proj = {"attn": {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim),
                      "v": (d, cfg.kv_dim), "o": (cfg.q_dim, d)},
-            "rglru": {"wx": (d, dr), "wy": (d, dr)}}
+            "rglru": {"wx": (d, dr), "wy": (d, dr)},
+            "mlstm": {"q": (d, cfg.q_dim), "k": (d, cfg.q_dim),
+                      "v": (d, cfg.q_dim), "o": (cfg.q_dim, d)},
+            "slstm": {}}
 
     def block(kind, lead):
         return {kind: {k: zero.expand(lead + s)

@@ -176,7 +176,9 @@ def dequantize(q: QuantizedLinear) -> torch.Tensor:
 # weights that route through kernels/dispatch.lora_linear
 # (the JAX package's list).  The MoE block's leaves sit under "moe" and
 # none is listed: over --quant the router, the expert stacks and the shared
-# experts stay fp, as in JAX, and only q / k / v / o are packed
+# experts stay fp, as in JAX, and only q / k / v / o are packed.  Neither
+# xLSTM block ("mlstm", "slstm") is listed either, so --quant packs no leaf
+# of xlstm-1.3b (d_ff 0, no MLP), as in JAX
 ELIGIBLE = {
     "attn": ("q", "k", "v", "o"),
     "cross": ("q", "k", "v", "o"),

@@ -2,7 +2,8 @@
 forward / loss / init_cache / prefill / decode_step.
 
 The port of ``repro/models/api.py`` for dense decoders, the MoE family
-(qwen2-moe, granite-moe) and the RG-LRU hybrid family (recurrentgemma).  As in the JAX
+(qwen2-moe, granite-moe), the RG-LRU hybrid family (recurrentgemma) and
+the xLSTM family (``ssm``: xlstm-1.3b).  As in the JAX
 package the embedding is not scaled by sqrt(d_model), the head is tied
 (``embed.T``) unless the config says otherwise, and the vocabulary is
 padded to a multiple of 256 (``pad_vocab``).
@@ -27,7 +28,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 class Model:
@@ -103,8 +104,8 @@ class Model:
 
     def loss(self, params, batch, adapters=None, *, chunked_ce=False):
         """Next-token cross-entropy over the text segment (+ the aux loss:
-        the MoE router's, summed over layers, 0 for the dense and RG-LRU
-        blocks): returns (loss, {"ce", "aux"}), as the JAX package's
+        the MoE router's, summed over layers, 0 for the dense, RG-LRU
+        and xLSTM blocks): returns (loss, {"ce", "aux"}), as the JAX package's
         decoder branch does; the gradient takes both terms.  The logsumexp runs in fp32 over the
         padded vocabulary.  ``adapters``: None or an AdapterSet; gradients
         reach its A/B leaves through the LoRA matmul Function.

@@ -1,12 +1,14 @@
 """Block-stack transformer machinery.
 
 The port of ``repro/models/transformer.py`` for the ``"attn"`` block
-(attention + MLP, or + the MoE MLP when ``cfg.moe`` is set) and the RG-LRU
-``"rglru"`` block (recurrent temporal mix + MLP, the hybrid family).
+(attention + MLP, or + the MoE MLP when ``cfg.moe`` is set), the RG-LRU
+``"rglru"`` block (recurrent temporal mix + MLP, the hybrid family) and the
+xLSTM blocks ``"mlstm"`` and ``"slstm"`` (a norm and the mixer, no MLP).
 Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail": {...}}``,
 with the leading layer dim on repeat leaves, so carrying weights across is
 a plain copy.  Where JAX scans over the layer dim, this module
-loops over it in Python.  Other block kinds are not ported yet and raise.
+loops over it in Python.  Other block kinds (``"xattn"``) are not ported
+yet and raise.
 
   init_block(cfg, generator, kind)                -> params
   apply_block(..., mode="fullseq")                -> (x, aux)
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (attention_decode,
                                           attention_decode_paged,
                                           attention_fullseq,
@@ -35,14 +38,16 @@ from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_params,
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.tree import tree_leaves, tree_map
 
-KINDS = ("attn", "rglru")
+KINDS = ("attn", "rglru", "mlstm", "slstm")
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
 def _check_kind(cfg, kind: str):
-    if kind not in KINDS or (kind == "rglru" and cfg.moe is not None):
+    if kind not in KINDS or (kind != "attn" and cfg.moe is not None):
         raise NotImplementedError(
             f"block '{kind}' is not yet ported to repro_torch (only the "
-            "'attn' block, dense or MoE, and the 'rglru' block are)")
+            "'attn' block, dense or MoE, and the 'rglru', 'mlstm' and "
+            "'slstm' blocks are)")
 
 
 # ---------------------------------------------------------------- block init
@@ -53,6 +58,11 @@ def init_block(cfg, generator, kind: str, *, lead=()):
     d = cfg.d_model
     dev = generator.device
     p = dict(norm_params(cfg, d, "ln1", device=dev, lead=lead))
+    if kind in XLSTM_KINDS:
+        # an xLSTM block is its norm and its mixer: no ln2, no MLP
+        params_fn = getattr(xlstm_mod, f"{kind}_params")
+        p[kind] = params_fn(cfg, generator, lead=lead)
+        return p
     if kind == "rglru":
         p["rglru"] = rglru_mod.rglru_params(cfg, generator, lead=lead)
     else:
@@ -70,6 +80,9 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype, *,
     _check_kind(cfg, kind)
     if kind == "rglru":
         return rglru_mod.rglru_init_cache(cfg, batch, dtype, device=device)
+    if kind in XLSTM_KINDS:
+        init = getattr(xlstm_mod, f"{kind}_init_cache")
+        return init(cfg, batch, dtype, device=device)
     return init_kv_cache(cfg, batch, max_len, dtype, device=device)
 
 
@@ -96,19 +109,25 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
     filled as the token-by-token decode would have), "decode" (one token
     against the cache).  Prefill and decode return (x, aux, cache);
     fullseq returns (x, aux).  ``aux`` is the MoE router's load-balance
-    loss in every mode, and 0.0 for the dense and RG-LRU blocks.
+    loss in every mode, and 0.0 for the dense, RG-LRU and xLSTM blocks.
 
     A paged attention cache (``k_pool`` leaves instead of per-request ``k``
     rings) takes the paged prefill / decode and requires ``table``: in
     prefill the block table (b, blocks_per_req) int32, in decode the step's
     :class:`~repro_torch.models.attention.PagedDecode` (which
     :func:`decode_stack` builds once for all layers).  A ring cache, and
-    an RG-LRU block's per-slot state, ignore it."""
+    an RG-LRU or xLSTM block's per-slot state, ignore it.  An xLSTM block
+    returns right after its mixer's residual (no ln2, no MLP)."""
     _check_kind(cfg, kind)
     adapters = adapters or {}
     h1 = apply_norm(cfg, x, p, "ln1")
     if mode not in ("fullseq", "prefill", "decode"):
         raise ValueError(f"unknown mode '{mode}'")
+    if kind in XLSTM_KINDS:
+        a, cache = _xlstm_mix(cfg, kind, p[kind], h1, adapters.get(kind),
+                              mode, cache)
+        x = x + a
+        return (x, 0.0) if mode == "fullseq" else (x, 0.0, cache)
     if kind == "rglru":
         a, cache = _rglru_mix(cfg, p["rglru"], h1, adapters.get("rglru"),
                               mode, cache)
@@ -157,6 +176,14 @@ def _rglru_mix(cfg, p, h1, adapters, mode, cache):
                                              adapters=adapters)
     return rglru_mod.rglru_apply_decode(cfg, p, h1, cache,
                                         adapters=adapters)
+
+
+def _xlstm_mix(cfg, kind, p, h1, adapters, mode, cache):
+    if mode == "fullseq":
+        fn = getattr(xlstm_mod, f"{kind}_apply_fullseq")
+        return fn(cfg, p, h1, adapters), None
+    fn = getattr(xlstm_mod, f"{kind}_apply_{mode}")
+    return fn(cfg, p, h1, cache, adapters=adapters)
 
 
 # ---------------------------------------------------------------- the stack
@@ -255,8 +282,9 @@ def _map_paged_cache(cache, view, fn_pool, fn_leaf):
 
 def paged_prefill_view(cfg, cache, batch, dtype, *, device):
     """Admission view: the engine's pools, and fresh per-slot state for a
-    ``batch``-request newcomer group (zero recurrences and conv tails,
-    exactly what a fresh fixed-batch cache holds).  A dense stack has no
+    ``batch``-request newcomer group (zero recurrences and conv tails, the
+    xLSTM's -1e30 stabilizers and 1e-6 sLSTM normaliser: exactly what a
+    fresh fixed-batch cache holds).  A dense stack has no
     per-slot leaves, so its view is the engine cache's own pools."""
     out = {}
     for part, layers in cache.items():

@@ -7,6 +7,8 @@ max|plain|); both accumulate in fp32 (bf16 inputs are upcast exactly), only
 the order of the sums differs.  A bf16 output (#13 over bf16 pools) may in
 addition sit one bf16 rounding step (2^-7 of |plain|) away: both round fp32
 values that differ in their last bits."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -1317,3 +1319,147 @@ def test_device_data_draws_on_card_without_host_sync(card):
     assert 0 <= int(toks.min()) and int(toks.max()) < 256
     gen.set_state(state)
     assert torch.equal(dd.sample_round(gen, 2), toks)
+
+
+# -------------------------------------------------------------- xLSTM
+
+# model-level bounds, as chip_smoke.py's LOGIT_ATOL and TRAIN_RTOL: the
+# tiers differ in the order of the adapted projections' sums, and the
+# sLSTM's recurrence carries that difference through 128 steps
+XLSTM_ATOL = 1e-3
+
+
+def _xlstm_card(rank=8):
+    """xlstm-1.3b at full width with one mLSTM and one sLSTM layer (seeded
+    random weights on the card) and 4 SFed-LoRA tenants of ``rank``, A and
+    B perturbed so that B is not zero."""
+    import dataclasses
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import AdapterBank, init_adapter_set
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    sets = []
+    for _ in range(4):
+        s = init_adapter_set(params, gen, LoRAConfig(rank=rank, alpha=8.0),
+                             n_clients=4)
+        sets.append(dataclasses.replace(s, lora=tree_map(
+            lambda t: t + 0.02 * torch.randn(t.shape, generator=gen,
+                                             device="cuda"), s.lora)))
+    return model, params, sets
+
+
+def _tokens_on_card(shape, seed):
+    return torch.randint(0, 50304, shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def _close_to(got, want, atol):
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= atol * scale
+
+
+@pytest.mark.cuda
+def test_xlstm_serving_kernel_tier_matches_plain(card):
+    """A 128-token prefill and 4 teacher-forced decode steps over a bank of
+    4 tenants: 2 launches of #2 (q, v of the mLSTM) in the prefill and 2 of
+    #1 a step on the kernel tier, none on the plain tier; logits within
+    1e-3 and every cache leaf (fp32) within 1e-4 of the plain tier's."""
+    from repro_torch.core.lora import AdapterBank
+    model, params, sets = _xlstm_card()
+    bank = AdapterBank.from_sets(sets)
+    ids = torch.arange(4, device="cuda", dtype=torch.int32)
+    prompt = _tokens_on_card((4, 128), 1)
+    forced = _tokens_on_card((4, 4), 2)
+    out = {}
+    for plain in (False, True):
+        bgmv.reset_launches()
+        with torch.inference_mode(), (dispatch.plain_tier() if plain
+                                      else contextlib.nullcontext()):
+            adapters = bank.requests(ids)
+            cache = model.init_cache(4, 132, device="cuda")
+            lg, cache = model.prefill(params, cache, prompt, adapters,
+                                      last_only=True)
+            logits = [lg[:, -1]]
+            for t in range(4):
+                pos = torch.full((4,), 128 + t, device="cuda")
+                lg, cache = model.decode_step(params, cache,
+                                              forced[:, t:t + 1], pos,
+                                              adapters)
+                logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bgmv.launches.items() if v}
+        assert launches == ({} if plain else
+                            {"bgmv_matmul": 2, "bgmv_gemv": 8}), launches
+        out[plain] = (torch.stack(logits, 1), cache)
+    (lk, ck), (lp, cp) = out[False], out[True]
+    _close_to(lk, lp, XLSTM_ATOL)
+    for key in ck["repeat"]:
+        for leaf in ck["repeat"][key]:
+            got, want = ck["repeat"][key][leaf], cp["repeat"][key][leaf]
+            assert got.dtype == torch.float32
+            _close_to(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_xlstm_lora_gradient_step_kernel_tier_matches_plain(card):
+    """One LoRA gradient step (4 x 128 tokens, rank 64): #5-#8 launch twice
+    each (q and v of the mLSTM) on the kernel tier, never on the plain
+    tier; loss and the q / v gradients within 1e-3 of the plain tier's."""
+    from repro_torch.core.lora import AdapterSet
+    from repro_torch.tree import tree_leaves, tree_map
+    model, params, sets = _xlstm_card(rank=64)
+    toks = _tokens_on_card((4, 128), 3)
+    out = {}
+    for plain in (False, True):
+        lora_matmul.reset_launches()
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          sets[0].lora)
+        ctx = dispatch.plain_tier() if plain else contextlib.nullcontext()
+        with ctx:
+            loss, _ = model.loss(params, {"tokens": toks},
+                                 adapters=AdapterSet(lora=leaves,
+                                                     gamma=sets[0].gamma))
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        torch.cuda.synchronize()
+        assert lora_matmul.launches == _launches(
+            **({} if plain else dict(lora_fwd=2, lora_bwd_dx=2,
+                                     lora_bwd_da=2, lora_bwd_db=2)))
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        out[plain] = (loss.detach(), grads)
+    (lk, gk), (lp, gp) = out[False], out[True]
+    _close_to(lk, lp, XLSTM_ATOL)
+    for got, want in zip(gk, gp):
+        assert float(want.abs().max()) > 0
+        _close_to(got, want, XLSTM_ATOL)
+
+
+@pytest.mark.cuda
+def test_xlstm_chunk_boundary_prefill_equals_prefill_then_decode(card):
+    """A 300-token prefill (two chunks of 256, the second padded) leaves the
+    cache a 256-token prefill and 44 decode steps leave, within 1e-4, on
+    the kernel tier."""
+    from repro_torch.core.lora import AdapterBank
+    model, params, sets = _xlstm_card()
+    bank = AdapterBank.from_sets(sets)
+    ids = torch.arange(4, device="cuda", dtype=torch.int32)
+    prompt = _tokens_on_card((4, 300), 4)
+    with torch.inference_mode():
+        adapters = bank.requests(ids)
+        whole = model.init_cache(4, 300, device="cuda")
+        model.prefill(params, whole, prompt, adapters, last_only=True)
+        split = model.init_cache(4, 300, device="cuda")
+        model.prefill(params, split, prompt[:, :256], adapters,
+                      last_only=True)
+        for t in range(256, 300):
+            pos = torch.full((4,), t, device="cuda")
+            model.decode_step(params, split, prompt[:, t:t + 1], pos,
+                              adapters)
+    torch.cuda.synchronize()
+    for key in whole["repeat"]:
+        for leaf in whole["repeat"][key]:
+            _close_to(whole["repeat"][key][leaf], split["repeat"][key][leaf],
+                      1e-4)

@@ -77,7 +77,7 @@ def test_config_matches_jax():
     j.pop("use_pallas")
     assert j == t
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tconfigs.get_config("xlstm-1.3b")
+        tconfigs.get_config("roberta-large")
 
 
 def test_bank_matches_jax(pair):

@@ -107,7 +107,8 @@ def test_cli_runs_on_cpu(extra, capsys):
     ["--arch", "xlstm-1.3b"]])
 def test_cli_unported_flags_raise(flags, capsys):
     """--arch values whose block kinds the port does not run yet raise;
-    the MoE family, ported since, serves (the case keeps its place)."""
+    the MoE family and xLSTM, ported since, serve (the cases keep their
+    places)."""
     if flags[1] in tconfigs.ARCHS:
         seq = tserve.main(_CLI + flags)
         assert tuple(seq.shape) == (2, 6)

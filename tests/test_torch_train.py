@@ -399,9 +399,10 @@ def test_cli_trains_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    # the ids name the cases before the hybrid, device data and the MoE
-    # family were ported; xLSTM, whisper and paligemma are still unported
-    pytest.param(["--arch", "xlstm-1.3b"], id="--arch-hybrid"),
+    # the ids name the cases before the hybrid, device data, the MoE
+    # family and xLSTM were ported; roberta, whisper and paligemma are
+    # still unported
+    pytest.param(["--arch", "roberta-large"], id="--arch-hybrid"),
     ["--mesh", "4x2"],
     pytest.param(["--arch", "whisper-medium"], id="--data-mode"),
     pytest.param(["--arch", "paligemma-3b"], id="--arch"),
