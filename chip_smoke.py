@@ -155,13 +155,28 @@ Phases, in order; any failure raises and the exit code is not 0:
      "device" at N = 16 over a Dirichlet partition, 4 rounds in chunks of
      2 (#9, #10, #7, #8, #11, #12 counted, two kernel-tier runs and a
      resume after round 2 bit for bit, the plain tier within 1e-3)
- 25. xlstm-1.3b at full width and depth (48 layers alternating mLSTM and
-     sLSTM, d_model 2048, 1.21 B parameters, fp32), every earlier model
-     freed first: generate_banked (48 of #2 per prefill, 48 of #1 per
-     decode step: q and v of the 24 mLSTM layers), serve_scheduled over
+ 25. xlstm-1.3b at full width and half depth (24 of its 48 layers
+     alternating mLSTM and sLSTM, d_model 2048, fp32; XLSTM_PATHS, cut
+     for the script's time limit since phase 26), every earlier model
+     freed first: generate_banked (24 of #2 per prefill, 24 of #1 per
+     decode step: q and v of the 12 mLSTM layers), serve_scheduled over
      fp32 (fresh per-slot mLSTM and sLSTM state at each admission; no #13,
-     nothing packed) and the training path (48 of each of #5-#8 per
+     nothing packed) and the training path (24 of each of #5-#8 per
      client local step; XLSTM_TRAIN), with peak memory and profiles
+ 26. whisper-medium (24 decoder xattn layers, 24 encoder layers, d_model
+     1024, 16 heads of 64; 758.1 M parameters, fp32), every earlier model
+     freed first: its new kernel shapes (#13 at 16 query heads on 16 kv
+     heads of 64; #11, #3, #4 at its MLP, 1024 -> 4096 and 4096 -> 1024,
+     int8 and int4, #11 also at m = 6000) against their plain versions and
+     timed; generate_banked as the serve CLI runs it (the decoder alone:
+     72 of #2 per prefill, 72 of #1 per decode step); the encoder path
+     (Model._encode over 4 x 1500 frames, prefill(enc_out=), 32 greedy
+     tokens against the plain tier, a control without enc_out, the encoder
+     over int4 with #11 at m = 6000); serve_scheduled over fp32 and int4
+     (24 of #13 per decode step); training through
+     FederatedTrainer.round_step with frames (72 of each of #5-#8 per
+     client local step; the encoder's and cross v's gradients exactly 0,
+     their B 0.0), with peak memory and profiles
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -189,8 +204,9 @@ from repro_torch.configs import (FederatedConfig, LoRAConfig,  # noqa: E402
 from repro_torch.core import federated                      # noqa: E402
 from repro_torch.core.aggregation import get_strategy       # noqa: E402
 from repro_torch.core.faults import parse_faults            # noqa: E402
-from repro_torch.core.lora import (AdapterBank, LiveAdapterBank,  # noqa: E402
-                                   init_adapter_set, split_ab)
+from repro_torch.core.lora import (AdapterBank, AdapterSet,  # noqa: E402
+                                   LiveAdapterBank, init_adapter_set,
+                                   split_ab)
 from repro_torch.core.quant import (apply_quant_flag,  # noqa: E402
                                     quant_footprint, quantize,
                                     quantize_tree)
@@ -202,7 +218,7 @@ from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models import moe, transformer             # noqa: E402
 from repro_torch.models.api import build_model              # noqa: E402
 from repro_torch.models.transformer import stack_layout     # noqa: E402
-from repro_torch.tree import tree_leaves                    # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map          # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -597,20 +613,34 @@ def _n_adapted(bank):
     """Adapted projections per token of the stack: one per layer for each
     LoRA pair (a, b) the bank holds, a repeat leaf (K, repeats, ...)
     standing for its repeats (gemma-2b: 18 x q, v; recurrentgemma-9b: 12 x
-    q, v plus 26 x wx, wy)."""
+    q, v plus 26 x wx, wy; whisper-medium: 24 x attn q, attn v, cross q).
+    A cross-attention k / v pair is never applied (the cross K/V take no
+    adapter, as in the JAX package), so it does not count."""
     stack = bank.lora["stack"]
-    return (sum(x.shape[1] for x in tree_leaves(stack.get("repeat", {})))
-            + len(tree_leaves(stack.get("tail", {})))) // 2
+
+    def unread(node):
+        return {k: ({p: v for p, v in sub.items() if p not in ("k", "v")}
+                    if k == "cross" else sub) for k, sub in node.items()}
+
+    rep_ = {k: unread(v) for k, v in stack.get("repeat", {}).items()}
+    tail = {k: unread(v) for k, v in stack.get("tail", {}).items()}
+    return (sum(x.shape[1] for x in tree_leaves(rep_))
+            + len(tree_leaves(tail))) // 2
 
 
 # each block kind's own GEMM projections that core/quant packs, and the
 # MLP's; an xLSTM block packs none and has no MLP, and of its projections
 # only the mLSTM's q, k and v take an adapter through dispatch (its o and
-# ogate are plain matmuls, as in the JAX package)
-OWN_PROJ = {"attn": ("q", "k", "v", "o"), "rglru": ("wx", "wy"),
-            "mlstm": (), "slstm": ()}
+# ogate are plain matmuls, as in the JAX package).  An xattn block runs its
+# self-attention's q, k, v, o and its cross-attention's q and o per token
+# (CROSS_PROJ); the cross k and v run over the encoder's frames, once per
+# encoder output, and never in the serve CLI's decoder-only path
+OWN_PROJ = {"attn": ("q", "k", "v", "o"), "xattn": ("q", "k", "v", "o"),
+            "rglru": ("wx", "wy"), "mlstm": (), "slstm": ()}
+CROSS_PROJ = {"xattn": ("q", "o")}
 ADAPTED_ONLY = {"mlstm": ("q", "k", "v")}
 MLP_PROJ = ("w_gate", "w_up", "w_down")
+ATTN_KINDS = ("attn", "xattn")
 
 
 def _proj_counts(cfg):
@@ -621,13 +651,14 @@ def _proj_counts(cfg):
     block's w_a, w_i and w_out are never packed, nor is the MoE block's
     router or experts, nor any xLSTM projection; the mLSTM's q and v count
     as adapted (gemma-2b: 36, 90, 1; recurrentgemma-9b: 76, 138, 0; the MoE
-    archs: 48, 48, 1; xlstm-1.3b: 48, 0, 0)."""
+    archs: 48, 48, 1; xlstm-1.3b: 48, 0, 0; whisper-medium: 72 (attn q, v,
+    cross q), 120 (attn k, o, cross o, w_up, w_down), 1)."""
     mlp = (() if cfg.moe is not None else MLP_PROJ
            if cfg.mlp_variant in ("geglu", "swiglu") else MLP_PROJ[1:])
     adapted = unadapted = 0
     for kind in _layer_kinds(cfg):
-        for proj in OWN_PROJ[kind] + (mlp if kind in ("attn", "rglru")
-                                      else ()):
+        for proj in (OWN_PROJ[kind] + CROSS_PROJ.get(kind, ())
+                     + (mlp if kind in ATTN_KINDS + ("rglru",) else ())):
             if proj in cfg.lora_targets:
                 adapted += 1
             else:
@@ -1483,16 +1514,19 @@ def train_base(model, device):
     return model.init(torch.Generator(device).manual_seed(0), device)
 
 
-def profile_local_step(model, tr):
+def profile_local_step(model, tr, batches=None):
     """torch.profiler over one client local step (forward, backward through
-    the LoRA matmul kernels, optimizer update) after a warm-up step."""
+    the LoRA matmul kernels, optimizer update) after a warm-up step, on
+    ``batches`` (one client's (1, ...) token tensor or batch dict; default:
+    the dataset's next)."""
     phase("where the time goes (torch.profiler; one client local step)")
     local = federated._make_client_local(model, get_strategy("fedsa"),
                                          tr.opt_cfg)
     lora = federated._client(tr.lora, 0)
     opt = federated._client(tr.opt_state, 0)
-    batches = torch.as_tensor(tr.dataset.round_batch(1)[0],
-                              device=tr.device)
+    if batches is None:
+        batches = torch.as_tensor(tr.dataset.round_batch(1)[0],
+                                  device=tr.device)
 
     def step():
         local(tr.base, lora, opt, batches, 0, tr.gamma)
@@ -1742,13 +1776,13 @@ def _time_paged(gen, h, mb, window, block_size, dev, kh=1, hd=256):
 
 
 def time_sched_kernels(block_size, ring, dev="cuda", projs=PROJ,
-                       paged=None, adapted=("q", "v")):
+                       paged=None, adapted=("q", "v"), rows_m=(4, 512)):
     """Times at the scheduled path's shapes (fp32 activations, B = 4, rank
     8, int8 and int4 group 64): #3, #4 and #11 with the packed W rotated
     over copies that together exceed L2 three times (a step reads each
-    layer's W once), at ``projs``' (k, n) (#3 and #4 at ``adapted`` only);
-    #13 at ``paged``'s (label, h, mb, window, kh, hd), by default
-    _paged_shapes (_time_paged)."""
+    layer's W once), at ``projs``' (k, n) and ``rows_m`` rows (#3 and #4
+    at ``adapted`` only, at m = 4 and 512); #13 at ``paged``'s (label, h,
+    mb, window, kh, hd), by default _paged_shapes (_time_paged)."""
     phase("paged / quantized kernel times (fp32 activations, B=4, r=8)")
     gen = torch.Generator(dev).manual_seed(6)
     rows = {}
@@ -1768,12 +1802,12 @@ def time_sched_kernels(block_size, ring, dev="cuda", projs=PROJ,
             wqs = [quantize(wf, bits, QUANT_GROUP) for _ in range(copies)]
             wfs = [wf.clone() for _ in range(max(2, math.ceil(
                 3 * L2_BYTES / wf.nbytes)))]
-            for m in (4, 512):
+            for m in rows_m:
                 x = torch.randn(m, k, generator=gen, device=dev)
                 specs = [("quant_matmul", lora_matmul.quant_matmul,
                           lora_matmul.quant_matmul_plain,
                           [(x, wi) for wi in wqs], 0, 2 * m * k * n)]
-                if proj in adapted:
+                if proj in adapted and m in (4, 512):
                     s = 1 if m == 4 else 128
                     xb = x.reshape(4, s, k)
                     a = torch.randn(4, 8, k, generator=gen,
@@ -1806,7 +1840,7 @@ def time_sched_kernels(block_size, ring, dev="cuda", projs=PROJ,
                         _qmm_plan_note(m, k, n, bits, QUANT_GROUP)
                         if name == "quant_matmul" else
                         _gemv_plan_note(m, k, n, 1))
-                    print(f"{name:17s} {mode} {proj:6s} m={m:<3d} k={k} "
+                    print(f"{name:17s} {mode} {proj:6s} m={m:<4d} k={k} "
                           f"n={n}: kernel {ms * 1e3:.2f} us, plain "
                           f"{plain_ms * 1e3:.2f} us, torch.matmul on the fp32 "
                           f"W {library_ms * 1e3:.2f} us, bound "
@@ -1936,7 +1970,7 @@ def sched_path(name, model, params, bank, mode, profile=True):
     assert groups == 2 and steps == 2 * chunks_per_wave * sc["chunk"], \
         (groups, steps)
     expect = {k: 0 for k in launches}
-    expect["paged_attention"] = kinds.count("attn") * steps
+    expect["paged_attention"] = sum(map(kinds.count, ATTN_KINDS)) * steps
     expect["rglru_scan"] = kinds.count("rglru") * groups
     if mode == "fp32":
         expect["bgmv_gemv"] = n_ad * steps
@@ -3734,6 +3768,10 @@ def granite_paths(name):
 # ------------------------------------------------- 25. the xLSTM family
 
 XLSTM = get_config("xlstm-1.3b")
+# With whisper-medium's phase 26 the script no longer fits its time on one
+# card: xlstm-1.3b's paths run at half depth (24 of its 48 layers: 12 mLSTM
+# and 12 sLSTM blocks), at full width, as LLAMA_PATHS does for llama2-7b
+XLSTM_PATHS = dataclasses.replace(XLSTM, num_layers=24)
 # training: 4 clients x 1 local step of 4 x 128, one round (a local step
 # runs the sLSTM's 128-step loop forward and back in 24 layers, seconds on
 # the host).  One round: at random init the 48-layer stack's gradient norm
@@ -3746,32 +3784,468 @@ XLSTM_TRAIN = dict(local_steps=1, rounds=1, b0=0.02)
 
 
 def xlstm_paths(name):
-    """xlstm-1.3b at full width and depth (48 layers, d_model 2048, 4 heads
-    of 512; 1.21 B parameters, 4.84 GB fp32; seeded random weights), every
-    earlier model freed first: generate_banked (48 of #2 per prefill, 48
+    """xlstm-1.3b at full width and half depth (XLSTM_PATHS: 24 of its 48
+    layers, d_model 2048, 4 heads of 512; seeded random weights), every
+    earlier model freed first: generate_banked (24 of #2 per prefill, 24
     of #1 per decode step), serve_scheduled over the fp32 base (per-slot
     mLSTM and sLSTM state drawn fresh at each admission; no #13, nothing
     packed; not profiled: run_path profiles the same prefill and decode),
-    and training (train_path: 48 of each of #5-#8 per client local step;
+    and training (train_path: 24 of each of #5-#8 per client local step;
     XLSTM_TRAIN), with peak memory."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    run_path(name, XLSTM, dev)
+    run_path(name, XLSTM_PATHS, dev)
     _peak("xlstm-1.3b fixed-batch serving", dev)
     _free()
-    model, params, bank = serving_model(XLSTM, dev)
+    model, params, bank = serving_model(XLSTM_PATHS, dev)
     sched_path(name, model, params, bank, "fp32", profile=False)
     _peak("xlstm-1.3b scheduled serving", dev)
     del model, bank
     _free()
     # serving_model draws the base first from seed 0, as train_base does
-    launches, _, _ = train_path(name, XLSTM, dev, params=params,
+    launches, _, _ = train_path(name, XLSTM_PATHS, dev, params=params,
                                 **XLSTM_TRAIN)
     del params
     _free()
     _peak("xlstm-1.3b training", dev)
     return launches
+
+
+# -------------------------------------- 26. the audio encoder-decoder
+
+WHISPER = get_config("whisper-medium")
+# #3, #4 and #11 at whisper-medium's MLP (k, n): the int4 serving path runs
+# #11 there every decode step and admission, the encoder over a packed base
+# at m = 4 x 1500 frames; #3 / #4 are held and timed there too
+WHISPER_MLP = {"whisper w_up": (WHISPER.d_model, WHISPER.d_ff),
+               "whisper w_down": (WHISPER.d_ff, WHISPER.d_model)}
+WHISPER_M = (4, 512, 4 * WHISPER.encoder_frames)
+# #13 (label, query heads, kv heads, head_dim): the decoder's self-attention
+WHISPER_PAGED = ((WHISPER.name, WHISPER.num_heads, WHISPER.num_kv_heads,
+                  WHISPER.head_dim),)
+# training through FederatedTrainer.round_step: N clients x 1 local step of
+# 4 x 128 tokens and 4 x 1500 frames each, 2 rounds
+WHISPER_TRAIN = dict(clients=4, local_steps=1, rounds=2, batch=4, seq=128)
+
+
+def check_whisper_kernels(dev="cuda"):
+    """The kernels at whisper-medium's new shapes, fp32 and bf16, against
+    their plain versions: #13 at WHISPER_PAGED (160 positions, 10 columns
+    of 16, with and without a window of 64); #11 at WHISPER_MLP with m =
+    4, 512 and 6000 and #3 / #4 there (a rank 8 bank, 4 requests of 128
+    rows / one row), over int8 and int4 (group 64)."""
+    phase("whisper-medium's shapes vs plain (tolerance: |kernel - plain| "
+          f"<= {KERNEL_RTOL} * max(1, max|plain|), + {BF16_STEP} * |plain| "
+          "for a bf16 output)")
+    gen = torch.Generator(dev).manual_seed(26)
+    worst = {}
+    dts = (torch.float32, torch.bfloat16)
+
+    def note(kern, err):
+        worst[kern] = max(worst.get(kern, 0.0), err)
+
+    for label, h, kh, hd in WHISPER_PAGED:
+        q, kp, vp, *rest = _paged_case(gen, 4, h, kh, hd, 16, 10, dev=dev)
+        for dt, window in itertools.product(dts, (None, 64)):
+            args = [t.to(dt) for t in (q, kp, vp)] + rest
+            got = paged_attention.paged_attention(*args, window=window)
+            again = paged_attention.paged_attention(*args, window=window)
+            assert torch.equal(got, again), f"#13 {label}: two calls differ"
+            note("paged_attention", _err(
+                "paged_attention",
+                f"{label} B4 h{h} kh{kh} hd{hd} bs16 mb10 {str(dt)[6:]} "
+                f"w={window}", got,
+                paged_attention.paged_attention_plain(*args, window=window)))
+    for (mode, bits), (label, (k, n)) in itertools.product(
+            (("int8", 8), ("int4", 4)), WHISPER_MLP.items()):
+        wq = quantize(torch.randn(k, n, generator=gen, device=dev)
+                      * k ** -0.5, bits, QUANT_GROUP)
+        for m, dt in itertools.product(WHISPER_M, dts):
+            x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            lab = f"{mode} {label} m={m} k={k} n={n} {str(dt)[6:]}"
+            got = lora_matmul.quant_matmul(x, wq)
+            assert torch.equal(got, lora_matmul.quant_matmul(x, wq)), \
+                f"#11 {lab}: two calls differ"
+            note("quant_matmul", _err("quant_matmul", lab, got,
+                                      lora_matmul.quant_matmul_plain(x, wq)))
+        for s_, dt in itertools.product((1, 128), dts):
+            x, _, a, b, ids = _bank(gen, 4, s_, k, n, 4, (8,) * 4, dt)
+            lab = f"{mode} {label} B=4 s={s_} k={k} n={n} {str(dt)[6:]}"
+            if s_ == 1:
+                x1 = x[:, 0].contiguous()
+                note("bgmv_gemv_quant", _err(
+                    "bgmv_gemv_quant", lab,
+                    bgmv.bgmv_gemv_quant(x1, wq, a, b, ids),
+                    bgmv.bgmv_gemv_quant_plain(x1, wq, a, b, ids)))
+            else:
+                note("bgmv_matmul_quant", _err(
+                    "bgmv_matmul_quant", lab,
+                    bgmv.bgmv_matmul_quant(x, wq, a, b, ids),
+                    bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids)))
+        del wq
+    return worst
+
+
+def time_whisper_kernels(block_size=16, ring=160):
+    """Times at whisper-medium's new shapes (time_sched_kernels): #13 at
+    WHISPER_PAGED over the scheduled path's 10 columns, #11 at WHISPER_MLP
+    with m = 4, 512 and 6000, #3 and #4 there at m = 512 and 4."""
+    mb = -(-ring // block_size)
+    return time_sched_kernels(
+        block_size, ring, projs=WHISPER_MLP,
+        paged=[(label, h, mb, None, kh, hd)
+               for label, h, kh, hd in WHISPER_PAGED],
+        adapted=tuple(WHISPER_MLP), rows_m=WHISPER_M)
+
+
+def _frames(cfg, n, device, seed):
+    """(n, frames, d_model) seeded stub frames (the mel / conv frontend's
+    output, a stub in the JAX package too)."""
+    return torch.randn(n, cfg.encoder_frames, cfg.d_model, device=device,
+                       generator=torch.Generator(device).manual_seed(seed))
+
+
+def _timed(fn, device):
+    """(fn's result, its host wall ms with the device synchronized)."""
+    _sync(device)
+    t = time.monotonic()
+    out = fn()
+    _sync(device)
+    return out, (time.monotonic() - t) * 1e3
+
+
+def encoder_path(name, model, params, bank, *, steps=32, plen=128):
+    """The path a whisper user runs, through the model API (the serve CLI
+    runs the decoder alone, as JAX's does): ``Model._encode`` over 4 x 1500
+    seeded frames, ``prefill(enc_out=)`` under the 4-tenant bank, then
+    ``steps - 1`` banked greedy decode steps on the kernel tier (counted:
+    #2 and #1 only; the encoder and the cross K/V are plain matmuls over an
+    fp32 base); the plain tier teacher-forced on its tokens, logits within
+    LOGIT_ATOL; a control without ``enc_out`` that must move the logits by
+    far more than that; the encoder once more over an int4 base (#11 at m
+    = 6000, 6 a layer) against the plain tier.  Prints the encoder's and
+    the prefill's ms, ms per decode step, a profile of the encoder and of
+    4 decode steps, and peak memory.  ``model`` may be a reduced config on
+    a CPU (the counts and the profile hold only on the card)."""
+    cfg = model.cfg
+    device = tree_leaves(params)[0].device
+    n = bank.size
+    phase(f"encoder path: Model._encode over {n} x {cfg.encoder_frames} "
+          f"frames, prefill(enc_out=) of {n} x {plen} tokens, {steps} greedy "
+          f"tokens, {cfg.name} d_model {cfg.d_model}, fp32 base")
+    ids = torch.arange(n, device=device, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (n, plen),
+                           generator=torch.Generator(device).manual_seed(1),
+                           device=device)
+    frames = _frames(cfg, n, device, 3)
+    adapters = bank.requests(ids)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with torch.inference_mode():
+        model._encode(params, {"frames": frames})         # warm
+        _reset_launches()
+        enc_out, enc_ms = _timed(
+            lambda: model._encode(params, {"frames": frames}), device)
+        assert not any(_launch_counts().values()), _launch_counts()
+        assert bool(torch.isfinite(enc_out).all())
+
+        def greedy(enc, forced=None, plain=False):
+            """Greedy decode (or teacher-forced on ``forced``) after a
+            prefill with ``enc``: (tokens (n, steps), logits, prefill ms,
+            decode ms a step)."""
+            with (dispatch.plain_tier() if plain
+                  else contextlib.nullcontext()):
+                cache = model.init_cache(n, plen + steps, device=device)
+                (lg, cache), pre_ms = _timed(lambda: model.prefill(
+                    params, cache, prompt, adapters, enc_out=enc,
+                    last_only=True), device)
+                out, toks = [lg[:, -1]], [lg[:, -1, :cfg.vocab_size]
+                                          .argmax(-1)]
+                _sync(device)
+                t = time.monotonic()
+                for i in range(steps - 1):
+                    tok = (toks[-1] if forced is None
+                           else forced[:, i])[:, None]
+                    pos = torch.full((n,), plen + i, device=device)
+                    lg, cache = model.decode_step(params, cache, tok, pos,
+                                                  adapters)
+                    out.append(lg[:, -1])
+                    toks.append(lg[:, -1, :cfg.vocab_size].argmax(-1))
+                _sync(device)
+                dec_ms = (time.monotonic() - t) * 1e3 / (steps - 1)
+            return (torch.stack(toks, 1),
+                    torch.stack(out, 1)[..., :cfg.vocab_size], pre_ms,
+                    dec_ms)
+
+        # the counted run: counts to 0 just before, read just after
+        _reset_launches()
+        toks, kern, pre_ms, dec_ms = greedy(enc_out)
+        launches = _launch_counts()
+        n_ad = _n_adapted(bank)
+        expect = dict.fromkeys(launches, 0)
+        expect.update(bgmv_matmul=n_ad, bgmv_gemv=n_ad * (steps - 1))
+        print(f"launches: { {k: v for k, v in launches.items() if v} } "
+              f"(expected { {k: v for k, v in expect.items() if v} }: "
+              f"{n_ad} of #2 per prefill, {n_ad} of #1 per decode step; "
+              "none in the encoder or the cross K/V)")
+        assert launches == expect, (launches, expect)
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+        _, plain, _, _ = greedy(enc_out, forced=toks, plain=True)
+        diff = float((kern - plain).abs().max())
+        ties = [(i, t) for i, t in zip(*torch.nonzero(
+            plain.argmax(-1) != toks, as_tuple=True))]
+        print(f"kernel vs plain tier (plain teacher-forced on the kernel "
+              f"tier's {steps} greedy tokens): logits max |diff| {diff:.3e}, "
+              f"max |logit| {float(plain.abs().max()):.3f}, tolerance "
+              f"{LOGIT_ATOL}; tokens whose plain-tier argmax differs: "
+              f"{len(ties)}")
+        for i, t in ties:
+            top2 = plain[i, t].topk(2).values
+            margin = float(top2[0] - top2[1])
+            print(f"  near-tie: request {int(i)} token {int(t)}, plain-tier "
+                  f"top-2 margin {margin:.3e}")
+            assert margin < LOGIT_ATOL, (int(i), int(t), margin)
+        assert diff <= LOGIT_ATOL, diff
+        # the control: the same prompt without enc_out (zero cross K/V)
+        ctrl = greedy(None, forced=toks)[1]
+        moved = float((ctrl - kern).abs().max())
+        print(f"control, the same prompt without enc_out: logits move by "
+              f"max |diff| {moved:.3e} ({moved / LOGIT_ATOL:.1f}x the "
+              "tolerance): the encoder output is live")
+        assert moved > 100 * LOGIT_ATOL, moved
+        del ctrl, plain, kern
+        print(f"encoder path on {name}: encoder {enc_ms:.1f} ms for "
+              f"{n} x {cfg.encoder_frames} frames ({cfg.encoder_layers} "
+              f"layers); prefill with enc_out {pre_ms:.1f} ms; decode "
+              f"{dec_ms:.2f} ms/step over {steps - 1} steps of batch {n}")
+        if device.type == "cuda":
+            _peak("whisper encoder path", device)
+            phase("where the time goes (torch.profiler; the encoder, and 4 "
+                  "decode steps reading the cached cross K/V)")
+            _print_profile("encoder", *_profiled(
+                lambda: model._encode(params, {"frames": frames})), 1,
+                "encoder call")
+            cache = model.init_cache(n, plen + 4, device=device)
+            model.prefill(params, cache, prompt, adapters, enc_out=enc_out,
+                          last_only=True)
+
+            def decode():
+                for i in range(4):
+                    pos = torch.full((n,), plen + i, device=device)
+                    model.decode_step(params, cache, toks[:, i:i + 1], pos,
+                                      adapters)
+
+            _print_profile("decode (cross-attending 1500 cached frames)",
+                           *_profiled(decode), 4, "step")
+            del cache
+
+        # the encoder over an int4 base: #11 at m = n x frames
+        phase(f"encoder over an int4 base (group {QUANT_GROUP}): #11 at m = "
+              f"{n * cfg.encoder_frames}")
+        packed = quantize_tree(params, "int4", QUANT_GROUP)
+        model._encode(packed, {"frames": frames})         # warm
+        _reset_launches()
+        enc_q, q_ms = _timed(
+            lambda: model._encode(packed, {"frames": frames}), device)
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        want = {"quant_matmul": 6 * cfg.encoder_layers}
+        print(f"launches: {launches} (expected {want}: q, k, v, o, w_up, "
+              "w_down of every encoder layer)")
+        assert launches == want, launches
+        with dispatch.plain_tier():
+            enc_qp = model._encode(packed, {"frames": frames})
+        diff = float((enc_q - enc_qp).abs().max())
+        scale = max(1.0, float(enc_qp.abs().max()))
+        print(f"int4 encoder, kernel vs plain tier: max |diff| {diff:.3e}, "
+              f"max |output| {scale:.3f}, tolerance {LOGIT_ATOL} x max(1, "
+              f"max|output|); {q_ms:.1f} ms (fp32 base {enc_ms:.1f} ms)")
+        assert diff <= LOGIT_ATOL * scale, diff
+        del packed, enc_q, enc_qp, enc_out
+    return dict(encoder_ms=enc_ms, prefill_ms=pre_ms, decode_ms=dec_ms)
+
+
+def _unread_nodes(tree, path=()):
+    """(path, {"a", "b"}) of every adapter node no projection reads: the
+    encoder's (``_encode`` takes none) and ``cross/v`` (nor does
+    ``build_cross_kv``)."""
+    if set(tree) == {"a", "b"}:
+        if path[0] == "encoder" or path[-2:] == ("cross", "v"):
+            yield path, tree
+        return
+    for k in sorted(tree):
+        yield from _unread_nodes(tree[k], path + (k,))
+
+
+def whisper_train_path(name, cfg, device, params, *, clients=4, rank=64,
+                       local_steps=1, rounds=2, batch=4, seq=128):
+    """FederatedTrainer.round_step over caller-supplied frames (the JAX
+    package's only audio training entry; its train CLI, as the port's,
+    fails on whisper for want of frames): fedsa + sfedlora, ``clients``
+    clients x ``local_steps`` steps of ``batch`` x ``seq`` tokens and
+    ``batch`` x 1500 seeded frames, ``rounds`` rounds; launch counts of
+    #5-#8, the encoder's and cross v's gradients None to autograd (exact
+    zeros in the client loop) and their B exactly 0.0 after the rounds, a
+    bit-identical repeat, the plain tier within TRAIN_RTOL, ms/round, peak
+    memory and a profile of one local step.  ``cfg`` and ``device`` are
+    arguments so the phase can be rehearsed on a CPU at a reduced size."""
+    phase(f"training path: FederatedTrainer.round_step, {cfg.name} d_model "
+          f"{cfg.d_model}, fp32 base, N={clients}, fedsa + sfedlora, rank "
+          f"{rank}, {local_steps} local step(s) of {batch} x {seq} tokens + "
+          f"{batch} x {cfg.encoder_frames} frames, {rounds} rounds")
+    model = build_model(cfg)
+    lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
+                      targets=cfg.lora_targets)
+    fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
+                           rounds=rounds, aggregation="fedsa")
+    ocfg = OptimizerConfig(name="sgd", lr=5e-3)
+    gen = torch.Generator(device).manual_seed(5)
+    data = [{"tokens": torch.randint(
+                0, cfg.vocab_size, (clients, local_steps, batch, seq),
+                generator=gen, device=device),
+             "frames": torch.randn(clients, local_steps, batch,
+                                   cfg.encoder_frames, cfg.d_model,
+                                   generator=gen, device=device)}
+            for _ in range(rounds)]
+
+    def trainer():
+        ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
+                              batch_per_client=batch, seed=0)
+        return federated.FederatedTrainer(
+            model, ds, lora_cfg=lcfg, fed_cfg=fcfg, opt_cfg=ocfg, seed=0,
+            base_params=params, device=device)
+
+    def run(tr):
+        aset, opt, hist, ms = tr.adapters, tr.opt_state, [], []
+        for r in range(rounds):
+            (aset, opt, m), t = _timed(lambda: tr.round_step(
+                tr.base, aset, opt, data[r], r), device)
+            hist.append({k: float(v) for k, v in m.items()})
+            ms.append(t)
+        return aset, hist, ms
+
+    tr1 = trainer()
+    print(f"gamma = alpha*sqrt(N/r) = {tr1.gamma:.4f}; {clients} clients x "
+          f"{local_steps} local step(s) per round, {rounds} rounds")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    # the counted run: counts to 0 just before, read just after
+    _reset_launches()
+    dispatch.reset_stats()
+    a1, h1, ms1 = run(tr1)
+    launches = _launch_counts()
+    n_adapted = _proj_counts(cfg)[0]
+    steps = clients * local_steps * rounds
+    expect = dict.fromkeys(launches, 0)
+    expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+    print(f"launches: { {k: v for k, v in launches.items() if v} } "
+          f"(expected { {k: v for k, v in expect.items() if v} }: "
+          f"{n_adapted} of each of #5-#8 per client local step x {steps}); "
+          f"dispatch {dispatch.stats}")
+    assert launches == expect, (launches, expect)
+    if device.type == "cuda":
+        _peak("whisper training, the counted run", device)
+    for r, h in enumerate(h1):
+        print(f"round {r + 1}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.6e}")
+        assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+    unread = list(_unread_nodes(a1.lora))
+    b_unread = max(float(node["b"].abs().max()) for _, node in unread)
+    b_read = max(float(t.abs().max()) for t in tree_leaves(
+        split_ab(a1.lora)[1]))
+    print(f"after {rounds} rounds: max |B| {b_read:.4e}; the {len(unread)} "
+          f"unread adapter nodes (the encoder's q / v, cross v) max |B| "
+          f"{b_unread}")
+    assert b_read > 0 and b_unread == 0.0
+
+    # autograd reaches no unread leaf: the client loop's gradient there is
+    # an exact zero, as jax.grad gives it
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      federated._client(a1.lora, 0))
+    one = {k: v[0, 0] for k, v in data[0].items()}
+    loss, _ = model.loss(tr1.base, one, adapters=AdapterSet(
+        lora=leaves, gamma=tr1.gamma))
+    grads = torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+    n_none = sum(g is None for g in grads)
+    print(f"one local step's gradient: {n_none} of {len(grads)} leaves "
+          f"unreached by autograd (exact zeros in the client loop; expected "
+          f"{2 * len(unread)}, the a and b of every unread node)")
+    assert n_none == 2 * len(unread), n_none
+    del loss, grads, leaves
+
+    # the same run again: bit for bit
+    a2, h2, ms2 = run(trainer())
+    same = h1 == h2 and all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a1.lora), tree_leaves(a2.lora)))
+    print(f"second kernel-tier run: trajectory and adapters "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    assert same, "two kernel-tier runs differ"
+
+    # the plain tier on the same device
+    _reset_launches()
+    with dispatch.plain_tier():
+        a3, h3, _ = run(trainer())
+    assert not any(_launch_counts().values()), _launch_counts()
+    worst = 0.0
+    for r, (hk, hp) in enumerate(zip(h1, h3)):
+        for key in ("loss", "grad_norm"):
+            d = abs(hk[key] - hp[key])
+            rel = d / max(abs(hp[key]), 1e-30)
+            worst = max(worst, rel)
+            print(f"round {r + 1} {key}: kernel {hk[key]:.8g}, plain "
+                  f"{hp[key]:.8g}, |diff| {d:.3e} (relative {rel:.3e})")
+    db = max(float((x - y).abs().max()) for x, y in zip(
+        tree_leaves(a1.lora), tree_leaves(a3.lora)))
+    print(f"kernel vs plain tier: worst relative diff of loss and grad_norm "
+          f"{worst:.3e} (bound {TRAIN_RTOL}); max |adapter diff| {db:.3e}")
+    assert worst <= TRAIN_RTOL
+    print(f"training path on {name} (round_step, fp32 base): ms/round "
+          f"{[round(t, 1) for t in ms1]} (first run), "
+          f"{[round(t, 1) for t in ms2]} (second run); "
+          f"{clients * local_steps} client local steps per round")
+    if device.type == "cuda":
+        tr1.lora = a1.lora
+        profile_local_step(model, tr1, batches={k: v[0] for k, v in
+                                                data[0].items()})
+    del tr1, a1, a2, a3, data
+    return launches
+
+
+def whisper_paths(name):
+    """whisper-medium at full width and depth (24 decoder xattn layers, 24
+    encoder layers, d_model 1024, 16 heads of 64; 758.1 M parameters, 3.03
+    GB fp32; seeded random weights), every earlier model freed first:
+    generate_banked as the serve CLI runs it (the decoder alone, no
+    encoder output: 72 of #2 per prefill, 72 of #1 per decode step);
+    encoder_path (the encoder over 4 x 1500 frames, prefill(enc_out=),
+    banked decode, its control, the encoder over int4); serve_scheduled
+    over fp32 (24 of #13 per decode step) and int4 (#3, #4, #11 as well;
+    per-slot cross K/V of 295 MB merged at each admission; not profiled:
+    run_path profiles the same decode); and whisper_train_path
+    (WHISPER_TRAIN), with peak memory."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fixed = run_path(name, WHISPER, dev)
+    _peak("whisper-medium fixed-batch serving (decoder alone)", dev)
+    _free()
+    model, params, bank = serving_model(WHISPER, dev)
+    encoder_path(name, model, params, bank)
+    _free()
+    sched = {}
+    for mode in ("fp32", "int4"):
+        sched[mode], _ = sched_path(name, model, params, bank, mode,
+                                    profile=False)
+        _free()
+    _peak("whisper-medium scheduled serving", dev)
+    del model, bank
+    _free()
+    # serving_model draws the base first from seed 0, as train_base does
+    train = whisper_train_path(name, WHISPER, dev, params, **WHISPER_TRAIN)
+    del params
+    _free()
+    _peak("whisper-medium training", dev)
+    return fixed, sched, train
 
 
 # ------------------------------------------------------------------ main
@@ -3857,6 +4331,11 @@ def main():
     qwen_moe_paths(name)
     granite_paths(name)
     xlstm_paths(name)
+    for kern, err in check_whisper_kernels().items():
+        worst[kern] = max(worst.get(kern, 0.0), err)
+    rows.update(time_whisper_kernels())
+    _free()
+    whisper_paths(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

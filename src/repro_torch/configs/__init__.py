@@ -19,11 +19,12 @@ ARCHS = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "xlstm-1.3b": "xlstm_1_3b",
+    "whisper-medium": "whisper_medium",
 }
 
 # the JAX package's other architectures (repro/configs/__init__.py)
 NOT_YET_PORTED = (
-    "paligemma-3b", "whisper-medium", "roberta-large",
+    "paligemma-3b", "roberta-large",
 )
 
 

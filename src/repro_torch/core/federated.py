@@ -51,6 +51,7 @@ Not yet ported, and raising: meshes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -73,7 +74,7 @@ from repro_torch.core.scaling import per_client_gammas, scaling_factor
 from repro_torch.data.synthetic import DeviceFederatedData
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           global_norm, make_optimizer)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 # the device-mode data generator's seed is the trainer's seed plus this
@@ -110,24 +111,48 @@ def _tree_where(row_mask, new, old):
         row_mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b), new, old)
 
 
+def _client_batches(batches, i: int):
+    """Client ``i``'s (local_steps, ...) slice of a round's batches: a
+    token tensor (N, local_steps, batch, seq), or a batch dict whose leaves
+    all lead with (N, local_steps) (``{"tokens", "frames"}`` for the audio
+    family)."""
+    if isinstance(batches, dict):
+        return {k: v[i] for k, v in batches.items()}
+    return batches[i]
+
+
+def _local_steps(batches):
+    """One model batch per local step, from a client's slice."""
+    if isinstance(batches, dict):
+        n = next(iter(batches.values())).shape[0]
+        return [{k: v[j] for k, v in batches.items()} for j in range(n)]
+    return [{"tokens": batch} for batch in batches]
+
+
 def _make_client_local(model, strat, opt_cfg):
     """The per-client local-training loop (``local_steps`` optimizer steps
-    on one client's adapter state)."""
+    on one client's adapter state).  A leaf the loss does not reach (the
+    audio encoder's adapters, ``cross/v``: built by ``init_lora``, read by
+    no projection) gets an exact zero gradient, as ``jax.grad`` gives it,
+    so the norm, the masks, the optimizer and the aggregation see JAX's
+    tree."""
     _, opt_update = make_optimizer(opt_cfg)
 
     def client_local(base, lora, opt_state, batches, round_idx, gamma,
                      mask_row=None):
         losses, gnorms = [], []
-        for batch in batches:
+        for batch in _local_steps(batches):
             leaves = tree_map(lambda x: x.detach().requires_grad_(True),
                               lora)
-            loss, _ = model.loss(base, {"tokens": batch},
+            loss, _ = model.loss(base, batch,
                                  adapters=AdapterSet(lora=leaves,
                                                      gamma=gamma))
             flat = tree_leaves(leaves)
-            grads_flat = torch.autograd.grad(loss, flat)
-            it = iter(grads_flat)
-            grads = tree_map(lambda _: next(it), leaves)
+            grads = tree_unflatten(leaves, [
+                torch.zeros_like(x) if g is None else g
+                for g, x in zip(torch.autograd.grad(loss, flat,
+                                                    allow_unused=True),
+                                flat)])
             gnorm = global_norm(grads)
             grads = strat.mask_grads(grads, round_idx)
             if mask_row is not None:
@@ -158,7 +183,8 @@ def _make_train_clients(model, strat, opt_cfg):
         g, mask_N = adapters.gamma, adapters.rank_mask
         n = tree_leaves(lora_N)[0].shape[0]
         outs = [client_local(
-            base, _client(lora_N, i), _client(opt_N, i), batches[i],
+            base, _client(lora_N, i), _client(opt_N, i),
+            _client_batches(batches, i),
             round_idx, g if isinstance(g, float) else float(g[i]),
             None if mask_N is None else mask_N[i]) for i in range(n)]
         metrics = {"loss": torch.stack([o[2]["loss"] for o in outs]).mean(),
@@ -185,8 +211,10 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     weights).
 
     ``adapters`` is a client-stacked :class:`AdapterSet`: its ``lora``
-    tree and ``opt_N`` carry a leading client dim, ``batches`` is (N,
-    local_steps, batch, seq).  Its gamma is one float or (N,) per-client
+    tree and ``opt_N`` carry a leading client dim, ``batches`` is a token
+    tensor (N, local_steps, batch, seq) or a batch dict whose leaves lead
+    with (N, local_steps) (the audio family's ``{"tokens", "frames"}``).
+    Its gamma is one float or (N,) per-client
     factors, each client training with its own; its ``rank_mask`` (N,
     r_max), where set, masks each client's gradients to its rank rows and
     makes the aggregate rank-aware.  Returns (adapters',
@@ -217,6 +245,21 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
         return dataclasses.replace(adapters, lora=new_lora), new_opt, metrics
 
     return round_body
+
+
+def make_fed_round_step(model, *, strategy, opt_cfg):
+    """Single-round entry point over caller-supplied batches: returns
+    round_step(base, adapters, opt_N, batches, round_idx, weights=None) ->
+    (adapters', opt_N', metrics), the round body of
+    :func:`make_round_body` (the JAX version's ``jit`` / ``donate`` have no
+    counterpart in the eager round).  ``round_idx`` may be an int or a 0-d
+    tensor."""
+    body = make_round_body(model, strategy=strategy, opt_cfg=opt_cfg)
+
+    def round_step(base, adapters, opt_N, batches, round_idx, weights=None):
+        return body(base, adapters, opt_N, batches, int(round_idx), weights)
+
+    return round_step
 
 
 def _quantize_rho(rho: float) -> float:
@@ -398,7 +441,7 @@ class FederatedTrainer:
     """Host-level orchestration: state, chunked rounds, evaluation.
 
     Keeps the JAX trainer's interface: ``run``, ``run_round``,
-    ``history``, ``adapters``, ``client_adapters``, ``client_gamma``,
+    ``round_step``, ``history``, ``adapters``, ``client_adapters``, ``client_gamma``,
     ``gamma``, ``gamma_eff``, ``stability_report``, ``publish_adapters``,
     ``watchdog_events``, ``async_state`` and ``eval_perplexity``.
 
@@ -560,6 +603,19 @@ class FederatedTrainer:
             self._round_body = make_round_body(
                 self.model, strategy=fed.aggregation, opt_cfg=self.opt_cfg,
                 track_update_norm=self.track_stability)
+
+    @functools.cached_property
+    def round_step(self):
+        """Single-round entry over caller-supplied batches (a family whose
+        batches the synthetic dataset cannot make, as the audio family's
+        frames): round_step(base, adapters, opt_N, batches, round_idx,
+        weights=None) with ``adapters`` a client-stacked AdapterSet
+        (``trainer.adapters``) and ``batches`` a dict of (N, local_steps,
+        ...) leaves.  Returns (adapters', opt_N', metrics); the trainer's
+        own state is not touched."""
+        return make_fed_round_step(self.model,
+                                   strategy=self.fed_cfg.aggregation,
+                                   opt_cfg=self.opt_cfg)
 
     # ------------------------------------------------------------- adapters
 

@@ -79,32 +79,40 @@ def lora_tree_for_model(model, generator: torch.Generator, lora_cfg, *,
                         device="cuda"):
     """LoRA tree from the model config alone, without drawing base weights
     (the JAX package does this with ``eval_shape``): the targeted
-    projections of every block (attention and mLSTM q/k/v/o, RG-LRU
-    wx/wy; the sLSTM has none), as zero-stride stand-ins that carry only
-    shape, dtype and device."""
+    projections of every block (attention, cross-attention and mLSTM
+    q/k/v/o, RG-LRU wx/wy; the sLSTM has none) and of the audio encoder's
+    blocks, as zero-stride stand-ins that carry only shape, dtype and
+    device."""
     from repro_torch import resolve_device
     from repro_torch.models.transformer import stack_layout
     cfg = model.cfg
     dt = getattr(torch, cfg.param_dtype)
     zero = torch.zeros((), dtype=dt, device=resolve_device(device))
     d, dr = cfg.d_model, cfg.rglru_d_state or cfg.d_model
-    proj = {"attn": {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim),
-                     "v": (d, cfg.kv_dim), "o": (cfg.q_dim, d)},
-            "rglru": {"wx": (d, dr), "wy": (d, dr)},
-            "mlstm": {"q": (d, cfg.q_dim), "k": (d, cfg.q_dim),
-                      "v": (d, cfg.q_dim), "o": (cfg.q_dim, d)},
-            "slstm": {}}
+    attn = {"q": (d, cfg.q_dim), "k": (d, cfg.kv_dim), "v": (d, cfg.kv_dim),
+            "o": (cfg.q_dim, d)}
+    proj = {"attn": {"attn": attn},
+            "xattn": {"attn": attn, "cross": attn},
+            "rglru": {"rglru": {"wx": (d, dr), "wy": (d, dr)}},
+            "mlstm": {"mlstm": {"q": (d, cfg.q_dim), "k": (d, cfg.q_dim),
+                                "v": (d, cfg.q_dim), "o": (cfg.q_dim, d)}},
+            "slstm": {"slstm": {}}}
 
     def block(kind, lead):
-        return {kind: {k: zero.expand(lead + s)
-                       for k, s in proj[kind].items()}}
+        return {sub: {k: zero.expand(lead + s) for k, s in leaves.items()}
+                for sub, leaves in proj[kind].items()}
 
-    repeats, tail = stack_layout(cfg.num_layers, cfg.block_pattern)
-    stack = {"repeat": {f"p{j}": block(kind, (repeats,))
-                        for j, kind in enumerate(cfg.block_pattern)
-                        if repeats},
-             "tail": {f"t{i}": block(kind, ()) for i, kind in enumerate(tail)}}
-    return init_lora({"stack": stack}, generator, lora_cfg)
+    def stack(num_layers, pattern):
+        repeats, tail = stack_layout(num_layers, pattern)
+        return {"repeat": {f"p{j}": block(kind, (repeats,))
+                           for j, kind in enumerate(pattern) if repeats},
+                "tail": {f"t{i}": block(kind, ())
+                         for i, kind in enumerate(tail)}}
+
+    tree = {"stack": stack(cfg.num_layers, cfg.block_pattern)}
+    if cfg.family == "audio":
+        tree["encoder"] = {"stack": stack(cfg.encoder_layers, ("attn",))}
+    return init_lora(tree, generator, lora_cfg)
 
 
 def merge_lora(params, lora, gamma):

@@ -28,6 +28,9 @@ slots, and ``--deadline-steps D`` caps each request's tokens.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  # whisper-medium's decoder alone, as the JAX CLI serves it: no encoder
+  # output, so every layer cross-attends the fresh cache's zero K/V
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
   # a Poisson request stream over an int4 base, on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -203,9 +206,10 @@ def generate_hostloop(model, params, prompt, steps: int, max_len: int,
 #     free slots and evicts finished ones.
 #   * Admission is one prefill per same-length newcomer group, written
 #     straight into the engine pools through the newcomers' table rows; the
-#     per-slot state of recurrent blocks starts fresh for the group and is
-#     scattered into the newcomers' slots (transformer.paged_prefill_view /
-#     merge_paged_cache), one code path for dense and hybrid stacks.
+#     per-slot state of recurrent blocks and the cross-attention K/V start
+#     fresh for the group and are scattered into the newcomers' slots
+#     (transformer.paged_prefill_view / merge_paged_cache), one code path
+#     for dense, hybrid and encoder-decoder stacks.
 #
 # With every request present at the start and uniform shapes, the admission
 # group IS the fixed engine's batch and each chunk step runs the fixed
@@ -292,7 +296,8 @@ def _paged_admit(m, params, cache, prompts, table_rows, slots, blocks,
     cache = reset_paged_blocks(cache, blocks)
     view = paged_prefill_view(m.cfg, cache, prompts.shape[0],
                               getattr(torch, m.cfg.dtype),
-                              device=prompts.device)
+                              device=prompts.device,
+                              cross_len=m._cross_len())
     logits, view = m.prefill(params, view, prompts, adapters,
                              last_only=True, table=table_rows)
     cache = merge_paged_cache(cache, view, slots)

@@ -2,11 +2,14 @@
 forward / loss / init_cache / prefill / decode_step.
 
 The port of ``repro/models/api.py`` for dense decoders, the MoE family
-(qwen2-moe, granite-moe), the RG-LRU hybrid family (recurrentgemma) and
-the xLSTM family (``ssm``: xlstm-1.3b).  As in the JAX
-package the embedding is not scaled by sqrt(d_model), the head is tied
-(``embed.T``) unless the config says otherwise, and the vocabulary is
-padded to a multiple of 256 (``pad_vocab``).
+(qwen2-moe, granite-moe), the RG-LRU hybrid family (recurrentgemma), the
+xLSTM family (``ssm``: xlstm-1.3b) and the audio encoder-decoder
+(whisper-medium: a bidirectional ``"attn"`` encoder over precomputed
+frames, the mel / conv frontend a stub as in the JAX package, and a
+decoder of ``"xattn"`` blocks).  As in the JAX package the embedding is
+not scaled by sqrt(d_model), the head is tied (``embed.T``) unless the
+config says otherwise, and the vocabulary is padded to a multiple of 256
+(``pad_vocab``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
+ENCODER_PATTERN = ("attn",)
 
 
 class Model:
@@ -57,11 +61,29 @@ class Model:
             head = torch.randn(cfg.d_model, self.vocab_padded,
                                generator=generator, device=gdev)
             params["lm_head"] = (head * cfg.d_model ** -0.5).to(dt)
+        if cfg.family == "audio":
+            enc = {"stack": init_stack(cfg, generator,
+                                       num_layers=cfg.encoder_layers,
+                                       pattern=ENCODER_PATTERN)}
+            enc.update(norm_params(cfg, cfg.d_model, "encfinal",
+                                   device=gdev))
+            params["encoder"] = enc
         return tree_map(lambda t: t.to(device), params)
 
     # ---------------------------------------------------------------- forward
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(getattr(torch, self.cfg.dtype))
+
+    def _encode(self, params, batch):
+        """The audio encoder over ``batch["frames"]`` (b, frames, d_model):
+        bidirectional ``"attn"`` blocks with no adapter, then the
+        ``encfinal`` norm.  Returns the encoder output (b, frames, d)."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        h, _ = apply_stack(cfg, enc["stack"],
+                           batch["frames"].to(getattr(torch, cfg.dtype)),
+                           causal=False, pattern=ENCODER_PATTERN)
+        return apply_norm(cfg, h, enc, "encfinal")
 
     def _head(self, params, x):
         head = (params["embed"].T if self.cfg.tie_embeddings
@@ -91,14 +113,19 @@ class Model:
     def forward(self, params, batch, adapters=None):
         """Full-sequence forward: ``batch["tokens"]`` (b, s) -> (logits
         (b, s, V), aux).  ``adapters``: None, an AdapterSet, or a banked
-        per-request set."""
+        per-request set.  The audio family also reads ``batch["frames"]``
+        (b, frames, d_model) and runs the encoder over them (a batch
+        without frames raises ``KeyError('frames')``, as in JAX)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
+        enc_out = (self._encode(params, batch) if cfg.family == "audio"
+                   else None)
         x, aux = apply_stack(cfg, params["stack"], x,
                              adapters=self._stack_adapters(
                                  as_adapter_set(adapters)),
-                             positions=self._positions(tokens))
+                             positions=self._positions(tokens),
+                             enc_out=enc_out)
         x = apply_norm(cfg, x, params, "final")
         return self._head(params, x), aux
 
@@ -126,31 +153,40 @@ class Model:
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- serving
+    def _cross_len(self) -> int:
+        """Encoder frames the cross K/V of a cache hold (0 but for audio)."""
+        return self.cfg.encoder_frames if self.cfg.family == "audio" else 0
+
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
                    device="cuda"):
         dtype = dtype or getattr(torch, self.cfg.dtype)
         return init_stack_cache(self.cfg, batch, max_len, dtype,
-                                device=resolve_device(device))
+                                device=resolve_device(device),
+                                cross_len=self._cross_len())
 
     def init_paged_cache(self, num_blocks: int, block_size: int, batch: int,
                          dtype=None, *, device="cuda"):
         """Paged serving cache: per-layer KV pools of ``num_blocks`` x
         ``block_size`` slots, shared by every request through per-request
-        block tables, plus per-slot recurrent state for ``batch`` engine
-        slots.  Block 0 is reserved as the null block idle slots write into
-        (see ``launch/serve.BlockPool``)."""
+        block tables, plus per-slot recurrent and cross state for ``batch``
+        engine slots.  Block 0 is reserved as the null block idle slots
+        write into (see ``launch/serve.BlockPool``)."""
         dtype = dtype or getattr(torch, self.cfg.dtype)
         return init_paged_stack_cache(self.cfg, num_blocks, block_size,
                                       batch, dtype,
-                                      device=resolve_device(device))
+                                      device=resolve_device(device),
+                                      cross_len=self._cross_len())
 
-    def prefill(self, params, cache, tokens, adapters=None, *,
+    def prefill(self, params, cache, tokens, adapters=None, *, enc_out=None,
                 last_only=False, table=None):
         """Whole-prompt forward that fills a fresh cache in one pass:
         tokens (b, p) -> (logits (b, p, V), cache).  ``last_only=True``
         projects only the last position through the head (logits
         (b, 1, V)).  The cache is left as ``p`` decode steps would leave it
-        (updated in place and returned).  A paged cache
+        (updated in place and returned).  An encoder-decoder (audio) model
+        takes the encoder output (:meth:`_encode`) as ``enc_out``, and
+        every layer's cross K/V land in the cache; without it the cache's
+        own are kept (zeros in a fresh cache).  A paged cache
         (:meth:`init_paged_cache`) also needs the requests' block ``table``
         (b, blocks_per_req) int32."""
         cfg = self.cfg
@@ -158,7 +194,7 @@ class Model:
         x, _, cache = prefill_stack(
             cfg, params["stack"], cache, x, self._positions(tokens),
             adapters=self._stack_adapters(as_adapter_set(adapters)),
-            table=table)
+            table=table, enc_out=enc_out)
         x = apply_norm(cfg, x, params, "final")
         if last_only:
             x = x[:, -1:]

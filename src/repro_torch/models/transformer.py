@@ -1,14 +1,14 @@
 """Block-stack transformer machinery.
 
 The port of ``repro/models/transformer.py`` for the ``"attn"`` block
-(attention + MLP, or + the MoE MLP when ``cfg.moe`` is set), the RG-LRU
-``"rglru"`` block (recurrent temporal mix + MLP, the hybrid family) and the
-xLSTM blocks ``"mlstm"`` and ``"slstm"`` (a norm and the mixer, no MLP).
-Parameters keep the JAX tree, ``{"repeat": {"p0": ...}, "tail": {...}}``,
-with the leading layer dim on repeat leaves, so carrying weights across is
-a plain copy.  Where JAX scans over the layer dim, this module
-loops over it in Python.  Other block kinds (``"xattn"``) are not ported
-yet and raise.
+(attention + MLP, or + the MoE MLP when ``cfg.moe`` is set), the
+encoder-decoder's ``"xattn"`` block (self-attention, cross-attention over
+the encoder output, MLP), the RG-LRU ``"rglru"`` block (recurrent temporal
+mix + MLP, the hybrid family) and the xLSTM blocks ``"mlstm"`` and
+``"slstm"`` (a norm and the mixer, no MLP).  Parameters keep the JAX tree,
+``{"repeat": {"p0": ...}, "tail": {...}}``, with the leading layer dim on
+repeat leaves, so carrying weights across is a plain copy.  Where JAX scans
+over the layer dim, this module loops over it in Python.
 
   init_block(cfg, generator, kind)                -> params
   apply_block(..., mode="fullseq")                -> (x, aux)
@@ -17,7 +17,8 @@ yet and raise.
 A cache is either per-request ring buffers (``init_stack_cache``) or, for
 the continuous-batching scheduler, shared paged pools
 (``init_paged_stack_cache``) addressed through a block ``table``, beside
-the per-slot state of recurrent blocks.
+the per-slot state of recurrent blocks and of the cross-attention K/V
+(``cross_len`` encoder frames a slot).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import (attention_decode,
+from repro_torch.models.attention import (attention_core,
+                                          attention_decode,
                                           attention_decode_paged,
                                           attention_fullseq,
                                           attention_prefill,
@@ -33,12 +35,12 @@ from repro_torch.models.attention import (attention_decode,
                                           attn_params, init_kv_cache,
                                           init_paged_kv_cache,
                                           paged_decode_index)
-from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_params,
-                                       norm_params)
+from repro_torch.models.layers import (apply_norm, linear, mlp_apply,
+                                       mlp_params, norm_params)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.tree import tree_leaves, tree_map
 
-KINDS = ("attn", "rglru", "mlstm", "slstm")
+KINDS = ("attn", "xattn", "rglru", "mlstm", "slstm")
 XLSTM_KINDS = ("mlstm", "slstm")
 
 
@@ -46,8 +48,8 @@ def _check_kind(cfg, kind: str):
     if kind not in KINDS or (kind != "attn" and cfg.moe is not None):
         raise NotImplementedError(
             f"block '{kind}' is not yet ported to repro_torch (only the "
-            "'attn' block, dense or MoE, and the 'rglru', 'mlstm' and "
-            "'slstm' blocks are)")
+            "'attn' block, dense or MoE, and the 'xattn', 'rglru', 'mlstm' "
+            "and 'slstm' blocks are)")
 
 
 # ---------------------------------------------------------------- block init
@@ -67,6 +69,9 @@ def init_block(cfg, generator, kind: str, *, lead=()):
         p["rglru"] = rglru_mod.rglru_params(cfg, generator, lead=lead)
     else:
         p["attn"] = attn_params(cfg, generator, lead=lead)
+    if kind == "xattn":
+        p.update(norm_params(cfg, d, "lnx", device=dev, lead=lead))
+        p["cross"] = attn_params(cfg, generator, lead=lead)
     p.update(norm_params(cfg, d, "ln2", device=dev, lead=lead))
     if cfg.moe is not None:
         p["moe"] = moe_params(cfg, generator, lead=lead)
@@ -75,9 +80,20 @@ def init_block(cfg, generator, kind: str, *, lead=()):
     return p
 
 
+def _cross_cache(cfg, batch, cross_len, dtype, device):
+    """Zero cross-attention K/V for ``cross_len`` encoder frames a row."""
+    shape = (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype, *,
-                     device):
+                     device, cross_len: int = 0):
     _check_kind(cfg, kind)
+    if kind == "xattn":
+        return {"self": init_kv_cache(cfg, batch, max_len, dtype,
+                                      device=device),
+                **_cross_cache(cfg, batch, cross_len, dtype, device)}
     if kind == "rglru":
         return rglru_mod.rglru_init_cache(cfg, batch, dtype, device=device)
     if kind in XLSTM_KINDS:
@@ -87,24 +103,51 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype, *,
 
 
 def init_paged_block_cache(cfg, kind: str, num_blocks: int, block_size: int,
-                           batch: int, dtype, *, device):
+                           batch: int, dtype, *, device, cross_len: int = 0):
     """Paged-serving counterpart of :func:`init_block_cache`: attention KV
     lives in a shared block pool (no batch dim: requests own pool blocks
-    through the block table), while a recurrent block keeps constant-size
-    PER-SLOT state for ``batch`` engine slots (admission swaps it per slot,
-    see :func:`paged_prefill_view`)."""
+    through the block table), while a recurrent block and the
+    cross-attention K/V keep constant-size PER-SLOT state for ``batch``
+    engine slots (admission swaps it per slot, see
+    :func:`paged_prefill_view`)."""
     _check_kind(cfg, kind)
     if kind == "attn":
         return init_paged_kv_cache(cfg, num_blocks, block_size, dtype,
                                    device=device)
+    if kind == "xattn":
+        return {"self": init_paged_kv_cache(cfg, num_blocks, block_size,
+                                            dtype, device=device),
+                **_cross_cache(cfg, batch, cross_len, dtype, device)}
     return init_block_cache(cfg, kind, batch, 0, dtype, device=device)
 
 
 # ---------------------------------------------------------------- block apply
 
+def _cross_attention(cfg, params, x, ck, cv, adapters=None):
+    """Cross-attention against precomputed encoder K/V: no mask, no RoPE;
+    q and o take their adapters."""
+    b, s, _ = x.shape
+    adapters = adapters or {}
+    q = linear(x, params["q"], adapters.get("q")).reshape(
+        b, s, cfg.num_heads, cfg.head_dim)
+    mask = torch.ones((b, s, ck.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = attention_core(cfg, q, ck, cv, mask)
+    return linear(out.reshape(b, s, -1), params["o"], adapters.get("o"))
+
+
+def build_cross_kv(cfg, p_cross, enc_out):
+    """The encoder output projected to one layer's cross K/V (no RoPE, no
+    adapter, as in the JAX package)."""
+    b, t, _ = enc_out.shape
+    shape = (b, t, cfg.num_kv_heads, cfg.head_dim)
+    return (linear(enc_out, p_cross["k"]).reshape(shape),
+            linear(enc_out, p_cross["v"]).reshape(shape))
+
+
 def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
                 causal=True, mode="fullseq", cache=None, pos=None,
-                table=None):
+                table=None, enc_out=None):
     """``mode``: "fullseq" (no cache), "prefill" (whole prompt, cache
     filled as the token-by-token decode would have), "decode" (one token
     against the cache).  Prefill and decode return (x, aux, cache);
@@ -117,7 +160,14 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
     :class:`~repro_torch.models.attention.PagedDecode` (which
     :func:`decode_stack` builds once for all layers).  A ring cache, and
     an RG-LRU or xLSTM block's per-slot state, ignore it.  An xLSTM block
-    returns right after its mixer's residual (no ln2, no MLP)."""
+    returns right after its mixer's residual (no ln2, no MLP).
+
+    An ``"xattn"`` block's cache is ``{"self", "cross_k", "cross_v"}``.
+    It cross-attends the K/V it builds from ``enc_out`` (b, frames, d) in
+    fullseq mode and in a prefill given one, and writes them into the
+    cache then; decode, and a prefill without ``enc_out``, read the
+    cache's (a fresh cache cross-attends zeros, the JAX package's
+    token-by-token semantics)."""
     _check_kind(cfg, kind)
     adapters = adapters or {}
     h1 = apply_norm(cfg, x, p, "ln1")
@@ -131,10 +181,17 @@ def apply_block(cfg, kind, p, x, *, adapters=None, positions=None,
     if kind == "rglru":
         a, cache = _rglru_mix(cfg, p["rglru"], h1, adapters.get("rglru"),
                               mode, cache)
+    elif kind == "xattn":
+        a, _ = _attn_mix(cfg, p["attn"], h1, adapters.get("attn"), mode,
+                         None if cache is None else cache["self"],
+                         positions, pos, table, causal)
     else:
         a, cache = _attn_mix(cfg, p["attn"], h1, adapters.get("attn"), mode,
                              cache, positions, pos, table, causal)
     x = x + a
+    if kind == "xattn":
+        x = x + _cross_mix(cfg, p, apply_norm(cfg, x, p, "lnx"),
+                           adapters.get("cross"), mode, cache, enc_out)
     h2 = apply_norm(cfg, x, p, "ln2")
     aux = 0.0
     if cfg.moe is not None:
@@ -166,6 +223,19 @@ def _attn_mix(cfg, p, h1, adapters, mode, cache, positions, pos, table,
         return attention_decode_paged(cfg, p, h1, cache, table, pos,
                                       adapters=adapters)
     return attention_decode(cfg, p, h1, cache, pos, adapters=adapters)
+
+
+def _cross_mix(cfg, p, hx, adapters, mode, cache, enc_out):
+    """The ``"xattn"`` block's cross-attention; a prefill given
+    ``enc_out`` writes the K/V it builds into the cache (in place)."""
+    if mode == "decode" or (mode == "prefill" and enc_out is None):
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        ck, cv = build_cross_kv(cfg, p["cross"], enc_out)
+        if mode == "prefill":
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
+    return _cross_attention(cfg, p["cross"], hx, ck, cv, adapters)
 
 
 def _rglru_mix(cfg, p, h1, adapters, mode, cache):
@@ -208,14 +278,14 @@ def init_stack(cfg, generator, *, num_layers=None, pattern=None):
 
 
 def init_stack_cache(cfg, batch, max_len, dtype, *, device, num_layers=None,
-                     pattern=None):
+                     pattern=None, cross_len=0):
     num_layers = num_layers or cfg.num_layers
     pattern = pattern or cfg.block_pattern
     repeats, tail = stack_layout(num_layers, pattern)
 
     def mk(kind):
         return init_block_cache(cfg, kind, batch, max_len, dtype,
-                                device=device)
+                                device=device, cross_len=cross_len)
 
     out = {"repeat": {}, "tail": {}}
     if repeats:
@@ -228,17 +298,20 @@ def init_stack_cache(cfg, batch, max_len, dtype, *, device, num_layers=None,
 
 
 def init_paged_stack_cache(cfg, num_blocks, block_size, batch, dtype, *,
-                           device, num_layers=None, pattern=None):
+                           device, num_layers=None, pattern=None,
+                           cross_len=0):
     """Stack cache for the paged serving engine: attention layers hold
-    SHARED pools, recurrent layers per-slot state for ``batch`` engine
-    slots (repeat leaves gain a leading layer dim as usual)."""
+    SHARED pools, recurrent layers and the cross K/V per-slot state for
+    ``batch`` engine slots (repeat leaves gain a leading layer dim as
+    usual)."""
     num_layers = num_layers or cfg.num_layers
     pattern = pattern or cfg.block_pattern
     repeats, tail = stack_layout(num_layers, pattern)
 
     def mk(kind):
         return init_paged_block_cache(cfg, kind, num_blocks, block_size,
-                                      batch, dtype, device=device)
+                                      batch, dtype, device=device,
+                                      cross_len=cross_len)
 
     out = {"repeat": {}, "tail": {}}
     if repeats:
@@ -280,12 +353,13 @@ def _map_paged_cache(cache, view, fn_pool, fn_leaf):
             for part, axis in (("repeat", 1), ("tail", 0))}
 
 
-def paged_prefill_view(cfg, cache, batch, dtype, *, device):
+def paged_prefill_view(cfg, cache, batch, dtype, *, device, cross_len=0):
     """Admission view: the engine's pools, and fresh per-slot state for a
     ``batch``-request newcomer group (zero recurrences and conv tails, the
-    xLSTM's -1e30 stabilizers and 1e-6 sLSTM normaliser: exactly what a
-    fresh fixed-batch cache holds).  A dense stack has no
-    per-slot leaves, so its view is the engine cache's own pools."""
+    xLSTM's -1e30 stabilizers and 1e-6 sLSTM normaliser, zero cross K/V of
+    ``cross_len`` frames: exactly what a fresh fixed-batch cache holds).  A
+    dense stack has no per-slot leaves, so its view is the engine cache's
+    own pools."""
     out = {}
     for part, layers in cache.items():
         out[part] = {}
@@ -294,11 +368,14 @@ def paged_prefill_view(cfg, cache, batch, dtype, *, device):
                 out[part][key] = c
                 continue
             fresh = init_block_cache(cfg, cfg.block_pattern[int(key[1:])],
-                                     batch, 0, dtype, device=device)
+                                     batch, 0, dtype, device=device,
+                                     cross_len=cross_len)
             if part == "repeat":
                 n = tree_leaves(c)[0].shape[0]
                 fresh = tree_map(
                     lambda a: a.expand((n,) + a.shape).clone(), fresh)
+            if "self" in c:                   # an xattn layer's pools
+                fresh["self"] = c["self"]
             out[part][key] = fresh
     return out
 
@@ -333,6 +410,7 @@ def _first_pool(cache):
     """The first attention layer's pool subtree, or None (no attention)."""
     for part in cache.values():
         for c in part.values():
+            c = c.get("self", c)              # an xattn layer's pools
             if "k_pool" in c:
                 return c
     return None
@@ -362,32 +440,36 @@ def _layers(cfg, pattern, stack_params, adapters, cache=None):
 
 
 def apply_stack(cfg, stack_params, x, *, adapters=None, positions=None,
-                causal=True, pattern=None):
+                causal=True, pattern=None, enc_out=None):
     """Full-sequence forward.  Returns (x, aux_sum).  ``adapters`` is the
     prepared "stack" subtree of an AdapterSet; banked per-request trees
-    must be in scan layout (:func:`batched_scan_layout`)."""
+    must be in scan layout (:func:`batched_scan_layout`).  ``enc_out``:
+    the encoder output the ``"xattn"`` blocks cross-attend."""
     pattern = pattern or cfg.block_pattern
     aux_total = 0.0
     for kind, p, lo, _ in _layers(cfg, pattern, stack_params, adapters):
         x, aux = apply_block(cfg, kind, p, x, adapters=lo,
-                             positions=positions, causal=causal)
+                             positions=positions, causal=causal,
+                             enc_out=enc_out)
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def prefill_stack(cfg, stack_params, cache, x, positions, *, adapters=None,
-                  pattern=None, table=None):
+                  pattern=None, table=None, enc_out=None):
     """Whole-prompt forward that also fills every layer's cache in one
     pass.  Returns (x, aux_sum, cache); the cache is updated in place.
     ``table`` routes a paged cache; every layer uses the same one (each
-    layer has its own pools, so the same block ids name disjoint memory)."""
+    layer has its own pools, so the same block ids name disjoint memory).
+    ``enc_out``: the encoder output whose cross K/V the ``"xattn"`` blocks
+    build and cache (None keeps the cache's)."""
     pattern = pattern or cfg.block_pattern
     aux_total = 0.0
     for kind, p, lo, c in _layers(cfg, pattern, stack_params, adapters,
                                   cache):
         x, aux, _ = apply_block(cfg, kind, p, x, adapters=lo,
                                 positions=positions, mode="prefill", cache=c,
-                                table=table)
+                                table=table, enc_out=enc_out)
         aux_total = aux_total + aux
     return x, aux_total, cache
 

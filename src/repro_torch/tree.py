@@ -39,3 +39,23 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, QuantizedLinear):
         return [tree.data, tree.scales]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves``, listed in :func:`tree_leaves`' sorted-key order, put back
+    into ``tree``'s structure (whose dicts keep their own key order), as
+    ``jax.tree.unflatten`` does with ``jax.tree.leaves``' list."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            vals = {k: walk(node[k]) for k in sorted(node)}
+            return {k: vals[k] for k in node}
+        if node is None:
+            return None
+        if isinstance(node, QuantizedLinear):
+            return QuantizedLinear(next(it), next(it), node.bits,
+                                   node.group_size, node.k, node.out_dtype)
+        return next(it)
+
+    return walk(tree)

@@ -226,6 +226,7 @@ PAGED_CASES = [
     (4, 32, 32, 64, 16, 10),    # stablelm-1.6b: MHA, hd 64
     (4, 16, 16, 128, 16, 10),   # qwen2-moe-a2.7b: MHA, hd 128
     (4, 16, 8, 64, 16, 10),     # granite-moe-1b-a400m: 2 query heads a kv
+    (4, 16, 16, 64, 16, 10),    # whisper-medium's decoder: MHA, hd 64
 ]
 
 
@@ -1463,3 +1464,158 @@ def test_xlstm_chunk_boundary_prefill_equals_prefill_then_decode(card):
         for leaf in whole["repeat"][key]:
             _close_to(whole["repeat"][key][leaf], split["repeat"][key][leaf],
                       1e-4)
+
+
+# ------------------------------------------------ whisper-medium's widths
+
+# its MLP (1024 -> 4096, 4096 -> 1024), packed int8 / int4 (group 64), at a
+# decode step's m = 4, a prefill's 4 x 128 and the encoder's 4 x 1500 frames
+WHISPER_MLP = [(1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", WHISPER_MLP)
+@pytest.mark.parametrize("m", [4, 512, 6000])
+def test_quant_matmul_at_whisper_mlp_matches_plain_and_repeats(card, m, k, n,
+                                                               bits):
+    """#11 at whisper-medium's MLP: its decode GEMV (m = 4) and its tile
+    (m = 512, and m = 6000 as the encoder over a packed base runs it)."""
+    wq = _packed(k, n, bits, seed=m + k)
+    x = torch.randn(m, k, device="cuda")
+    got, again = lora_matmul.quant_matmul(x, wq), lora_matmul.quant_matmul(
+        x, wq)
+    want = lora_matmul.quant_matmul_plain(x, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, want)
+    assert lora_matmul.launches == _launches(quant_matmul=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k,n", WHISPER_MLP)
+def test_quantized_bgmv_at_whisper_mlp_matches_plain(card, k, n, bits):
+    """#4 (decode rows) and #3 (4 x 128 rows) over whisper-medium's packed
+    MLP widths with a rank 8 bank, materialized and lazy, twice each bit
+    for bit."""
+    wq = _packed(k, n, bits, seed=k + n + bits)
+    x, bank, gathered = _gemv_bank(4, k, n, 8, torch.float32, k + n)
+    _gemv_checks(bgmv.bgmv_gemv_quant, bgmv.bgmv_gemv_quant_plain, x, wq,
+                 (bank, gathered))
+    x3 = torch.randn(4, 128, k, device="cuda")
+    for a, b, ids in (bank, gathered):
+        got, again = (bgmv.bgmv_matmul_quant(x3, wq, a, b, ids)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, bgmv.bgmv_matmul_quant_plain(x3, wq, a, b, ids))
+    assert bgmv.launches["bgmv_gemv_quant"] == 4
+    assert bgmv.launches["bgmv_matmul_quant"] == 4
+
+
+def _whisper_card(rank=8):
+    """whisper-medium at full width, 2 decoder and 2 encoder layers,
+    seeded random weights, 4 SFed-LoRA sets with B at std 0.02 (every
+    leaf)."""
+    import dataclasses
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_adapter_set
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("whisper-medium"), num_layers=2,
+                              encoder_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    sets = []
+    for _ in range(4):
+        s = init_adapter_set(params, gen, LoRAConfig(rank=rank, alpha=8.0),
+                             n_clients=4)
+        sets.append(dataclasses.replace(s, lora=tree_map(
+            lambda t: t + 0.02 * torch.randn(t.shape, generator=gen,
+                                             device="cuda"), s.lora)))
+    frames = torch.randn(4, cfg.encoder_frames, cfg.d_model, device="cuda",
+                         generator=gen)
+    return model, params, sets, frames
+
+
+@pytest.mark.cuda
+def test_whisper_serving_kernel_tier_matches_plain(card):
+    """The encoder over 4 x 1500 frames, a 128-token prefill with its
+    output and 4 teacher-forced decode steps over a bank of 4 tenants: 6
+    launches of #2 (attn q, attn v, cross q of 2 layers) in the prefill
+    and 6 of #1 a step on the kernel tier, none on the plain tier; logits
+    and the cached cross K/V within 1e-4 of the plain tier's."""
+    from repro_torch.core.lora import AdapterBank
+    model, params, sets, frames = _whisper_card()
+    bank = AdapterBank.from_sets(sets)
+    ids = torch.arange(4, device="cuda", dtype=torch.int32)
+    prompt = torch.randint(0, 51865, (4, 132), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    out = {}
+    for plain in (False, True):
+        bgmv.reset_launches()
+        with torch.inference_mode(), (dispatch.plain_tier() if plain
+                                      else contextlib.nullcontext()):
+            adapters = bank.requests(ids)
+            enc = model._encode(params, {"frames": frames})
+            cache = model.init_cache(4, 132, device="cuda")
+            lg, cache = model.prefill(params, cache, prompt[:, :128],
+                                      adapters, enc_out=enc, last_only=True)
+            logits = [lg[:, -1]]
+            for t in range(128, 132):
+                pos = torch.full((4,), t, device="cuda")
+                lg, cache = model.decode_step(params, cache,
+                                              prompt[:, t:t + 1], pos,
+                                              adapters)
+                logits.append(lg[:, -1])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bgmv.launches.items() if v}
+        assert launches == ({} if plain else
+                            {"bgmv_matmul": 6, "bgmv_gemv": 24}), launches
+        out[plain] = (torch.stack(logits, 1), cache["repeat"]["p0"])
+    (lk, ck), (lp, cp) = out[False], out[True]
+    _assert_close(lk, lp)
+    for leaf in ("cross_k", "cross_v"):
+        _assert_close(ck[leaf], cp[leaf])
+
+
+@pytest.mark.cuda
+def test_whisper_lora_gradient_step_kernel_tier_matches_plain(card):
+    """One LoRA gradient step over 4 x 128 tokens and 4 x 1500 frames
+    (rank 64): #5-#8 launch 6 times each (attn q, attn v, cross q of 2
+    layers) on the kernel tier, never on the plain tier; loss and the
+    read leaves' gradients within 1e-4 of the plain tier's, the encoder's
+    and cross v's none on either tier."""
+    from repro_torch.core.lora import AdapterSet
+    from repro_torch.tree import tree_leaves, tree_map
+    model, params, sets, frames = _whisper_card(rank=64)
+    toks = torch.randint(0, 51865, (4, 128), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    out = {}
+    for plain in (False, True):
+        lora_matmul.reset_launches()
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          sets[0].lora)
+        ctx = dispatch.plain_tier() if plain else contextlib.nullcontext()
+        with ctx:
+            loss, _ = model.loss(params, {"tokens": toks, "frames": frames},
+                                 adapters=AdapterSet(lora=leaves,
+                                                     gamma=sets[0].gamma))
+            grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        assert lora_matmul.launches == _launches(
+            **({} if plain else dict(lora_fwd=6, lora_bwd_dx=6,
+                                     lora_bwd_da=6, lora_bwd_db=6)))
+        out[plain] = (loss.detach(), grads)
+    (lk, gk), (lp, gp) = out[False], out[True]
+    _assert_close(lk, lp)
+    # 4 encoder leaves (q, v: a, b) and cross v's a, b are never read
+    assert sum(g is None for g in gk) == sum(g is None for g in gp) == 6
+    for got, want in zip(gk, gp):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert float(want.abs().max()) > 0
+            _assert_close(got, want)
