@@ -71,10 +71,11 @@ Phases, in order; any failure raises and the exit code is not 0:
  12. kernel API path: repro_torch.kernels.ops (flash_mha at both attention
      shapes, rglru_scan_op, fused_lora_matmul), with the launch counts of
      #14, #15 and #5 and the outputs against the plain versions
- 13. hybrid serving path: recurrentgemma-9b at full width and depth (fp32,
-     seeded random weights, the 4 SFed-LoRA tenants of phase 4 at q, v, wx,
-     wy) through generate_banked (26 launches of #15 and 76 of #2 per
-     prefill, 76 of #1 per decode step, teacher-forced logits against the
+ 13. hybrid serving path: recurrentgemma-9b at full width and half depth
+     (19 of its 38 layers, RG_PATHS, since phase 28; fp32, seeded random
+     weights, the 4 SFed-LoRA tenants of phase 4 at q, v, wx, wy) through
+     generate_banked (13 launches of #15 and 38 of #2 per prefill, 38 of
+     #1 per decode step, teacher-forced logits against the
      plain tier, ms/token, a profile) and serve_scheduled (the traffic of
      phase 8 over an fp32 base: #15 per admission group, #13 per decode
      step, plain tier against generate_banked wave by wave, kernel tier
@@ -108,13 +109,14 @@ Phases, in order; any failure raises and the exit code is not 0:
      call where there is one and the card's bound (#3 and #4 at q / wx / wy
      and v as well, #5-#8 at v over fp32)
  17. hybrid training, fp32 base: FederatedTrainer on recurrentgemma-9b at
-     full width and depth (38 layers, 9.40 B parameters, seeded random
-     weights), LoRA at q, v, wx and wy, fedsa + sfedlora, N = 4, rank 64,
-     3 rounds: launch counts (76 of each of #5-#8, 26 of #15 and 26 of its
-     backward per client local step), the plain tier, a bit-identical
+     full width and RG_PATHS's half depth (19 layers since phase 28;
+     seeded random weights), LoRA at q, v, wx and wy, fedsa + sfedlora,
+     N = 4, rank 64, 3 rounds: launch counts (38 of each of #5-#8, 13 of
+     #15 and 13 of its backward per client local step), the plain tier, a
+     bit-identical
      repeat, ms/round, peak memory and a profile of one local step
  18. hybrid training over an int4 base packed on the card from a seeded
-     fp32 base of half the depth (19 layers, RG_PACKED; freed once
+     fp32 base of the same half depth (19 layers, RG_PATHS; freed once
      packed): the checks of 17 with #9-#12, and save / resume bit for bit
  19. hybrid serving over an int4 base at that half depth: generate_banked
      (#3, #4, #11, #15) and serve_scheduled (#13 as well), with the checks
@@ -142,15 +144,17 @@ Phases, in order; any failure raises and the exit code is not 0:
      heads on 8 of 64; #3, #4, #9-#12 at granite's q / k / v / o over int8
      and int4; fp32 and bf16 against the plain versions, then timed beside
      the plain versions, one PyTorch call each and the bound
- 23. qwen2-moe-a2.7b at full width and depth (24 layers, 60 experts padded
-     to 64, 15.15 B parameters, fp32), every earlier model freed first:
-     generate_banked (48 of #2 per prefill, 48 of #1 per decode step),
-     serve_scheduled over fp32 (24 of #13 per decode step) and the
-     training path (48 of each of #5-#8 per client local step), each with
+ 23. qwen2-moe-a2.7b at full width and half depth (12 of its 24 layers,
+     QWEN_MOE_PATHS, since phase 28; 60 experts padded to 64, fp32), every
+     earlier model freed first: generate_banked (24 of #2 per prefill, 24
+     of #1 per decode step), serve_scheduled over fp32 (12 of #13 per
+     decode step) and the training path (24 of each of #5-#8 per client
+     local step), each with
      the router's top-k choices that differ between the kernel and the
      plain tier, peak memory, and the expert bmms' share of a local step
- 24. granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
-     top-8, 1.34 B parameters) over an int4 base (q / k / v / o packed):
+ 24. granite-moe-1b-a400m at full width and half depth (12 of its 24
+     layers, GRANITE_PATHS, since phase 28; 32 experts top-8) over an int4
+     base (q / k / v / o packed):
      serve_scheduled (#3, #4, #11, #13), and training with data_mode
      "device" at N = 16 over a Dirichlet partition, 4 rounds in chunks of
      2 (#9, #10, #7, #8, #11, #12 counted, two kernel-tier runs and a
@@ -163,20 +167,40 @@ Phases, in order; any failure raises and the exit code is not 0:
      fp32 (fresh per-slot mLSTM and sLSTM state at each admission; no #13,
      nothing packed) and the training path (24 of each of #5-#8 per
      client local step; XLSTM_TRAIN), with peak memory and profiles
- 26. whisper-medium (24 decoder xattn layers, 24 encoder layers, d_model
-     1024, 16 heads of 64; 758.1 M parameters, fp32), every earlier model
-     freed first: its new kernel shapes (#13 at 16 query heads on 16 kv
+ 26. whisper-medium (d_model 1024, 16 heads of 64, fp32; its paths at
+     half depth since phase 28, WHISPER_PATHS: 12 of its 24 decoder xattn
+     layers and 12 of its 24 encoder layers), every earlier model freed
+     first: its new kernel shapes (#13 at 16 query heads on 16 kv
      heads of 64; #11, #3, #4 at its MLP, 1024 -> 4096 and 4096 -> 1024,
      int8 and int4, #11 also at m = 6000) against their plain versions and
      timed; generate_banked as the serve CLI runs it (the decoder alone:
-     72 of #2 per prefill, 72 of #1 per decode step); the encoder path
+     36 of #2 per prefill, 36 of #1 per decode step); the encoder path
      (Model._encode over 4 x 1500 frames, prefill(enc_out=), 32 greedy
      tokens against the plain tier, a control without enc_out, the encoder
      over int4 with #11 at m = 6000); serve_scheduled over fp32 and int4
-     (24 of #13 per decode step); training through
-     FederatedTrainer.round_step with frames (72 of each of #5-#8 per
+     (12 of #13 per decode step); training through
+     FederatedTrainer.round_step with frames (36 of each of #5-#8 per
      client local step; the encoder's and cross v's gradients exactly 0,
      their B 0.0), with peak memory and profiles
+ 27. paligemma-3b (18 layers, d_model 2048, 8 heads on one kv head of
+     256, GeGLU 16384, vocab 257280 padded, patch_proj 1152 x 2048; 2.51 B
+     parameters, fp32), every earlier model freed first: generate_banked
+     as the serve CLI runs it (text only: 36 of #2 per prefill, 36 of #1
+     per decode step); the vision-prefix forward (Model.forward over 4 x
+     (256 stub patches + 128 tokens) under the bank: 36 of #2, the plain
+     tier's logits, a control with the patches zeroed); training through
+     FederatedTrainer.round_step with patches (36 of each of #5-#8 per
+     client local step), then those rounds with the chunked CE
+     (repro_torch.sharding.opts "chunked_ce": loss and grad-norm within
+     1e-4); one local step over 4 x (256 + 1100) with the chunked CE off
+     and on, the peak memory of each (the chunked one lower)
+ 28. roberta-large (24 layers, d_model 1024, 16 heads of 64; 353.7 M
+     parameters, fp32): generate_banked as the serve CLI runs it (causal
+     decode, as in JAX: 48 of #2 per prefill, 48 of #1 per decode step),
+     serve_scheduled over fp32 (24 of #13 per decode step), a
+     bidirectional control on the kernel tier, and the training path with
+     the MLM loss, adamw over a Dirichlet(0.5) partition (48 of each of
+     #5-#8 per client local step)
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -216,8 +240,10 @@ from repro_torch.kernels import (bgmv, build, common,  # noqa: E402
                                  paged_attention, rglru_scan)
 from repro_torch.launch import serve                        # noqa: E402
 from repro_torch.models import moe, transformer             # noqa: E402
-from repro_torch.models.api import build_model              # noqa: E402
+from repro_torch.models.api import (PATCH_EMBED_DIM,  # noqa: E402
+                                    build_model)
 from repro_torch.models.transformer import stack_layout     # noqa: E402
+from repro_torch.sharding import opts                       # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map          # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -237,6 +263,10 @@ LOGIT_ATOL = 1e-3              # teacher-forced logits, kernel vs plain tier
 # kernels' tiles vs cuBLAS), and 24 SGD steps through 18-38 layers carry that
 # forward, so the bound is relative and well above fp32 rounding
 TRAIN_RTOL = 1e-3
+# the chunked CE against the plain CE, both on the kernel tier: the same
+# numbers summed in other chunks (the JAX package's test holds the two to
+# 1e-4 absolute)
+CHUNKED_RTOL = 1e-4
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"bgmv_gemv": "src/repro_torch/kernels/csrc/qgemv.cu",
            "bgmv_matmul": "src/repro_torch/kernels/csrc/bgmv.cu",
@@ -1309,7 +1339,8 @@ def time_lora_kernels(k=2048, projs=(("q", 2048), ("v", 256))):
 
 def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
                local_steps=2, batch=4, seq=128, rounds=3, params=None,
-               track_stability=False, b0=None):
+               track_stability=False, b0=None, opt="sgd", lr=5e-3,
+               partition="iid"):
     """FederatedTrainer through the user's entry points (as
     ``repro_torch.launch.train`` builds it), over an fp32 base or (``quant``
     int8 / int4, group 64) one packed by ``quantize_tree`` (or ``params``
@@ -1323,13 +1354,16 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     record update_norm (phase 21 compares against it).  ``b0``: every
     trainer starts from B drawn at that std (seed 1) instead of init_lora's
     zero B, so that the first step's rank terms of #5-#7 are not zero, and
-    gamma (xA^T)B^T reaches the loss.  Returns the launch
+    gamma (xA^T)B^T reaches the loss.  ``opt``, ``lr`` and ``partition``:
+    the optimizer and the clients' data split (sgd over iid data, or the
+    accuracy table's encoder setting, adamw at 3e-3 over a Dirichlet(0.5)
+    partition).  Returns the launch
     counts, the second run's ms/round, and that run's history, adapters,
     optimizer state and (``track_stability``) ``stability_report()``."""
     base_name = quant or "fp32"
     phase(f"training path: FederatedTrainer, {cfg.name} d_model "
           f"{cfg.d_model}, {base_name} base, fp32 activations, N={clients}, "
-          f"fedsa + sfedlora, rank {rank}")
+          f"fedsa + sfedlora, rank {rank}, {opt} over {partition} data")
     model = build_model(cfg)
     t0 = time.monotonic()
     if params is None:
@@ -1339,13 +1373,15 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
                       targets=cfg.lora_targets)
     fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
-                           rounds=rounds, aggregation="fedsa")
-    ocfg = OptimizerConfig(name="sgd", lr=5e-3)
+                           rounds=rounds, aggregation="fedsa",
+                           partition=partition)
+    ocfg = OptimizerConfig(name=opt, lr=lr)
     ckpt = ROOT / "build" / f"chip_smoke_{base_name}.npz"
 
     def trainer():
         ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
-                              batch_per_client=batch, seed=0)
+                              batch_per_client=batch, partition=partition,
+                              seed=0)
         tr = federated.FederatedTrainer(
             model, ds, lora_cfg=lcfg, fed_cfg=fcfg, opt_cfg=ocfg, seed=0,
             base_params=params, device=device,
@@ -2527,9 +2563,10 @@ def ops_path(dev="cuda"):
 # ------------------------------------------------ 13. hybrid serving path
 
 def hybrid_path(name):
-    """recurrentgemma-9b at full width and depth through generate_banked
-    and serve_scheduled (fp32 base), the model freed after each."""
-    cfg = get_config("recurrentgemma-9b")
+    """recurrentgemma-9b at full width and half depth (RG_PATHS: 19 of its
+    38 layers) through generate_banked and serve_scheduled (fp32 base),
+    the model freed after each."""
+    cfg = RG_PATHS
     fixed = run_path(name, cfg, torch.device("cuda"))
     _free()
     model, params, bank = serving_model(cfg, torch.device("cuda"))
@@ -2914,8 +2951,9 @@ def qwen_path(name):
 
 RG = get_config("recurrentgemma-9b")
 # phases 18-19 at half depth (see LLAMA_PATHS): 6 repeats of (rglru,
-# rglru, attn) and one rglru, 13 RG-LRU and 6 attention layers
-RG_PACKED = dataclasses.replace(RG, num_layers=19)
+# rglru, attn) and one rglru, 13 RG-LRU and 6 attention layers; since the
+# phases of paligemma-3b and roberta-large, phases 13 and 17 as well
+RG_PATHS = dataclasses.replace(RG, num_layers=19)
 # (bt, s, d) of #15's backward: the scan phase's shapes (the hybrid's
 # training and prefill shape first) and s = 1
 SCAN_BWD_SHAPES = {**SCAN_SHAPES, "s=1": (4, 1, 4096)}
@@ -3056,20 +3094,19 @@ def time_hybrid_kernels():
 
 
 def hybrid_train_paths(name):
-    """recurrentgemma-9b trained at full width: train_path over a fp32
-    seeded random base at full depth (38 layers, 26 RG-LRU and 12
-    attention, 9.40 B parameters), then over a base of RG_PACKED's half
-    depth (19 layers) packed int4 on the card, the fp32 tree dropped once
-    packed.  Returns the two runs' launch counts."""
+    """recurrentgemma-9b trained at full width and RG_PATHS's half depth
+    (19 layers, 13 RG-LRU and 6 attention): train_path over a fp32 seeded
+    random base, then over that base packed int4 on the card, the fp32
+    tree dropped once packed.  Returns the two runs' launch counts."""
     dev = torch.device("cuda")
-    params = train_base(build_model(RG), dev)
-    fp32, _, _ = train_path(name, RG, dev, params=params)
+    params = train_base(build_model(RG_PATHS), dev)
+    fp32, _, _ = train_path(name, RG_PATHS, dev, params=params)
     del params
     _free()
-    params = quantize_tree(train_base(build_model(RG_PACKED), dev), "int4",
+    params = quantize_tree(train_base(build_model(RG_PATHS), dev), "int4",
                            QUANT_GROUP)
     _free()
-    int4, _, _ = train_path(name, RG_PACKED, dev, quant="int4",
+    int4, _, _ = train_path(name, RG_PATHS, dev, quant="int4",
                             params=params)
     del params
     _free()
@@ -3077,14 +3114,14 @@ def hybrid_train_paths(name):
 
 
 def hybrid_packed_serving(name):
-    """recurrentgemma-9b at RG_PACKED's half depth served over an int4 base
+    """recurrentgemma-9b at RG_PATHS's half depth served over an int4 base
     (packed on the card from the seeded fp32 weights, which are then
     dropped): generate_banked and serve_scheduled, with the 4 SFed-LoRA
     tenants of phase 13."""
     dev = torch.device("cuda")
-    run_path(name, RG_PACKED, dev, quant="int4")
+    run_path(name, RG_PATHS, dev, quant="int4")
     _free()
-    model, params, bank = serving_model(RG_PACKED, dev)
+    model, params, bank = serving_model(RG_PATHS, dev)
     params = quantize_tree(params, "int4", QUANT_GROUP)
     _free()
     sched_path(name, model, params, bank, "int4")
@@ -3428,6 +3465,12 @@ def fault_tolerant_paths(name, cfg, device, params, sync, *, clients=4,
 
 QWEN_MOE = get_config("qwen2-moe-a2.7b")
 GRANITE = get_config("granite-moe-1b-a400m")
+# With paligemma-3b's and roberta-large's phases the script no longer fits
+# its time on one card: both MoE archs' paths run at half depth (12 of
+# their 24 layers), at full width, as LLAMA_PATHS does for llama2-7b; the
+# kernel phases keep their full shapes
+QWEN_MOE_PATHS = dataclasses.replace(QWEN_MOE, num_layers=12)
+GRANITE_PATHS = dataclasses.replace(GRANITE, num_layers=12)
 # #1 / #2 and #5-#8 (label, k, n): the MoE archs' adapted q and v
 MOE_QV = (("granite q", GRANITE.d_model, GRANITE.q_dim),
           ("granite v", GRANITE.d_model, GRANITE.kv_dim),
@@ -3585,27 +3628,27 @@ def _peak(label, device):
 
 
 def qwen_moe_paths(name):
-    """qwen2-moe-a2.7b at full width and depth (24 layers, 60 experts
-    padded to 64, top-4, 4 shared experts, an untied head: 15.15 B
-    parameters, 60.6 GB in fp32, seeded random weights), every earlier
-    model freed first: generate_banked (48 of #2 per prefill, 48 of #1 per
-    decode step), serve_scheduled over the fp32 base (24 of #13 per decode
-    step), and training (train_path: 48 of each of #5-#8 per client local
-    step; no checkpoint, which would be about 61 GB), with peak memory and
-    the expert bmms' share of a local step."""
+    """qwen2-moe-a2.7b at full width and half depth (QWEN_MOE_PATHS: 12 of
+    its 24 layers, 60 experts padded to 64, top-4, 4 shared experts, an
+    untied head; seeded random weights), every earlier model freed first:
+    generate_banked (24 of #2 per prefill, 24 of #1 per decode step),
+    serve_scheduled over the fp32 base (12 of #13 per decode step), and
+    training (train_path: 24 of each of #5-#8 per client local step; no
+    checkpoint), with peak memory and the expert bmms' share of a local
+    step."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    run_path(name, QWEN_MOE, dev)
+    run_path(name, QWEN_MOE_PATHS, dev)
     _peak("qwen2-moe fixed-batch serving", dev)
     _free()
-    model, params, bank = serving_model(QWEN_MOE, dev)
+    model, params, bank = serving_model(QWEN_MOE_PATHS, dev)
     sched_path(name, model, params, bank, "fp32")
     _peak("qwen2-moe scheduled serving", dev)
     del model, bank
     _free()
     # serving_model draws the base first from seed 0, as train_base does
-    train_path(name, QWEN_MOE, dev, params=params)
+    train_path(name, QWEN_MOE_PATHS, dev, params=params)
     del params
     _free()
     _peak("qwen2-moe training", dev)
@@ -3745,21 +3788,22 @@ def device_data_train_path(name, cfg, device, params, *, clients=16,
 
 
 def granite_paths(name):
-    """granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
-    top-8, 1.34 B parameters, seeded random weights, packed int4 on the
-    card and the fp32 tree dropped): serve_scheduled (#3, #4, #13 and 48 of
-    #11 per decode step at k and o), then device-data training at N = 16
+    """granite-moe-1b-a400m at full width and half depth (GRANITE_PATHS: 12
+    of its 24 layers, 32 experts top-8, seeded random weights, packed int4
+    on the card and the fp32 tree dropped): serve_scheduled (#3, #4, #13
+    and 24 of #11 per decode step at k and o), then device-data training
+    at N = 16
     (#9, #10, #7, #8 at q and v, #11 and #12 at k and o; DD_TRAIN)."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    model, params, bank = serving_model(GRANITE, dev)
+    model, params, bank = serving_model(GRANITE_PATHS, dev)
     params = quantize_tree(params, "int4", QUANT_GROUP)
     _free()
     sched_path(name, model, params, bank, "int4", profile=False)
     del model, bank
     _free()
-    device_data_train_path(name, GRANITE, dev, params, **DD_TRAIN)
+    device_data_train_path(name, GRANITE_PATHS, dev, params, **DD_TRAIN)
     del params
     _free()
     _peak("granite-moe scheduled serving and device-data training", dev)
@@ -3824,6 +3868,10 @@ WHISPER_M = (4, 512, 4 * WHISPER.encoder_frames)
 # #13 (label, query heads, kv heads, head_dim): the decoder's self-attention
 WHISPER_PAGED = ((WHISPER.name, WHISPER.num_heads, WHISPER.num_kv_heads,
                   WHISPER.head_dim),)
+# With paligemma-3b's and roberta-large's phases the script no longer fits
+# its time on one card: whisper-medium's paths run at half depth (12 decoder
+# and 12 encoder layers), at full width, as XLSTM_PATHS does for xlstm-1.3b
+WHISPER_PATHS = dataclasses.replace(WHISPER, num_layers=12, encoder_layers=12)
 # training through FederatedTrainer.round_step: N clients x 1 local step of
 # 4 x 128 tokens and 4 x 1500 frames each, 2 rounds
 WHISPER_TRAIN = dict(clients=4, local_steps=1, rounds=2, batch=4, seq=128)
@@ -4077,36 +4125,53 @@ def _unread_nodes(tree, path=()):
         yield from _unread_nodes(tree[k], path + (k,))
 
 
-def whisper_train_path(name, cfg, device, params, *, clients=4, rank=64,
-                       local_steps=1, rounds=2, batch=4, seq=128):
-    """FederatedTrainer.round_step over caller-supplied frames (the JAX
-    package's only audio training entry; its train CLI, as the port's,
-    fails on whisper for want of frames): fedsa + sfedlora, ``clients``
-    clients x ``local_steps`` steps of ``batch`` x ``seq`` tokens and
-    ``batch`` x 1500 seeded frames, ``rounds`` rounds; launch counts of
-    #5-#8, the encoder's and cross v's gradients None to autograd (exact
-    zeros in the client loop) and their B exactly 0.0 after the rounds, a
-    bit-identical repeat, the plain tier within TRAIN_RTOL, ms/round, peak
-    memory and a profile of one local step.  ``cfg`` and ``device`` are
-    arguments so the phase can be rehearsed on a CPU at a reduced size."""
+def _side_batch(cfg, lead, device, gen):
+    """(key, tensor) of the batch leaf a family's forward reads beside the
+    tokens: whisper's stub frames (lead + (1500, d_model)) or paligemma's
+    stub SigLIP patches (lead + (256, 1152)), seeded."""
+    if cfg.family == "audio":
+        return "frames", torch.randn(*lead, cfg.encoder_frames, cfg.d_model,
+                                     generator=gen, device=device)
+    return "patches", torch.randn(*lead, cfg.num_patches, PATCH_EMBED_DIM,
+                                  generator=gen, device=device)
+
+
+def round_step_train_path(name, cfg, device, params, *, clients=4, rank=64,
+                          local_steps=1, rounds=2, batch=4, seq=128,
+                          chunked=False):
+    """FederatedTrainer.round_step over caller-supplied batches (the JAX
+    package's only training entry for whisper's frames and paligemma's
+    patches; its train CLI, as the port's, fails for want of them): fedsa
+    + sfedlora, ``clients`` clients x ``local_steps`` steps of ``batch`` x
+    ``seq`` tokens and ``batch`` seeded frames or patches, ``rounds``
+    rounds; launch counts of #5-#8; whisper's unread adapter nodes (the
+    encoder's, cross v) None to autograd (exact zeros in the client loop)
+    and their B exactly 0.0 after the rounds; a bit-identical repeat, the
+    plain tier within TRAIN_RTOL, ms/round, peak memory and a profile of
+    one local step.  ``chunked``: the counted run once more with the
+    ``chunked_ce`` switch on (the same launches), its loss and grad-norm
+    within CHUNKED_RTOL of the counted run's.  ``cfg`` and ``device`` are
+    arguments so the phase can be rehearsed on a CPU at a reduced size.
+    Returns the launch counts and the first run's history."""
+    model = build_model(cfg)
+    gen = torch.Generator(device).manual_seed(5)
+    data = []
+    for _ in range(rounds):
+        toks = torch.randint(0, cfg.vocab_size,
+                             (clients, local_steps, batch, seq),
+                             generator=gen, device=device)
+        key, side = _side_batch(cfg, (clients, local_steps, batch), device,
+                                gen)
+        data.append({"tokens": toks, key: side})
     phase(f"training path: FederatedTrainer.round_step, {cfg.name} d_model "
           f"{cfg.d_model}, fp32 base, N={clients}, fedsa + sfedlora, rank "
           f"{rank}, {local_steps} local step(s) of {batch} x {seq} tokens + "
-          f"{batch} x {cfg.encoder_frames} frames, {rounds} rounds")
-    model = build_model(cfg)
+          f"{batch} x {side.shape[-2]} {key}, {rounds} rounds")
     lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
                       targets=cfg.lora_targets)
     fcfg = FederatedConfig(num_clients=clients, local_steps=local_steps,
                            rounds=rounds, aggregation="fedsa")
     ocfg = OptimizerConfig(name="sgd", lr=5e-3)
-    gen = torch.Generator(device).manual_seed(5)
-    data = [{"tokens": torch.randint(
-                0, cfg.vocab_size, (clients, local_steps, batch, seq),
-                generator=gen, device=device),
-             "frames": torch.randn(clients, local_steps, batch,
-                                   cfg.encoder_frames, cfg.d_model,
-                                   generator=gen, device=device)}
-            for _ in range(rounds)]
 
     def trainer():
         ds = FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
@@ -4129,34 +4194,47 @@ def whisper_train_path(name, cfg, device, params, *, clients=4, rank=64,
           f"{local_steps} local step(s) per round, {rounds} rounds")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    # the counted run: counts to 0 just before, read just after
-    _reset_launches()
-    dispatch.reset_stats()
-    a1, h1, ms1 = run(tr1)
-    launches = _launch_counts()
     n_adapted = _proj_counts(cfg)[0]
     steps = clients * local_steps * rounds
-    expect = dict.fromkeys(launches, 0)
-    expect.update({k: n_adapted * steps for k in LORA_KERNELS})
-    print(f"launches: { {k: v for k, v in launches.items() if v} } "
-          f"(expected { {k: v for k, v in expect.items() if v} }: "
-          f"{n_adapted} of each of #5-#8 per client local step x {steps}); "
-          f"dispatch {dispatch.stats}")
-    assert launches == expect, (launches, expect)
+
+    def counted(tr, label):
+        """run(tr) with the counts at 0 just before, checked just after:
+        n_adapted of each of #5-#8 per client local step."""
+        _reset_launches()
+        dispatch.reset_stats()
+        out = run(tr)
+        launches = _launch_counts()
+        expect = dict.fromkeys(launches, 0)
+        expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+        print(f"launches ({label} run): "
+              f"{ {k: v for k, v in launches.items() if v} } (expected "
+              f"{ {k: v for k, v in expect.items() if v} }: {n_adapted} of "
+              f"each of #5-#8 per client local step x {steps}); dispatch "
+              f"{dispatch.stats}")
+        assert launches == expect, (launches, expect)
+        return launches, out
+
+    # the counted run: counts to 0 just before, read just after
+    launches, (a1, h1, ms1) = counted(tr1, "counted")
     if device.type == "cuda":
-        _peak("whisper training, the counted run", device)
+        _peak(f"{cfg.name} training, the counted run", device)
     for r, h in enumerate(h1):
         print(f"round {r + 1}: loss {h['loss']:.6f}, grad_norm "
               f"{h['grad_norm']:.6e}")
         assert math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
     unread = list(_unread_nodes(a1.lora))
-    b_unread = max(float(node["b"].abs().max()) for _, node in unread)
     b_read = max(float(t.abs().max()) for t in tree_leaves(
         split_ab(a1.lora)[1]))
-    print(f"after {rounds} rounds: max |B| {b_read:.4e}; the {len(unread)} "
-          f"unread adapter nodes (the encoder's q / v, cross v) max |B| "
-          f"{b_unread}")
-    assert b_read > 0 and b_unread == 0.0
+    if unread:
+        b_unread = max(float(node["b"].abs().max()) for _, node in unread)
+        print(f"after {rounds} rounds: max |B| {b_read:.4e}; the "
+              f"{len(unread)} unread adapter nodes (the encoder's q / v, "
+              f"cross v) max |B| {b_unread}")
+        assert b_unread == 0.0
+    else:
+        print(f"after {rounds} rounds: max |B| {b_read:.4e}; every adapter "
+              "node is read")
+    assert b_read > 0
 
     # autograd reaches no unread leaf: the client loop's gradient there is
     # an exact zero, as jax.grad gives it
@@ -4199,6 +4277,21 @@ def whisper_train_path(name, cfg, device, params, *, clients=4, rank=64,
     print(f"kernel vs plain tier: worst relative diff of loss and grad_norm "
           f"{worst:.3e} (bound {TRAIN_RTOL}); max |adapter diff| {db:.3e}")
     assert worst <= TRAIN_RTOL
+    if chunked:
+        # the counted run's rounds with the chunked CE: the same kernels,
+        # the loss and grad-norm within CHUNKED_RTOL
+        opts.set_opts(["chunked_ce"])
+        try:
+            _, (_, h4, ms4) = counted(trainer(), "chunked_ce")
+        finally:
+            opts.reset()
+        worst = max(abs(hk[key] - hc[key]) / max(abs(hk[key]), 1e-30)
+                    for hk, hc in zip(h1, h4) for key in ("loss",
+                                                         "grad_norm"))
+        print(f"chunked_ce on vs off (kernel tier): worst relative diff of "
+              f"loss and grad_norm {worst:.3e} (bound {CHUNKED_RTOL}); "
+              f"ms/round {[round(t, 1) for t in ms4]}")
+        assert worst <= CHUNKED_RTOL, worst
     print(f"training path on {name} (round_step, fp32 base): ms/round "
           f"{[round(t, 1) for t in ms1]} (first run), "
           f"{[round(t, 1) for t in ms2]} (second run); "
@@ -4208,28 +4301,28 @@ def whisper_train_path(name, cfg, device, params, *, clients=4, rank=64,
         profile_local_step(model, tr1, batches={k: v[0] for k, v in
                                                 data[0].items()})
     del tr1, a1, a2, a3, data
-    return launches
+    return launches, h1
 
 
 def whisper_paths(name):
-    """whisper-medium at full width and depth (24 decoder xattn layers, 24
-    encoder layers, d_model 1024, 16 heads of 64; 758.1 M parameters, 3.03
-    GB fp32; seeded random weights), every earlier model freed first:
-    generate_banked as the serve CLI runs it (the decoder alone, no
-    encoder output: 72 of #2 per prefill, 72 of #1 per decode step);
+    """whisper-medium at full width and half depth (WHISPER_PATHS: 12 of
+    its 24 decoder xattn layers, 12 of its 24 encoder layers, d_model 1024,
+    16 heads of 64; seeded random weights), every earlier model freed
+    first: generate_banked as the serve CLI runs it (the decoder alone, no
+    encoder output: 36 of #2 per prefill, 36 of #1 per decode step);
     encoder_path (the encoder over 4 x 1500 frames, prefill(enc_out=),
     banked decode, its control, the encoder over int4); serve_scheduled
-    over fp32 (24 of #13 per decode step) and int4 (#3, #4, #11 as well;
+    over fp32 (12 of #13 per decode step) and int4 (#3, #4, #11 as well;
     per-slot cross K/V of 295 MB merged at each admission; not profiled:
-    run_path profiles the same decode); and whisper_train_path
+    run_path profiles the same decode); and round_step_train_path
     (WHISPER_TRAIN), with peak memory."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    fixed = run_path(name, WHISPER, dev)
+    fixed = run_path(name, WHISPER_PATHS, dev)
     _peak("whisper-medium fixed-batch serving (decoder alone)", dev)
     _free()
-    model, params, bank = serving_model(WHISPER, dev)
+    model, params, bank = serving_model(WHISPER_PATHS, dev)
     encoder_path(name, model, params, bank)
     _free()
     sched = {}
@@ -4241,10 +4334,275 @@ def whisper_paths(name):
     del model, bank
     _free()
     # serving_model draws the base first from seed 0, as train_base does
-    train = whisper_train_path(name, WHISPER, dev, params, **WHISPER_TRAIN)
+    train, _ = round_step_train_path(name, WHISPER_PATHS, dev, params,
+                                     **WHISPER_TRAIN)
     del params
     _free()
     _peak("whisper-medium training", dev)
+    return fixed, sched, train
+
+
+# ------------------------------------------------- 27. paligemma-3b
+
+PALIGEMMA = get_config("paligemma-3b")
+# training through FederatedTrainer.round_step: N clients x 1 local step of
+# 4 x (256 patches + 128 tokens) each, 2 rounds; then those rounds with the
+# chunked CE
+VLM_TRAIN = dict(clients=4, local_steps=1, rounds=2, batch=4, seq=128)
+# the chunked CE's memory step: 4 x (256 patches + CE_TEXT tokens); the
+# CE_TEXT - 1 predicting positions make 3 chunks of 512, the last ragged
+CE_TEXT = 1100
+
+
+def vision_prefix_path(name, model, params, bank, *, plen=128):
+    """Model.forward over 4 seeded requests of 256 stub patches and
+    ``plen`` tokens under the 4-tenant bank, one tenant a row: the
+    patches projected by ``patch_proj`` (a plain matmul, as in JAX) and
+    prepended, RoPE and the causal mask over all 256 + ``plen``
+    positions, each adapted projection once as #2 over the 4 x (256 +
+    ``plen``) rows; the plain tier's logits within LOGIT_ATOL; a control
+    with the patches zeroed that must move the text's logits by far more
+    than that.  Prints the forward's ms, its profile and peak memory.
+    ``model`` may be a reduced config on a CPU."""
+    cfg = model.cfg
+    device = tree_leaves(params)[0].device
+    n = bank.size
+    phase(f"vision-prefix forward: Model.forward over {n} x "
+          f"({cfg.num_patches} patches + {plen} tokens), {cfg.name} d_model "
+          f"{cfg.d_model}, banked adapters, fp32 base")
+    gen = torch.Generator(device).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (n, plen), generator=gen,
+                         device=device)
+    _, patches = _side_batch(cfg, (n,), device, gen)
+    batch = {"tokens": toks, "patches": patches}
+    adapters = bank.requests(torch.arange(n, device=device,
+                                          dtype=torch.int32))
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        model.forward(params, batch, adapters)             # warm
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        # the counted run: counts to 0 just before, read just after
+        _reset_launches()
+        (kern, _), ms = _timed(lambda: model.forward(params, batch,
+                                                     adapters), device)
+        launches = _launch_counts()
+        n_ad = _n_adapted(bank)
+        expect = dict.fromkeys(launches, 0)
+        expect["bgmv_matmul"] = n_ad
+        print(f"launches: { {k: x for k, x in launches.items() if x} } "
+              f"(expected { {k: x for k, x in expect.items() if x} }: "
+              f"{n_ad} of #2, each adapted projection once over "
+              f"{n} x {cfg.num_patches + plen} rows)")
+        assert launches == expect, (launches, expect)
+        assert tuple(kern.shape) == (n, cfg.num_patches + plen,
+                                     model.vocab_padded)
+        with dispatch.plain_tier():
+            plain, _ = model.forward(params, batch, adapters)
+        diff = float((kern[..., :v] - plain[..., :v]).abs().max())
+        scale = float(plain[..., :v].abs().max())
+        print(f"kernel vs plain tier: logits over every position max |diff| "
+              f"{diff:.3e}, max |logit| {scale:.3f}, tolerance {LOGIT_ATOL}")
+        assert diff <= LOGIT_ATOL, diff
+        del plain
+        ctrl, _ = model.forward(params, {**batch, "patches":
+                                         torch.zeros_like(patches)},
+                                adapters)
+        moved = float((ctrl[:, -plen:, :v] - kern[:, -plen:, :v])
+                      .abs().max())
+        print(f"control, the patches zeroed: the text's logits move by max "
+              f"|diff| {moved:.3e} ({moved / LOGIT_ATOL:.1f}x the "
+              "tolerance): the prefix is live")
+        assert moved > 100 * LOGIT_ATOL, moved
+        del ctrl, kern
+        print(f"vision-prefix forward on {name}: {ms:.1f} ms for {n} x "
+              f"({cfg.num_patches} + {plen}) positions")
+        if device.type == "cuda":
+            _peak(f"{cfg.name} vision-prefix forward", device)
+            phase("where the time goes (torch.profiler; one vision-prefix "
+                  "forward)")
+            _print_profile("vision-prefix forward", *_profiled(
+                lambda: model.forward(params, batch, adapters)), 1,
+                "forward")
+    return dict(ms=ms)
+
+
+def chunked_ce_memory(name, model, params, *, batch=4, text=CE_TEXT,
+                      rank=64):
+    """One local step (the loss and its LoRA gradient, a rank-64 SFed-LoRA
+    set with B drawn at std 0.02) over ``batch`` x (256 patches + ``text``
+    tokens), with the ``chunked_ce`` switch off and then on: the same
+    launches of #5-#8, the loss and every gradient within CHUNKED_RTOL,
+    and the peak memory of each step above what was resident before it.
+    Off, the step holds the (batch, text - 1, V) fp32 logits and their
+    gradient; on, one chunk's, recomputed in the backward; so the chunked
+    step must peak lower.  ``model`` may be a reduced config on a CPU (the
+    peaks are then not measured)."""
+    cfg = model.cfg
+    device = tree_leaves(params)[0].device
+    sl = text - 1
+    c = min(512, sl)
+    phase(f"chunked CE: one local step over {batch} x ({cfg.num_patches} "
+          f"patches + {text} tokens), {cfg.name}, chunked_ce off then on "
+          f"({sl} predicting positions: {-(-sl // c)} chunks of {c}, the "
+          f"last {sl - (sl - 1) // c * c})")
+    gen = torch.Generator(device).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (batch, text), generator=gen,
+                         device=device)
+    _, patches = _side_batch(cfg, (batch,), device, gen)
+    data = {"tokens": toks, "patches": patches}
+    lcfg = LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
+                      targets=cfg.lora_targets)
+    aset = init_adapter_set(params, gen, lcfg, n_clients=4)
+    lora = _nonzero_b(aset.lora, gen, 0.02)
+    n_ad = _proj_counts(cfg)[0]
+    print(f"the unchunked logits: {batch * sl * model.vocab_padded * 4 / 1e9:.2f}"
+          f" GB fp32 ({batch} x {sl} x {model.vocab_padded}); a chunk's "
+          f"{batch * c * model.vocab_padded * 4 / 1e9:.2f} GB")
+
+    def step():
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          lora)
+        loss, _ = model.loss(params, data, adapters=AdapterSet(
+            lora=leaves, gamma=aset.gamma))
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(leaves))
+
+    out = {}
+    for on in (False, True):
+        if on:
+            opts.set_opts(["chunked_ce"])
+        try:
+            gc.collect()
+            resident = 0
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+                resident = torch.cuda.memory_allocated(device)
+            _reset_launches()
+            (loss, grads), ms = _timed(step, device)
+            launches = _launch_counts()
+        finally:
+            opts.reset()
+        expect = dict.fromkeys(launches, 0)
+        expect.update({k: n_ad for k in LORA_KERNELS})
+        assert launches == expect, (launches, expect)
+        peak = (torch.cuda.max_memory_allocated(device) - resident
+                if device.type == "cuda" else None)
+        label = "on" if on else "off"
+        print(f"chunked_ce {label}: loss {float(loss):.8g}, {ms:.1f} ms, "
+              f"launches { {k: x for k, x in launches.items() if x} }; "
+              + ("peak memory not measured (not on the card)"
+                 if peak is None else
+                 f"peak device memory above the resident "
+                 f"{resident / 1e9:.2f} GB: {peak / 1e9:.2f} GB "
+                 "(torch.cuda.max_memory_allocated)"))
+        out[on] = (loss, grads, peak, ms)
+        del loss, grads
+    (l0, g0, p0, _), (l1, g1, p1, _) = out[False], out[True]
+    dl = abs(float(l1 - l0)) / abs(float(l0))
+    dg = max(float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30)
+             for x, y in zip(g0, g1))
+    print(f"chunked vs plain CE: loss relative diff {dl:.3e}, gradients "
+          f"worst max|diff| / max|grad| {dg:.3e} (bound {CHUNKED_RTOL})")
+    assert dl <= CHUNKED_RTOL and dg <= CHUNKED_RTOL, (dl, dg)
+    if p0 is not None:
+        print(f"chunked CE on {name}: peak {p1 / 1e9:.2f} GB against "
+              f"{p0 / 1e9:.2f} GB unchunked ({(p0 - p1) / 1e9:.2f} GB less)")
+        assert p1 < p0, (p1, p0)
+    return dict(peak_off=p0, peak_on=p1)
+
+
+def paligemma_paths(name):
+    """paligemma-3b at full width and depth (18 layers, d_model 2048, 8
+    heads on one kv head of 256, GeGLU 16384, vocab 257216 padded to
+    257280, patch_proj 1152 x 2048: 2.51 B parameters, 10.04 GB fp32;
+    seeded random weights), every earlier model freed first:
+    generate_banked as the serve CLI runs it (text only, as JAX serves it:
+    36 of #2 per prefill, 36 of #1 per decode step); vision_prefix_path;
+    round_step_train_path over patches (VLM_TRAIN: 36 of each of #5-#8
+    per client local step, then the same rounds with the chunked CE);
+    chunked_ce_memory; with peak memory."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fixed = run_path(name, PALIGEMMA, dev)
+    _peak("paligemma-3b fixed-batch serving (text only)", dev)
+    _free()
+    model, params, bank = serving_model(PALIGEMMA, dev)
+    vision_prefix_path(name, model, params, bank)
+    del bank
+    _free()
+    # serving_model draws the base first from seed 0, as train_base does
+    train, _ = round_step_train_path(name, PALIGEMMA, dev, params,
+                                     chunked=True, **VLM_TRAIN)
+    _free()
+    _peak("paligemma-3b training", dev)
+    chunked_ce_memory(name, model, params)
+    del model, params
+    _free()
+    return fixed, train
+
+
+# ------------------------------------------------- 28. roberta-large
+
+ROBERTA = get_config("roberta-large")
+# the accuracy table's encoder setting (benchmarks/tab12_accuracy.py tab2)
+ROBERTA_TRAIN = dict(opt="adamw", lr=3e-3, partition="dirichlet")
+
+
+def bidirectional_control(model, params, adapters, *, seq=128):
+    """On the kernel tier (an AdapterSet: #5 at every adapted projection):
+    changing the last token of a sequence must move position 0's logits
+    (a causal forward would leave them exactly)."""
+    cfg = model.cfg
+    device = tree_leaves(params)[0].device
+    phase(f"bidirectional control: {cfg.name}, the last of {seq} tokens "
+          "changed")
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), device=device,
+                         generator=torch.Generator(device).manual_seed(8))
+    other = toks.clone()
+    other[:, -1] = (other[:, -1] + 1) % cfg.vocab_size
+    with torch.inference_mode():
+        _reset_launches()
+        a, _ = model.forward(params, {"tokens": toks}, adapters)
+        b, _ = model.forward(params, {"tokens": other}, adapters)
+        launches = {k: x for k, x in _launch_counts().items() if x}
+    n_ad = _proj_counts(cfg)[0]
+    assert launches == {"lora_fwd": 2 * n_ad}, launches
+    moved = float((a[:, 0] - b[:, 0]).abs().max())
+    print(f"position 0's logits move by max |diff| {moved:.3e} "
+          f"({moved / LOGIT_ATOL:.1f}x LOGIT_ATOL; launches {launches}): "
+          "the forward attends both ways")
+    assert moved > LOGIT_ATOL, moved
+
+
+def roberta_paths(name):
+    """roberta-large at full width and depth (24 layers, d_model 1024, 16
+    heads of 64, LayerNorm, GELU 4096, vocab 50265 padded to 50432: 353.7
+    M parameters, 1.41 GB fp32; seeded random weights), every earlier
+    model freed first: generate_banked as the serve CLI runs it (causal
+    decode, as in JAX: 48 of #2 per prefill, 48 of #1 per decode step);
+    serve_scheduled over fp32 (24 of #13 per decode step);
+    bidirectional_control; and train_path with the MLM loss
+    (ROBERTA_TRAIN: adamw over a Dirichlet(0.5) partition, 48 of each of
+    #5-#8 per client local step), with peak memory."""
+    dev = torch.device("cuda")
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fixed = run_path(name, ROBERTA, dev)
+    _peak("roberta-large fixed-batch serving (causal decode)", dev)
+    _free()
+    model, params, bank = serving_model(ROBERTA, dev)
+    sched, _ = sched_path(name, model, params, bank, "fp32")
+    _peak("roberta-large scheduled serving", dev)
+    bidirectional_control(model, params, bank.adapter(0))
+    del model, bank
+    _free()
+    train, _, _ = train_path(name, ROBERTA, dev, params=params,
+                             **ROBERTA_TRAIN)
+    del params
+    _free()
+    _peak("roberta-large training", dev)
     return fixed, sched, train
 
 
@@ -4336,6 +4694,8 @@ def main():
     rows.update(time_whisper_kernels())
     _free()
     whisper_paths(name)
+    paligemma_paths(name)
+    roberta_paths(name)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

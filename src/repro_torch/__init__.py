@@ -23,8 +23,12 @@ watchdog: ``core/federated.py``, ``core/faults.py``,
 ``analysis/stability_check.py``) with the train-to-serve publish hook;
 and the MoE family (qwen2-moe, granite-moe: ``models/moe.py``), served and
 trained, with federated batches drawn on the device
-(``data/synthetic.DeviceFederatedData``, ``data_mode="device"``).  All fifteen TPU kernels have a counterpart written by hand in
-CUDA C++ for ``sm_90a``, and so has the scan's backward.
+(``data/synthetic.DeviceFederatedData``, ``data_mode="device"``); the
+xLSTM family (xlstm-1.3b), the audio encoder-decoder (whisper-medium), the
+VLM (paligemma-3b) and the encoder family (roberta-large, the MLM loss);
+and the chunked cross-entropy behind ``sharding/opts.py``.  All fifteen
+TPU kernels have a counterpart written by hand in CUDA C++ for
+``sm_90a``, and so has the scan's backward.
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing

@@ -1,7 +1,9 @@
 """Architecture registry: ``get_config("<id>")`` / ``--arch <id>``.
 
-Lists only the architectures the port can run.  The JAX package's other
-architectures raise :class:`NotImplementedError` until their slice lands."""
+Lists the JAX package's architectures, every one of which the port runs.
+``NOT_YET_PORTED`` names the JAX package's architectures the port does not
+run yet (none); ``get_config`` raises :class:`NotImplementedError` for
+them."""
 from __future__ import annotations
 
 import importlib
@@ -20,12 +22,12 @@ ARCHS = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "xlstm-1.3b": "xlstm_1_3b",
     "whisper-medium": "whisper_medium",
+    "paligemma-3b": "paligemma_3b",
+    "roberta-large": "roberta_large",
 }
 
 # the JAX package's other architectures (repro/configs/__init__.py)
-NOT_YET_PORTED = (
-    "paligemma-3b", "roberta-large",
-)
+NOT_YET_PORTED = ()
 
 
 def get_config(arch: str, **kwargs) -> ModelConfig:

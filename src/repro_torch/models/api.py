@@ -1,19 +1,23 @@
 """Public model API: ``build_model(cfg)`` -> :class:`Model` with init /
 forward / loss / init_cache / prefill / decode_step.
 
-The port of ``repro/models/api.py`` for dense decoders, the MoE family
-(qwen2-moe, granite-moe), the RG-LRU hybrid family (recurrentgemma), the
-xLSTM family (``ssm``: xlstm-1.3b) and the audio encoder-decoder
-(whisper-medium: a bidirectional ``"attn"`` encoder over precomputed
-frames, the mel / conv frontend a stub as in the JAX package, and a
-decoder of ``"xattn"`` blocks).  As in the JAX package the embedding is
-not scaled by sqrt(d_model), the head is tied (``embed.T``) unless the
-config says otherwise, and the vocabulary is padded to a multiple of 256
-(``pad_vocab``).
+The port of ``repro/models/api.py`` for every family of the JAX package:
+dense decoders, the MoE family (qwen2-moe, granite-moe), the RG-LRU
+hybrid family (recurrentgemma), the xLSTM family (``ssm``: xlstm-1.3b),
+the audio encoder-decoder (whisper-medium: a bidirectional ``"attn"``
+encoder over precomputed frames, the mel / conv frontend a stub as in the
+JAX package, and a decoder of ``"xattn"`` blocks), the VLM (paligemma-3b:
+precomputed SigLIP patches, projected by ``patch_proj`` and prepended to
+the tokens; the vision tower a stub as in the JAX package) and the encoder
+family (roberta-large: a bidirectional forward and the MLM loss).  As in
+the JAX package the embedding is not scaled by sqrt(d_model), the head is
+tied (``embed.T``) unless the config says otherwise, and the vocabulary is
+padded to a multiple of 256 (``pad_vocab``).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.lora import as_adapter_set
@@ -24,6 +28,7 @@ from repro_torch.models.transformer import (apply_stack, banked_scan_layout,
                                             init_paged_stack_cache,
                                             init_stack, init_stack_cache,
                                             prefill_stack)
+from repro_torch.sharding import opts
 from repro_torch.tree import tree_map
 
 
@@ -31,8 +36,9 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
 
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm", "encoder")
 ENCODER_PATTERN = ("attn",)
+PATCH_EMBED_DIM = 1152   # SigLIP stub output width (arXiv:2407.07726)
 
 
 class Model:
@@ -68,11 +74,26 @@ class Model:
             enc.update(norm_params(cfg, cfg.d_model, "encfinal",
                                    device=gdev))
             params["encoder"] = enc
+        if cfg.family == "vlm":
+            proj = torch.randn(PATCH_EMBED_DIM, cfg.d_model,
+                               generator=generator, device=gdev)
+            params["patch_proj"] = (proj * PATCH_EMBED_DIM ** -0.5).to(dt)
         return tree_map(lambda t: t.to(device), params)
 
     # ---------------------------------------------------------------- forward
-    def _embed(self, params, tokens):
+    def _embed_tokens(self, params, tokens):
         return params["embed"][tokens].to(getattr(torch, self.cfg.dtype))
+
+    def _embed(self, params, batch):
+        """The stack's input for a batch: the token embeddings, after the
+        projected patches (``batch["patches"]`` (b, num_patches, 1152)
+        @ ``patch_proj``) for the VLM, whose batch without patches raises
+        ``KeyError('patches')``, as in JAX."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            patches = (batch["patches"] @ params["patch_proj"]).to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
+        return x
 
     def _encode(self, params, batch):
         """The audio encoder over ``batch["frames"]`` (b, frames, d_model):
@@ -106,42 +127,56 @@ class Model:
         return tree
 
     @staticmethod
-    def _positions(tokens):
-        b, s = tokens.shape
-        return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    def _positions(x):
+        """Positions 0..s-1 of a (b, s) token or (b, s, d) activation
+        tensor: for the VLM they span the patches and the text."""
+        b, s = x.shape[:2]
+        return torch.arange(s, device=x.device)[None, :].expand(b, s)
 
-    def forward(self, params, batch, adapters=None):
-        """Full-sequence forward: ``batch["tokens"]`` (b, s) -> (logits
-        (b, s, V), aux).  ``adapters``: None, an AdapterSet, or a banked
-        per-request set.  The audio family also reads ``batch["frames"]``
-        (b, frames, d_model) and runs the encoder over them (a batch
-        without frames raises ``KeyError('frames')``, as in JAX)."""
+    def _hidden(self, params, batch, adapters):
+        """The final-normed hidden states (b, s, d) of a full-sequence
+        forward (s counts the VLM's patches too), and the aux loss."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        x = self._embed(params, batch)
         enc_out = (self._encode(params, batch) if cfg.family == "audio"
                    else None)
         x, aux = apply_stack(cfg, params["stack"], x,
                              adapters=self._stack_adapters(
                                  as_adapter_set(adapters)),
-                             positions=self._positions(tokens),
-                             enc_out=enc_out)
-        x = apply_norm(cfg, x, params, "final")
+                             positions=self._positions(x), enc_out=enc_out,
+                             causal=cfg.family != "encoder")
+        return apply_norm(cfg, x, params, "final"), aux
+
+    def forward(self, params, batch, adapters=None):
+        """Full-sequence forward: ``batch["tokens"]`` (b, s) -> (logits
+        (b, s', V), aux).  ``adapters``: None, an AdapterSet, or a banked
+        per-request set.  The audio family also reads ``batch["frames"]``
+        (b, frames, d_model) and runs the encoder over them (a batch
+        without frames raises ``KeyError('frames')``, as in JAX); the VLM
+        reads ``batch["patches"]`` (b, num_patches, 1152), and s' = s +
+        num_patches.  The encoder family attends both ways; every other
+        family (the VLM's patch prefix too) attends causally."""
+        x, aux = self._hidden(params, batch, adapters)
         return self._head(params, x), aux
 
-    def loss(self, params, batch, adapters=None, *, chunked_ce=False):
-        """Next-token cross-entropy over the text segment (+ the aux loss:
-        the MoE router's, summed over layers, 0 for the dense, RG-LRU
-        and xLSTM blocks): returns (loss, {"ce", "aux"}), as the JAX package's
-        decoder branch does; the gradient takes both terms.  The logsumexp runs in fp32 over the
-        padded vocabulary.  ``adapters``: None or an AdapterSet; gradients
-        reach its A/B leaves through the LoRA matmul Function.
+    def loss(self, params, batch, adapters=None):
+        """Returns (loss, {"ce", "aux"}), as the JAX package does; the
+        gradient takes both terms, and every logsumexp runs in fp32 over
+        the padded vocabulary.  ``adapters``: None or an AdapterSet;
+        gradients reach its A/B leaves through the LoRA matmul Function.
 
-        The JAX package's sequence-chunked CE (``opts "chunked_ce"``) is not
-        ported yet; the encoder MLM loss waits with the encoder family."""
-        if chunked_ce:
-            raise NotImplementedError(
-                "the chunked cross-entropy is not yet ported to repro_torch")
+        The encoder family: the MLM loss.  The positions with ``s % 5 ==
+        2`` are masked (their input replaced by the padded vocabulary's
+        last row, ``vocab_padded - 1``), and the CE at those positions is
+        divided by (masked positions) x b.  Every other family: next-token
+        CE over the text segment (the VLM's patch positions predict
+        nothing), + the aux loss (the MoE router's, summed over layers; 0
+        for every other block); with the ``chunked_ce`` switch of
+        :mod:`repro_torch.sharding.opts` on, :meth:`_loss_chunked`."""
+        if self.cfg.family == "encoder":
+            return self._loss_mlm(params, batch, adapters)
+        if opts.enabled("chunked_ce"):
+            return self._loss_chunked(params, batch, adapters)
         tokens = batch["tokens"]
         logits, aux = self.forward(params, batch, adapters=adapters)
         s_text = tokens.shape[1]
@@ -150,6 +185,56 @@ class Model:
         lse = torch.logsumexp(lf, dim=-1)
         ll = torch.gather(lf, -1, labels[..., None])[..., 0]
         ce = (lse - ll).mean()
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def _loss_mlm(self, params, batch, adapters):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        masked = torch.arange(s, device=tokens.device) % 5 == 2
+        inp = torch.where(masked[None, :],
+                          torch.full_like(tokens, self.vocab_padded - 1),
+                          tokens)
+        logits, aux = self.forward(params, {**batch, "tokens": inp},
+                                   adapters=adapters)
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, tokens.long()[..., None])[..., 0]
+        ce = ((lse - ll) * masked[None, :]).sum() / (masked.sum() * b)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def _loss_chunked(self, params, batch, adapters, chunk: int = 512):
+        """The next-token CE in sequence chunks: the head matmul, the fp32
+        logsumexp and the label gather run chunk by chunk over the text's
+        predicting positions (padded to a multiple of ``min(chunk, s_text
+        - 1)``; a padded position adds exactly 0), each chunk under
+        activation checkpointing, so no (b, s, V) logits tensor exists, in
+        the forward or saved for the backward (each chunk's logits are
+        recomputed there).  Divided by b x (s_text - 1), as the plain
+        loss's mean."""
+        tokens = batch["tokens"]
+        x, aux = self._hidden(params, batch, adapters)
+        s_text = tokens.shape[1]
+        x = x[:, -s_text:][:, :-1]                    # predicting positions
+        labels = tokens[:, 1:].long()
+        b, sl = labels.shape
+        c = min(chunk, sl)
+        pad = (-sl) % c
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        valid = torch.arange(sl + pad, device=x.device) < sl
+
+        def chunk_ce(xb, lb, vb):
+            logits = self._head(params, xb).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lb[..., None])[..., 0]
+            return ((lse - ll) * vb).sum()
+
+        tot = x.new_zeros((), dtype=torch.float32)
+        for i in range(0, sl + pad, c):
+            tot = tot + checkpoint(chunk_ce, x[:, i:i + c],
+                                   labels[:, i:i + c], valid[i:i + c],
+                                   use_reentrant=False)
+        ce = tot / (b * sl)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- serving
@@ -188,9 +273,11 @@ class Model:
         every layer's cross K/V land in the cache; without it the cache's
         own are kept (zeros in a fresh cache).  A paged cache
         (:meth:`init_paged_cache`) also needs the requests' block ``table``
-        (b, blocks_per_req) int32."""
+        (b, blocks_per_req) int32.  Serving reads tokens only, as in the
+        JAX package: the VLM's prefill takes no patches, and the encoder
+        family is served as a causal decoder."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed_tokens(params, tokens)
         x, _, cache = prefill_stack(
             cfg, params["stack"], cache, x, self._positions(tokens),
             adapters=self._stack_adapters(as_adapter_set(adapters)),
@@ -207,7 +294,7 @@ class Model:
         cache also needs the requests' block ``table`` (b, blocks_per_req)
         int32."""
         cfg = self.cfg
-        x = self._embed(params, token)
+        x = self._embed_tokens(params, token)
         x, cache = decode_stack(
             cfg, params["stack"], cache, x, pos,
             adapters=self._stack_adapters(as_adapter_set(adapters)),

@@ -1619,3 +1619,136 @@ def test_whisper_lora_gradient_step_kernel_tier_matches_plain(card):
         if want is not None:
             assert float(want.abs().max()) > 0
             _assert_close(got, want)
+
+
+# ------------------------------------- paligemma-3b's and roberta-large's
+
+def _card_model(arch, rank, **overrides):
+    """``arch`` at full width, 2 layers, seeded random weights, 4 SFed-LoRA
+    sets with B at std 0.02."""
+    import dataclasses
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_adapter_set
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, **overrides)
+    model = build_model(cfg)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = model.init(gen, "cuda")
+    sets = []
+    for _ in range(4):
+        s = init_adapter_set(params, gen, LoRAConfig(rank=rank, alpha=8.0),
+                             n_clients=4)
+        sets.append(dataclasses.replace(s, lora=tree_map(
+            lambda t: t + 0.02 * torch.randn(t.shape, generator=gen,
+                                             device="cuda"), s.lora)))
+    return model, params, sets, gen
+
+
+def _lora_step(model, params, batch, aset):
+    """(loss, LoRA gradients) of one local step."""
+    from repro_torch.core.lora import AdapterSet
+    from repro_torch.tree import tree_leaves, tree_map
+    leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      aset.lora)
+    loss, _ = model.loss(params, batch, adapters=AdapterSet(
+        lora=leaves, gamma=aset.gamma))
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(leaves))
+
+
+@pytest.mark.cuda
+def test_paligemma_vision_prefix_kernel_tier_matches_plain(card):
+    """The banked forward over 4 x (256 patches + 128 tokens) at
+    paligemma-3b's widths (2 layers): 4 launches of #2 (q and v of 2
+    layers, each over all 1536 rows) on the kernel tier, none on the plain
+    tier; logits within 1e-4 of the plain tier's."""
+    from repro_torch.core.lora import AdapterBank
+    model, params, sets, gen = _card_model("paligemma-3b", 8)
+    bank = AdapterBank.from_sets(sets)
+    batch = {"tokens": torch.randint(0, 257216, (4, 128), device="cuda",
+                                     generator=gen),
+             "patches": torch.randn(4, 256, 1152, device="cuda",
+                                    generator=gen)}
+    out = {}
+    for plain in (False, True):
+        bgmv.reset_launches()
+        with torch.inference_mode(), (dispatch.plain_tier() if plain
+                                      else contextlib.nullcontext()):
+            logits, _ = model.forward(params, batch, bank.requests(
+                torch.arange(4, device="cuda", dtype=torch.int32)))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bgmv.launches.items() if v}
+        assert launches == ({} if plain else {"bgmv_matmul": 4}), launches
+        out[plain] = logits[..., :257216]
+    _assert_close(out[False], out[True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunked", [False, True], ids=["plain_ce",
+                                                        "chunked_ce"])
+def test_paligemma_lora_gradient_step_kernel_tier_matches_plain(card,
+                                                                chunked):
+    """One LoRA gradient step (rank 64) over 4 x (256 patches + 600
+    tokens) at paligemma-3b's widths (2 layers), with the chunked CE off
+    or on (599 predicting positions: chunks of 512 and a ragged 87):
+    #5-#8 launch 4 times each on the kernel tier, never on the plain
+    tier; loss and gradients within 1e-4 of the plain tier's, and of the
+    unchunked kernel tier's."""
+    from repro_torch.sharding import opts
+    model, params, sets, gen = _card_model("paligemma-3b", 64)
+    batch = {"tokens": torch.randint(0, 257216, (4, 600), device="cuda",
+                                     generator=gen),
+             "patches": torch.randn(4, 256, 1152, device="cuda",
+                                    generator=gen)}
+    ref = _lora_step(model, params, batch, sets[0])
+    out = {}
+    for plain in (False, True):
+        lora_matmul.reset_launches()
+        if chunked:
+            opts.set_opts(["chunked_ce"])
+        try:
+            with (dispatch.plain_tier() if plain
+                  else contextlib.nullcontext()):
+                out[plain] = _lora_step(model, params, batch, sets[0])
+        finally:
+            opts.reset()
+        torch.cuda.synchronize()
+        assert lora_matmul.launches == _launches(
+            **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+                                     lora_bwd_da=4, lora_bwd_db=4)))
+    for got, want in ((out[False], out[True]), (out[False], ref)):
+        _assert_close(got[0], want[0])
+        for g, w in zip(got[1], want[1]):
+            assert float(w.abs().max()) > 0
+            _assert_close(g, w)
+
+
+@pytest.mark.cuda
+def test_roberta_mlm_step_kernel_tier_matches_plain_and_is_bidirectional(
+        card):
+    """roberta-large's widths (2 layers): one MLM LoRA gradient step (rank
+    64) over 4 x 128 tokens launches #5-#8 4 times each on the kernel
+    tier, never on the plain tier, loss and gradients within 1e-4 of the
+    plain tier's; on the kernel tier, changing the last token moves
+    position 0's logits."""
+    model, params, sets, gen = _card_model("roberta-large", 64)
+    toks = torch.randint(0, 50265, (4, 128), device="cuda", generator=gen)
+    out = {}
+    for plain in (False, True):
+        lora_matmul.reset_launches()
+        with dispatch.plain_tier() if plain else contextlib.nullcontext():
+            out[plain] = _lora_step(model, params, {"tokens": toks},
+                                    sets[0])
+        torch.cuda.synchronize()
+        assert lora_matmul.launches == _launches(
+            **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+                                     lora_bwd_da=4, lora_bwd_db=4)))
+    _assert_close(out[False][0], out[True][0])
+    for g, w in zip(out[False][1], out[True][1]):
+        _assert_close(g, w)
+    other = toks.clone()
+    other[:, -1] = (other[:, -1] + 1) % 50265
+    with torch.inference_mode():
+        a, _ = model.forward(params, {"tokens": toks}, sets[0])
+        b, _ = model.forward(params, {"tokens": other}, sets[0])
+    assert float((a[:, 0] - b[:, 0]).abs().max()) > 1e-3

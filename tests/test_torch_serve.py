@@ -106,16 +106,15 @@ def test_cli_runs_on_cpu(extra, capsys):
     ["--arch", "qwen2-moe-a2.7b"], ["--arch", "whisper-medium"],
     ["--arch", "xlstm-1.3b"]])
 def test_cli_unported_flags_raise(flags, capsys):
-    """--arch values whose block kinds the port does not run yet raise;
-    the MoE family and xLSTM, ported since, serve (the cases keep their
-    places)."""
-    if flags[1] in tconfigs.ARCHS:
-        seq = tserve.main(_CLI + flags)
-        assert tuple(seq.shape) == (2, 6)
-        assert f"# {flags[1]} banked decode" in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(_CLI + flags)
+    """The --arch values that raised "not yet ported" before their slices
+    landed serve now, each in its case's old place (roberta-large decoded
+    causally and paligemma-3b without patches, as the JAX CLI serves
+    them)."""
+    assert flags[1] in tconfigs.ARCHS
+    assert flags[1] not in tconfigs.NOT_YET_PORTED
+    seq = tserve.main(_CLI + flags)
+    assert tuple(seq.shape) == (2, 6)
+    assert f"# {flags[1]} banked decode" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("extra", [

@@ -45,6 +45,7 @@ from repro_torch.launch import train as ttrain                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.optim import optimizers as topt               # noqa: E402
 from repro_torch.optim import schedules as tsched              # noqa: E402
+from repro_torch.sharding import opts as topts                 # noqa: E402
 from repro_torch.tree import tree_leaves                        # noqa: E402
 
 TRAJ_RTOL = 1e-4
@@ -101,8 +102,19 @@ def test_loss_and_adapter_grads_match_jax():
         assert float(np.abs(np.asarray(want)).max()) > 0
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=2e-3, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.loss(tparams, {"tokens": torch.from_numpy(toks)}, chunked_ce=True)
+    # the chunked CE (opts "chunked_ce") gives the same loss and gradients
+    topts.set_opts(["chunked_ce"])
+    try:
+        cl, _ = tm.loss(tparams, {"tokens": torch.from_numpy(toks)},
+                        adapters=tlora.AdapterSet(lora=leaves, gamma=gamma))
+        cgrads = torch.autograd.grad(cl, tree_leaves(leaves))
+    finally:
+        topts.reset()
+    np.testing.assert_allclose(float(cl.detach()), float(jl), rtol=2e-3,
+                               atol=2e-5)
+    for got, want in zip(cgrads, jax.tree.leaves(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-3, atol=2e-5)
 
 
 # ---------------------------------------------------- optimizers, schedules
@@ -400,24 +412,30 @@ def test_cli_trains_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [
     # the ids name the cases before the hybrid, device data, the MoE
-    # family, xLSTM and whisper were ported; roberta and paligemma are
-    # still unported
+    # family, xLSTM, whisper, roberta and paligemma were ported
     pytest.param(["--arch", "roberta-large"], id="--arch-hybrid"),
     ["--mesh", "4x2"],
     pytest.param(["--arch", "whisper-medium"], id="--data-mode"),
     pytest.param(["--arch", "paligemma-3b"], id="--arch"),
 ], ids=lambda f: f[0])
-def test_cli_unported_flags_raise(flags):
-    """Unported flags and archs raise "not yet ported"; whisper-medium,
-    ported since, fails as the JAX CLI does: the federated dataset is
-    tokens-only, so the first local step's encoder finds no frames."""
+def test_cli_unported_flags_raise(flags, capsys):
+    """``--mesh`` raises "not yet ported".  Of the archs, ported since,
+    roberta-large trains through its MLM loss, and whisper-medium and
+    paligemma-3b fail as the JAX CLI does: the federated dataset is
+    tokens-only, so the first local step finds no frames, or no
+    patches."""
     argv = ["--reduced", "--device", "cpu", "--rounds", "1", *flags]
-    if flags[-1] in tconfigs.ARCHS:
-        with pytest.raises(KeyError, match="frames"):
+    missing = {"whisper-medium": "frames", "paligemma-3b": "patches"}
+    if flags[-1] in missing:
+        with pytest.raises(KeyError, match=missing[flags[-1]]):
             ttrain.main(argv + ["--seq", "8", "--clients", "2"])
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.main(argv)
+    elif flags[-1] in tconfigs.ARCHS:
+        tr = ttrain.main(argv + ["--seq", "8", "--clients", "2"])
+        assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
+        assert "# final held-out perplexity: " in capsys.readouterr().out
+    else:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            ttrain.main(argv)
 
 
 def test_jax_cli_fails_on_whisper_as_the_port_does():
@@ -426,6 +444,15 @@ def test_jax_cli_fails_on_whisper_as_the_port_does():
     from repro.launch import train as jtrain
     with pytest.raises(KeyError, match="frames"):
         jtrain.main(["--arch", "whisper-medium", "--reduced", "--rounds",
+                     "1", "--seq", "8", "--clients", "2"])
+
+
+def test_jax_cli_fails_on_paligemma_as_the_port_does():
+    """The same for paligemma-3b: JAX's train CLI raises
+    KeyError('patches')."""
+    from repro.launch import train as jtrain
+    with pytest.raises(KeyError, match="patches"):
+        jtrain.main(["--arch", "paligemma-3b", "--reduced", "--rounds",
                      "1", "--seq", "8", "--clients", "2"])
 
 
