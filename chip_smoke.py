@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      times beside the plain versions, one PyTorch call each (SDPA for #13)
      and the card's bound, with the split #13, #11 and #4 launch with
   8. scheduled serving path: repro_torch.launch.serve.serve_scheduled on
-     gemma-2b at full width over an fp32, an int8 and an int4 base (8
+     gemma-2b at full width and half depth (9 of its 18 layers,
+     GEMMA_HALF, since phase 29) over an fp32, an int8 and an int4 base (8
      requests, two waves through 4 slots, one deadline), with the launch
      counts of #13 and #1-#4, #11, the plain tier's tokens against
      generate_banked wave by wave, the kernel tier's against the plain
@@ -55,8 +56,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      then the times of #9, #10 and #12 beside their plain versions, one
      torch.matmul on the dequantized W and the card's bound, with the tiles
      and split #9, #10 and #12 launch with
- 10. training path over a packed base: the FederatedTrainer of phase 6 over
-     an int8 and an int4 base (#9, #10, #7, #8 at q and v; #11 and #12 at
+ 10. training path over a packed base: the FederatedTrainer of phase 6 at
+     GEMMA_HALF's depth (since phase 29) over an int8 and an int4 base
+     (#9, #10, #7, #8 at q and v; #11 and #12 at
      k, o and the MLP), with the launch counts, a bit-identical repeat,
      save / resume bit for bit, the plain tier, ms/round and (int4) a
      profile of one client local step
@@ -123,10 +125,12 @@ Phases, in order; any failure raises and the exit code is not 0:
      of 13
  20. result: a JSON line of per-kernel numbers, the script's time, the
      nvidia-smi line, and the final {"ok": true, ...} line
- 21. the fault-tolerant engine (run right after phase 6, on its base and
-     against its run): FederatedTrainer's buffered engine on gemma-2b at
-     full width (N = 4, rank 64, 2 local steps of 4 x 128, fedsa): at null
-     faults bit-identical to phase 6's synchronous run, with its #5-#8
+ 21. the fault-tolerant engine (run after phase 29, since then at
+     GEMMA_HALF's depth: 9 of gemma-2b's 18 layers, on a base of its own
+     and against phase 6's training path run again at that depth):
+     FederatedTrainer's buffered engine (N = 4, rank 64, 2 local steps of 4
+     x 128, fedsa): at null faults bit-identical to the synchronous run,
+     with its #5-#8
      launches per client local step; publish_adapters into a
      LiveAdapterBank (2 hot slots, 4 tenants) and phase 8's traffic through
      serve_scheduled, tokens equal to a static AdapterBank's (#1, #2, #13
@@ -194,13 +198,27 @@ Phases, in order; any failure raises and the exit code is not 0:
      (repro_torch.sharding.opts "chunked_ce": loss and grad-norm within
      1e-4); one local step over 4 x (256 + 1100) with the chunked CE off
      and on, the peak memory of each (the chunked one lower)
- 28. roberta-large (24 layers, d_model 1024, 16 heads of 64; 353.7 M
-     parameters, fp32): generate_banked as the serve CLI runs it (causal
-     decode, as in JAX: 48 of #2 per prefill, 48 of #1 per decode step),
-     serve_scheduled over fp32 (24 of #13 per decode step), a
-     bidirectional control on the kernel tier, and the training path with
-     the MLM loss, adamw over a Dirichlet(0.5) partition (48 of each of
-     #5-#8 per client local step)
+ 28. roberta-large (d_model 1024, 16 heads of 64, fp32; at half depth
+     since phase 29, ROBERTA_PATHS: 12 of its 24 layers): generate_banked
+     as the serve CLI runs it (causal decode, as in JAX: 24 of #2 per
+     prefill, 24 of #1 per decode step), serve_scheduled over fp32 (12 of
+     #13 per decode step), a bidirectional control on the kernel tier,
+     and the training path with the MLM loss, adamw over a Dirichlet(0.5)
+     partition (24 of each of #5-#8 per client local step)
+ 29. training on a mesh (run right after phase 6, against its run):
+     FederatedTrainer(mesh=) on gemma-2b at full width and depth over a
+     1x1 mesh of a one-rank gloo group here and a 2x1 mesh of two spawned
+     gloo ranks sharing the card (each trains two of the four clients and
+     all-gathers the rest), both bit for bit phase 6's history, adapters
+     and optimizer state, with each rank's #5-#8 launches and ms/round;
+     #5-#8 at a 1x2 mesh's local shapes (q 2048 -> 1024, v 256 -> 128, m
+     512, r 64) against their plain versions and timed.  A model axis
+     cannot run on one card (the comment above MESH_TP_CASES says why).
+     After phase 24: granite-moe at GRANITE_PATHS's depth with the
+     moe_grouped switch (generate_banked and one training round, the
+     kernel tier against the plain tier with routing replayed) and a
+     control: one MoE layer where capacity drops tokens, grouped and flat
+     dispatch differ, and where no expert can overflow, they agree
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -212,6 +230,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3131,6 +3150,11 @@ def hybrid_packed_serving(name):
 
 # ------------------------------------------ 21. the fault-tolerant engine
 
+# gemma-2b at half depth (9 of its 18 layers, full width): phase 21, the
+# scheduled and live-bank paths and the packed training paths, cut since
+# phase 29 for the script's time limit (phase 6, the fixed-batch path and
+# phase 29 stay at full depth)
+GEMMA_HALF = dataclasses.replace(get_config("gemma-2b"), num_layers=9)
 FT_ROUNDS = 4
 FT_FAULTS = "dropout=0.2,straggle=geom:0.3,corrupt=0.25"
 FT_NOISE = "corrupt=0.25,mode=noise"
@@ -4546,6 +4570,9 @@ def paligemma_paths(name):
 # ------------------------------------------------- 28. roberta-large
 
 ROBERTA = get_config("roberta-large")
+# with phase 29 the script no longer fits its time: roberta's paths run at
+# half depth (12 of its 24 layers), at full width, since phase 29
+ROBERTA_PATHS = dataclasses.replace(ROBERTA, num_layers=12)
 # the accuracy table's encoder setting (benchmarks/tab12_accuracy.py tab2)
 ROBERTA_TRAIN = dict(opt="adamw", lr=3e-3, partition="dirichlet")
 
@@ -4577,28 +4604,28 @@ def bidirectional_control(model, params, adapters, *, seq=128):
 
 
 def roberta_paths(name):
-    """roberta-large at full width and depth (24 layers, d_model 1024, 16
-    heads of 64, LayerNorm, GELU 4096, vocab 50265 padded to 50432: 353.7
-    M parameters, 1.41 GB fp32; seeded random weights), every earlier
-    model freed first: generate_banked as the serve CLI runs it (causal
-    decode, as in JAX: 48 of #2 per prefill, 48 of #1 per decode step);
-    serve_scheduled over fp32 (24 of #13 per decode step);
+    """roberta-large at full width and half depth (ROBERTA_PATHS: 12 of
+    its 24 layers since phase 29; d_model 1024, 16 heads of 64, LayerNorm,
+    GELU 4096, vocab 50265 padded to 50432; seeded random weights), every
+    earlier model freed first: generate_banked as the serve CLI runs it
+    (causal decode, as in JAX: 24 of #2 per prefill, 24 of #1 per decode
+    step); serve_scheduled over fp32 (12 of #13 per decode step);
     bidirectional_control; and train_path with the MLM loss
-    (ROBERTA_TRAIN: adamw over a Dirichlet(0.5) partition, 48 of each of
+    (ROBERTA_TRAIN: adamw over a Dirichlet(0.5) partition, 24 of each of
     #5-#8 per client local step), with peak memory."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    fixed = run_path(name, ROBERTA, dev)
+    fixed = run_path(name, ROBERTA_PATHS, dev)
     _peak("roberta-large fixed-batch serving (causal decode)", dev)
     _free()
-    model, params, bank = serving_model(ROBERTA, dev)
+    model, params, bank = serving_model(ROBERTA_PATHS, dev)
     sched, _ = sched_path(name, model, params, bank, "fp32")
     _peak("roberta-large scheduled serving", dev)
     bidirectional_control(model, params, bank.adapter(0))
     del model, bank
     _free()
-    train, _, _ = train_path(name, ROBERTA, dev, params=params,
+    train, _, _ = train_path(name, ROBERTA_PATHS, dev, params=params,
                              **ROBERTA_TRAIN)
     del params
     _free()
@@ -4607,6 +4634,232 @@ def roberta_paths(name):
 
 
 # ------------------------------------------------------------------ main
+
+# ----------------------------------------------- 29. training on a mesh
+
+# The card is one GPU, and two ranks cannot share it over a model axis:
+# NCCL refuses two ranks on one device ("Duplicate GPU detected : rank 1
+# and rank 0 both on CUDA device 3b000"), and over gloo the c10d
+# collectives on CUDA tensors run but DTensor's all-gather (full_tensor of
+# a Shard(1) DTensor) never returned, on an H100 80GB HBM3.  So phase 29
+# runs the client axis over two gloo ranks on the card (2x1: no DTensor, one
+# all-gather per dtype a round), a 1x1 mesh in this process, and #5-#8 at
+# the 1x2 mesh's local shapes (q 2048 -> 1024, v 256 -> 128); the model
+# axis trains on the CPU (tests/test_torch_mesh.py).
+MESH_TP_CASES = [("q 1x2", 512, 2048, 1024, 64, 64),
+                 ("v 1x2", 512, 2048, 128, 64, 64)]
+MESH_TP_PROJS = (("q 1x2", 1024), ("v 1x2", 128))
+MESH_ROUNDS = 3                  # phase 6's
+MESH_TIMEOUT_S = 300
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_trainer(cfg, device, params, mesh, rank=64, seq=128):
+    """Phase 6's trainer (train_path's, track_stability on) on ``mesh``;
+    ``rank`` and ``seq`` as phase 6 ran them."""
+    return federated.FederatedTrainer(
+        build_model(cfg),
+        FederatedDataset(cfg.vocab_size, 4, seq_len=seq, batch_per_client=4,
+                         seed=0),
+        lora_cfg=LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
+                            targets=cfg.lora_targets),
+        fed_cfg=FederatedConfig(num_clients=4, local_steps=2,
+                                rounds=MESH_ROUNDS, aggregation="fedsa"),
+        opt_cfg=OptimizerConfig(name="sgd", lr=5e-3), seed=0,
+        base_params=params, device=device, mesh=mesh, track_stability=True)
+
+
+def _mesh_rounds(tr, device):
+    """Phase 6's rounds on a mesh trainer, counted and timed."""
+    _reset_launches()
+    ms = []
+    for _ in range(MESH_ROUNDS):
+        _sync(device)
+        t = time.monotonic()
+        tr.run_round()
+        _sync(device)
+        ms.append((time.monotonic() - t) * 1e3)
+    return _launch_counts(), ms
+
+
+def _mesh_rank(rank, world, port, spec, out, cfg, device, shape):
+    """One rank of the 2x1 mesh (a spawned process on the same card)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_from_spec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)          # both ranks on the one card
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        tr = _mesh_trainer(cfg, dev, train_base(build_model(cfg), dev),
+                           mesh_from_spec(spec, dev), **shape)
+        launches, ms = _mesh_rounds(tr, dev)
+        res = {"launches": launches, "ms": ms, "history": tr.history,
+               "block": tr.mesh_run.block(4)}
+        if rank == 0:
+            res.update(lora=tree_map(lambda t: t.cpu(), tr.lora),
+                       opt=tree_map(lambda t: t.cpu(), tr.opt_state))
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_state(got, sync):
+    return got["history"] == sync["history"] and all(
+        torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            tree_leaves({"l": got["lora"], "o": got["opt"]}),
+            tree_leaves({"l": sync["lora"], "o": sync["opt"]}),
+            strict=True))
+
+
+def mesh_paths(name, cfg, device, sync, sync_ms, *, rank=64, seq=128):
+    """Phase 29 against phase 6's run ``sync`` (its ms/round ``sync_ms``):
+    FederatedTrainer(mesh=) on a 1x1 mesh here and on a 2x1 mesh of two
+    spawned gloo ranks on this card (each trains two of the four clients
+    and gathers the rest), both bit for bit phase 6's history, adapters
+    and optimizer state, with each rank's #5-#8 launches; then #5-#8 at a
+    1x2 mesh's local shapes against their plain versions and timed.
+    ``rank`` and ``seq``: phase 6's (a CPU rehearsal passes its own)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import mesh_from_spec
+    phase(f"training on a mesh: FederatedTrainer(mesh=), {cfg.name} d_model "
+          f"{cfg.d_model}, 1x1 here and 2x1 over two gloo ranks on this "
+          "device, against phase 6's run")
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    n_adapted = _proj_counts(cfg)[0]
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        tr = _mesh_trainer(cfg, device, train_base(build_model(cfg), device),
+                           mesh_from_spec("1x1", device), rank=rank, seq=seq)
+        launches, ms1 = _mesh_rounds(tr, device)
+        got = {"history": tr.history, "lora": tr.lora, "opt": tr.opt_state}
+        same = _same_state(got, sync)
+    finally:
+        dist.destroy_process_group()
+    del tr, got
+    _free()
+    expect = n_adapted * 4 * 2 * MESH_ROUNDS
+    print(f"1x1: launches { {k: launches[k] for k in LORA_KERNELS} } "
+          f"(expected {expect} each); ms/round "
+          f"{[round(t, 1) for t in ms1]} (phase 6: "
+          f"{[round(t, 1) for t in sync_ms]}); history, adapters and "
+          f"optimizer state {'bit-identical' if same else 'DIFFER'}")
+    assert all(launches[k] == expect for k in LORA_KERNELS), launches
+    assert same, "the 1x1 mesh run differs from phase 6's"
+    # the spawned ranks count their own launches, on the card only (a CPU
+    # rehearsal's counting patches stay in this process)
+    counted = device.type == "cuda"
+
+    out = ROOT / "build" / "mesh_2x1"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    ctx = mp.start_processes(_mesh_rank, args=(2, _free_port(), "2x1", out,
+                                               cfg, str(device),
+                                               dict(rank=rank, seq=seq)),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() - t0 > MESH_TIMEOUT_S:
+                raise TimeoutError(f"the 2x1 ranks ran past "
+                                   f"{MESH_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = [torch.load(out / f"rank{r}.pt") for r in range(2)]
+    for r in range(2):
+        (out / f"rank{r}.pt").unlink()
+    same = _same_state(ranks[0], sync) and \
+        ranks[1]["history"] == sync["history"]
+    expect = n_adapted * 2 * 2 * MESH_ROUNDS
+    for r, res in enumerate(ranks):
+        print(f"2x1 rank {r}: clients {res['block']}, launches "
+              f"{ {k: res['launches'][k] for k in LORA_KERNELS} } "
+              f"(expected {expect} each: two clients); ms/round "
+              f"{[round(t, 1) for t in res['ms']]}")
+        assert not counted or all(res["launches"][k] == expect
+                                  for k in LORA_KERNELS)
+    print(f"2x1: two ranks in {time.monotonic() - t0:.1f} s from spawn to "
+          f"exit; history, adapters and optimizer state "
+          f"{'bit-identical' if same else 'DIFFER'} to phase 6's")
+    assert same, "the 2x1 mesh run differs from phase 6's"
+    del ranks
+    if not counted:
+        return {}
+    worst = check_lora_kernels(MESH_TP_CASES)
+    time_lora_kernels(k=cfg.d_model, projs=MESH_TP_PROJS)
+    return worst
+
+
+def _grouped_control(cfg, device):
+    """One MoE layer (seeded random weights, 4 x 128 tokens): the grouped
+    and the flat dispatch agree where no expert can overflow (capacity
+    factor e / k: every slot fits) and differ where capacity drops tokens
+    (factor 0.5: half an even share), each path's drops counted."""
+    g = torch.Generator(device).manual_seed(7)
+    m = cfg.moe
+    for cf in (0.5, m.num_experts / m.top_k):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=cf))
+        params = moe.moe_params(c, g)
+        x = torch.randn(4, 128, c.d_model, generator=g, device=device)
+        _, _, top_i = moe.route(c, params, x.reshape(-1, c.d_model))
+        assign = torch.nn.functional.one_hot(top_i, m.num_experts).sum(1)
+        flat_drops = int((torch.cumsum(assign, 0) > moe.capacity(
+            c, assign.shape[0])).logical_and(assign > 0).sum())
+        rows = assign.reshape(4, 128, -1)
+        grp_drops = int((torch.cumsum(rows, 1) > moe.capacity(
+            c, 128)).logical_and(rows > 0).sum())
+        with torch.inference_mode():
+            flat, _ = moe.moe_apply(c, params, x)
+            opts.set_opts(["moe_grouped"])
+            try:
+                grouped, _ = moe.moe_apply(c, params, x)
+            finally:
+                opts.set_opts(["moe_grouped"], False)
+        diff = float((grouped - flat).abs().max())
+        print(f"capacity factor {cf}: dropped (token, expert) choices flat "
+              f"{flat_drops}, grouped {grp_drops}; max |grouped - flat| "
+              f"{diff:.3e}")
+        if cf == 0.5:
+            assert flat_drops > 0 and grp_drops > 0 and diff > 1e-3, diff
+        else:
+            assert flat_drops == grp_drops == 0
+            assert diff <= KERNEL_RTOL * max(1.0, float(flat.abs().max()))
+
+
+def grouped_moe_paths(name, cfg=GRANITE_PATHS, device=None, **train):
+    """granite-moe-1b-a400m at GRANITE_PATHS's depth, fp32, with the
+    ``moe_grouped`` switch on: generate_banked (the kernel tier against
+    the plain tier, routing replayed) and one training round (#5-#8
+    counted, a repeat bit for bit, the plain tier within 1e-3), then the
+    grouped-vs-flat control.  ``cfg``, ``device`` and ``train``
+    (train_path's shape) so that it can be rehearsed on a CPU."""
+    dev = device or torch.device("cuda")
+    phase("grouped MoE dispatch (sharding switch moe_grouped): "
+          f"{cfg.name}, {cfg.num_layers} layers, fp32")
+    opts.set_opts(["moe_grouped"])
+    try:
+        run_path(name, cfg, dev, steps=8)
+        train_path(name, cfg, dev, rounds=1, **train)
+    finally:
+        opts.reset()
+    phase(f"grouped MoE control: grouped vs flat dispatch, one layer of "
+          f"{cfg.name}")
+    _grouped_control(cfg, dev)
+
 
 def _free():
     gc.collect()
@@ -4630,17 +4883,27 @@ def main():
                                                params=params,
                                                track_stability=True)
     launches.update({k: train_launches[k] for k in LORA_KERNELS})
-    # phase 21 runs here, on phase 6's base and against its run
-    fault_tolerant_paths(name, gemma, dev, params,
-                         dict(sync, launches=train_launches, ms=sync_ms))
+    del params
+    _free()
+    # phase 29 runs here, against phase 6's run
+    for kern, err in mesh_paths(name, gemma, dev, sync, sync_ms).items():
+        worst[kern] = max(worst[kern], err)
+    del sync
+    _free()
+    # phase 21 at GEMMA_HALF's depth, on its own base and synchronous run
+    params = train_base(build_model(GEMMA_HALF), dev)
+    half_launches, half_ms, sync = train_path(name, GEMMA_HALF, dev,
+                                              params=params,
+                                              track_stability=True)
+    fault_tolerant_paths(name, GEMMA_HALF, dev, params,
+                         dict(sync, launches=half_launches, ms=half_ms))
     del params, sync
     _free()
     ring = SCHED["plen"] + SCHED["steps"]
     worst.update(check_sched_kernels(SCHED["block_size"], ring))
     rows.update(time_sched_kernels(SCHED["block_size"], ring))
     _free()
-    model, params, bank = serving_model(get_config("gemma-2b"),
-                                        torch.device("cuda"))
+    model, params, bank = serving_model(GEMMA_HALF, torch.device("cuda"))
     for mode in ("fp32", "int8", "int4"):
         sched_launches, _ = sched_path(name, model, params, bank, mode)
         _free()
@@ -4656,7 +4919,7 @@ def main():
     rows.update(time_qtrain_kernels())
     _free()
     for mode in ("int8", "int4"):
-        qtrain_launches, _, _ = train_path(name, get_config("gemma-2b"),
+        qtrain_launches, _, _ = train_path(name, GEMMA_HALF,
                                            torch.device("cuda"), quant=mode)
         _free()
         if mode == "int4":
@@ -4688,6 +4951,9 @@ def main():
     _free()
     qwen_moe_paths(name)
     granite_paths(name)
+    _free()
+    grouped_moe_paths(name)
+    _free()
     xlstm_paths(name)
     for kern, err in check_whisper_kernels().items():
         worst[kern] = max(worst.get(kern, 0.0), err)

@@ -46,16 +46,34 @@ adapters to a live serving bank.
 
 ``data_mode="device"`` draws each round's batches on the trainer's device
 (``data/synthetic.DeviceFederatedData``) from a generator of its own.
-Not yet ported, and raising: meshes.
+
+On a mesh (``FederatedTrainer(mesh=)``, a DeviceMesh of
+``launch/mesh.mesh_from_spec``; :class:`MeshRun`) the client dim shards
+over the client axes ("pod", "data") where it divides, as
+``sharding/rules.lora_spec`` says: each device trains only its block of
+clients, then gathers every client's new LoRA, optimizer state and
+metrics in client order, so the server step runs on the full (N, ...)
+stack on every device, bit for bit the single-device one.  Over a model
+axis above 1 the base is tensor-parallel (DTensors on the model sub-mesh,
+placed by ``rules.params_sharding``) and each client's forward and
+backward run over that sub-mesh, its A replicated and its B's rows
+sharded, for every family.  Every random
+draw (participation, device data, faults) is made in full on every
+device from the same seeded generator, so the stream is the
+single-device one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import resolve_device
 from repro_torch.analysis.stability_check import (ScalingCollapseError,
@@ -71,9 +89,13 @@ from repro_torch.core.faults import FaultModel
 from repro_torch.core.lora import (AdapterSet, apply_rank_mask, init_lora,
                                    mask_rank_tree, rank_mask)
 from repro_torch.core.scaling import per_client_gammas, scaling_factor
+from repro_torch.core.quant import has_quantized
 from repro_torch.data.synthetic import DeviceFederatedData
+from repro_torch.launch.mesh import axis_sizes, client_group, num_clients
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           global_norm, make_optimizer)
+from repro_torch.sharding import rules
+from repro_torch.sharding.specs import full_local, use_mesh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -81,8 +103,85 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 DATA_SEED_OFFSET = 7919
 
 
-def _not_yet(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to repro_torch")
+class MeshRun:
+    """How this device takes part in training on ``mesh`` (a DeviceMesh
+    with JAX's axis names).
+
+    ``model_mesh`` is the model sub-mesh when the model axis is above 1
+    (else None: every leaf stays a plain tensor); ``client_group`` the
+    process group over the client axes that holds this device (pod-major;
+    None with one client slot).  ``block(n)`` is the [lo, hi) block of n
+    clients this device trains: its share where ``rules.lora_spec`` shards
+    the client dim, else all n."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        self.model_mesh = (mesh["model"]
+                           if axis_sizes(mesh).get("model", 1) > 1 else None)
+        self.client_group = (client_group(mesh) if num_clients(mesh) > 1
+                             else None)
+
+    def block(self, n: int):
+        entry = rules.lora_spec(("a",), (n, 1, 1), self.mesh,
+                                client_dim=True)[0]
+        return rules.block_of(n, entry, self.mesh, self.coords)
+
+    @contextlib.contextmanager
+    def scope(self):
+        """The mesh for ``constrain``, and plain tensors (positions,
+        masks, a plain adapter) meeting DTensors taken as replicated."""
+        with use_mesh(self.mesh), implicit_replication():
+            yield
+
+    def shard_client(self, tree):
+        """One client's A/B tree (or optimizer state over one) as DTensors
+        on the model sub-mesh, placed by ``rules.lora_sharding`` (A
+        replicated, B's rows sharded where they divide); 0-d leaves (the
+        step count) stay plain.  Every device holds the full tree, so each
+        keeps its shard with no communication."""
+        if self.model_mesh is None:
+            return tree
+        pl = rules.lora_sharding(tree, self.model_mesh, client_dim=False)
+        return tree_map(lambda x, p: x if x.ndim == 0 else distribute_tensor(
+            x, self.model_mesh, p, src_data_rank=None), tree, pl)
+
+    def gather_clients(self, tree, n: int):
+        """This device's (hi - lo, ...) client block of every leaf gathered
+        into the full (n, ...) stack, in client order: one all-gather per
+        dtype over the client group, a copy, so the stack is the one a
+        single device builds bit for bit."""
+        lo, hi = self.block(n)
+        if hi - lo == n:
+            return tree
+        leaves = tree_leaves(tree)
+        out = [None] * len(leaves)
+        for dtype in dict.fromkeys(x.dtype for x in leaves):
+            idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+            flat = torch.cat([leaves[i].reshape(hi - lo, -1) for i in idx],
+                             1)
+            full = flat.new_empty((n,) + tuple(flat.shape[1:]))
+            dist.all_gather_into_tensor(full, flat.contiguous(),
+                                        group=self.client_group)
+            off = 0
+            for i in idx:
+                width = leaves[i][0].numel()
+                # contiguous, as the single device's stack is: a strided
+                # view would sum in another order
+                out[i] = full[:, off:off + width].contiguous().reshape(
+                    (n,) + tuple(leaves[i].shape[1:]))
+                off += width
+        return tree_unflatten(tree, out)
+
+
+def _place_base(base, run):
+    """The base tree placed by ``rules.params_sharding`` on the model
+    sub-mesh (distributed from device 0's copy)."""
+    if run is None or run.model_mesh is None:
+        return base
+    pl = rules.params_sharding(base, run.model_mesh)
+    return tree_map(lambda x, p: distribute_tensor(x, run.model_mesh, p),
+                    base, pl)
 
 
 def participation_weights(generator: torch.Generator, num_clients: int,
@@ -129,69 +228,95 @@ def _local_steps(batches):
     return [{"tokens": batch} for batch in batches]
 
 
-def _make_client_local(model, strat, opt_cfg):
+def _leaf_grad(g, x):
+    """The gradient of leaf ``x``: an exact zero where the loss does not
+    reach it; on the model axis redistributed to the leaf's own placement
+    (A's comes back a partial sum, reduced here)."""
+    if g is None:
+        return torch.zeros_like(x)
+    if isinstance(g, DTensor):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
+
+
+def _make_client_local(model, strat, opt_cfg, mesh_run=None):
     """The per-client local-training loop (``local_steps`` optimizer steps
     on one client's adapter state).  A leaf the loss does not reach (the
     audio encoder's adapters, ``cross/v``: built by ``init_lora``, read by
     no projection) gets an exact zero gradient, as ``jax.grad`` gives it,
     so the norm, the masks, the optimizer and the aggregation see JAX's
-    tree."""
+    tree.  On a model axis (``mesh_run``) the client's state runs as
+    DTensors on the model sub-mesh and comes back in full."""
     _, opt_update = make_optimizer(opt_cfg)
+    scope = contextlib.nullcontext if mesh_run is None else mesh_run.scope
 
     def client_local(base, lora, opt_state, batches, round_idx, gamma,
                      mask_row=None):
+        if mesh_run is not None:
+            lora = mesh_run.shard_client(lora)
+            opt_state = mesh_run.shard_client(opt_state)
         losses, gnorms = [], []
         for batch in _local_steps(batches):
-            leaves = tree_map(lambda x: x.detach().requires_grad_(True),
-                              lora)
-            loss, _ = model.loss(base, batch,
-                                 adapters=AdapterSet(lora=leaves,
-                                                     gamma=gamma))
-            flat = tree_leaves(leaves)
-            grads = tree_unflatten(leaves, [
-                torch.zeros_like(x) if g is None else g
-                for g, x in zip(torch.autograd.grad(loss, flat,
-                                                    allow_unused=True),
-                                flat)])
-            gnorm = global_norm(grads)
-            grads = strat.mask_grads(grads, round_idx)
-            if mask_row is not None:
-                grads = mask_rank_tree(grads, mask_row)
-            if opt_cfg.grad_clip:
-                grads = clip_by_global_norm(grads, opt_cfg.grad_clip)
-            updates, opt_state = opt_update(grads, opt_state, lora)
-            lora = apply_updates(lora, updates)
-            losses.append(loss.detach())
+            with scope():
+                leaves = tree_map(
+                    lambda x: x.detach().requires_grad_(True), lora)
+                loss, _ = model.loss(base, batch,
+                                     adapters=AdapterSet(lora=leaves,
+                                                         gamma=gamma))
+                flat = tree_leaves(leaves)
+                grads = tree_unflatten(leaves, [
+                    _leaf_grad(g, x)
+                    for g, x in zip(torch.autograd.grad(loss, flat,
+                                                        allow_unused=True),
+                                    flat)])
+                gnorm = global_norm(grads)
+                grads = strat.mask_grads(grads, round_idx)
+                if mask_row is not None:
+                    grads = mask_rank_tree(grads, mask_row)
+                if opt_cfg.grad_clip:
+                    grads = clip_by_global_norm(grads, opt_cfg.grad_clip)
+                updates, opt_state = opt_update(grads, opt_state, lora)
+                lora = apply_updates(lora, updates)
+            losses.append(full_local(loss.detach()))
             gnorms.append(gnorm)
+        if mesh_run is not None:
+            lora = tree_map(full_local, lora)
+            opt_state = tree_map(full_local, opt_state)
         return lora, opt_state, {"loss": torch.stack(losses),
                                  "grad_norm": torch.stack(gnorms)}
 
     return client_local
 
 
-def _make_train_clients(model, strat, opt_cfg):
+def _make_train_clients(model, strat, opt_cfg, mesh_run=None):
     """Every client's local training in one round, shared by the
     synchronous and the buffered round bodies (the two engines differ only
     on the server side, never in client compute).  Returns train(base,
     adapters, opt_N, batches, round_idx) -> (new_lora, new_opt, metrics):
     the metrics "loss" and "grad_norm" are means over all N clients and
-    their local steps, as JAX's vmapped ones."""
-    client_local = _make_client_local(model, strat, opt_cfg)
+    their local steps, as JAX's vmapped ones.  On a mesh each device
+    trains its block of clients and gathers the rest
+    (:meth:`MeshRun.gather_clients`)."""
+    client_local = _make_client_local(model, strat, opt_cfg, mesh_run)
 
     def train(base, adapters, opt_N, batches, round_idx):
         lora_N = adapters.lora
         g, mask_N = adapters.gamma, adapters.rank_mask
         n = tree_leaves(lora_N)[0].shape[0]
+        lo, hi = (0, n) if mesh_run is None else mesh_run.block(n)
         outs = [client_local(
             base, _client(lora_N, i), _client(opt_N, i),
             _client_batches(batches, i),
             round_idx, g if isinstance(g, float) else float(g[i]),
-            None if mask_N is None else mask_N[i]) for i in range(n)]
-        metrics = {"loss": torch.stack([o[2]["loss"] for o in outs]).mean(),
-                   "grad_norm": torch.stack(
-                       [o[2]["grad_norm"] for o in outs]).mean()}
-        return (_stack([o[0] for o in outs]), _stack([o[1] for o in outs]),
-                metrics)
+            None if mask_N is None else mask_N[i]) for i in range(lo, hi)]
+        out = {"lora": _stack([o[0] for o in outs]),
+               "opt": _stack([o[1] for o in outs]),
+               "metrics": {k: torch.stack([o[2][k] for o in outs])
+                           for k in ("loss", "grad_norm")}}
+        if mesh_run is not None:
+            out = mesh_run.gather_clients(out, n)
+        return out["lora"], out["opt"], {k: v.mean() for k, v in
+                                         out["metrics"].items()}
 
     return train
 
@@ -206,9 +331,10 @@ def _update_norm(gamma, new_lora, lora_N):
                                           lora_N))
 
 
-def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
+def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False,
+                    mesh_run=None):
     """Returns round_body(base, adapters, opt_N, batches, round_idx,
-    weights).
+    weights).  ``mesh_run``: a :class:`MeshRun` to train on a mesh.
 
     ``adapters`` is a client-stacked :class:`AdapterSet`: its ``lora``
     tree and ``opt_N`` carry a leading client dim, ``batches`` is a token
@@ -227,7 +353,7 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     server mean.  Every client trains, sampled or not, and the metrics
     average over all of them, as in the JAX engine."""
     strat = get_strategy(strategy)
-    train = _make_train_clients(model, strat, opt_cfg)
+    train = _make_train_clients(model, strat, opt_cfg, mesh_run)
 
     def round_body(base, adapters, opt_N, batches, round_idx, weights=None):
         lora_N, mask_N = adapters.lora, adapters.rank_mask
@@ -247,14 +373,15 @@ def make_round_body(model, *, strategy, opt_cfg, track_update_norm=False):
     return round_body
 
 
-def make_fed_round_step(model, *, strategy, opt_cfg):
+def make_fed_round_step(model, *, strategy, opt_cfg, mesh_run=None):
     """Single-round entry point over caller-supplied batches: returns
     round_step(base, adapters, opt_N, batches, round_idx, weights=None) ->
     (adapters', opt_N', metrics), the round body of
     :func:`make_round_body` (the JAX version's ``jit`` / ``donate`` have no
     counterpart in the eager round).  ``round_idx`` may be an int or a 0-d
     tensor."""
-    body = make_round_body(model, strategy=strategy, opt_cfg=opt_cfg)
+    body = make_round_body(model, strategy=strategy, opt_cfg=opt_cfg,
+                           mesh_run=mesh_run)
 
     def round_step(base, adapters, opt_N, batches, round_idx, weights=None):
         return body(base, adapters, opt_N, batches, int(round_idx), weights)
@@ -276,7 +403,7 @@ def _quantize_rho(rho: float) -> float:
 
 
 def make_buffered_round_body(model, *, strategy, opt_cfg, fault_model=None,
-                             track_update_norm=False):
+                             track_update_norm=False, mesh_run=None):
     """The async FedBuff-style round body: returns round_body(base,
     adapters, opt_N, tau, rho, batches, round_idx, faults=None, part=None,
     size_w=None, expected=None) -> (adapters', opt_N', tau', rho',
@@ -322,7 +449,7 @@ def make_buffered_round_body(model, *, strategy, opt_cfg, fault_model=None,
             "inner method with aggregation.buffered(...))")
     inner = strat.inner
     fault_model = fault_model or FaultModel()
-    train = _make_train_clients(model, strat, opt_cfg)
+    train = _make_train_clients(model, strat, opt_cfg, mesh_run)
 
     def round_body(base, adapters, opt_N, tau, rho, batches, round_idx,
                    faults=None, part=None, size_w=None, expected=None):
@@ -484,6 +611,12 @@ class FederatedTrainer:
     ``save`` / ``restore`` checkpoint the state in the JAX package's file
     format (``checkpoint/io.save_federated_state``): a restored run
     continues bit for bit.
+
+    ``mesh``: a DeviceMesh (``launch/mesh.mesh_from_spec``; every device of
+    its group builds the same trainer): the base is placed by the partition
+    rules and each device trains its client block (:class:`MeshRun`); the
+    adapter and optimizer state stay whole on every device, and so do the
+    history and every host read.  A packed base on a mesh raises.
     """
 
     def __init__(self, model, dataset, *, lora_cfg, fed_cfg, opt_cfg,
@@ -493,9 +626,14 @@ class FederatedTrainer:
                  device="cuda"):
         if data_mode not in ("host", "device"):
             raise ValueError(f"unknown data_mode '{data_mode}'")
-        if mesh is not None:
-            _not_yet("training on a mesh")
+        if mesh is not None and base_params is not None and \
+                has_quantized(base_params):
+            raise NotImplementedError(
+                "a packed base on a mesh is not ported (packed leaves carry "
+                "no placements; the JAX CLI refuses --quant with --mesh)")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_run = None if mesh is None else MeshRun(mesh)
         self.model = model
         self.dataset = dataset
         self.data_mode = data_mode
@@ -531,11 +669,10 @@ class FederatedTrainer:
         gen = torch.Generator(self.device).manual_seed(seed)
         if base_params is None:
             base_params = model.init(gen, self.device)
-        self.base = params_from_numpy(base_params, self.device) \
+        base = params_from_numpy(base_params, self.device) \
             if _is_numpy_tree(base_params) else base_params
         if lora_init is None:
-            lora1 = init_lora(self.base, gen, lora_cfg,
-                              targets=lora_cfg.targets)
+            lora1 = init_lora(base, gen, lora_cfg, targets=lora_cfg.targets)
         elif _is_numpy_tree(lora_init):
             lora1 = params_from_numpy(lora_init, self.device)
         else:
@@ -549,6 +686,11 @@ class FederatedTrainer:
         opt1 = opt_init(lora1)
         self.opt_state = tree_map(
             lambda x: x.expand((n,) + tuple(x.shape)).clone(), opt1)
+        # on a mesh the base is placed by the partition rules; the stacked
+        # adapter and optimizer state stay whole on every device (the
+        # server step reads the full stack), each device training its
+        # client block of it (MeshRun)
+        self.base = _place_base(base, self.mesh_run)
         self.client_weights = None
         if fed_cfg.weight_by_size:
             if not hasattr(dataset, "size_weights"):
@@ -598,11 +740,13 @@ class FederatedTrainer:
             self._round_body = make_buffered_round_body(
                 self.model, strategy=strategy, opt_cfg=self.opt_cfg,
                 fault_model=self.fault_model,
-                track_update_norm=self.track_stability)
+                track_update_norm=self.track_stability,
+                mesh_run=self.mesh_run)
         else:
             self._round_body = make_round_body(
                 self.model, strategy=fed.aggregation, opt_cfg=self.opt_cfg,
-                track_update_norm=self.track_stability)
+                track_update_norm=self.track_stability,
+                mesh_run=self.mesh_run)
 
     @functools.cached_property
     def round_step(self):
@@ -615,7 +759,8 @@ class FederatedTrainer:
         own state is not touched."""
         return make_fed_round_step(self.model,
                                    strategy=self.fed_cfg.aggregation,
-                                   opt_cfg=self.opt_cfg)
+                                   opt_cfg=self.opt_cfg,
+                                   mesh_run=self.mesh_run)
 
     # ------------------------------------------------------------- adapters
 
@@ -919,9 +1064,11 @@ class FederatedTrainer:
         model."""
         toks = torch.as_tensor(self.dataset.eval_batch(batch),
                                device=self.device)
-        loss, _ = self.model.loss(self.base, {"tokens": toks},
-                                  adapters=self.client_adapters(client))
-        return float(torch.exp(loss))
+        with (contextlib.nullcontext() if self.mesh_run is None
+              else self.mesh_run.scope()):
+            loss, _ = self.model.loss(self.base, {"tokens": toks},
+                                      adapters=self.client_adapters(client))
+        return float(torch.exp(full_local(loss)))
 
     # ----------------------------------------------------------- checkpoint
 
@@ -933,7 +1080,9 @@ class FederatedTrainer:
         per-client rank mask, the AdapterSet's metadata (``adapter_meta``:
         gammas, alpha, rank, ranks, scaling) and the buffered engine's
         ``async_state`` (tau, rho), under the JAX package's keys.  The fault
-        schedule needs nothing: it derives from the seed and the round."""
+        schedule needs nothing: it derives from the seed and the round.  On
+        a mesh every device calls it (the sharded base is gathered) and
+        device 0 writes the file, which resumes with or without a mesh."""
         n = self.fed_cfg.num_clients
         meta = {"gammas": np.asarray(self.gammas, np.float32),
                 "alpha": float(self.lora_cfg.alpha),
@@ -942,8 +1091,12 @@ class FederatedTrainer:
                                     np.int64),
                 "scaling": self.lora_cfg.scaling}
         device = self.data_mode == "device"
+        # on a mesh every device gathers the base; device 0 writes
+        base = tree_map(full_local, self.base)
+        if self.mesh is not None and dist.get_rank() != 0:
+            return
         save_federated_state(
-            path, self.base, self.lora, self.opt_state, self.round_idx,
+            path, base, self.lora, self.opt_state, self.round_idx,
             generator_state=self._part_gen.get_state(),
             data_generator_state=(self._data_gen.get_state() if device
                                   else None),
@@ -969,7 +1122,9 @@ class FederatedTrainer:
         restored partition.  A buffered trainer takes the file's
         ``async_state``, or a
         fresh one (tau 0, rho 1.0) from a file without it, and recomputes
-        the fold mirror from rho, as JAX does."""
+        the fold mirror from rho, as JAX does.  On a mesh every device reads
+        the file and the base is scattered from device 0's copy by the
+        partition rules."""
         base, lora, opt, rnd, state = load_federated_state(path)
         ck_mask = state.get("rank_mask")
         if (ck_mask is None) != (self.rank_mask is None) or (
@@ -1007,7 +1162,8 @@ class FederatedTrainer:
                 # the sampler's mixtures come from the restored partition
                 self.device_data = DeviceFederatedData.from_host(
                     self.dataset, self.device)
-        self.base = params_from_numpy(base, self.device)
+        self.base = _place_base(params_from_numpy(base, self.device),
+                                self.mesh_run)
         self.lora = params_from_numpy(lora, self.device)
         self.opt_state = params_from_numpy(opt, self.device)
         self.round_idx = rnd

@@ -32,6 +32,13 @@ A packed frozen base (:class:`~repro_torch.core.quant.QuantizedLinear`):
 The serving engine dequantizes a packed base once per generation on the
 plain tier (``launch/serve._prepare_base``), so the per-projection
 dequantization here serves direct callers only.
+
+On a mesh (``core/federated.FederatedTrainer(mesh=)``) the base weights are
+DTensors on the model axis.  A projection over one runs on each device's
+local shards through ``local_map`` in Megatron's column- or row-parallel
+layout (:func:`_sharded_linear`): one ``x @ w`` per device without an
+adapter, the single-adapter path above with one, so the kernels see plain
+tensors at the local shapes and ``stats`` counts local calls.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import contextlib
 import contextvars
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels import bgmv, lora_matmul
@@ -70,7 +78,9 @@ def plain_tier():
 
 def _use_kernel(x) -> bool:
     """True where a tensor on x's device takes the kernels: CUDA, outside
-    :func:`plain_tier`."""
+    :func:`plain_tier`.  A DTensor is judged by its local tensor."""
+    if isinstance(x, DTensor):
+        x = x.to_local()
     if x.device.type == "cpu" or _plain.get():
         return False
     if x.device.type == "cuda":
@@ -94,6 +104,10 @@ def lora_linear_batched(x, w, lora, gamma: float = 1.0):
     kernels return fp32)."""
     a, b = lora["a"], lora["b"]
     ids = lora.get("ids")
+    if isinstance(w, DTensor):
+        raise NotImplementedError(
+            "per-request adapters over a sharded base (serving on a mesh) "
+            "are not ported to repro_torch")
     nreq = (a if ids is None else ids).shape[0]
     if x.ndim != 3 or nreq != x.shape[0]:
         raise ValueError(
@@ -161,10 +175,16 @@ def lora_linear(x, w, lora=None, gamma: float = 0.0):
     promotion of x, w, a and b."""
     packed = isinstance(w, QuantizedLinear)
     if lora is None:
-        return quant_linear(x, w) if packed else x @ w
+        if packed:
+            return quant_linear(x, w)
+        if isinstance(w, DTensor):
+            return _sharded_linear(x, w)
+        return x @ w
     a, b = lora["a"], lora["b"]
     if a.ndim == 3:
         return lora_linear_batched(x, w, lora, gamma)
+    if isinstance(w, DTensor):
+        return _sharded_linear(x, w, lora, gamma)
     kernel = _use_kernel(x)
     if packed and not kernel:
         w, packed = w.dequantize(), False
@@ -196,3 +216,106 @@ def lora_linear(x, w, lora=None, gamma: float = 0.0):
         fwd = lm.lora_fwd if kernel else lm.lora_fwd_plain
         y = fwd(x2, w, a, b, float(gamma))[0].to(out_dtype)
     return y.reshape(*lead, n)
+
+
+def _layout(w):
+    """"column" where a DTensor weight is sharded on its last dim (and
+    replicated elsewhere), "row" where on its first, else None."""
+    rep = Replicate()
+    for kind, dim in (("column", w.ndim - 1), ("row", w.ndim - 2)):
+        if any(p == Shard(dim) for p in w.placements) and all(
+                p in (Shard(dim), rep) for p in w.placements):
+            return kind
+    return None
+
+
+def _as_dtensor(t, mesh):
+    """A plain tensor that every device holds in full, as a replicated
+    DTensor on ``mesh`` (a DTensor is returned as it is)."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity forward; the backward all-reduces a partial-sum gradient
+    to replicated (Megatron's "f").  A column-parallel projection hands x
+    back a partial sum; reduced here, it meets the norms' backward (the
+    layer norm's mean takes no partial-sum gradient) replicated."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and any(p.is_partial()
+                                          for p in g.placements):
+            g = g.redistribute(g.device_mesh,
+                               [Replicate()] * g.device_mesh.ndim)
+        return g
+
+
+def _sharded_linear(x, w, lora=None, gamma: float = 1.0):
+    """:func:`lora_linear` over a DTensor base weight ``w`` (one adapter
+    or none), in Megatron's layout, on each device's local shards through
+    ``local_map``, so the kernels (or plain versions) see plain tensors at
+    the local shapes.
+
+    Column-parallel (``w`` sharded on its last dim; q / k / v / w_gate /
+    w_up): x and A replicated, B's rows sharded with W's columns, the
+    output sharded on its last dim; the gradients of x and A come back
+    partial sums (``in_grad_placements`` Partial): x's is all-reduced at
+    once (:class:`_ReduceGrad`), A's where the trainer redistributes it to
+    A's placement.  Row-parallel without an adapter (o / w_down): x
+    sharded on its last dim, the partial-sum output all-reduced to
+    replicated, so the residual stream stays replicated.  An adapted
+    row-parallel projection (an o / w_down target, not the default q /
+    v): x, W, A and B are first redistributed to replicated, an all-gather
+    of x and of W on every call, and every device computes the whole
+    projection.  Any other base-only layout is left to DTensor's own
+    propagation."""
+    from torch.distributed.tensor.experimental import local_map
+
+    kind = _layout(w)
+    if lora is None and kind is None:
+        return x @ w
+    if lora is not None and kind != "column":
+        kind = None
+    mesh = w.device_mesh
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    w_pl = tuple(w.placements) if kind else rep
+    sharded = [p != Replicate() for p in w_pl]
+
+    def on(p):                     # p on the mesh dims that shard W
+        return tuple(p if s else Replicate() for s in sharded)
+
+    x_pl, out_pl, grad_pl = rep, rep, rep
+    if kind == "column":
+        out_pl, grad_pl = on(Shard(1)), on(Partial())
+    elif kind == "row":
+        x_pl = grad_pl = on(Shard(1))
+        out_pl = on(Partial())
+    x = _as_dtensor(x, mesh)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if kind != "row":
+        x2 = _ReduceGrad.apply(x2)
+    args, in_pl, in_grad = (x2, w), (x_pl, w_pl), (grad_pl, w_pl)
+    fn = torch.matmul
+    if lora is not None:
+        b_pl = on(Shard(0))
+        args += tuple(_as_dtensor(t, mesh) for t in (lora["a"], lora["b"]))
+        in_pl += (rep, b_pl)
+        in_grad += (grad_pl, b_pl)
+
+        def fn(x2, w, a, b):
+            return lora_linear(x2, w, {"a": a, "b": b}, gamma)
+    # one output: its placements are the one element of a tuple
+    y = local_map(fn, out_placements=(out_pl,), in_placements=in_pl,
+                  in_grad_placements=in_grad, device_mesh=mesh,
+                  redistribute_inputs=True)(*args)
+    if kind == "row":
+        y = y.redistribute(mesh, rep)
+    return y.reshape(*lead, y.shape[-1])

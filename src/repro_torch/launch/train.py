@@ -39,14 +39,29 @@ correction and the collapse watchdog, in chunks of ``--chunk-rounds``:
 
 It prints the JAX launcher's ``# ...`` header, its round lines, the
 ``# async:`` and ``# watchdog:`` lines and the final held-out perplexity.
-The JAX launcher's ``--mesh`` is not ported yet: the parser accepts it and
-it raises "not yet ported".
+
+On a mesh (``--mesh DxM``, ``PxDxM``, ``pod`` or ``multipod``), one
+process per device under ``torch.distributed.run``: the clients shard
+over the data axes and the base over ``model`` (``core/federated.py``).
+The CLI reads the launcher's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT) and starts the default group itself, ``nccl`` on
+``cuda`` (rank r on ``cuda:LOCAL_RANK``) and ``gloo`` on ``cpu``; device 0
+alone prints and writes the checkpoint:
+  python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --mesh 2x2 --reduced --device cpu
+  python -m torch.distributed.run --nproc-per-node 8 \
+      -m repro_torch.launch.train --mesh 4x2 --clients 8
+``--mesh`` with ``--quant`` exits with the JAX launcher's message.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import socket
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, NOT_YET_PORTED, get_config
@@ -58,12 +73,32 @@ from repro_torch.core.federated import FederatedTrainer, WatchdogConfig
 from repro_torch.core.lora import init_lora
 from repro_torch.core.quant import apply_quant_flag, quantize_tree
 from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.launch.mesh import mesh_from_spec, parse_spec
 from repro_torch.models.api import build_model
 
 
-def _reject_unported(args):
-    if args.mesh:
-        raise NotImplementedError("--mesh is not yet ported to repro_torch")
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start_group(device):
+    """The default process group from ``torch.distributed.run``'s
+    environment (one process, rank 0, on a free local port, without it):
+    ``nccl`` over CUDA, this rank on ``cuda:LOCAL_RANK``; ``gloo`` over
+    the CPU.  Returns the rank's device."""
+    env = os.environ
+    rank, world = int(env.get("RANK", 0)), int(env.get("WORLD_SIZE", 1))
+    addr = env.get("MASTER_ADDR", "localhost")
+    port = env.get("MASTER_PORT") or _free_port()
+    if device.type == "cuda":
+        device = torch.device("cuda", int(env.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{addr}:{port}", rank=rank,
+                            world_size=world)
+    return device
 
 
 def main(argv=None):
@@ -109,7 +144,11 @@ def main(argv=None):
                     help="host: dataset batches from the host; device: "
                          "batches drawn on the device each round "
                          "(DeviceFederatedData)")
-    ap.add_argument("--mesh", default="", help="not yet ported")
+    ap.add_argument("--mesh", default="",
+                    help="train on a mesh: 'DxM', 'PxDxM', 'pod' (16x16) or "
+                         "'multipod' (2x16x16), one process per device "
+                         "under torch.distributed.run; clients over the "
+                         "data axes, the base tensor-parallel over 'model'")
     ap.add_argument("--quant", default="none", choices=("none", "int8", "int4"),
                     help="store the frozen base packed (int8 per channel / "
                          "int4 grouped); the adapters stay fp, and the "
@@ -147,9 +186,25 @@ def main(argv=None):
                     help="checkpoint to restore (round, adapters, optimizer "
                          "and RNG state, so the run continues bit for bit)")
     args = ap.parse_args(argv)
-    _reject_unported(args)
-
     device = resolve_device(args.device)
+    if parse_spec(args.mesh) is None:
+        return _train(args, device, None)
+    if args.quant != "none":
+        raise SystemExit("--quant is single-host for now (packed leaves "
+                         "carry no sharding annotations); drop --mesh")
+    device = _start_group(device)
+    try:
+        mesh = mesh_from_spec(args.mesh, device)
+        with contextlib.ExitStack() as stack:
+            if dist.get_rank():            # device 0 alone prints
+                sink = stack.enter_context(open(os.devnull, "w"))
+                stack.enter_context(contextlib.redirect_stdout(sink))
+            return _train(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, mesh):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -196,7 +251,7 @@ def main(argv=None):
         opt_cfg=OptimizerConfig(name=args.optimizer, lr=args.lr),
         seed=args.seed, base_params=base_params, lora_init=lora_init,
         data_mode=args.data_mode, chunk_rounds=args.chunk_rounds,
-        watchdog=watchdog, device=device)
+        watchdog=watchdog, mesh=mesh, device=device)
     if args.resume:
         tr.restore(args.resume)
         # an fp checkpoint restored under --quant is packed once here; a
@@ -212,6 +267,7 @@ def main(argv=None):
           f"strategy={args.strategy} scaling={args.scaling} "
           f"{gamma_str} N={args.clients}"
           + (" weight-by-size" if args.weight_by_size else "")
+          + (f" mesh={args.mesh}" if args.mesh else "")
           + (f" quant={args.quant}" if args.quant != "none" else "")
           + (f" buffer={'N' if args.buffer == 0 else args.buffer}"
              if tr.async_mode else "")

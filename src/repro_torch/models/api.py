@@ -13,10 +13,16 @@ family (roberta-large: a bidirectional forward and the MLM loss).  As in
 the JAX package the embedding is not scaled by sqrt(d_model), the head is
 tied (``embed.T``) unless the config says otherwise, and the vocabulary is
 padded to a multiple of 256 (``pad_vocab``).
+
+On a model axis (``core/federated.FederatedTrainer(mesh=)``) the params are
+DTensors: the vocab-sharded embedding is looked up vocab-parallel
+(:func:`sharded_lookup`) and the losses run on the all-gathered logits
+(``sharding/specs.full_local``).
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -29,11 +35,47 @@ from repro_torch.models.transformer import (apply_stack, banked_scan_layout,
                                             init_stack, init_stack_cache,
                                             prefill_stack)
 from repro_torch.sharding import opts
+from repro_torch.sharding.specs import full_local
 from repro_torch.tree import tree_map
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
+
+
+def sharded_lookup(embed, tokens):
+    """``embed[tokens]`` for a DTensor table, replicated out.  A table
+    sharded over the vocabulary (the default rule) is looked up
+    vocab-parallel: each device gathers the rows of its own range, zeros
+    the rest, and one all-reduce sums the (b, s, d) partials; exact, since
+    every sum adds zeros to one row.  Any other layout (``embed_dshard``'s
+    d-sharded table) gathers locally and all-gathers the result."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embed.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    vocab = [i for i, p in enumerate(embed.placements) if p == Shard(0)]
+    if not vocab:
+        return embed[tokens].redistribute(mesh, rep)
+    rows = embed.to_local().shape[0]
+    lo = 0
+    for i in vocab:              # vocab-major over the sharding mesh dims
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= rows
+
+    def local(e, tok):
+        ids = tok.long() - lo
+        inside = (ids >= 0) & (ids < rows)
+        out = e[ids.clamp(0, rows - 1)]
+        return torch.where(inside[..., None], out, out.new_zeros(()))
+
+    out_pl = tuple(Partial() if p == Shard(0) else Replicate()
+                   for p in embed.placements)
+    fn = local_map(local, out_placements=(out_pl,),
+                   in_placements=(tuple(embed.placements), None),
+                   device_mesh=mesh)
+    return fn(embed, tokens).redistribute(mesh, rep)
 
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm", "encoder")
@@ -82,7 +124,10 @@ class Model:
 
     # ---------------------------------------------------------------- forward
     def _embed_tokens(self, params, tokens):
-        return params["embed"][tokens].to(getattr(torch, self.cfg.dtype))
+        embed = params["embed"]
+        x = (sharded_lookup(embed, tokens) if isinstance(embed, DTensor)
+             else embed[tokens])
+        return x.to(getattr(torch, self.cfg.dtype))
 
     def _embed(self, params, batch):
         """The stack's input for a batch: the token embeddings, after the
@@ -180,11 +225,12 @@ class Model:
         tokens = batch["tokens"]
         logits, aux = self.forward(params, batch, adapters=adapters)
         s_text = tokens.shape[1]
-        lf = logits[:, -s_text:][:, :-1].float()
+        lf = full_local(logits)[:, -s_text:][:, :-1].float()
         labels = tokens[:, 1:].long()
         lse = torch.logsumexp(lf, dim=-1)
         ll = torch.gather(lf, -1, labels[..., None])[..., 0]
         ce = (lse - ll).mean()
+        aux = full_local(aux)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def _loss_mlm(self, params, batch, adapters):
@@ -196,10 +242,11 @@ class Model:
                           tokens)
         logits, aux = self.forward(params, {**batch, "tokens": inp},
                                    adapters=adapters)
-        lf = logits.float()
+        lf = full_local(logits).float()
         lse = torch.logsumexp(lf, dim=-1)
         ll = torch.gather(lf, -1, tokens.long()[..., None])[..., 0]
         ce = ((lse - ll) * masked[None, :]).sum() / (masked.sum() * b)
+        aux = full_local(aux)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def _loss_chunked(self, params, batch, adapters, chunk: int = 512):
@@ -224,7 +271,7 @@ class Model:
         valid = torch.arange(sl + pad, device=x.device) < sl
 
         def chunk_ce(xb, lb, vb):
-            logits = self._head(params, xb).float()
+            logits = full_local(self._head(params, xb)).float()
             lse = torch.logsumexp(logits, dim=-1)
             ll = torch.gather(logits, -1, lb[..., None])[..., 0]
             return ((lse - ll) * vb).sum()
@@ -235,6 +282,7 @@ class Model:
                                    labels[:, i:i + c], valid[i:i + c],
                                    use_reentrant=False)
         ce = tot / (b * sl)
+        aux = full_local(aux)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- serving

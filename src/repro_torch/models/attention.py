@@ -8,6 +8,13 @@ a fully masked row gives a uniform softmax, as in the JAX package.
 Caches are updated in place (the JAX functions return a new cache): a
 decode step writes one slot per request instead of copying the cache.  The
 updated cache is also returned, so callers read like the JAX code.
+
+Two sharding switches act here (``sharding/opts.py``): ``expand_kv``
+repeats the KV heads to the full head count before full-sequence and
+prefill attention (after the cache is filled) and constrains the head dim
+onto `model`; ``seq_parallel_attn`` constrains ``blockwise_attention``'s
+query block onto `model` when the heads do not divide 16.  Off a mesh
+both leave the numbers as they are.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import apply_rope, linear, rms_norm
+from repro_torch.sharding import opts
+from repro_torch.sharding.specs import constrain
 
 NEG_INF = -1e30
 
@@ -66,6 +75,22 @@ def _project_qkv(cfg, params, x, adapters=None, positions=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
+
+
+def _maybe_expand_kv(q, k, v):
+    """Under ``expand_kv``: repeat the KV heads to the full head count and
+    constrain the head dim onto `model`, so attention shards by head
+    instead of computing (partly) replicated when kv_heads is below the
+    axis size.  Each query head meets the same K/V values as in the
+    grouped layout."""
+    if not opts.enabled("expand_kv"):
+        return q, k, v
+    h, kh = q.shape[2], k.shape[2]
+    if kh != h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+    spec = (("pod", "data"), None, "model", None)
+    return constrain(q, spec), constrain(k, spec), constrain(v, spec)
 
 
 def attention_core(cfg, q, k, v, mask):
@@ -122,6 +147,10 @@ def blockwise_attention(cfg, q, k, v, positions_q, positions_kv, *, causal,
         qb = q[:, q0:q0 + q_block].float()
         nq = qb.shape[1]
         qb = qb.reshape(b, nq, kh, g, hd)
+        if opts.enabled("seq_parallel_attn") and h % 16 != 0:
+            # context parallelism: the query block's seq dim over `model`
+            # when the heads cannot divide the axis (8-head archs)
+            qb = constrain(qb, (None, "model", None, None, None))
         pq = positions_q[:, q0:q0 + q_block]
         acc = torch.zeros(b, kh, g, nq, hd, device=q.device)
         m = torch.full((b, kh, g, nq), NEG_INF, device=q.device)
@@ -164,6 +193,7 @@ def attention_fullseq(cfg, params, x, *, causal=True, adapters=None,
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k, v = _project_qkv(cfg, params, x, adapters=adapters,
                            positions=positions, kv_positions=positions)
+    q, k, v = _maybe_expand_kv(q, k, v)
     out = _attend(cfg, q, k, v, positions, positions, causal=causal,
                   window=cfg.attn_window if causal else None)
     return linear(out.reshape(b, s, -1), params["o"],
@@ -207,6 +237,7 @@ def attention_prefill(cfg, params, x, cache, positions, *, adapters=None):
     q, k, v = _project_qkv(cfg, params, x, adapters=adapters,
                            positions=positions, kv_positions=positions)
     fill_kv_cache(cache, k, v, positions)
+    q, k, v = _maybe_expand_kv(q, k, v)
     out = _attend(cfg, q, k, v, positions, positions, causal=True,
                   window=cfg.attn_window)
     y = linear(out.reshape(b, s, -1), params["o"], (adapters or {}).get("o"))
@@ -330,6 +361,7 @@ def attention_prefill_paged(cfg, params, x, cache, positions, table, *,
     q, k, v = _project_qkv(cfg, params, x, adapters=adapters,
                            positions=positions, kv_positions=positions)
     fill_paged_kv_cache(cache, k, v, positions, table)
+    q, k, v = _maybe_expand_kv(q, k, v)
     out = _attend(cfg, q, k, v, positions, positions, causal=True,
                   window=cfg.attn_window)
     y = linear(out.reshape(b, s, -1), params["o"], (adapters or {}).get("o"))

@@ -14,13 +14,18 @@ only the drop slot ``ep * cap`` collects several, and it is sliced off and
 never read.  The top-k is a stable descending sort, so exact ties go to
 the lower expert index first, as ``jax.lax.top_k`` orders them.
 
-JAX's grouped dispatch (``_moe_apply_grouped``, switched on by the
-sharding option ``moe_grouped``) is not ported: it belongs with the mesh.
+With the sharding switch ``moe_grouped`` on, :func:`moe_apply_grouped`
+(JAX's ``_moe_apply_grouped``) dispatches each batch row as a routing
+group of its own: capacity, position-in-expert and the scatter are local
+to the row, so which tokens a full expert drops changes, on one device
+too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import opts
 
 
 def padded_experts(m) -> int:
@@ -95,7 +100,10 @@ def moe_apply(cfg, params, x, adapters=None, *, top_i=None):
     come from this router's probabilities): it holds one run to another's
     routing, so that an fp32 near-tie in the router cannot send a token to
     other experts in the two (``chip_smoke.py`` holds the plain tier to the
-    kernel tier's choices so)."""
+    kernel tier's choices so).  With ``moe_grouped`` on,
+    :func:`moe_apply_grouped`."""
+    if opts.enabled("moe_grouped"):
+        return moe_apply_grouped(cfg, params, x, top_i=top_i)
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -135,11 +143,71 @@ def moe_apply(cfg, params, x, adapters=None, *, top_i=None):
     tok_out = flat_out[flat_idx]                              # (t, k, d)
     out = torch.einsum("tkd,tk->td", tok_out.float(), w.float())
 
-    # shared experts (always on) under their sigmoid gate
-    if m.num_shared_experts:
-        sg = F.silu(xf @ params["shared_gate"]) * (xf @ params["shared_up"])
-        sh = sg @ params["shared_down"]
-        gate = torch.sigmoid(xf.float() @ params["shared_router"].float())
-        out = out + gate * sh.float()
+    out = _with_shared(cfg, params, xf, out)
+    return out.reshape(b, s, d).to(x.dtype), aux
 
+
+def _with_shared(cfg, params, xf, out):
+    """``out`` (t, d) fp32 plus the shared experts (always on) under their
+    sigmoid gate, where the config has them."""
+    if not cfg.moe.num_shared_experts:
+        return out
+    sg = F.silu(xf @ params["shared_gate"]) * (xf @ params["shared_up"])
+    sh = sg @ params["shared_down"]
+    gate = torch.sigmoid(xf.float() @ params["shared_router"].float())
+    return out + gate * sh.float()
+
+
+def moe_apply_grouped(cfg, params, x, *, top_i=None):
+    """The grouped dispatch (GShard-style; ``_moe_apply_grouped`` of the
+    JAX package, step for step): each batch row is a routing group with
+    its own capacity ``capacity(cfg, s)``, so the position-in-expert
+    cumsum and the dispatch scatter are local to the row.  The router, the
+    aux loss and the shared experts are the flat path's; ``top_i`` (t, k)
+    replays a routing as :func:`moe_apply` does.  x (b, s, d) -> (out,
+    aux)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    ep = padded_experts(m)
+    xf = x.reshape(b * s, d)
+    probs, top_p, top_i = route(cfg, params, xf, top_i)
+    probs = probs.reshape(b, s, e)
+    top_p, top_i = top_p.reshape(b, s, k), top_i.reshape(b, s, k)
+
+    assign = F.one_hot(top_i, e).sum(2)                       # (b, s, e)
+    frac = assign.float().mean((0, 1))
+    aux = e * torch.sum(frac * probs.mean((0, 1))) * m.router_aux_coef
+
+    cap = capacity(cfg, s)
+    pos = torch.cumsum(assign, dim=1) - 1                     # per group
+    pos_k = torch.gather(pos, 2, top_i)                       # (b, s, k)
+    keep = pos_k < cap
+    w = torch.where(keep, top_p, torch.zeros_like(top_p))
+
+    # row r's tokens land in its own (ep*cap + 1, d) buffer; dropped ->
+    # the row's slot ep*cap
+    slots = ep * cap + 1
+    flat_idx = torch.where(keep, top_i * cap + pos_k,
+                           torch.full_like(pos_k, ep * cap)).reshape(b, s * k)
+    rows = torch.arange(b, device=x.device)[:, None] * slots
+    src = x[:, :, None, :].expand(b, s, k, d).reshape(b * s * k, d)
+    buf = torch.zeros((b * slots, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, (flat_idx + rows).reshape(-1), src)
+    ex_in = buf.reshape(b, slots, d)[:, :-1].reshape(b, ep, cap, d)
+
+    # expert FFN (swiglu), batched over the padded experts
+    xe = ex_in.transpose(0, 1).reshape(ep, b * cap, d)
+    g = F.silu(torch.bmm(xe, params["w_gate"]))
+    u = torch.bmm(xe, params["w_up"])
+    ex_out = torch.bmm(g * u, params["w_down"])
+    ex_out = ex_out.reshape(ep, b, cap, d).transpose(0, 1)   # (b, ep, cap, d)
+
+    flat_out = torch.cat([ex_out.reshape(b, ep * cap, d),
+                          ex_out.new_zeros((b, 1, d))], 1)
+    tok_out = torch.gather(flat_out, 1, flat_idx[..., None].expand(
+        b, s * k, d)).reshape(b * s, k, d)
+    out = torch.einsum("tkd,tk->td", tok_out.float(),
+                       w.reshape(b * s, k).float())
+    out = _with_shared(cfg, params, xf, out)
     return out.reshape(b, s, d).to(x.dtype), aux

@@ -22,7 +22,11 @@ the per-slot state of recurrent blocks and of the cross-attention K/V
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -38,6 +42,8 @@ from repro_torch.models.attention import (attention_core,
 from repro_torch.models.layers import (apply_norm, linear, mlp_apply,
                                        mlp_params, norm_params)
 from repro_torch.models.moe import moe_apply, moe_params
+from repro_torch.sharding import opts
+from repro_torch.sharding.specs import constrain
 from repro_torch.tree import tree_leaves, tree_map
 
 KINDS = ("attn", "xattn", "rglru", "mlstm", "slstm")
@@ -439,18 +445,56 @@ def _layers(cfg, pattern, stack_params, adapters, cache=None):
                None if cache is None else cache["tail"][key])
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_dots``: save the outputs
+    of matmuls without batch dims (a projection's ``mm`` / ``addmm``, as
+    JAX's ``dots_with_no_batch_dims_saveable`` saves its dots) and
+    recompute everything else (norms, RoPE, the batched attention
+    einsums, elementwise ops)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, x):
+    """``fn(x)`` under a non-reentrant checkpoint with the
+    :func:`_dots_saveable` policy."""
+    return checkpoint(fn, x, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(
+                          _dots_saveable))
+
+
 def apply_stack(cfg, stack_params, x, *, adapters=None, positions=None,
                 causal=True, pattern=None, enc_out=None):
     """Full-sequence forward.  Returns (x, aux_sum).  ``adapters`` is the
     prepared "stack" subtree of an AdapterSet; banked per-request trees
     must be in scan layout (:func:`batched_scan_layout`).  ``enc_out``:
-    the encoder output the ``"xattn"`` blocks cross-attend."""
+    the encoder output the ``"xattn"`` blocks cross-attend.
+
+    By default every activation is kept for the backward: the port has no
+    counterpart of JAX's whole-block remat of the layer scan.  Two
+    sharding switches act here: ``seq_parallel_residual`` constrains the
+    residual stream's sequence dim onto `model` at the start of every
+    repeat unit (off a mesh, the identity); ``remat_dots`` runs each layer
+    under a selective checkpoint while autograd records
+    (:func:`_dots_saveable`).  The recompute runs in the backward's
+    context, so a backward taken outside ``dispatch.plain_tier()`` would
+    recompute on the kernel tier: keep the backward inside the block the
+    forward ran in."""
     pattern = pattern or cfg.block_pattern
+    n_rep = (len(pattern) * tree_leaves(stack_params["repeat"])[0].shape[0]
+             if stack_params.get("repeat") else 0)
+    remat = opts.enabled("remat_dots") and torch.is_grad_enabled()
     aux_total = 0.0
-    for kind, p, lo, _ in _layers(cfg, pattern, stack_params, adapters):
-        x, aux = apply_block(cfg, kind, p, x, adapters=lo,
-                             positions=positions, causal=causal,
-                             enc_out=enc_out)
+    for i, (kind, p, lo, _) in enumerate(
+            _layers(cfg, pattern, stack_params, adapters)):
+        if i < n_rep and i % len(pattern) == 0 and \
+                opts.enabled("seq_parallel_residual"):
+            x = constrain(x, (None, "model", None))
+        block = functools.partial(apply_block, cfg, kind, p, adapters=lo,
+                                  positions=positions, causal=causal,
+                                  enc_out=enc_out)
+        x, aux = _checkpointed(block, x) if remat else block(x)
         aux_total = aux_total + aux
     return x, aux_total
 

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import linear
+from repro_torch.sharding.specs import full_local, rejoin, replicated
 
 MLSTM_CHUNK = 256
 _NEG = -1e30          # the stabilizer's "no state yet", as in JAX
@@ -81,9 +82,12 @@ def _mlstm_qkv(cfg, params, x, adapters):
 
 
 def _gates(params, xf):
-    """(log input gate, log forget gate), fp32, (..., h)."""
-    log_i = xf @ params["w_i"].float()
-    log_f = F.logsigmoid(xf @ params["w_f"].float() + params["b_f"].float())
+    """(log input gate, log forget gate), fp32, (..., h); on a model axis
+    from the all-gathered weights (``logsigmoid``'s backward has no
+    DTensor rule)."""
+    log_i = xf @ full_local(params["w_i"]).float()
+    log_f = F.logsigmoid(xf @ full_local(params["w_f"]).float()
+                         + full_local(params["b_f"]).float())
     return log_i, log_f
 
 
@@ -130,11 +134,13 @@ def _chunk_step(carry, qb, kb, vb, li, lf, band):
 def _mlstm_fullseq(cfg, params, x, adapters=None, carry0=None):
     """Stabilized chunkwise-parallel form over x (b, s, d).  Returns (out,
     final carry): the carry after the LAST REAL token, so that prefill can
-    hand it to the recurrent decode form as its cache."""
+    hand it to the recurrent decode form as its cache.  On a model axis
+    the projections run on their shards and the cell runs whole on every
+    device (q, k, v and x all-gathered, ``full_local``)."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _mlstm_qkv(cfg, params, x, adapters)
-    xf = x.float()
+    q, k, v = (full_local(t) for t in _mlstm_qkv(cfg, params, x, adapters))
+    xf = full_local(x).float()
     log_i, log_f = _gates(params, xf)                    # (b, s, h)
 
     c = min(MLSTM_CHUNK, s)
@@ -158,9 +164,9 @@ def _mlstm_fullseq(cfg, params, x, adapters=None, carry0=None):
                                  log_f[:, j:j + c], band)
         outs.append(out)
     out = torch.cat(outs, dim=1)[:, :s]
-    ogate = torch.sigmoid(xf @ params["ogate"].float())
-    out = out.reshape(b, s, h * hd) * ogate
-    return (out @ params["o"].float()).to(x.dtype), carry
+    ogate = torch.sigmoid(xf @ full_local(params["ogate"]).float())
+    out = rejoin(out.reshape(b, s, h * hd) * ogate, x)
+    return replicated(out @ params["o"].float()).to(x.dtype), carry
 
 
 def mlstm_apply_fullseq(cfg, params, x, adapters=None):
@@ -244,7 +250,11 @@ def _slstm_scan(cfg, params, gi, carry):
     each (b, d).  The loop runs in the recurrent product's layout: state
     (nh, b, hd), pre-activations (s, nh, b, 4, hd), and the four ``r_*``
     side by side as one (nh, hd, 4 hd) operand of a ``torch.bmm`` a step.
-    Returns (carry, hs (b, s, d))."""
+    Returns (carry, hs (b, s, d)).  On a model axis the recurrence runs
+    whole on every device: gi and the recurrent weights are all-gathered
+    first (``full_local``), as the loop's head-major reshapes of a sharded
+    DTensor do not map onto its shards."""
+    gi = full_local(gi)
     b, s, _, d = gi.shape
     nh = cfg.slstm_num_heads
     hd = d // nh
@@ -252,8 +262,9 @@ def _slstm_scan(cfg, params, gi, carry):
     def heads(t):                                  # (b, d) -> (nh, b, hd)
         return t.reshape(b, nh, hd).transpose(0, 1).contiguous()
 
-    rec_w = torch.cat([params[f"r_{g}"].float() for g in GATES], dim=-1)
-    b_f = params["b_f"].float().reshape(nh, 1, hd)
+    rec_w = torch.cat([full_local(params[f"r_{g}"]).float() for g in GATES],
+                      dim=-1)
+    b_f = full_local(params["b_f"]).float().reshape(nh, 1, hd)
     floor = gi.new_tensor(1e-6)
     pre_all = gi.reshape(b, s, 4, nh, hd).permute(1, 3, 0, 2, 4)
     h, c, n, m = (heads(t) for t in carry)
@@ -292,7 +303,8 @@ def _slstm_fullseq(cfg, params, x, adapters=None, carry=None):
         cache = slstm_init_cache(cfg, b, None, device=x.device)
         carry = tuple(cache[k] for k in ("h", "c", "n", "m"))
     carry, hs = _slstm_scan(cfg, params, gi, carry)
-    return (hs @ params["w_proj"].float()).to(x.dtype), carry
+    y = replicated(rejoin(hs, x) @ params["w_proj"].float())
+    return y.to(x.dtype), carry
 
 
 def slstm_apply_fullseq(cfg, params, x, adapters=None):

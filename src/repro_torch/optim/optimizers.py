@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.specs import full_local
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -24,11 +25,12 @@ def apply_updates(params, updates):
 
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in fp32, summed leaf by
-    leaf in sorted-key order (the JAX package's order)."""
+    leaf in sorted-key order (the JAX package's order); a DTensor leaf's
+    sum reduced over its mesh, so the norm is a plain 0-d tensor."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.zeros(())
-    total = sum(x.float().square().sum() for x in leaves)
+    total = sum(full_local(x.float().square().sum()) for x in leaves)
     return torch.sqrt(total)
 
 

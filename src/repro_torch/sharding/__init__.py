@@ -1,3 +1,3 @@
-"""The JAX package's ``repro/sharding`` as far as the port runs it: the
-performance switches of :mod:`repro_torch.sharding.opts`.  The mesh, its
-partition rules and the dry-run's specs are not ported yet."""
+"""The JAX package's ``repro/sharding``: the performance switches
+(:mod:`.opts`), the partition rules (:mod:`.rules`) and the in-model
+constraint (:mod:`.specs`), over ``torch.distributed`` DTensor."""

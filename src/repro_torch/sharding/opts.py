@@ -1,17 +1,38 @@
 """Beyond-paper performance switches: the port of
 ``repro/sharding/opts.py``, with the same names and defaults.
 
-All default False (the paper-faithful baseline).
+All default False (the paper-faithful baseline).  What each does in the
+port:
 
+  expand_kv          repeat GQA KV heads to the full head count before
+                     attention and constrain q / k / v's head dim onto
+                     `model` (``models/attention.py``); off a mesh the
+                     repeat alone, the same numbers.
+  seq_parallel_attn  constrain the query block's sequence dim onto `model`
+                     inside ``blockwise_attention`` when the heads do not
+                     divide 16 (context parallelism for 8-head archs).
   chunked_ce         compute the CE loss in sequence chunks so the (b, s, V)
                      logits tensor never materializes (``Model.loss``; a
                      memory-term fix).
+  remat_dots         checkpoint each layer in training, saving the outputs
+                     of matmuls without batch dims and recomputing the rest
+                     (``models/transformer.apply_stack``); the port's
+                     default keeps every activation.
+  moe_grouped        per-batch-row MoE dispatch groups: router cumsum and
+                     capacity are group-local (``models/moe.py``); this
+                     changes which tokens a full expert drops, so it is the
+                     one switch whose numbers differ on one device.
+  seq_parallel_residual  constrain the residual stream's sequence dim onto
+                     `model` at the start of every repeat unit (Megatron-SP
+                     analogue).
+  embed_dshard       shard the embedding table on d instead of vocab
+                     (``sharding/rules.param_spec``).
+  cache_seq_shard    shard a KV cache's sequence dim over `model` instead of
+                     kv-heads / head-dim (``sharding/rules.cache_spec``).
 
-The other switches (``expand_kv``, ``seq_parallel_attn``, ``remat_dots``,
-``moe_grouped``, ``seq_parallel_residual``, ``embed_dshard``,
-``cache_seq_shard``) act on the JAX package's mesh and dry-run, which the
-port does not run yet: setting one raises :class:`NotImplementedError`
-rather than doing nothing.
+The four constraint switches act only on a mesh whose model axis holds
+DTensors (``sharding/specs.constrain``); elsewhere they leave the numbers
+as they are.
 """
 from __future__ import annotations
 
@@ -26,8 +47,8 @@ OPTS = {
     "cache_seq_shard": False,
 }
 
-# the switches the port's code reads
-PORTED = ("chunked_ce",)
+# the switches the port's code reads: all of them
+PORTED = tuple(OPTS)
 
 
 def enabled(name: str) -> bool:
@@ -39,10 +60,6 @@ def set_opts(names, value: bool = True) -> None:
     for n in names:
         if n not in OPTS:
             raise ValueError(f"unknown opt '{n}'; options {sorted(OPTS)}")
-        if n not in PORTED:
-            raise NotImplementedError(
-                f"opt '{n}' is not yet ported to repro_torch (ported: "
-                f"{', '.join(PORTED)})")
     for n in names:
         OPTS[n] = value
 

@@ -143,12 +143,15 @@ def test_opts_mirror_jax():
 
 @pytest.mark.parametrize("name", UNPORTED)
 def test_unported_opts_raise(name):
-    """Every switch the port's code does not read raises on set (the JAX
-    package takes it), and sets nothing, the ported one alongside
-    included."""
+    """The switches that raised on set before the mesh slice (the JAX
+    package takes them) are set now, alongside ``chunked_ce``, as in the
+    JAX package; an unknown name still raises and sets nothing."""
     jopts.set_opts([name])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        topts.set_opts(["chunked_ce", name])
+    topts.set_opts(["chunked_ce", name])
+    assert topts.enabled(name) and topts.enabled("chunked_ce")
+    topts.reset()
+    with pytest.raises(ValueError, match="unknown opt"):
+        topts.set_opts(["chunked_ce", name, "nope"])
     assert not any(topts.OPTS.values())
 
 

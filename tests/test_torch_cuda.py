@@ -1752,3 +1752,106 @@ def test_roberta_mlm_step_kernel_tier_matches_plain_and_is_bidirectional(
         a, _ = model.forward(params, {"tokens": toks}, sets[0])
         b, _ = model.forward(params, {"tokens": other}, sets[0])
     assert float((a[:, 0] - b[:, 0]).abs().max()) > 1e-3
+
+
+# ------------------------------------------------------- training on a mesh
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 128], ids=["q", "v"])
+def test_lora_kernels_at_mesh_local_shapes_match_plain(card, n):
+    """#5-#8 at a 1x2 mesh's local shards of gemma-2b's q and v (2048 ->
+    1024 and 256 -> 128 columns, m = 512, r = 64): the shapes each device
+    of a model axis of 2 runs, against their plain versions."""
+    lm = lora_matmul
+    x, w, a, b, g = _operands(512, 2048, n, 64, torch.float32, seed=n)
+    y, p = lm.lora_fwd(x, w, a, b, 1.0)
+    y_want, p_want = lm.lora_fwd_plain(x, w, a, b, 1.0)
+    dx, q = lm.lora_bwd_dx(g, w, a, b, 1.0)
+    dx_want, q_want = lm.lora_bwd_dx_plain(g, w, a, b, 1.0)
+    da = lm.lora_bwd_da(q_want, x, 1.0)
+    db = lm.lora_bwd_db(g, p_want, 1.0)
+    torch.cuda.synchronize()
+    for got, want in ((y, y_want), (p, p_want), (dx, dx_want), (q, q_want),
+                      (da, lm.lora_bwd_da_plain(q_want, x, 1.0)),
+                      (db, lm.lora_bwd_db_plain(g, p_want, 1.0))):
+        _assert_close(got, want)
+    assert lm.launches == _launches(lora_fwd=1, lora_bwd_dx=1,
+                                    lora_bwd_da=1, lora_bwd_db=1)
+
+
+@pytest.mark.cuda
+def test_trainer_on_a_one_device_mesh_equals_no_mesh_on_card(card):
+    """FederatedTrainer(mesh=) over a 1x1 mesh of a one-rank gloo group on
+    the card: the same launches of #5-#8 and the same history, adapters
+    and optimizer state bit for bit as without a mesh (2 layers of
+    gemma-2b, 2 rounds)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import (FederatedConfig, LoRAConfig,
+                                     OptimizerConfig, get_config)
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.synthetic import FederatedDataset
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves
+    import dataclasses
+    cfg = dataclasses.replace(get_config("gemma-2b"), num_layers=2)
+
+    def run(mesh):
+        tr = FederatedTrainer(
+            build_model(cfg), FederatedDataset(cfg.vocab_size, 4, seq_len=64,
+                                               batch_per_client=2, seed=0),
+            lora_cfg=LoRAConfig(rank=64), fed_cfg=FederatedConfig(
+                num_clients=4, local_steps=2, aggregation="fedsa"),
+            opt_cfg=OptimizerConfig(name="sgd", lr=5e-3), seed=0,
+            mesh=mesh, device="cuda")
+        lora_matmul.reset_launches()
+        tr.run(2)
+        return tr, dict(lora_matmul.launches)
+
+    ref, ref_launches = run(None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        tr, launches = run(mesh_from_spec("1x1", "cuda"))
+    finally:
+        dist.destroy_process_group()
+    assert launches == ref_launches == _launches(
+        lora_fwd=64, lora_bwd_dx=64, lora_bwd_da=64, lora_bwd_db=64)
+    assert tr.history == ref.history
+    for a, b in zip(tree_leaves({"l": tr.lora, "o": tr.opt_state}),
+                    tree_leaves({"l": ref.lora, "o": ref.opt_state})):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grouped_moe_step_kernel_tier_matches_plain(card):
+    """granite-moe's widths (2 layers) with the ``moe_grouped`` switch:
+    one LoRA gradient step over 4 x 128 tokens launches #5-#8 4 times
+    each on the kernel tier, none on the plain tier, and gives the plain
+    tier's loss and gradients within 1e-4 (the two tiers' routers pick
+    the same experts at this seed; a flip would show as a large
+    difference)."""
+    from repro_torch.sharding import opts
+    model, params, sets, gen = _card_model("granite-moe-1b-a400m", 64)
+    toks = torch.randint(0, 49155, (4, 128), device="cuda", generator=gen)
+    out = {}
+    opts.set_opts(["moe_grouped"])
+    try:
+        for plain in (False, True):
+            lora_matmul.reset_launches()
+            with dispatch.plain_tier() if plain else contextlib.nullcontext():
+                out[plain] = _lora_step(model, params, {"tokens": toks},
+                                        sets[0])
+            torch.cuda.synchronize()
+            assert lora_matmul.launches == _launches(
+                **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+                                         lora_bwd_da=4, lora_bwd_db=4)))
+    finally:
+        opts.reset()
+    _assert_close(out[False][0], out[True][0])
+    for g, w in zip(out[False][1], out[True][1]):
+        _assert_close(g, w)

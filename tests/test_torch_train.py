@@ -39,6 +39,7 @@ from repro_torch.configs import base as tbase                  # noqa: E402
 from repro_torch.core import aggregation as tagg               # noqa: E402
 from repro_torch.core import federated as tfed                 # noqa: E402
 from repro_torch.core import lora as tlora                     # noqa: E402
+from repro_torch.core import quant as tquant                   # noqa: E402
 from repro_torch.data import synthetic as tsyn                 # noqa: E402
 from repro_torch.kernels import dispatch, lora_matmul          # noqa: E402
 from repro_torch.launch import train as ttrain                 # noqa: E402
@@ -391,8 +392,12 @@ def test_trainer_rejects_unported_modes(small):
                                batch_per_client=1)
     kw = dict(lora_cfg=tbase.LoRAConfig(), fed_cfg=tbase.FederatedConfig(
         num_clients=2), opt_cfg=tbase.OptimizerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfed.FederatedTrainer(model, ds, **kw, mesh=object())
+    # the one mode still refused on a mesh: a packed base
+    packed = tquant.quantize_tree(model.init(torch.Generator().manual_seed(0),
+                                             "cpu"), "int8", 64)
+    with pytest.raises(NotImplementedError, match="packed base on a mesh"):
+        tfed.FederatedTrainer(model, ds, **kw, base_params=packed,
+                              mesh=object())
 
 
 # ---------------------------------------------------------------------- CLI
@@ -419,7 +424,9 @@ def test_cli_trains_on_cpu(capsys):
     pytest.param(["--arch", "paligemma-3b"], id="--arch"),
 ], ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flags, capsys):
-    """``--mesh`` raises "not yet ported".  Of the archs, ported since,
+    """``--mesh`` runs now (the mesh slice): without a launcher the CLI
+    starts a group of one, and a 4x2 mesh over it raises, naming both
+    sizes.  Of the archs, ported since,
     roberta-large trains through its MLM loss, and whisper-medium and
     paligemma-3b fail as the JAX CLI does: the federated dataset is
     tokens-only, so the first local step finds no frames, or no
@@ -434,8 +441,10 @@ def test_cli_unported_flags_raise(flags, capsys):
         assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
         assert "# final held-out perplexity: " in capsys.readouterr().out
     else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="mesh '4x2' has 8 devices but "
+                           "the process group's world size is 1"):
             ttrain.main(argv)
+        assert not torch.distributed.is_initialized()
 
 
 def test_jax_cli_fails_on_whisper_as_the_port_does():
