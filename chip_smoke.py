@@ -219,6 +219,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      kernel tier against the plain tier with routing replayed) and a
      control: one MoE layer where capacity drops tokens, grouped and flat
      dispatch differ, and where no expert can overflow, they agree
+ 30. the dry-run (repro_torch.launch.dryrun): its CLI as a child process
+     for gemma-2b train_4k and decode_32k on the 16x16 pod (a fake
+     process group, meta tensors; each record printed, its per-device
+     argument bytes equal to the port's partition rules' sum), then a
+     traced full-width gemma-2b round (one client at phase 6's batch and
+     sequence, 1x1) against the same round run on this device on the
+     plain tier: FlopCounterMode's count equal to the trace's, the peak
+     above the arguments within TEMP_RTOL of the trace's temp bytes; the
+     kernel tier's peak and both tiers' round times beside the roofline
+     terms at the H100 data-sheet peaks
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
@@ -4861,6 +4871,176 @@ def grouped_moe_paths(name, cfg=GRANITE_PATHS, device=None, **train):
     _grouped_control(cfg, dev)
 
 
+# ------------------------------------------------------------- 30. dry-run
+
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+TEMP_RTOL = 0.15               # real peak above the arguments vs the trace's
+# one round of one client at phase 6's per-client batch and sequence
+# (train_path's defaults), one local step
+ROUND_SHAPE = dict(seq_len=128, global_batch=4)
+
+
+def _rules_bytes(arch, shape_name, sizes=(16, 16)):
+    """Per-device argument bytes of the dry-run's step on the
+    ``("data", "model")`` mesh of ``sizes``, from the port's partition
+    rules alone (a MeshShape: no process group): every leaf's bytes over
+    the product of the axes its spec names, as the CPU test sums JAX's;
+    the train step's client stacks (adapters, optimizer state, batches)
+    whole, as ``FederatedTrainer(mesh=)`` keeps them on every device."""
+    from repro_torch.configs import INPUT_SHAPES, config_for_shape
+    from repro_torch.core.lora import init_lora
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape, num_clients
+    from repro_torch.sharding import rules
+    mesh = MeshShape(("data", "model"), sizes)
+    shape = INPUT_SHAPES[shape_name]
+    cfg = dataclasses.replace(config_for_shape(arch, shape_name),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg)
+    with dryrun._MetaInit():
+        params = model.init(torch.Generator(), device="meta")
+
+    def total(tree, spec_fn):
+        out = 0
+        for t, spec in zip(tree_leaves(tree), tree_leaves(
+                rules.tree_specs(tree, mesh, spec_fn))):
+            div = math.prod(mesh.shape[a] for e in spec if e is not None
+                            for a in ((e,) if isinstance(e, str) else e))
+            out += t.numel() * t.element_size() // div
+        return out
+    n_bytes = total(params, rules.param_spec)
+    if shape.kind == "train":
+        n = num_clients(mesh)
+        with dryrun._MetaInit():
+            lora = init_lora(params, torch.Generator(), LoRAConfig(
+                rank=64, alpha=8.0, targets=cfg.lora_targets))
+        stacked = tree_map(lambda x: x.expand((n,) + tuple(x.shape)), lora)
+        opt = {"t": torch.empty((n,), dtype=torch.int32, device="meta")}
+        batch = {k: torch.empty((n, 1) + tuple(v.shape[1:]), dtype=v.dtype,
+                                device="meta")
+                 for k, v in model.input_specs(shape, n_clients=n).items()}
+        return n_bytes + sum(t.numel() * t.element_size() for tree in
+                             (stacked, opt, batch) for t in tree_leaves(tree))
+    spec = model.input_specs(shape)
+
+    def inputs(p, sh, m):
+        return rules.input_spec(p, sh, m, client_dim=False)
+    return (n_bytes + total(spec["cache"], rules.cache_spec)
+            + total({"t": spec["token"]}, inputs)
+            + total({"t": spec["pos"]}, inputs))
+
+
+def _round_once(fn, args, device):
+    """One call of the traced round on real tensors (autograd on); its
+    result and host wall ms with the device synchronized."""
+    with torch.enable_grad():
+        return _timed(lambda: fn(*args), device)
+
+
+def dryrun_paths(name, smi, device=None):
+    """Phase 30: the dry-run (``repro_torch.launch.dryrun``).  (a) Its CLI
+    as a child process on the installed torch, gemma-2b train_4k and
+    decode_32k on the 16x16 pod over a fake process group, each record
+    printed and its argument bytes held to the port's rules
+    (:func:`_rules_bytes`).  (b) A traced round held against the same
+    round run for real on this card, 1x1: full-width gemma-2b, one client
+    at phase 6's per-client batch and sequence, built by the dry-run's own
+    ``_build``; on the plain tier (``dispatch.plain_tier()``) its
+    FlopCounterMode count must equal the trace's exactly and its peak
+    above the arguments (``max_memory_allocated``) the trace's
+    ``temp_size_in_bytes`` within TEMP_RTOL; the kernel tier's peak and
+    both tiers' round times are printed beside ``hillclimb.terms``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun, hillclimb
+    device = device or torch.device("cuda")
+    phase("dry-run: repro_torch.launch.dryrun's CLI on the 16x16 pod (fake "
+          "process group, meta tensors), and a traced round against a real "
+          "one on this device")
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.json"):
+        f.unlink()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.monotonic()
+    # one child per shape, run side by side
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma-2b", "--shape", shape, "--out", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT)) for shape in DRYRUN_SHAPES}
+    for shape, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        assert proc.returncode == 0, err[-2000:]
+        rec = json.loads((out / f"gemma-2b__{shape}__sp.json").read_text())
+        assert "error" not in rec, rec.get("trace")
+        want = _rules_bytes("gemma-2b", shape)
+        print(f"{shape} (by {time.monotonic() - t0:.1f} s, the children "
+              f"started together): {json.dumps(rec)}")
+        print(f"  argument bytes per device {rec['argument_size_in_bytes']}"
+              f", from the rules {want}; terms "
+              f"{ {k: round(v, 6) for k, v in hillclimb.terms(rec).items()} }"
+              " (H100 data-sheet peaks: predictions)")
+        assert rec["argument_size_in_bytes"] == want, (shape, want)
+
+    shape = InputShape("phase6_round", kind="train", **ROUND_SHAPE)
+    t0 = time.monotonic()
+    fn, args, kind = dryrun._build("gemma-2b", "train_4k", None, 64, 8.0,
+                                   shape=shape)
+    rec = dryrun.trace(fn, args, kind)
+    terms = hillclimb.terms(rec)
+    del fn, args
+    print(f"traced round ({time.monotonic() - t0:.1f} s): flops "
+          f"{rec['flops']}, bytes {rec['bytes_accessed']}, arguments "
+          f"{rec['argument_size_in_bytes']}, temp {rec['temp_size_in_bytes']}"
+          f"; compute_s {terms['compute_s'] * 1e3:.3f} ms, memory_s "
+          f"{terms['memory_s'] * 1e3:.3f} ms at the H100 data-sheet peaks")
+    fn, args, _ = dryrun._build("gemma-2b", "train_4k", None, 64, 8.0,
+                                shape=shape, device=device, seed=0)
+    real = {}
+    for tier in ("plain", "kernel"):
+        ctx = (dispatch.plain_tier() if tier == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            _round_once(fn, args, device)                  # warm-up
+            _free()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            if tier == "plain":
+                with FlopCounterMode(display=False) as fc:
+                    res, _ = _round_once(fn, args, device)
+                real["flops"] = fc.get_total_flops()
+            else:
+                res, _ = _round_once(fn, args, device)
+            peak = torch.cuda.max_memory_allocated(device) - base
+            del res
+            _free()
+            ms = sorted(_round_once(fn, args, device)[1] for _ in range(3))
+        real[tier] = (peak, ms[1])
+    del fn, args
+    _free()
+    temp = rec["temp_size_in_bytes"]
+    plain_peak, plain_ms = real["plain"]
+    kern_peak, kern_ms = real["kernel"]
+    print(f"nvidia-smi: {smi}")
+    print(f"plain tier: FlopCounterMode {real['flops']} (trace "
+          f"{rec['flops']}); peak above the arguments {plain_peak} B, trace "
+          f"temp {temp} B ({plain_peak / temp - 1:+.3%}); round "
+          f"{plain_ms:.1f} ms (median of 3)")
+    print(f"kernel tier: peak above the arguments {kern_peak} B "
+          f"({kern_peak / temp - 1:+.3%} of the trace's); round "
+          f"{kern_ms:.1f} ms; compute_s {terms['compute_s'] * 1e3:.3f} ms, "
+          f"memory_s {terms['memory_s'] * 1e3:.3f} ms")
+    assert real["flops"] == rec["flops"], (real["flops"], rec["flops"])
+    assert abs(plain_peak - temp) <= TEMP_RTOL * temp, (plain_peak, temp)
+
+
 def _free():
     gc.collect()
     torch.cuda.empty_cache()
@@ -4962,6 +5142,8 @@ def main():
     whisper_paths(name)
     paligemma_paths(name)
     roberta_paths(name)
+    _free()
+    dryrun_paths(name, smi)
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

@@ -32,7 +32,10 @@ TPU kernels have a counterpart written by hand in CUDA C++ for
 
 Device rule: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  Asking for CUDA where there is none raises; nothing
-falls back to the CPU quietly.
+falls back to the CPU quietly.  ``"meta"`` is accepted too: a shape-only
+device that holds no data, on which the dry-run (``launch/dryrun.py``)
+traces a step's shapes, FLOPs and bytes; nothing runs a step for real
+there.
 """
 from __future__ import annotations
 
@@ -41,12 +44,15 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a :class:`torch.device`; raises if it names CUDA and
-    this process has no CUDA device."""
+    this process has no CUDA device.  ``"meta"`` (shapes only, no data)
+    is accepted for the dry-run."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} asked for, but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(
+            f"unsupported device {str(dev)!r} (cuda, cpu, or meta for "
+            "shapes only)")
     return dev

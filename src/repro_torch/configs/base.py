@@ -108,6 +108,25 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry-run (``launch/dryrun.py``): a global
+    batch of ``seq_len`` tokens for a train step, a prefill or a decode
+    step over a cache of ``seq_len`` positions."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class LoRAConfig:
     rank: int = 8
     alpha: float = 8.0

@@ -10,6 +10,10 @@ backend; here the device of the activations decides:
          (a single adapter, and a packed base with no adapter, forward and
          backward)
   cpu    the plain PyTorch versions beside them
+  meta   the plain versions too: a meta tensor holds shapes and no data,
+         so there is nothing for a kernel to compute on (the dry-run,
+         ``launch/dryrun.py``, traces this tier, as the JAX dry-run
+         traces its reference tier)
 
 Nothing else is taken, and nothing falls back from one to the other.
 :func:`plain_tier` runs the plain versions on CUDA tensors too, so a run on
@@ -50,6 +54,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels import bgmv, lora_matmul
+from repro_torch.sharding.specs import batch_kept
 
 _plain = contextvars.ContextVar("repro_torch_plain_tier", default=False)
 
@@ -78,10 +83,11 @@ def plain_tier():
 
 def _use_kernel(x) -> bool:
     """True where a tensor on x's device takes the kernels: CUDA, outside
-    :func:`plain_tier`.  A DTensor is judged by its local tensor."""
+    :func:`plain_tier`; False on the CPU and on ``meta`` (shapes only).
+    A DTensor is judged by its local tensor."""
     if isinstance(x, DTensor):
         x = x.to_local()
-    if x.device.type == "cpu" or _plain.get():
+    if x.device.type in ("cpu", "meta") or _plain.get():
         return False
     if x.device.type == "cuda":
         return True
@@ -253,7 +259,7 @@ class _ReduceGrad(torch.autograd.Function):
         if isinstance(g, DTensor) and any(p.is_partial()
                                           for p in g.placements):
             g = g.redistribute(g.device_mesh,
-                               [Replicate()] * g.device_mesh.ndim)
+                               batch_kept(g.placements, g.device_mesh))
         return g
 
 
@@ -275,7 +281,11 @@ def _sharded_linear(x, w, lora=None, gamma: float = 1.0):
     v): x, W, A and B are first redistributed to replicated, an all-gather
     of x and of W on every call, and every device computes the whole
     projection.  Any other base-only layout is left to DTensor's own
-    propagation."""
+    propagation.
+
+    On a mesh with batch axes (the dry-run's prefill and decode), x's
+    batch rows split over "pod" / "data" stay split, in x, the output and
+    x's gradient, and a weight's gradient is a partial sum over them."""
     from torch.distributed.tensor.experimental import local_map
 
     kind = _layout(w)
@@ -284,31 +294,46 @@ def _sharded_linear(x, w, lora=None, gamma: float = 1.0):
     if lora is not None and kind != "column":
         kind = None
     mesh = w.device_mesh
-    rep = tuple(Replicate() for _ in range(mesh.ndim))
-    w_pl = tuple(w.placements) if kind else rep
+    full = tuple(Replicate() for _ in range(mesh.ndim))
+    w_pl = tuple(w.placements) if kind else full
     sharded = [p != Replicate() for p in w_pl]
+    x = _as_dtensor(x, mesh)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    # the batch rows x splits over a batch axis stay split (data parallel)
+    rows = [not s and p == Shard(0)
+            for s, p in zip(sharded, batch_kept(x2.placements, mesh))]
+    keep = tuple(Shard(0) if r else Replicate() for r in rows)
 
     def on(p):                     # p on the mesh dims that shard W
+        return tuple(p if s else k for s, k in zip(sharded, keep))
+
+    def won(p):                    # a weight's: replicated over the rows
         return tuple(p if s else Replicate() for s in sharded)
 
-    x_pl, out_pl, grad_pl = rep, rep, rep
+    def wgrad(p):                  # a weight's gradient: partial over rows
+        return tuple(p if s else (Partial() if r else Replicate())
+                     for s, r in zip(sharded, rows))
+
+    w_grad = tuple(p if s else g for p, s, g in zip(w_pl, sharded,
+                                                   wgrad(Replicate())))
+
+    x_pl = out_pl = grad_pl = keep
     if kind == "column":
         out_pl, grad_pl = on(Shard(1)), on(Partial())
     elif kind == "row":
         x_pl = grad_pl = on(Shard(1))
         out_pl = on(Partial())
-    x = _as_dtensor(x, mesh)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
     if kind != "row":
         x2 = _ReduceGrad.apply(x2)
-    args, in_pl, in_grad = (x2, w), (x_pl, w_pl), (grad_pl, w_pl)
+    args, in_pl, in_grad = (x2, w), (x_pl, w_pl), (grad_pl, w_grad)
     fn = torch.matmul
     if lora is not None:
-        b_pl = on(Shard(0))
+        b_pl = won(Shard(0))
         args += tuple(_as_dtensor(t, mesh) for t in (lora["a"], lora["b"]))
-        in_pl += (rep, b_pl)
-        in_grad += (grad_pl, b_pl)
+        in_pl += (full, b_pl)
+        in_grad += (wgrad(Partial()) if kind == "column"
+                    else wgrad(Replicate()), wgrad(Shard(0)))
 
         def fn(x2, w, a, b):
             return lora_linear(x2, w, {"a": a, "b": b}, gamma)
@@ -317,5 +342,5 @@ def _sharded_linear(x, w, lora=None, gamma: float = 1.0):
                   in_grad_placements=in_grad, device_mesh=mesh,
                   redistribute_inputs=True)(*args)
     if kind == "row":
-        y = y.redistribute(mesh, rep)
+        y = y.redistribute(mesh, keep)
     return y.reshape(*lead, y.shape[-1])

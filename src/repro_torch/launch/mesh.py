@@ -10,9 +10,18 @@ dim of the federated state shards over the client axes (``"pod"`` and
 
 Building a mesh never starts a process group: the caller does, with the
 group's address, world size and rank (``launch/train.py`` reads them from
-``torch.distributed.run``'s environment).  The partition rules read only
-axis names and sizes, so they also take a :class:`MeshShape`, which needs
-no group (the rule tests build one for the 16x16 pod).
+``torch.distributed.run``'s environment), or :func:`start_fake_group`
+starts a fake one (one process standing for rank 0 of the world, no
+communication: the dry-run's).  The partition rules read only axis names
+and sizes, so they also take a :class:`MeshShape`, which needs no group
+(the rule tests build one for the 16x16 pod).
+
+The roofline constants are an H100 SXM's, per GPU, from NVIDIA's H100
+data sheet at the 700 W limit (dense, no sparsity).  The production
+meshes are TPU pod shapes: on GPUs a 16-wide model axis spans two 8-GPU
+NVLink nodes, so part of its traffic crosses the slower inter-node
+network, and ``collective_s`` computed from ``NVLINK_BW`` is a lower
+bound there.
 """
 from __future__ import annotations
 
@@ -20,6 +29,13 @@ import dataclasses
 import math
 
 import torch
+
+# H100 SXM roofline constants, per GPU (NVIDIA H100 Tensor Core GPU data
+# sheet, SXM5 column, dense figures at the 700 W limit)
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s, bf16 tensor cores, dense
+HBM_BW = 3.35e12               # B/s, HBM3
+NVLINK_BW = 450e9              # B/s each way (the sheet's 900 GB/s counts
+                               # both directions)
 
 POD = (16, 16)
 MULTIPOD = (2, 16, 16)
@@ -92,11 +108,42 @@ def mesh_from_spec(spec: str, device="cuda"):
                             mesh_dim_names=axes)
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """The 16x16 ``("data", "model")`` pod or the 2x16x16 ``("pod",
+    "data", "model")`` multi-pod as a DeviceMesh over the default process
+    group (256 or 512 ranks; :func:`start_fake_group` starts one without
+    devices)."""
+    return mesh_from_spec("multipod" if multi_pod else "pod", "cpu")
+
+
+def _create_fake_pg(store, rank, world_size, timeout):
+    from torch._C._distributed_c10d import FakeProcessGroup
+    make = getattr(FakeProcessGroup, "_create_internal", FakeProcessGroup)
+    return make(rank, world_size)
+
+
+def start_fake_group(world_size: int):
+    """Start a fake default process group of ``world_size`` ranks in which
+    this process is rank 0: collectives are accepted and move nothing
+    (torch's ``FakeProcessGroup``, registered here as the ``"fake"``
+    backend).  A group the process already has is torn down first, so one
+    process can switch between the 256- and the 512-rank worlds."""
+    import torch.distributed as dist
+
+    if "FAKE" not in dist.Backend._plugins:
+        dist.Backend.register_backend("fake", _create_fake_pg,
+                                      devices=["cpu", "cuda"])
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world_size)
+
+
 def axis_sizes(mesh) -> dict:
     """Axis name -> size, for a DeviceMesh or a :class:`MeshShape`."""
     if isinstance(mesh, MeshShape):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def axis_names(mesh) -> tuple:

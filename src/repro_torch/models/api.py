@@ -17,9 +17,16 @@ padded to a multiple of 256 (``pad_vocab``).
 On a model axis (``core/federated.FederatedTrainer(mesh=)``) the params are
 DTensors: the vocab-sharded embedding is looked up vocab-parallel
 (:func:`sharded_lookup`) and the losses run on the all-gathered logits
-(``sharding/specs.full_local``).
+(``sharding/specs.full_local``).  ``forward``, ``prefill`` and
+``decode_step`` also run on a base placed by ``rules.params_sharding`` over
+a whole (pod, data, model) mesh, with the batch (and a decode cache placed
+by ``rules.cache_sharding``) split over the batch axes, as the dry-run
+traces them (``launch/dryrun.py``); per-request adapters over a sharded
+base still raise.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
@@ -35,7 +42,7 @@ from repro_torch.models.transformer import (apply_stack, banked_scan_layout,
                                             init_stack, init_stack_cache,
                                             prefill_stack)
 from repro_torch.sharding import opts
-from repro_torch.sharding.specs import full_local
+from repro_torch.sharding.specs import batch_kept, full_local, replicating
 from repro_torch.tree import tree_map
 
 
@@ -44,20 +51,25 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 
 def sharded_lookup(embed, tokens):
-    """``embed[tokens]`` for a DTensor table, replicated out.  A table
-    sharded over the vocabulary (the default rule) is looked up
-    vocab-parallel: each device gathers the rows of its own range, zeros
-    the rest, and one all-reduce sums the (b, s, d) partials; exact, since
-    every sum adds zeros to one row.  Any other layout (``embed_dshard``'s
-    d-sharded table) gathers locally and all-gathers the result."""
+    """``embed[tokens]`` for a DTensor table, replicated out but for the
+    batch rows ``tokens`` (a DTensor on the table's mesh, or a plain
+    tensor every device holds) splits over a batch axis.  A table sharded
+    over the vocabulary (the default rule) is looked up vocab-parallel:
+    each device gathers the rows of its own range, zeros the rest, and one
+    all-reduce sums the (b, s, d) partials; exact, since every sum adds
+    zeros to one row.  Any other layout (``embed_dshard``'s d-sharded
+    table) gathers locally and all-gathers the result."""
     from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = embed.device_mesh
-    rep = [Replicate()] * mesh.ndim
+    tok_pl = (tuple(tokens.placements) if isinstance(tokens, DTensor)
+              else None)
+    kept = (batch_kept(tok_pl, mesh) if tok_pl
+            else [Replicate()] * mesh.ndim)
     vocab = [i for i, p in enumerate(embed.placements) if p == Shard(0)]
     if not vocab:
-        return embed[tokens].redistribute(mesh, rep)
+        return embed[tokens].redistribute(mesh, kept)
     rows = embed.to_local().shape[0]
     lo = 0
     for i in vocab:              # vocab-major over the sharding mesh dims
@@ -70,12 +82,21 @@ def sharded_lookup(embed, tokens):
         out = e[ids.clamp(0, rows - 1)]
         return torch.where(inside[..., None], out, out.new_zeros(()))
 
-    out_pl = tuple(Partial() if p == Shard(0) else Replicate()
-                   for p in embed.placements)
+    out_pl = tuple(Partial() if p == Shard(0) else k
+                   for p, k in zip(embed.placements, kept))
     fn = local_map(local, out_placements=(out_pl,),
-                   in_placements=(tuple(embed.placements), None),
+                   in_placements=(tuple(embed.placements), tok_pl),
                    device_mesh=mesh)
-    return fn(embed, tokens).redistribute(mesh, rep)
+    return fn(embed, tokens).redistribute(mesh, kept)
+
+
+def _sharded_scope(params):
+    """On a sharded base (DTensor params), plain tensors the model makes
+    (positions, masks) meet the DTensors as replicated: every device
+    computes them whole, from the global shapes."""
+    if isinstance(params.get("embed"), DTensor):
+        return replicating()
+    return contextlib.nullcontext()
 
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm", "encoder")
@@ -201,8 +222,9 @@ class Model:
         reads ``batch["patches"]`` (b, num_patches, 1152), and s' = s +
         num_patches.  The encoder family attends both ways; every other
         family (the VLM's patch prefix too) attends causally."""
-        x, aux = self._hidden(params, batch, adapters)
-        return self._head(params, x), aux
+        with _sharded_scope(params):
+            x, aux = self._hidden(params, batch, adapters)
+            return self._head(params, x), aux
 
     def loss(self, params, batch, adapters=None):
         """Returns (loss, {"ce", "aux"}), as the JAX package does; the
@@ -276,7 +298,10 @@ class Model:
             ll = torch.gather(logits, -1, lb[..., None])[..., 0]
             return ((lse - ll) * vb).sum()
 
-        tot = x.new_zeros((), dtype=torch.float32)
+        # a plain scalar: each chunk's sum is a plain tensor on a model
+        # axis too (``full_local``), and a DTensor total would hand it a
+        # DTensor gradient
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(0, sl + pad, c):
             tot = tot + checkpoint(chunk_ce, x[:, i:i + c],
                                    labels[:, i:i + c], valid[i:i + c],
@@ -325,15 +350,16 @@ class Model:
         JAX package: the VLM's prefill takes no patches, and the encoder
         family is served as a causal decoder."""
         cfg = self.cfg
-        x = self._embed_tokens(params, tokens)
-        x, _, cache = prefill_stack(
-            cfg, params["stack"], cache, x, self._positions(tokens),
-            adapters=self._stack_adapters(as_adapter_set(adapters)),
-            table=table, enc_out=enc_out)
-        x = apply_norm(cfg, x, params, "final")
-        if last_only:
-            x = x[:, -1:]
-        return self._head(params, x), cache
+        with _sharded_scope(params):
+            x = self._embed_tokens(params, tokens)
+            x, _, cache = prefill_stack(
+                cfg, params["stack"], cache, x, self._positions(tokens),
+                adapters=self._stack_adapters(as_adapter_set(adapters)),
+                table=table, enc_out=enc_out)
+            x = apply_norm(cfg, x, params, "final")
+            if last_only:
+                x = x[:, -1:]
+            return self._head(params, x), cache
 
     def decode_step(self, params, cache, token, pos, adapters=None, *,
                     table=None):
@@ -342,13 +368,57 @@ class Model:
         cache also needs the requests' block ``table`` (b, blocks_per_req)
         int32."""
         cfg = self.cfg
-        x = self._embed_tokens(params, token)
-        x, cache = decode_stack(
-            cfg, params["stack"], cache, x, pos,
-            adapters=self._stack_adapters(as_adapter_set(adapters)),
-            table=table)
-        x = apply_norm(cfg, x, params, "final")
-        return self._head(params, x), cache
+        with _sharded_scope(params):
+            x = self._embed_tokens(params, token)
+            x, cache = decode_stack(
+                cfg, params["stack"], cache, x, pos,
+                adapters=self._stack_adapters(as_adapter_set(adapters)),
+                table=table)
+            x = apply_norm(cfg, x, params, "final")
+            return self._head(params, x), cache
+
+
+    # ------------------------------------------------------------- specs
+    def input_specs(self, shape, *, n_clients: int = 0):
+        """Meta tensors (shapes and dtypes, no data) for every model input
+        of an :class:`~repro_torch.configs.base.InputShape`, as the JAX
+        package's ``ShapeDtypeStruct`` stand-ins.
+
+        For train shapes with ``n_clients`` > 0 the batch gets a leading
+        client dim (global_batch = n_clients * per_client).  Modality
+        frontends are stubs: precomputed frame / patch embeddings of the
+        right shape (the VLM's tokens are shortened by its patches).  A
+        decode shape gives ``token`` (b, 1), ``pos`` (b,) and the ring
+        cache of ``seq_len`` positions (:meth:`init_cache` on meta)."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        i32 = torch.int32
+
+        def sds(shp, dtype_):
+            return torch.empty(shp, dtype=dtype_, device="meta")
+
+        def batch_spec(b, s):
+            d = {"tokens": sds((b, s), i32)}
+            if cfg.family == "vlm":
+                d["tokens"] = sds((b, s - cfg.num_patches), i32)
+                d["patches"] = sds((b, cfg.num_patches, PATCH_EMBED_DIM), dt)
+            if cfg.family == "audio":
+                d["frames"] = sds((b, cfg.encoder_frames, cfg.d_model), dt)
+            return d
+
+        if shape.kind == "train":
+            b, s = shape.global_batch, shape.seq_len
+            if n_clients:
+                spec = batch_spec(b // n_clients, s)
+                return {k: sds((n_clients,) + tuple(v.shape), v.dtype)
+                        for k, v in spec.items()}
+            return batch_spec(b, s)
+        if shape.kind == "prefill":
+            return batch_spec(shape.global_batch, shape.seq_len)
+        b = shape.global_batch
+        return {"token": sds((b, 1), i32), "pos": sds((b,), i32),
+                "cache": self.init_cache(b, shape.seq_len, dtype=dt,
+                                         device="meta")}
 
 
 def build_model(cfg) -> Model:

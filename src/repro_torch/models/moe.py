@@ -89,6 +89,20 @@ def capacity(cfg, t: int) -> int:
     return -(-cap // 8) * 8
 
 
+def _batch_rows(x):
+    """The placements of a DTensor ``x`` with its batch-axis row split
+    gathered (None where it has none)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.sharding.specs import BATCH_AXES
+    if not isinstance(x, DTensor):
+        return None
+    names = x.device_mesh.mesh_dim_names or (None,) * x.device_mesh.ndim
+    rows = [Replicate() if n in BATCH_AXES and p == Shard(0) else p
+            for n, p in zip(names, x.placements)]
+    return None if rows == list(x.placements) else rows
+
+
 def moe_apply(cfg, params, x, adapters=None, *, top_i=None):
     """x (b, s, d) -> (out (b, s, d), aux_loss 0-d fp32).
 
@@ -101,7 +115,21 @@ def moe_apply(cfg, params, x, adapters=None, *, top_i=None):
     routing, so that an fp32 near-tie in the router cannot send a token to
     other experts in the two (``chip_smoke.py`` holds the plain tier to the
     kernel tier's choices so).  With ``moe_grouped`` on,
-    :func:`moe_apply_grouped`."""
+    :func:`moe_apply_grouped`.
+
+    A DTensor x whose batch rows split over a batch axis (the dry-run's
+    prefill and decode) is gathered over that axis first, so capacity
+    and position-in-expert stay those of the whole batch, and each device
+    keeps its own rows of the output.  Every device of the batch axes
+    then routes and runs the whole batch's tokens through its experts:
+    the buffers split only their expert dim over "model", the layout JAX
+    constrains them to (``ex_in`` / ``ex_out`` on ``("model", None,
+    None)``), so the MoE work does not shrink with the batch axes."""
+    rows = _batch_rows(x)
+    if rows is not None:
+        out, aux = moe_apply(cfg, params, x.redistribute(x.device_mesh, rows),
+                             adapters, top_i=top_i)
+        return out.redistribute(x.device_mesh, x.placements), aux
     if opts.enabled("moe_grouped"):
         return moe_apply_grouped(cfg, params, x, top_i=top_i)
     m = cfg.moe

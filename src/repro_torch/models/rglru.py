@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.rglru_scan import RGLRUScan
 from repro_torch.models.layers import linear
@@ -90,10 +91,21 @@ def rglru_scan(a, b, h0=None):
     a[:, 0] * h0``, as the JAX module does, outside the Function so that
     autograd carries it), then the ``RGLRUScan`` Function runs (#15 and
     its backward; their plain versions on the CPU and on the plain
-    tier)."""
+    tier).  On DTensors the Function runs on each device's local shards
+    (``local_map``): the recurrence is independent per batch row and
+    channel, so a split of either needs no exchange (a split of the
+    sequence is gathered first)."""
     if h0 is not None:
         b = b.clone()
         b[:, 0] = b[:, 0] + a[:, 0] * h0
+    if isinstance(a, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        pl = tuple(p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+                   for p in a.placements)
+        return local_map(RGLRUScan.apply, out_placements=(pl,),
+                         in_placements=(pl, pl), in_grad_placements=(pl, pl),
+                         device_mesh=a.device_mesh,
+                         redistribute_inputs=True)(a, b)
     return RGLRUScan.apply(a, b)
 
 

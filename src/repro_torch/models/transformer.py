@@ -43,7 +43,7 @@ from repro_torch.models.layers import (apply_norm, linear, mlp_apply,
                                        mlp_params, norm_params)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.sharding import opts
-from repro_torch.sharding.specs import constrain
+from repro_torch.sharding.specs import constrain, merge_heads, split_heads
 from repro_torch.tree import tree_leaves, tree_map
 
 KINDS = ("attn", "xattn", "rglru", "mlstm", "slstm")
@@ -134,12 +134,12 @@ def _cross_attention(cfg, params, x, ck, cv, adapters=None):
     q and o take their adapters."""
     b, s, _ = x.shape
     adapters = adapters or {}
-    q = linear(x, params["q"], adapters.get("q")).reshape(
-        b, s, cfg.num_heads, cfg.head_dim)
+    q = split_heads(linear(x, params["q"], adapters.get("q")),
+                    cfg.num_heads, cfg.head_dim)
     mask = torch.ones((b, s, ck.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = attention_core(cfg, q, ck, cv, mask)
-    return linear(out.reshape(b, s, -1), params["o"], adapters.get("o"))
+    return linear(merge_heads(out), params["o"], adapters.get("o"))
 
 
 def build_cross_kv(cfg, p_cross, enc_out):

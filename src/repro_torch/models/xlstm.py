@@ -29,9 +29,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import linear
-from repro_torch.sharding.specs import full_local, rejoin, replicated
+from repro_torch.sharding.specs import (full_local, merge_heads, rejoin,
+                                        replicated, split_heads)
 
 MLSTM_CHUNK = 256
 _NEG = -1e30          # the stabilizer's "no state yet", as in JAX
@@ -73,10 +75,9 @@ def mlstm_params(cfg, generator, *, lead=()):
 
 
 def _mlstm_qkv(cfg, params, x, adapters):
-    b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     adapters = adapters or {}
-    q, k, v = (linear(x, params[n], adapters.get(n)).reshape(b, s, h, hd)
+    q, k, v = (split_heads(linear(x, params[n], adapters.get(n)), h, hd)
                for n in ("q", "k", "v"))
     return q.float(), k.float() * hd ** -0.5, v.float()
 
@@ -137,10 +138,10 @@ def _mlstm_fullseq(cfg, params, x, adapters=None, carry0=None):
     hand it to the recurrent decode form as its cache.  On a model axis
     the projections run on their shards and the cell runs whole on every
     device (q, k, v and x all-gathered, ``full_local``)."""
-    b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     q, k, v = (full_local(t) for t in _mlstm_qkv(cfg, params, x, adapters))
     xf = full_local(x).float()
+    b, s, _ = xf.shape                     # this device's batch rows
     log_i, log_f = _gates(params, xf)                    # (b, s, h)
 
     c = min(MLSTM_CHUNK, s)
@@ -157,6 +158,7 @@ def _mlstm_fullseq(cfg, params, x, adapters=None, carry0=None):
     if carry0 is None:
         carry0 = mlstm_init_cache(cfg, b, None, device=x.device)
         carry0 = (carry0["C"], carry0["n"], carry0["m"])
+    carry0 = tuple(full_local(t) for t in carry0)
     carry, outs = carry0, []
     for j in range(0, q.shape[1], c):
         carry, out = _chunk_step(carry, q[:, j:j + c], k[:, j:j + c],
@@ -181,7 +183,7 @@ def mlstm_apply_prefill(cfg, params, x, cache, positions=None,
     out, carry = _mlstm_fullseq(cfg, params, x, adapters,
                                 carry0=(cache["C"], cache["n"], cache["m"]))
     for key, t in zip(("C", "n", "m"), carry):
-        cache[key].copy_(t)
+        cache[key].copy_(rejoin(t, cache[key]))
     return out, cache
 
 
@@ -195,26 +197,69 @@ def mlstm_init_cache(cfg, batch: int, dtype, *, device):
             "m": torch.full((batch, h), _NEG, **f32)}
 
 
+def _mlstm_step(q, k, v, qn, kn, log_i, log_f, C, n, m):
+    """The recurrent step's state update, in place, on one device's
+    pieces (or whole tensors): C (b, h, d, e) takes k (whole d) and v (C's
+    e), n (b, h, d) kn (n's d); returns num = q . C (b, h, e) and qn . n
+    (b, h), a partial sum where n's d is split."""
+    m_new = torch.maximum(log_f + m, log_i)
+    fw = torch.exp(log_f + m - m_new)[..., None]
+    iw = torch.exp(log_i - m_new)[..., None]
+    C.mul_(fw[..., None]).add_(iw[..., None] * (k[..., :, None]
+                                                * v[..., None, :]))
+    n.mul_(fw).add_(iw * kn)
+    m.copy_(m_new)
+    return (torch.einsum("bhd,bhde->bhe", q, C),
+            torch.einsum("bhd,bhd->bh", qn, n))
+
+
+def _mlstm_step_sharded(q, k, v, log_i, log_f, cache):
+    """:func:`_mlstm_step` on a cache placed by ``rules.cache_sharding``:
+    each device updates its pieces of C (batch rows, C's last dim) and n
+    (batch rows, n's last dim) in place through ``local_map``, and one
+    all-reduce sums the partial q . n."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels.dispatch import _as_dtensor
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    mesh = C.device_mesh
+
+    def like(batch, last):         # by C's split: its rows, its last dim
+        return tuple(batch if p == Shard(0) else last if p != Replicate()
+                     else Replicate() for p in C.placements)
+    rows = like(Shard(0), Replicate())         # batch rows only
+    pls = {"q": rows, "k": rows, "v": like(Shard(0), Shard(2)),
+           "qn": like(Shard(0), Shard(2)), "kn": like(Shard(0), Shard(2)),
+           "gate": rows}
+    args = [_as_dtensor(t, mesh).redistribute(mesh, pls[key])
+            for t, key in ((q, "q"), (k, "k"), (v, "v"), (q, "qn"),
+                           (k, "kn"), (log_i, "gate"), (log_f, "gate"))]
+    in_pl = tuple(pls[key] for key in ("q", "k", "v", "qn", "kn", "gate",
+                                       "gate")) + tuple(
+        tuple(t.placements) for t in (C, n, m))
+    num, qn = local_map(_mlstm_step, out_placements=(
+        like(Shard(0), Shard(2)), like(Shard(0), Partial())),
+        in_placements=in_pl, device_mesh=mesh)(*args, C, n, m)
+    return num, qn.redistribute(mesh, rows)
+
+
 def mlstm_apply_decode(cfg, params, x, cache, pos=None, adapters=None):
     """The recurrent matrix-memory step, x (b, 1, d).  Returns (y (b, 1,
-    d), cache); the matrix memory is updated in place."""
-    b = x.shape[0]
+    d), cache); the matrix memory is updated in place (on a sharded cache
+    shard by shard, :func:`_mlstm_step_sharded`)."""
     q, k, v = (t[:, 0] for t in _mlstm_qkv(cfg, params, x, adapters))
     xf = x[:, 0].float()
     log_i, log_f = _gates(params, xf)                    # (b, h)
-    m_new = torch.maximum(log_f + cache["m"], log_i)
-    fw = torch.exp(log_f + cache["m"] - m_new)[..., None]
-    iw = torch.exp(log_i - m_new)[..., None]
-    c_new = cache["C"].mul_(fw[..., None]).add_(
-        iw[..., None] * (k[..., :, None] * v[..., None, :]))
-    n_new = cache["n"].mul_(fw).add_(iw * k)
-    cache["m"].copy_(m_new)
-    num = torch.einsum("bhd,bhde->bhe", q, c_new)
-    den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n_new).abs(),
-                        torch.exp(-m_new))
+    if isinstance(cache["C"], DTensor):
+        num, qn = _mlstm_step_sharded(q, k, v, log_i, log_f, cache)
+    else:
+        num, qn = _mlstm_step(q, k, v, q, k, log_i, log_f, cache["C"],
+                              cache["n"], cache["m"])
+    den = torch.maximum(qn.abs(), torch.exp(-cache["m"]))
     out = num / den[..., None]
     ogate = torch.sigmoid(xf @ params["ogate"].float())
-    out = out.reshape(b, -1) * ogate
+    out = merge_heads(out) * ogate
     y = (out @ params["o"].float()).to(x.dtype)
     return y[:, None, :], cache
 
@@ -253,7 +298,8 @@ def _slstm_scan(cfg, params, gi, carry):
     Returns (carry, hs (b, s, d)).  On a model axis the recurrence runs
     whole on every device: gi and the recurrent weights are all-gathered
     first (``full_local``), as the loop's head-major reshapes of a sharded
-    DTensor do not map onto its shards."""
+    DTensor do not map onto its shards; with its batch split over a batch
+    axis, each device runs its own rows (the carry too)."""
     gi = full_local(gi)
     b, s, _, d = gi.shape
     nh = cfg.slstm_num_heads
@@ -267,7 +313,7 @@ def _slstm_scan(cfg, params, gi, carry):
     b_f = full_local(params["b_f"]).float().reshape(nh, 1, hd)
     floor = gi.new_tensor(1e-6)
     pre_all = gi.reshape(b, s, 4, nh, hd).permute(1, 3, 0, 2, 4)
-    h, c, n, m = (heads(t) for t in carry)
+    h, c, n, m = (heads(full_local(t)) for t in carry)
     hs = []
     for t in range(s):
         pre = pre_all[t] + torch.bmm(h, rec_w).reshape(nh, b, 4, hd)
@@ -292,15 +338,15 @@ def _slstm_scan(cfg, params, gi, carry):
 
 
 def _slstm_fullseq(cfg, params, x, adapters=None, carry=None):
-    b, s, d = x.shape
     gi = _slstm_gate_inputs(params, x)
     if adapters is not None and "z" in adapters:
         # gate-input adapter (prepared form: scale already folded into B)
         za, zb = adapters["z"]["a"], adapters["z"]["b"]
         gz = gi[:, :, 0] + (x @ za.T) @ zb.T
         gi = torch.cat([gz[:, :, None], gi[:, :, 1:]], dim=2)
+    gi = full_local(gi)
     if carry is None:
-        cache = slstm_init_cache(cfg, b, None, device=x.device)
+        cache = slstm_init_cache(cfg, gi.shape[0], None, device=x.device)
         carry = tuple(cache[k] for k in ("h", "c", "n", "m"))
     carry, hs = _slstm_scan(cfg, params, gi, carry)
     y = replicated(rejoin(hs, x) @ params["w_proj"].float())
@@ -320,7 +366,7 @@ def slstm_apply_prefill(cfg, params, x, cache, positions=None,
     out, carry = _slstm_fullseq(cfg, params, x, adapters,
                                 carry=tuple(cache[k] for k in keys))
     for key, t in zip(keys, carry):
-        cache[key].copy_(t)
+        cache[key].copy_(rejoin(t, cache[key]))
     return out, cache
 
 
@@ -343,6 +389,6 @@ def slstm_apply_decode(cfg, params, x, cache, pos=None, adapters=None):
     gi = _slstm_gate_inputs(params, x)                   # (b, 1, 4, d)
     carry, _ = _slstm_scan(cfg, params, gi, tuple(cache[k] for k in keys))
     for key, t in zip(keys, carry):
-        cache[key].copy_(t)
-    y = (carry[0] @ params["w_proj"].float()).to(x.dtype)
-    return y[:, None, :], cache
+        cache[key].copy_(rejoin(t, cache[key]))
+    y = replicated(rejoin(carry[0], x) @ params["w_proj"].float())
+    return y.to(x.dtype)[:, None, :], cache

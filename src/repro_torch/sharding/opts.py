@@ -8,9 +8,10 @@ port:
                      attention and constrain q / k / v's head dim onto
                      `model` (``models/attention.py``); off a mesh the
                      repeat alone, the same numbers.
-  seq_parallel_attn  constrain the query block's sequence dim onto `model`
-                     inside ``blockwise_attention`` when the heads do not
-                     divide 16 (context parallelism for 8-head archs).
+  seq_parallel_attn  constrain the query positions onto `model` before a
+                     blocked attention when the heads do not divide 16
+                     (context parallelism for 8-head archs;
+                     ``models/attention._attend``).
   chunked_ce         compute the CE loss in sequence chunks so the (b, s, V)
                      logits tensor never materializes (``Model.loss``; a
                      memory-term fix).

@@ -143,12 +143,19 @@ def test_dispatch_output_dtype_is_result_type(xdt, wdt, want):
 
 
 def test_dispatch_rejects_other_devices():
+    """The dispatcher takes CUDA, the CPU and ``meta`` (shapes only: the
+    dry-run's tier, the plain versions); any other device raises, and so
+    does a kernel wrapper handed a meta tensor."""
+    import types
     x = torch.zeros(2, 1, 8, device="meta")
     lora = {"a": torch.zeros(2, 4, 8, device="meta"),
             "b": torch.zeros(2, 8, 4, device="meta")}
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        dispatch.lora_linear_batched(x, torch.zeros(8, 8, device="meta"),
+    y = dispatch.lora_linear_batched(x, torch.zeros(8, 8, device="meta"),
                                      lora)
+    assert y.device.type == "meta" and tuple(y.shape) == (2, 1, 8)
+    assert bgmv.launches == NO_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        dispatch._use_kernel(types.SimpleNamespace(device=torch.device("xpu")))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         bgmv.bgmv_gemv(x[:, 0], torch.zeros(8, 8, device="meta"),
                        lora["a"], lora["b"])

@@ -1,6 +1,7 @@
 """repro_torch stands alone: importing it and every submodule loads neither
 jax nor the JAX package, and no module of it (nor chip_smoke.py) imports
-them."""
+them, nor ``torch.testing`` (the dry-run registers its own fake process
+group backend)."""
 import ast
 import os
 import pathlib
@@ -25,7 +26,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 new = {"repro_torch.core.faults", "repro_torch.core.stability",
-       "repro_torch.analysis.stability_check"}
+       "repro_torch.analysis.stability_check", "repro_torch.launch.dryrun",
+       "repro_torch.launch.hillclimb"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
@@ -56,3 +58,4 @@ def test_no_jax_or_repro_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert not name.startswith("torch.testing"), f"{path}: {name}"

@@ -13,6 +13,9 @@ torch thread each (``tests/torch_mesh_worker.py``).
         single-device JAX trainer's trajectory within 1e-4 x max(1,
         |ref|) (``TRAJ_RTOL``, the port's trajectory bound: fp32 on both
         sides, tensor-parallel sums taken in another order).
+  1x2, 2x2 decode   greedy decode over a base and a cache placed by the
+        rules (the dry-run's decode step) holds the single-device decode
+        (dense on both; the MoE, RG-LRU and xLSTM families at 1x2).
 
 The JAX references are the single-device JAX trainer (its mesh run is
 broken in the reference itself), built once per module; JAX's base and
@@ -50,6 +53,16 @@ ROUND_STEP = ("whisper-medium", "paligemma-3b")
 MODEL_AXIS = DENSE + ("qwen2-moe-a2.7b", "recurrentgemma-9b",
                       "roberta-large", "xlstm-1.3b") + ROUND_STEP
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+# greedy decode over a sharded base and cache (the JAX trainer's draw of
+# the reduced gemma-2b base), 4 steps from two first tokens
+DECODE = {"decode": True, "steps": 4,
+          "token": np.array([[3], [77]], np.int32)}
+# the dense decode on both meshes; at 1x2 also the families whose decode
+# state is not a ring (the MoE block, the RG-LRU state, the mLSTM / sLSTM
+# state, each updated shard by shard)
+DECODE_ARCHS = {"1x2": ("gemma-2b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+                        "xlstm-1.3b"), "2x2": ("gemma-2b",)}
+DECODE_RTOL = 1e-5
 # LoRA on the row-parallel projections too (o, w_down), beside q / v
 ROW_PARALLEL = {"arch": "gemma-2b", "rounds": ROUNDS,
                 "targets": ("q", "v", "o", "w_down")}
@@ -130,6 +143,12 @@ def model_axis_runs(tmp_path_factory):
             job["save"] = {**job["gemma-2b"], "rounds": 1,
                            "save": str(tmp / "tp.npz")}
             job["row-parallel"] = ROW_PARALLEL
+        # 2x2: one request, too few to split, so the ring's slots split
+        # over "data" (each rank writes the slots of its own range)
+        for arch in DECODE_ARCHS[spec]:
+            job[f"decode {arch}"] = {
+                **DECODE, "arch": arch, "base": trainers[arch][1]["base"],
+                **({} if spec == "1x2" else {"token": DECODE["token"][:1]})}
         jobs[spec] = (tmp, worker.start(tmp, spec, job))
     refs = {}
     for a, (tr, draws) in trainers.items():
@@ -275,6 +294,30 @@ def test_model_axis_holds_the_jax_trainer(model_axis_runs, spec):
         for a, b in zip(_leaves(base), _leaves(refs["gemma-2b"]["base"]),
                         strict=True):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("spec,arch", [(spec, a) for spec, archs in
+                                       DECODE_ARCHS.items() for a in archs])
+def test_decode_on_a_sharded_base_and_cache(model_axis_runs, spec, arch):
+    """``decode_step`` with the base placed by ``params_sharding``, the
+    ring cache by ``cache_sharding`` and each step's token and position by
+    ``inputs_sharding`` (the dry-run's decode) gives the single-device
+    decode's logits within 1e-5 x max(1, max|logits|) and its greedy
+    tokens, on every rank: at 1x2 two requests and the cache's head dim
+    (or the recurrent state's last dim) split over "model", at 2x2 one
+    request and the ring's slots split over "data" too."""
+    refs, runs = model_axis_runs
+    _, ranks = runs[spec]
+    token = DECODE["token"] if spec == "1x2" else DECODE["token"][:1]
+    want = worker.decode_steps({**DECODE, "arch": arch, "token": token,
+                                "base": refs[arch]["base"]})
+    bound = DECODE_RTOL * max(1.0, float(np.abs(want["logits"]).max()))
+    for out in ranks:
+        got = out[f"decode {arch}"]
+        assert "error" not in got, got.get("trace")
+        np.testing.assert_allclose(got["logits"], want["logits"], rtol=0,
+                                   atol=bound)
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
 def test_model_axis_covers_every_family():

@@ -80,7 +80,57 @@ def round_steps(tr, batches):
     return {"history": hist, "lora": _numpy(aset.lora), "opt": _numpy(opt)}
 
 
+def decode_steps(sc, mesh=None):
+    """Greedy decode of a reduced model from ``sc["base"]`` (numpy) and
+    first tokens ``sc["token"]`` (b, 1), ``sc["steps"]`` steps from an
+    empty cache.  On a mesh the base, the cache and each step's token and
+    position are placed by the rules (``params_sharding``,
+    ``cache_sharding``, ``inputs_sharding``) on the whole mesh.  Returns
+    every step's logits (gathered) and tokens as numpy."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.io import params_from_numpy
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.specs import full_local
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config(sc["arch"]).reduced(d_model=64, vocab_size=256)
+    model = build_model(cfg)
+    token = torch.from_numpy(sc["token"])
+    b = token.shape[0]
+    params = params_from_numpy(sc["base"], "cpu")
+    cache = model.init_cache(b, sc["steps"] + 2, device="cpu")
+
+    def place(tree, placements):
+        if mesh is None:
+            return tree
+        return tree_map(lambda t, p: distribute_tensor(t, mesh, p), tree,
+                        placements)
+    params = place(params, rules.params_sharding(params, mesh)
+                   if mesh is not None else None)
+    cache = place(cache, rules.cache_sharding(cache, mesh)
+                  if mesh is not None else None)
+    logits_all, tokens = [], []
+    for step in range(sc["steps"]):
+        pos = torch.full((b,), step, dtype=torch.int32)
+        feed = place({"token": token, "pos": pos},
+                     rules.inputs_sharding({"token": token, "pos": pos}, mesh)
+                     if mesh is not None else None)
+        with torch.no_grad():
+            logits, cache = model.decode_step(params, cache, feed["token"],
+                                              feed["pos"])
+        logits = full_local(logits)[:, -1]
+        token = logits.argmax(-1, keepdim=True).to(torch.int32)
+        logits_all.append(logits.numpy().copy())
+        tokens.append(token.numpy().copy())
+    return {"logits": np.stack(logits_all), "tokens": np.stack(tokens)}
+
+
 def run_scenario(sc, mesh):
+    if sc.get("decode"):
+        return decode_steps(sc, mesh)
     tr = make_trainer(sc, mesh)
     if sc.get("batches") is not None:
         return round_steps(tr, sc["batches"])
