@@ -186,15 +186,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      FederatedTrainer.round_step with frames (36 of each of #5-#8 per
      client local step; the encoder's and cross v's gradients exactly 0,
      their B 0.0), with peak memory and profiles
- 27. paligemma-3b (18 layers, d_model 2048, 8 heads on one kv head of
-     256, GeGLU 16384, vocab 257280 padded, patch_proj 1152 x 2048; 2.51 B
-     parameters, fp32), every earlier model freed first: generate_banked
-     as the serve CLI runs it (text only: 36 of #2 per prefill, 36 of #1
-     per decode step); the vision-prefix forward (Model.forward over 4 x
-     (256 stub patches + 128 tokens) under the bank: 36 of #2, the plain
-     tier's logits, a control with the patches zeroed); training through
-     FederatedTrainer.round_step with patches (36 of each of #5-#8 per
-     client local step), then those rounds with the chunked CE
+ 27. paligemma-3b (d_model 2048, 8 heads on one kv head of 256, GeGLU
+     16384, vocab 257280 padded, patch_proj 1152 x 2048; fp32; at half
+     depth since phase 31, PALIGEMMA_PATHS: 9 of its 18 layers), every
+     earlier model freed first: generate_banked as the serve CLI runs it
+     (text only: 18 of #2 per prefill, 18 of #1 per decode step); the
+     vision-prefix forward (Model.forward over 4 x (256 stub patches + 128
+     tokens) under the bank: 18 of #2, the plain tier's logits, a control
+     with the patches zeroed); training through FederatedTrainer.round_step
+     with patches (18 of each of #5-#8 per client local step, and 18 more
+     of #5 in the recompute), then those rounds with the chunked CE
      (repro_torch.sharding.opts "chunked_ce": loss and grad-norm within
      1e-4); one local step over 4 x (256 + 1100) with the chunked CE off
      and on, the peak memory of each (the chunked one lower)
@@ -229,12 +230,29 @@ Phases, in order; any failure raises and the exit code is not 0:
      above the arguments within TEMP_RTOL of the trace's temp bytes; the
      kernel tier's peak and both tiers' round times beside the roofline
      terms at the H100 data-sheet peaks
+ 31. remat (run right after phase 6, on its base): phase 6's round with
+     apply_stack's whole-unit remat on (the default, as in JAX) and off,
+     on both tiers: bit for bit equal; ms/round, the peak above the
+     arguments and #5's launches of each.  Every training path's counts
+     include the recompute (_recompute_counts)
+ 32. (after phase 8) serve_scheduled(transfer_guard=True) on phase 8's
+     traffic over fp32 and int4 bases: the synchronizing operations the
+     guard catches inside admission and the chunks (none expected), and
+     tokens equal to the unguarded run's
+ 33. (after phase 32) the blocked attention's backward at 4096 positions
+     with its kv-step checkpoint on and off, against the whole score
+     matrix: the peaks, and the gradients
+ 34. (after phase 9's checks) guarded edges: the ragged cases of #1-#12,
+     #14 and #15 (fp32 and bf16; int8 and int4) with every operand flush
+     against an unmapped page, at its end and at its start, against the
+     plain versions
 
 Needs a CUDA device and nvcc; without them it exits non-zero and prints no
 result.
 """
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import itertools
@@ -730,6 +748,31 @@ def _proj_counts(cfg):
                                    for p in reads_input)
 
 
+def _recompute_counts(cfg):
+    """(adapted, unadapted, RG-LRU scans) the backward's recompute launches
+    again per client local step: ``apply_stack`` checkpoints each repeat
+    unit whole (the tail layers run once), and the recompute stops at the
+    unit's last tensor saved for the backward, so a unit that closes on an
+    unadapted dense MLP (whose w_down keeps only its frozen weight) does
+    not rerun that w_down (gemma-2b: 36, 72, 0 at 18 layers;
+    recurrentgemma-9b at 19 layers: 36, 60, 12; the MoE archs at 12: 24,
+    24, 0; xlstm-1.3b at 24: 24, 0, 0)."""
+    kinds = _layer_kinds(cfg)
+    pattern = tuple(cfg.block_pattern)
+    units = len(kinds) // len(pattern)
+    unit = dataclasses.replace(cfg, num_layers=len(pattern))
+    adapted, unadapted, _ = _proj_counts(unit)
+    dense_mlp = cfg.moe is None and pattern[-1] in ATTN_KINDS + ("rglru",)
+    closing = int(dense_mlp and "w_down" not in cfg.lora_targets)
+    return (units * adapted, units * (unadapted - closing),
+            units * pattern.count("rglru"))
+
+
+def _in_backward() -> bool:
+    """True inside the autograd engine: a checkpoint's recompute."""
+    return torch._C._current_graph_task_id() != -1
+
+
 @contextlib.contextmanager
 def _routing(log, replay=None):
     """Within the block, every MoE layer appends its router's probabilities
@@ -739,15 +782,23 @@ def _routing(log, replay=None):
     (``moe_apply(top_i=)``), while ``log`` still records this run's own
     choice: the plain tier replays the kernel tier's routing, so the tiers
     are held to each other on the same dispatch, and the choices a router
-    near-tie would have flipped are counted, not hidden."""
+    near-tie would have flipped are counted, not hidden.  The backward's
+    recompute of a layer (``apply_stack``'s remat; where it stops differs
+    between tiers) logs nothing and dispatches as the layer's forward did,
+    found by its parameter dict, which the checkpoint keeps alive."""
     orig = transformer.moe_apply
+    forced_by_layer = {}
 
     def wrapped(cfg, params, x, adapters=None):
+        if _in_backward():
+            return orig(cfg, params, x, adapters=adapters,
+                        top_i=forced_by_layer.get(id(params)))
         with torch.no_grad():
             probs, _, top_i = moe.route(cfg, params,
                                         x.reshape(-1, x.shape[-1]))
         log.append((probs, top_i))
         forced = None if replay is None else replay[len(log) - 1][1]
+        forced_by_layer[id(params)] = forced
         return orig(cfg, params, x, adapters=adapters, top_i=forced)
 
     transformer.moe_apply = wrapped
@@ -790,15 +841,24 @@ def _pinning(cfg, log, replay=None):
     or, under ``replay`` (the kernel tier's log of the same calls), the
     call takes that log's input and appends its output's max |difference|
     from the logged output and the logged output's max |value| (device
-    scalars: no host sync)."""
+    scalars: no host sync).  The backward's recompute of a block logs
+    nothing and takes the value its forward took, found by the block's
+    parameter dict (as :func:`_routing` does)."""
     if cfg.family not in PINNED_FAMILIES:
         yield log
         return
     orig = transformer.apply_block
+    value_by_block = {}
 
     def wrapped(cfg_, kind, p, x, **kw):
+        if _in_backward():
+            value = value_by_block.get(id(p))
+            if value is not None:
+                x = _Pinned.apply(x, value) if x.requires_grad else value
+            return orig(cfg_, kind, p, x, **kw)
         if replay is not None:
             value = replay[len(log)][0]
+            value_by_block[id(p)] = value
             x = _Pinned.apply(x, value) if x.requires_grad else value
         out = orig(cfg_, kind, p, x, **kw)
         y = out[0].detach()
@@ -1461,27 +1521,33 @@ def train_path(name, cfg, device, *, quant=None, clients=4, rank=64,
     _sync(device)
     launches = _launch_counts()
     n_adapted, n_base, n_no_grad = _proj_counts(cfg)
+    r_ad, r_base, r_scan = _recompute_counts(cfg)
     n_rglru = _layer_kinds(cfg).count("rglru")
     steps = clients * local_steps * rounds
     expect = dict.fromkeys(launches, 0)
     if quant is None:
         expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+        expect["lora_fwd"] += r_ad * steps               # the recompute
         expect["lora_fwd"] += n_adapted                  # one eval forward
-        per_step = f"{n_adapted} of each of #5-#8"
+        per_step = (f"{n_adapted} of each of #5-#8 and {r_ad} more of #5 "
+                    "in the recompute")
     else:
         # the unadapted projections; those of layer 0 that read the
         # embedding have an input without grad, so no #12
         expect.update({k: n_adapted * steps for k in QTRAIN_PATH_KERNELS})
-        expect["quant_matmul"] = n_base * steps
+        expect["quant_matmul"] = (n_base + r_base) * steps
         expect["quant_matmul_dx"] = (n_base - n_no_grad) * steps
+        expect["lora_fwd_quant"] += r_ad * steps         # the recompute
         expect["lora_fwd_quant"] += n_adapted            # one eval forward
         expect["quant_matmul"] += n_base
         per_step = (f"{n_adapted} of each of #9, #10, #7, #8, {n_base} of "
-                    f"#11 and {n_base - n_no_grad} of #12")
+                    f"#11 and {n_base - n_no_grad} of #12, and {r_ad} of #9 "
+                    f"and {r_base} of #11 in the recompute")
     if n_rglru:
-        expect["rglru_scan"] = n_rglru * (steps + 1)     # + the eval forward
+        expect["rglru_scan"] = (n_rglru + r_scan) * steps + n_rglru
         expect["rglru_scan_bwd"] = n_rglru * steps
-        per_step += f", {n_rglru} of #15 and {n_rglru} of its backward"
+        per_step += (f", {n_rglru} of #15 (+{r_scan} in the recompute) and "
+                     f"{n_rglru} of its backward")
     print(f"launches: { {k: v for k, v in launches.items() if v} } "
           f"(expected { {k: v for k, v in expect.items() if v} }: "
           f"{per_step} per client local step x {steps}, plus the eval "
@@ -2859,12 +2925,15 @@ def hetero_train_path(name, cfg, device, params, hom=None, *,
     _sync(device)
     launches = _launch_counts()
     n_adapted = len(cfg.lora_targets) * cfg.num_layers
+    r_ad = _recompute_counts(cfg)[0]
     steps = clients * local_steps * rounds
     expect = dict.fromkeys(launches, 0)
     expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+    expect["lora_fwd"] += r_ad * steps
     print(f"launches: { {k: v for k, v in launches.items() if v} } "
-          f"(expected {n_adapted} of each of #5-#8 per client local step x "
-          f"{steps}); dispatch {dispatch.stats}")
+          f"(expected {n_adapted} of each of #5-#8 and {r_ad} more of #5 "
+          f"in the recompute per client local step x {steps}); dispatch "
+          f"{dispatch.stats}")
     assert launches == expect, (launches, expect)
     for h in tr1.history:
         print(f"round {h['round']}: loss {h['loss']:.6f}, grad_norm "
@@ -3313,6 +3382,8 @@ def fault_tolerant_paths(name, cfg, device, params, sync, *, clients=4,
         out = dict.fromkeys(_launch_counts(), 0)
         out.update({k: n_adapted * clients * local_steps * n_rounds
                     for k in LORA_KERNELS})
+        out["lora_fwd"] += (_recompute_counts(cfg)[0] * clients
+                            * local_steps * n_rounds)
         return out
 
     # 1. buffer 0 (no cap), no faults: the synchronous run, bit for bit
@@ -3742,17 +3813,19 @@ def device_data_train_path(name, cfg, device, params, *, clients=16,
     _sync(device)
     launches = _launch_counts()
     n_adapted, n_base, n_no_grad = _proj_counts(cfg)
+    r_ad, r_base, _ = _recompute_counts(cfg)
     steps = clients * local_steps * rounds
     expect = dict.fromkeys(launches, 0)
     expect.update({k: n_adapted * steps for k in QTRAIN_PATH_KERNELS})
-    expect["quant_matmul"] = n_base * (steps + 1)
+    expect["quant_matmul"] = n_base * (steps + 1) + r_base * steps
     expect["quant_matmul_dx"] = (n_base - n_no_grad) * steps
-    expect["lora_fwd_quant"] += n_adapted                 # one eval forward
+    expect["lora_fwd_quant"] += n_adapted + r_ad * steps  # eval, recompute
     print(f"launches: { {k: v for k, v in launches.items() if v} } "
           f"(expected { {k: v for k, v in expect.items() if v} }: "
           f"{n_adapted} of each of #9, #10, #7, #8, {n_base} of #11 and "
-          f"{n_base - n_no_grad} of #12 per client local step x {steps}, "
-          f"plus the eval forward); dispatch {dispatch.stats}")
+          f"{n_base - n_no_grad} of #12, and {r_ad} of #9 and {r_base} of "
+          f"#11 in the recompute, per client local step x {steps}, plus "
+          f"the eval forward); dispatch {dispatch.stats}")
     assert launches == expect, (launches, expect)
     if device.type == "cuda":
         print(f"peak device memory over the counted run: "
@@ -4229,22 +4302,25 @@ def round_step_train_path(name, cfg, device, params, *, clients=4, rank=64,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     n_adapted = _proj_counts(cfg)[0]
+    r_ad = _recompute_counts(cfg)[0]
     steps = clients * local_steps * rounds
 
     def counted(tr, label):
         """run(tr) with the counts at 0 just before, checked just after:
-        n_adapted of each of #5-#8 per client local step."""
+        n_adapted of each of #5-#8 per client local step, and #5 again in
+        the recompute."""
         _reset_launches()
         dispatch.reset_stats()
         out = run(tr)
         launches = _launch_counts()
         expect = dict.fromkeys(launches, 0)
         expect.update({k: n_adapted * steps for k in LORA_KERNELS})
+        expect["lora_fwd"] += r_ad * steps
         print(f"launches ({label} run): "
               f"{ {k: v for k, v in launches.items() if v} } (expected "
               f"{ {k: v for k, v in expect.items() if v} }: {n_adapted} of "
-              f"each of #5-#8 per client local step x {steps}); dispatch "
-              f"{dispatch.stats}")
+              f"each of #5-#8 and {r_ad} more of #5 in the recompute per "
+              f"client local step x {steps}); dispatch {dispatch.stats}")
         assert launches == expect, (launches, expect)
         return launches, out
 
@@ -4379,6 +4455,9 @@ def whisper_paths(name):
 # ------------------------------------------------- 27. paligemma-3b
 
 PALIGEMMA = get_config("paligemma-3b")
+# the paths at half depth (phase 31's cut: it was the costliest path
+# still at full depth); the kernel phases keep the full widths
+PALIGEMMA_PATHS = dataclasses.replace(PALIGEMMA, num_layers=9)
 # training through FederatedTrainer.round_step: N clients x 1 local step of
 # 4 x (256 patches + 128 tokens) each, 2 rounds; then those rounds with the
 # chunked CE
@@ -4519,6 +4598,7 @@ def chunked_ce_memory(name, model, params, *, batch=4, text=CE_TEXT,
             opts.reset()
         expect = dict.fromkeys(launches, 0)
         expect.update({k: n_ad for k in LORA_KERNELS})
+        expect["lora_fwd"] += _recompute_counts(cfg)[0]
         assert launches == expect, (launches, expect)
         peak = (torch.cuda.max_memory_allocated(device) - resident
                 if device.type == "cuda" else None)
@@ -4547,27 +4627,27 @@ def chunked_ce_memory(name, model, params, *, batch=4, text=CE_TEXT,
 
 
 def paligemma_paths(name):
-    """paligemma-3b at full width and depth (18 layers, d_model 2048, 8
-    heads on one kv head of 256, GeGLU 16384, vocab 257216 padded to
-    257280, patch_proj 1152 x 2048: 2.51 B parameters, 10.04 GB fp32;
-    seeded random weights), every earlier model freed first:
-    generate_banked as the serve CLI runs it (text only, as JAX serves it:
-    36 of #2 per prefill, 36 of #1 per decode step); vision_prefix_path;
-    round_step_train_path over patches (VLM_TRAIN: 36 of each of #5-#8
-    per client local step, then the same rounds with the chunked CE);
-    chunked_ce_memory; with peak memory."""
+    """paligemma-3b at full width and half depth (PALIGEMMA_PATHS: 9 of
+    18 layers, d_model 2048, 8 heads on one kv head of 256, GeGLU 16384,
+    vocab 257216 padded to 257280, patch_proj 1152 x 2048; seeded random
+    weights), every earlier model freed first: generate_banked as the
+    serve CLI runs it (text only, as JAX serves it: 18 of #2 per prefill,
+    18 of #1 per decode step); vision_prefix_path; round_step_train_path
+    over patches (VLM_TRAIN: 18 of each of #5-#8 per client local step and
+    18 more of #5 in the recompute, then the same rounds with the chunked
+    CE); chunked_ce_memory; with peak memory."""
     dev = torch.device("cuda")
     _free()
     torch.cuda.reset_peak_memory_stats(dev)
-    fixed = run_path(name, PALIGEMMA, dev)
+    fixed = run_path(name, PALIGEMMA_PATHS, dev)
     _peak("paligemma-3b fixed-batch serving (text only)", dev)
     _free()
-    model, params, bank = serving_model(PALIGEMMA, dev)
+    model, params, bank = serving_model(PALIGEMMA_PATHS, dev)
     vision_prefix_path(name, model, params, bank)
     del bank
     _free()
     # serving_model draws the base first from seed 0, as train_base does
-    train, _ = round_step_train_path(name, PALIGEMMA, dev, params,
+    train, _ = round_step_train_path(name, PALIGEMMA_PATHS, dev, params,
                                      chunked=True, **VLM_TRAIN)
     _free()
     _peak("paligemma-3b training", dev)
@@ -4761,12 +4841,14 @@ def mesh_paths(name, cfg, device, sync, sync_ms, *, rank=64, seq=128):
     del tr, got
     _free()
     expect = n_adapted * 4 * 2 * MESH_ROUNDS
+    fwd = expect + _recompute_counts(cfg)[0] * 4 * 2 * MESH_ROUNDS
     print(f"1x1: launches { {k: launches[k] for k in LORA_KERNELS} } "
-          f"(expected {expect} each); ms/round "
+          f"(expected {expect} each, #5 {fwd}); ms/round "
           f"{[round(t, 1) for t in ms1]} (phase 6: "
           f"{[round(t, 1) for t in sync_ms]}); history, adapters and "
           f"optimizer state {'bit-identical' if same else 'DIFFER'}")
-    assert all(launches[k] == expect for k in LORA_KERNELS), launches
+    assert all(launches[k] == (fwd if k == "lora_fwd" else expect)
+               for k in LORA_KERNELS), launches
     assert same, "the 1x1 mesh run differs from phase 6's"
     # the spawned ranks count their own launches, on the card only (a CPU
     # rehearsal's counting patches stay in this process)
@@ -4794,13 +4876,15 @@ def mesh_paths(name, cfg, device, sync, sync_ms, *, rank=64, seq=128):
     same = _same_state(ranks[0], sync) and \
         ranks[1]["history"] == sync["history"]
     expect = n_adapted * 2 * 2 * MESH_ROUNDS
+    fwd = expect + _recompute_counts(cfg)[0] * 2 * 2 * MESH_ROUNDS
     for r, res in enumerate(ranks):
         print(f"2x1 rank {r}: clients {res['block']}, launches "
               f"{ {k: res['launches'][k] for k in LORA_KERNELS} } "
-              f"(expected {expect} each: two clients); ms/round "
+              f"(expected {expect} each, #5 {fwd}: two clients); ms/round "
               f"{[round(t, 1) for t in res['ms']]}")
-        assert not counted or all(res["launches"][k] == expect
-                                  for k in LORA_KERNELS)
+        assert not counted or all(
+            res["launches"][k] == (fwd if k == "lora_fwd" else expect)
+            for k in LORA_KERNELS)
     print(f"2x1: two ranks in {time.monotonic() - t0:.1f} s from spawn to "
           f"exit; history, adapters and optimizer state "
           f"{'bit-identical' if same else 'DIFFER'} to phase 6's")
@@ -5041,6 +5125,453 @@ def dryrun_paths(name, smi, device=None):
     assert abs(plain_peak - temp) <= TEMP_RTOL * temp, (plain_peak, temp)
 
 
+# ------------------------------------- 31-33. remat, blocked attention, guard
+
+def _resident(device):
+    """Memory held now, with the peak counter reset to it (0 off CUDA)."""
+    _sync(device)
+    if device.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _peak_above(device, resident):
+    _sync(device)
+    return (torch.cuda.max_memory_allocated(device) - resident
+            if device.type == "cuda" else 0)
+
+
+def remat_paths(name, cfg, device, params, *, clients=4, rank=64,
+                local_steps=2, batch=4, seq=128):
+    """31. Phase 6's round (one round of fedsa + sfedlora, sgd at 5e-3,
+    the same trainer) with ``apply_stack``'s remat on, the default, and
+    off (``remat=False``, patched in for the comparison only), on the
+    kernel tier twice each and on the plain tier: the losses, grad norms
+    and adapters bit for bit equal between the two settings on each tier;
+    ms/round, the peak above the arguments (the resident base, adapters
+    and optimizer state) and #5's launches of each (the recompute adds
+    ``_recompute_counts`` per client local step)."""
+    phase(f"remat: phase 6's round ({cfg.name}, {cfg.num_layers} layers) "
+          "with apply_stack's whole-unit remat on (default) and off")
+    model = build_model(cfg)
+    api_mod = sys.modules[build_model.__module__]
+    steps = clients * local_steps
+    n_adapted, r_ad = _proj_counts(cfg)[0], _recompute_counts(cfg)[0]
+
+    def one_round(remat, plain):
+        tr = federated.FederatedTrainer(
+            model, FederatedDataset(cfg.vocab_size, clients, seq_len=seq,
+                                    batch_per_client=batch, seed=0),
+            lora_cfg=LoRAConfig(rank=rank, alpha=8.0, scaling="sfedlora",
+                                targets=cfg.lora_targets),
+            fed_cfg=FederatedConfig(num_clients=clients,
+                                    local_steps=local_steps, rounds=1,
+                                    aggregation="fedsa"),
+            opt_cfg=OptimizerConfig(name="sgd", lr=5e-3), seed=0,
+            base_params=params, device=device)
+        resident = _resident(device)
+        _reset_launches()
+        orig = api_mod.apply_stack
+        api_mod.apply_stack = lambda *a, **k: transformer.apply_stack(
+            *a, remat=remat, **k)
+        try:
+            with (dispatch.plain_tier() if plain
+                  else contextlib.nullcontext()):
+                t = time.monotonic()
+                tr.run_round()
+                _sync(device)
+                ms = (time.monotonic() - t) * 1e3
+        finally:
+            api_mod.apply_stack = orig
+        out = {"history": tr.history, "lora": tr.lora, "ms": ms,
+               "peak": _peak_above(device, resident),
+               "lora_fwd": _launch_counts()["lora_fwd"]}
+        del tr
+        return out
+
+    res = {}
+    for plain in (False, True):
+        for rep in range(1 if plain else 2):
+            for remat in (True, False):
+                res.setdefault((plain, remat), []).append(
+                    one_round(remat, plain))
+    for plain in (False, True):
+        tier = "plain" if plain else "kernel"
+        on, off = res[(plain, True)][0], res[(plain, False)][0]
+        same = on["history"] == off["history"] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(on["lora"]),
+                                              tree_leaves(off["lora"])))
+        for remat in (True, False):
+            runs = res[(plain, remat)]
+            want = 0 if plain else (n_adapted + (r_ad if remat else 0)) \
+                * steps
+            print(f"{tier} tier, remat {'on ' if remat else 'off'}: "
+                  f"ms/round {[round(r['ms'], 1) for r in runs]}, peak "
+                  f"above the arguments {runs[0]['peak'] / 1e9:.3f} GB "
+                  f"({runs[0]['peak']} B), #5 launches "
+                  f"{[r['lora_fwd'] for r in runs]} (expected {want}); "
+                  f"loss {runs[0]['history'][-1]['loss']:.8g}")
+            assert all(r["lora_fwd"] == want for r in runs), (runs, want)
+            assert all(r["history"] == runs[0]["history"] for r in runs)
+        print(f"{tier} tier: remat on vs off: losses, grad norms and "
+              f"adapters {'bit-identical' if same else 'DIFFER'}")
+        assert same, f"remat changes the {tier} tier's round"
+        if device.type == "cuda":
+            assert on["peak"] < off["peak"], (on["peak"], off["peak"])
+    on_k, off_k = res[(False, True)], res[(False, False)]
+    print(f"remat on {name}: the kernel tier's round "
+          f"{min(r['ms'] for r in on_k):.1f} ms against "
+          f"{min(r['ms'] for r in off_k):.1f} ms off; peak "
+          f"{on_k[0]['peak'] / 1e9:.3f} GB against "
+          f"{off_k[0]['peak'] / 1e9:.3f} GB")
+    del res, model
+    _free()
+
+
+# (b, s, heads, kv heads, head dim): the CPU test's reduced layout and
+# gemma-2b's heads, both at 4096 positions (above BLOCKWISE_THRESHOLD)
+BLOCKED_SHAPES = {"reduced (2 heads on 1, hd 64)": (1, 4096, 2, 1, 64),
+                  "gemma-2b heads (8 on 1, hd 256)": (1, 4096, 8, 1, 256)}
+
+
+def blocked_attention_paths(name, device, shapes=BLOCKED_SHAPES):
+    """33. The blocked attention's backward at 4096 positions: the
+    gradients of sum(out * w) with each kv step checkpointed (the
+    default), without the checkpoint (``checkpointed`` patched to a plain
+    call), and through the plain whole-matrix ``attention_core``; the
+    peak above the inputs of each.  The checkpointed gradients equal the
+    unchecked ones bit for bit and the whole matrix's within
+    KERNEL_RTOL x max(1, max|grad|)."""
+    from repro_torch.models import attention
+    phase("blocked attention backward at s 4096: kv-step checkpoint on / "
+          "off and the whole score matrix")
+    cfg = get_config("gemma-2b").reduced()
+    for label, (b, s, h, kh, hd) in shapes.items():
+        gen = torch.Generator(device).manual_seed(0)
+        q, w = (torch.randn(b, s, h, hd, generator=gen, device=device)
+                for _ in range(2))
+        k, v = (torch.randn(b, s, kh, hd, generator=gen, device=device)
+                for _ in range(2))
+        pos = torch.arange(s, device=device)[None].expand(b, s)
+
+        def blocked(qq, kk, vv):
+            return attention.blockwise_attention(cfg, qq, kk, vv, pos, pos,
+                                                 causal=True, window=None)
+
+        def whole(qq, kk, vv):
+            mask = attention.make_mask(pos, pos, causal=True)
+            return attention.attention_core(cfg, qq, kk, vv, mask)
+
+        def run(fn):
+            args = [t.detach().clone().requires_grad_(True)
+                    for t in (q, k, v)]
+            resident = _resident(device)
+            t0 = time.monotonic()
+            loss = (fn(*args) * w).sum()
+            grads = torch.autograd.grad(loss, args)
+            _sync(device)
+            return (grads, (time.monotonic() - t0) * 1e3,
+                    _peak_above(device, resident))
+
+        run(blocked)                     # warm-up: allocator, cuBLAS plans
+        checked = run(blocked)
+        orig = attention.checkpointed
+        attention.checkpointed = lambda fn, *a, **k: fn(*a)
+        try:
+            unchecked = run(blocked)
+        finally:
+            attention.checkpointed = orig
+        full = run(whole)
+        same = all(torch.equal(a, c) for a, c in zip(checked[0],
+                                                     unchecked[0]))
+        err = max(float((a - c).abs().max()) / max(1.0, float(
+            c.abs().max())) for a, c in zip(checked[0], full[0]))
+        print(f"{label}: peak above the inputs {checked[2] / 1e6:.1f} MB "
+              f"checkpointed, {unchecked[2] / 1e6:.1f} MB without, "
+              f"{full[2] / 1e6:.1f} MB whole-matrix; forward + backward "
+              f"{checked[1]:.1f} / {unchecked[1]:.1f} / {full[1]:.1f} ms; "
+              f"gradients {'bit-identical' if same else 'DIFFER'} to the "
+              f"unchecked run's, relative diff to the whole matrix's "
+              f"{err:.3e} (bound {KERNEL_RTOL})")
+        assert same and err <= KERNEL_RTOL
+        if device.type == "cuda":
+            assert checked[2] < unchecked[2]
+        del q, k, v, w, checked, unchecked, full
+        _free()
+
+
+def guarded_sched_path(name, model, params, bank, modes=("fp32", "int4")):
+    """32. serve_scheduled(transfer_guard=True) on phase 8's traffic over
+    each base: first with the guard's region in "warn" mode, every
+    synchronizing operation inside admission or a decode chunk printed
+    with the port's line that called it (none expected), then as users
+    run it ("error" mode: such an operation raises TransferGuardError);
+    the tokens equal the unguarded run's."""
+    import traceback
+    import warnings
+
+    from repro_torch.analysis import sanitizers
+    sc = SCHED
+    phase(f"guarded scheduled path: serve_scheduled(transfer_guard=True), "
+          f"{model.cfg.name} at {model.cfg.num_layers} layers, phase 8's "
+          "traffic")
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, model.cfg.vocab_size, (sc["n_req"],
+                                                     sc["plen"]))
+
+    def run(base, **kw):
+        reqs = [serve.Request(rid=i, prompt=prompts[i].astype(np.int32),
+                              steps=sc["steps"], adapter_id=i % bank.size,
+                              deadline_steps=sc["deadline"]
+                              if i == sc["n_req"] - 1 else None)
+                for i in range(sc["n_req"])]
+        t = time.monotonic()
+        done = serve.serve_scheduled(
+            model, base, reqs, bank=bank, max_batch=sc["max_batch"],
+            block_size=sc["block_size"], chunk=sc["chunk"], wait=False, **kw)
+        return [r.tokens for r in done], time.monotonic() - t
+
+    @contextlib.contextmanager
+    def warn_region(caught):
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+
+        def show(message, *a, **k):
+            frames = [f for f in traceback.extract_stack()
+                      if "repro_torch" in f.filename]
+            where = (f"{Path(frames[-1].filename).name}:{frames[-1].lineno} "
+                     f"{frames[-1].line}" if frames else "?")
+            caught[where] = caught.get(where, 0) + 1
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+    for mode in modes:
+        base = params if mode == "fp32" else apply_quant_flag(
+            params, mode, QUANT_GROUP)
+        want, s_plain = run(base)
+        caught = {}
+        orig = sanitizers.no_implicit_transfers
+        sanitizers.no_implicit_transfers = lambda: warn_region(caught)
+        try:
+            warned, _ = run(base, transfer_guard=True)
+        finally:
+            sanitizers.no_implicit_transfers = orig
+        print(f"{mode}: synchronizing operations inside admission and the "
+              f"chunks: {sum(caught.values())}"
+              + "".join(f"\n  {n} x {where}" for where, n in
+                        sorted(caught.items())))
+        got, s_guard = run(base, transfer_guard=True)
+        guard = sanitizers.RecompileGuard()
+        rec, _ = run(base, guard=guard)
+        print(f"{mode}: guarded tokens "
+              f"{'identical' if got == want == warned == rec else 'DIFFER'}"
+              f" to the unguarded run's ({s_guard:.2f} s guarded, "
+              f"{s_plain:.2f} s unguarded); RecompileGuard events "
+              f"{guard.events}")
+        assert got == want == warned == rec and not caught
+        del base
+        _free()
+
+
+class _CuMemProp(ctypes.Structure):
+    """CUmemAllocationProp: pinned memory on one device."""
+    _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                ("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("win32_meta", ctypes.c_void_p), ("compression", ctypes.c_ubyte),
+                ("rdma", ctypes.c_ubyte), ("usage", ctypes.c_ushort),
+                ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _CuMemAccess(ctypes.Structure):
+    """CUmemAccessDesc: read-write access from one device."""
+    _fields_ = [("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("flags", ctypes.c_int)]
+
+
+_TYPESTR = {torch.float32: "<f4", torch.bfloat16: "<i2", torch.int8: "|i1",
+            torch.uint8: "|u1", torch.int32: "<i4"}
+
+
+class _Granules:
+    """Buffers flush against an unmapped page, through the CUDA driver's
+    virtual memory calls: each buffer gets a reserved range of three
+    granules whose middle one alone is mapped, and lies against that
+    granule's end or its start.  A kernel that reads or writes one byte
+    past the buffer's edge then faults (cudaErrorIllegalAddress), whatever
+    the caching allocator's layout would have put there."""
+
+    def __init__(self, device):
+        self.cu = ctypes.CDLL("libcuda.so.1")
+        idx = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        self.prop = _CuMemProp(1, 0, 1, idx, None, 0, 0, 0)
+        self.access = _CuMemAccess(1, idx, 3)
+        gran = ctypes.c_size_t()
+        self._ok(self.cu.cuMemGetAllocationGranularity(
+            ctypes.byref(gran), ctypes.byref(self.prop), 0), "granularity")
+        self.size, self.device, self.held = gran.value, device, []
+
+    @staticmethod
+    def _ok(rc, what):
+        if rc:
+            raise RuntimeError(f"guarded granule: {what} returned CUresult "
+                               f"{rc}")
+
+    def place(self, src, at):
+        """A copy of ``src`` (contiguous) at the ``at`` ("end" or "start")
+        of a lone mapped granule."""
+        nbytes = src.numel() * src.element_size()
+        assert 0 < nbytes <= self.size and src.dtype in _TYPESTR
+        base, handle = ctypes.c_uint64(), ctypes.c_uint64()
+        g = ctypes.c_size_t(self.size)
+        self._ok(self.cu.cuMemAddressReserve(
+            ctypes.byref(base), ctypes.c_size_t(3 * self.size),
+            ctypes.c_size_t(0), ctypes.c_uint64(0), ctypes.c_ulonglong(0)),
+            "reserve")
+        self._ok(self.cu.cuMemCreate(ctypes.byref(handle), g,
+                                     ctypes.byref(self.prop),
+                                     ctypes.c_ulonglong(0)), "create")
+        mid = ctypes.c_uint64(base.value + self.size)
+        self._ok(self.cu.cuMemMap(mid, g, ctypes.c_size_t(0), handle,
+                                  ctypes.c_ulonglong(0)), "map")
+        self.held.append((base, mid, handle))
+        self._ok(self.cu.cuMemSetAccess(mid, g, ctypes.byref(self.access),
+                                        ctypes.c_size_t(1)), "access")
+        ptr = mid.value + (self.size - nbytes if at == "end" else 0)
+        view = type("CudaArray", (), {"__cuda_array_interface__": {
+            "shape": (src.numel(),), "typestr": _TYPESTR[src.dtype],
+            "data": (ptr, False), "version": 3, "strides": None}})()
+        t = torch.as_tensor(view, device=self.device).view(src.dtype)
+        return t.view(src.shape).copy_(src)
+
+    def release(self):
+        """Unmap and free every granule (no tensor placed may be used after
+        this)."""
+        torch.cuda.synchronize(self.device)
+        g = ctypes.c_size_t(self.size)
+        for base, mid, handle in self.held:
+            self._ok(self.cu.cuMemUnmap(mid, g), "unmap")
+            self._ok(self.cu.cuMemRelease(handle), "release")
+            self._ok(self.cu.cuMemAddressFree(
+                base, ctypes.c_size_t(3 * self.size)), "free")
+        self.held = []
+
+
+def _edge_cases(gen, dev):
+    """(label, operands, make, tol) of guarded_edges: ``make(*operands)``
+    gives {kernel: (kernel call, plain call)}; tol None holds them to
+    KERNEL_RTOL (_check_pair), else to tol (_allclose)."""
+    lm, fa, rg = lora_matmul, flash_attention, rglru_scan
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        d = str(dt)[6:]
+        for m, k, n, r in ((50, 100, 30, 3), (33, 65, 17, 1)):
+            x, w, a, b, g = _lora_operands(gen, m, k, n, r, dt, dev)
+            cases.append((f"#5-#8 m={m} k={k} n={n} r={r} {d}",
+                          (x, w, a, b, g),
+                          lambda *o: _lora_calls(*o, 1.5), None))
+            for mode, bits in (("int8", 8), ("int4", 4)):
+                wq = quantize(w.float(), bits, QUANT_GROUP)
+
+                def packed(x, x4, data, scales, a, b, g, wq=wq):
+                    wq = dataclasses.replace(wq, data=data, scales=scales)
+                    calls = _qtrain_calls(x, wq, a, b, g)
+                    for name, xx in (("quant_matmul", x),
+                                     ("quant_matmul m=4", x4)):
+                        calls[name] = (
+                            lambda xx=xx: lm.quant_matmul(xx, wq),
+                            lambda xx=xx: lm.quant_matmul_plain(xx, wq))
+                    return calls
+                cases.append((f"#9-#12 {mode} m={m} k={k} n={n} r={r} {d}",
+                              (x, x[:4].contiguous(), wq.data, wq.scales,
+                               a, b, g), packed, None))
+        x, w, a, b, ids = _bank(gen, 4, 3, 70, 50, 3, (9, 9, 9), dt)
+        wq = quantize(w.float(), 4, QUANT_GROUP)
+
+        def banked(x, x1, w, data, scales, a, b, ids, wq=wq):
+            wq = dataclasses.replace(wq, data=data, scales=scales)
+            return {
+                "bgmv_matmul": (lambda: bgmv.bgmv_matmul(x, w, a, b, ids),
+                                lambda: bgmv.bgmv_matmul_plain(x, w, a, b,
+                                                               ids)),
+                "bgmv_gemv": (lambda: bgmv.bgmv_gemv(x1, w, a, b, ids),
+                              lambda: bgmv.bgmv_gemv_plain(x1, w, a, b, ids)),
+                "bgmv_matmul_quant": (
+                    lambda: bgmv.bgmv_matmul_quant(x, wq, a, b, ids),
+                    lambda: bgmv.bgmv_matmul_quant_plain(x, wq, a, b, ids)),
+                "bgmv_gemv_quant": (
+                    lambda: bgmv.bgmv_gemv_quant(x1, wq, a, b, ids),
+                    lambda: bgmv.bgmv_gemv_quant_plain(x1, wq, a, b, ids))}
+        cases.append((f"#1-#4 s=3 k=70 n=50 int4 {d}",
+                      (x, x[:, 0].contiguous(), w, wq.data, wq.scales, a, b,
+                       ids), banked, None))
+        q, k, v = _flash_operands(gen, (1, 100, 100, 2, 1, 64, True, None),
+                                  dt, dev)
+        cases.append((f"#14 s=t=100 h=2 d=64 causal {d}", (q, k, v),
+                      lambda q, k, v: {"flash_attention": (
+                          lambda: fa.flash_attention(q, k, v, causal=True),
+                          lambda: fa.flash_attention_plain(q, k, v,
+                                                           causal=True))},
+                      FLASH_TOL[dt]))
+        a, b = _scan_operands(gen, SCAN_SHAPES["ragged"], dt, dev)
+        gh = torch.randn(SCAN_SHAPES["ragged"], generator=gen,
+                         device=dev).to(dt)
+        cases.append((f"#15 {SCAN_SHAPES['ragged']} {d}", (a, b, gh),
+                      lambda a, b, gh: {
+                          "rglru_scan": (lambda: rg.rglru_scan(a, b),
+                                         lambda: rg.rglru_scan_plain(a, b)),
+                          "rglru_scan_bwd": (
+                              lambda: rg.rglru_scan_bwd(a, b, gh),
+                              lambda: rg.rglru_scan_bwd_plain(a, b, gh))},
+                      SCAN_TOL[dt]))
+    return cases
+
+
+def guarded_edges(dev="cuda"):
+    """34. (after phase 9's checks, which follow phase 33's large
+    allocate-and-free) The ragged cases of the kernels whose loads mask
+    ragged edges (#1-#12, #14, #15, fp32 and bf16, int8 and int4), each
+    operand copied flush against the end, then the start, of a lone mapped
+    granule (_Granules), against the plain version on the ordinary copies.
+    A read past an operand's edge faults here whatever the allocator's
+    layout: before the bf16 loads went through ``loaders.cuh``'s ``ldg``,
+    #10's bf16 case faulted at every "end" placement."""
+    phase("guarded edges: ragged kernel cases with every operand against "
+          "an unmapped page, end and start")
+    gen = torch.Generator(dev).manual_seed(34)
+    mem = _Granules(torch.device(dev))
+    worst = {}
+    for label, operands, make, tol in _edge_cases(gen, dev):
+        plain = make(*operands)
+        for at in ("end", "start"):
+            guarded = [mem.place(t, at) for t in operands]
+            for kern, (kfn, _) in make(*guarded).items():
+                want = plain[kern][1]()
+                got = kfn()
+                name = kern.split(" ")[0]
+                if tol is None:
+                    err = _check_pair(name, f"{label} at {at}", got, want)
+                else:
+                    pairs = (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)])
+                    err = max(_allclose(name, f"{label} at {at}", gt, wt,
+                                        tol) for gt, wt in pairs)
+                worst[name] = max(worst.get(name, 0.0), err)
+            del guarded, got, want
+            mem.release()
+    print(f"launches in this phase (not the path's): "
+          f"{ {k: v for k, v in _launch_counts().items() if v} }")
+    return worst
+
+
 def _free():
     gc.collect()
     torch.cuda.empty_cache()
@@ -5063,6 +5594,7 @@ def main():
                                                params=params,
                                                track_stability=True)
     launches.update({k: train_launches[k] for k in LORA_KERNELS})
+    remat_paths(name, gemma, dev, params)
     del params
     _free()
     # phase 29 runs here, against phase 6's run
@@ -5093,9 +5625,16 @@ def main():
                 if mode == "int4" else ())
         launches.update({k: sched_launches[k] for k in keep})
     live_bank_path(model, params, bank)
+    guarded_sched_path(name, model, params, bank)
     del model, params, bank
     _free()
+    blocked_attention_paths(name, dev)
+    # phase 9's checks right after phase 33's large allocate-and-free, then
+    # the same kernels with every operand against an unmapped page
     worst.update(check_qtrain_kernels())
+    for kern, err in guarded_edges().items():
+        if kern in worst:
+            worst[kern] = max(worst[kern], err)
     rows.update(time_qtrain_kernels())
     _free()
     for mode in ("int8", "int4"):
@@ -5144,6 +5683,7 @@ def main():
     roberta_paths(name)
     _free()
     dryrun_paths(name, smi)
+    _free()
     kernels = []
     for kern in (("bgmv_gemv", "bgmv_matmul") + LORA_KERNELS
                  + SCHED_KERNELS + QTRAIN_KERNELS + SCAN_FLASH

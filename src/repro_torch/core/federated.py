@@ -827,12 +827,38 @@ class FederatedTrainer:
             aset, gamma=tuple(g * self._rho_host for g in self.gammas))
 
     def _run_one_chunk(self, num_rounds: int, draws=None):
-        """``num_rounds`` rounds with the chunk-start gamma_eff.  ``draws``
-        (round index -> dict) may inject a round's participation mask
-        ("weights") and fault draws ("faults", as ``FaultModel.draw``
-        returns them); what it leaves out is drawn here."""
-        aset = self._train_adapters()
-        opt = self.opt_state
+        """``num_rounds`` rounds with the chunk-start gamma_eff
+        (:meth:`_chunk`), then the chunk's one host read: its metrics
+        (and, in async mode, rho)."""
+        aset, opt, stacked = self._chunk(self.base, self._train_adapters(),
+                                         self.opt_state, num_rounds, draws)
+        # only the A/B tree is engine state: gamma is config
+        self.lora, self.opt_state = aset.lora, opt
+        if self.async_mode:
+            # the one host read of the chunk besides its metrics
+            self._rho_host = _quantize_rho(float(self.async_state["rho"]))
+        keys = list(stacked[0])
+        values = torch.stack([torch.stack([m[k].float() for k in keys])
+                              for m in stacked]).tolist()
+        out = []
+        for row in values:
+            self.round_idx += 1
+            m = dict(zip(keys, row))
+            m["round"] = self.round_idx
+            self.history.append(m)
+            out.append(m)
+        return out
+
+    def _chunk(self, base, aset, opt, num_rounds: int, draws=None):
+        """The engine of a chunk, with its state passed in as JAX's
+        ``_run_chunk`` takes it: ``num_rounds`` rounds from (base, aset,
+        opt) -> (aset, opt, per-round metrics on the device); the async
+        state advances in place.  ``draws`` (round index -> dict) may
+        inject a round's participation mask ("weights") and fault draws
+        ("faults", as ``FaultModel.draw`` returns them); what it leaves
+        out is drawn here.  It reads nothing back to the host, so it runs
+        under ``analysis.sanitizers.guard_transfers`` in device data mode
+        (host mode uploads each round's batch here)."""
         if self.async_mode:
             tau, rho = self.async_state["tau"], self.async_state["rho"]
         stacked = []
@@ -848,7 +874,7 @@ class FederatedTrainer:
                         self.fault_model.round_generator(
                             self.seed, ridx, self.device), aset.lora)
                 aset, opt, tau, rho, ms = self._round_body(
-                    self.base, aset, opt, tau, rho, batches, ridx, faults,
+                    base, aset, opt, tau, rho, batches, ridx, faults,
                     part=part, size_w=self.client_weights,
                     expected=self._num_sampled())
             else:
@@ -856,26 +882,12 @@ class FederatedTrainer:
                 if self.client_weights is not None:
                     weights = (self.client_weights if part is None
                                else part * self.client_weights)
-                aset, opt, ms = self._round_body(self.base, aset, opt,
-                                                 batches, ridx, weights)
+                aset, opt, ms = self._round_body(base, aset, opt, batches,
+                                                 ridx, weights)
             stacked.append(ms)
-        # only the A/B tree is engine state: gamma is config
-        self.lora, self.opt_state = aset.lora, opt
         if self.async_mode:
             self.async_state = {"tau": tau, "rho": rho}
-            # the one host read of the chunk besides its metrics
-            self._rho_host = _quantize_rho(float(rho))
-        keys = list(stacked[0])
-        values = torch.stack([torch.stack([m[k].float() for k in keys])
-                              for m in stacked]).tolist()
-        out = []
-        for row in values:
-            self.round_idx += 1
-            m = dict(zip(keys, row))
-            m["round"] = self.round_idx
-            self.history.append(m)
-            out.append(m)
-        return out
+        return aset, opt, stacked
 
     def _round_batches(self):
         """One round's (N, local_steps, batch, seq) int32 tokens on the

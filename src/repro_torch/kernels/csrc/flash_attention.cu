@@ -78,6 +78,7 @@ using repro_kernels::as_f4;
 using repro_kernels::cp_async;
 using repro_kernels::is_aligned;
 using repro_kernels::ld4;
+using repro_kernels::ldg;
 using repro_kernels::to_f;
 using repro_kernels::Vec4;
 
@@ -268,7 +269,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kVec)
       *reinterpret_cast<float4*>(Qs + row * kQLd + c) = as_f4(ld4(src, in));
     else
-      Qs[row * kQLd + c] = in ? to_f(__ldg(src)) : 0.f;
+      Qs[row * kQLd + c] = in ? to_f(ldg(src)) : 0.f;
   }
   __syncthreads();  // barriers initialised, Q and the row vectors written
 
@@ -318,7 +319,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (kVec)
           u[e] = ld4(src, src != nullptr);
         else
-          u[e] = src ? __ldg(src) : T(0.f);
+          u[e] = src ? ldg(src) : T(0.f);
       }
     }
   };

@@ -142,7 +142,7 @@ struct Rows {
       else if constexpr (kVec)
         u[e] = ld4(src, in);
       else
-        v[e] = in ? __ldg(src) : E(0.f);
+        v[e] = in ? ldg(src) : E(0.f);
     }
   }
   __device__ __forceinline__ void store(float* buf) const {
@@ -196,7 +196,7 @@ struct ColsDense {
       else if constexpr (kVec)
         u[e] = ld4(src, in);
       else
-        v[e] = in ? __ldg(src) : T(0.f);
+        v[e] = in ? ldg(src) : T(0.f);
     }
   }
   __device__ __forceinline__ void store(float* buf) const {
@@ -401,7 +401,7 @@ struct ColsT {
       if constexpr (kVec)
         u[e] = ld4(src, in);
       else
-        v[e] = in ? __ldg(src) : T(0.f);
+        v[e] = in ? ldg(src) : T(0.f);
     }
   }
   __device__ __forceinline__ void store(float* buf) const {

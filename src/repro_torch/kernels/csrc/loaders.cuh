@@ -45,6 +45,18 @@ __device__ __forceinline__ float dequant(float q, float scale) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// One element of an fp32 or bf16 operand through the read-only data cache.
+// A bf16 element is loaded as its 16 bits by the integer __ldg: the
+// bf16 overload of __ldg in cuda_bf16.h is an inline asm, which the
+// compiler may run ahead of the bounds check that guards it, at the
+// unmasked address (on an H100, #10's scalar path read past the end of a
+// bf16 operand that way, and faulted where the next page was unmapped).
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
 template <bool kBf16>
 struct Int8W {
   struct Raw {

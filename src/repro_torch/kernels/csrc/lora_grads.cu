@@ -62,6 +62,7 @@ using repro_kernels::cp_async;
 using repro_kernels::cp_async_commit;
 using repro_kernels::cp_async_wait;
 using repro_kernels::is_aligned;
+using repro_kernels::ldg;
 
 constexpr int kGB = 64;          // output rows and columns per tile
 constexpr int kGK = 16;          // t rows per slab
@@ -97,7 +98,7 @@ struct Stager {
       if constexpr (kVec)
         cp_async<16>(buf + tt * kGB + c, src, in);
       else
-        v[e] = in ? __ldg(src) : E(0.f);
+        v[e] = in ? ldg(src) : E(0.f);
     }
   }
   __device__ __forceinline__ void store(E* buf) const {

@@ -271,7 +271,7 @@ __device__ __forceinline__ void rank_partials(const GemvArgs& g,
   for (int t = lane; t < len; t += 32) {
     T av[kRankPairs];
 #pragma unroll
-    for (int u = 0; u < kRankPairs; ++u) av[u] = __ldg(ar[u] + t);
+    for (int u = 0; u < kRankPairs; ++u) av[u] = ldg(ar[u] + t);
 #pragma unroll
     for (int u = 0; u < kRankPairs; ++u)
       s[u] = fmaf(xs[t * kMB + xb[u]], to_f(av[u]), s[u]);
@@ -576,7 +576,7 @@ bgmv_pass_kernel(const float* __restrict__ partial, const float* __restrict__ p,
   float bv[kPassB];
 #pragma unroll
   for (int j = 0; j < kPassB; ++j)
-    bv[j] = col && j < r ? to_f(__ldg(br + j)) : 0.f;
+    bv[j] = col && j < r ? to_f(ldg(br + j)) : 0.f;
   float acc = 0.f;
   // launched while the GEMV runs (programmatic stream serialization): wait
   // for it, and for its writes, before reading what it wrote
@@ -599,7 +599,7 @@ bgmv_pass_kernel(const float* __restrict__ partial, const float* __restrict__ p,
     if (j < r) lora = fmaf(pb[j], bv[j], lora);
 #pragma unroll 8
   for (int j = kPassB; j < r; ++j)
-    lora = fmaf(pb[j], to_f(__ldg(br + j)), lora);
+    lora = fmaf(pb[j], to_f(ldg(br + j)), lora);
   out[static_cast<size_t>(b) * n + c] = acc + lora;
 }
 

@@ -52,6 +52,7 @@
 
 namespace {
 
+using repro_kernels::ldg;
 using repro_kernels::to_f;
 
 constexpr int kThreads = 64, kUnroll = 8;
@@ -79,8 +80,8 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const bool ok = u < s;
-    an[u] = ok ? to_f(__ldg(ap + static_cast<size_t>(u) * d)) : 0.f;
-    bn[u] = ok ? to_f(__ldg(bp + static_cast<size_t>(u) * d)) : 0.f;
+    an[u] = ok ? to_f(ldg(ap + static_cast<size_t>(u) * d)) : 0.f;
+    bn[u] = ok ? to_f(ldg(bp + static_cast<size_t>(u) * d)) : 0.f;
   }
   float carry = 0.f;
   for (int t0 = 0; t0 < s; t0 += kUnroll) {
@@ -91,8 +92,8 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
       bc[u] = bn[u];
       const int t = t0 + kUnroll + u;
       const bool ok = t < s;
-      an[u] = ok ? to_f(__ldg(ap + static_cast<size_t>(t) * d)) : 0.f;
-      bn[u] = ok ? to_f(__ldg(bp + static_cast<size_t>(t) * d)) : 0.f;
+      an[u] = ok ? to_f(ldg(ap + static_cast<size_t>(t) * d)) : 0.f;
+      bn[u] = ok ? to_f(ldg(bp + static_cast<size_t>(t) * d)) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -113,9 +114,9 @@ __device__ __forceinline__ void fetch_bwd(const T* ap, const T* hp,
                                           float& av, float& hv, float& gv) {
   const bool ok = t >= 0;
   const size_t o = static_cast<size_t>(ok ? t : 0) * d;
-  gv = ok ? to_f(__ldg(gp + o)) : 0.f;
-  av = ok ? to_f(__ldg(ap + o)) : 0.f;
-  hv = (ok && t > 0) ? to_f(__ldg(hp + o - d)) : 0.f;
+  gv = ok ? to_f(ldg(gp + o)) : 0.f;
+  av = ok ? to_f(ldg(ap + o)) : 0.f;
+  hv = (ok && t > 0) ? to_f(ldg(hp + o - d)) : 0.f;
 }
 
 template <typename T>

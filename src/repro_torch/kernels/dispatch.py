@@ -72,13 +72,22 @@ def reset_stats() -> None:
 
 
 @contextlib.contextmanager
-def plain_tier():
-    """Within this block, CUDA tensors take the plain versions."""
-    token = _plain.set(True)
+def plain_tier(plain: bool = True):
+    """Within this block, CUDA tensors take the plain versions (with
+    ``plain=False``, the kernels again)."""
+    token = _plain.set(plain)
     try:
         yield
     finally:
         _plain.reset(token)
+
+
+def tier_now():
+    """A context manager that re-enters the tier in force now: a
+    checkpoint's recompute runs in the backward, which autograd may run on
+    another thread, so it takes the forward's tier through this and not
+    through the thread's own."""
+    return plain_tier(_plain.get())
 
 
 def _use_kernel(x) -> bool:

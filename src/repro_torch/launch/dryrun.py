@@ -64,10 +64,14 @@ position-in-expert run over the whole batch, which each of those devices
 gathers (``models/moe.moe_apply``), and the expert buffers shard their
 expert dim over "model" only, as JAX constrains them
 (``repro/models/moe.py``: ``ex_in`` and ``ex_out`` to ``("model", None,
-None)``).  So the MoE terms do not shrink with the batch axes, where a
-dense layer's do; under ``moe_grouped`` JAX shards the groups over the
-batch axes, and the port's records are then too high by up to the batch
-axes' size.
+None)``).  So the flat MoE terms do not shrink with the batch axes,
+where a dense layer's do.  Under ``moe_grouped`` each device dispatches
+only its own rows (``models/moe._grouped_on_rows``), as JAX shards the
+groups over the batch axes, and those terms shrink with them.
+
+Training records trace ``apply_stack``'s default remat: the backward
+recomputes each repeat unit, so they count its FLOPs twice and keep
+only the units' inputs alive between forward and backward.
 """
 from __future__ import annotations
 

@@ -54,6 +54,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis.hostcheck import check_adapter_ids
+from repro_torch.analysis.sanitizers import guard_transfers
 from repro_torch.checkpoint.io import load_adapter_state
 from repro_torch.configs import ARCHS, NOT_YET_PORTED, get_config
 from repro_torch.configs.base import LoRAConfig
@@ -327,7 +328,7 @@ def _paged_chunk(m, params, cache, tok, pos, active, table, adapters,
 @torch.no_grad()
 def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
                     block_size=8, chunk=8, max_len=None, wait=True,
-                    on_boundary=None):
+                    on_boundary=None, guard=None, transfer_guard=False):
     """Continuous-batching serve loop: admit / decode a chunk / evict until
     every request completes.  Returns the requests (mutated in place:
     ``tokens``, ``t_first``, ``t_done`` filled) sorted by rid.
@@ -347,6 +348,15 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
     ``on_boundary(i)``: called at every scheduler boundary (before
     admission, between decode chunks) with a running index: the window in
     which publishing into a live bank is atomic with respect to chunks.
+
+    ``guard``: a :class:`~repro_torch.analysis.sanitizers.RecompileGuard`
+    that wraps the admission and chunk engines (they compile nothing, so
+    it records their signatures).  ``transfer_guard=True`` runs both
+    engines under :func:`~repro_torch.analysis.sanitizers.guard_transfers`:
+    their operands must already be on the model's device, and on CUDA
+    nothing inside admission or a chunk may wait for the device.  The host
+    loop between them (staging a group, the chunk's one token read) stays
+    outside, as in JAX.
 
     Runs under ``torch.no_grad()`` (not inference mode), so a bank that
     ``on_boundary`` publishes into stays writable afterwards."""
@@ -384,6 +394,13 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
     active = torch.zeros((max_batch,), dtype=torch.bool, device=device)
     ids_arr = np.zeros((max_batch,), np.int32)
     free_slots = list(range(max_batch))
+    admit, chunk_run = _paged_admit, _paged_chunk
+    if guard is not None:
+        admit = guard.wrap("paged_admit", admit)
+        chunk_run = guard.wrap("paged_chunk", chunk_run)
+    if transfer_guard:
+        admit = guard_transfers(admit, device=device)
+        chunk_run = guard_transfers(chunk_run, device=device)
     t0 = time.monotonic()
     clock = ((lambda: time.monotonic() - t0) if wait
              else (lambda: float("inf")))
@@ -462,9 +479,8 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
             ).to(device)
             adapters = (cur_bank().requests(gather_ids)
                         if bank is not None else None)
-            cache, first = _paged_admit(model, params, cache, prompts,
-                                        rows_t, sl, rows.reshape(-1),
-                                        adapters)
+            cache, first = admit(model, params, cache, prompts, rows_t, sl,
+                                 rows_t.reshape(-1), adapters)
             tok[sl, 0] = first
             pos[sl] = plen
             active[sl] = True
@@ -490,7 +506,7 @@ def serve_scheduled(model, params, requests, *, bank=None, max_batch=4,
                 live.touch([r.adapter_id for r in running])
             adapters = (cur_bank().requests(ids_arr.copy())
                         if bank is not None else None)
-            cache, tok, pos, toks = _paged_chunk(
+            cache, tok, pos, toks = chunk_run(
                 model, params, cache, tok, pos, active, table, adapters,
                 chunk)
             toks = toks.cpu().numpy()        # the chunk's one host sync

@@ -30,7 +30,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.layers import apply_rope, linear, rms_norm
+from repro_torch.models.layers import (apply_rope, checkpointed, linear,
+                                       rms_norm)
 from repro_torch.sharding import opts
 from repro_torch.sharding.specs import constrain, merge_heads, split_heads
 
@@ -211,7 +212,7 @@ def _weighted(cfg, scores, mask, v, hd, dtype):
         c = cfg.attn_logit_softcap
         scores = c * torch.tanh(scores / c)
     scores = torch.where(mask[:, None, None, :, :], scores,
-                         scores.new_tensor(NEG_INF))
+                         scores.new_full((), NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     b, s = out.shape[:2]
@@ -274,12 +275,32 @@ def blockwise_attention(cfg, q, k, v, positions_q, positions_kv, *, causal,
     """Flash-style attention in plain PyTorch: loops over q blocks and, in
     each, over kv blocks carrying (acc, m, l), so the (s, t) score matrix
     never exists whole.  A row with no visible key comes out zero, as in
-    ``repro/models/attention.py:blockwise_attention``."""
+    ``repro/models/attention.py:blockwise_attention``.  While autograd
+    records, each kv step runs under a checkpoint (``jax.checkpoint(kv_step)``
+    in JAX): the backward keeps the carries and the step's q / kv blocks,
+    O(s hd), and recomputes the block's scores."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = hd ** -0.5
     kf, vf = k.float(), v.float()
+
+    def kv_step(acc, m, l, qb, kb, vb, pq, pk):
+        sc = torch.einsum("bqkgd,btkd->bkgqt", qb, kb) * scale
+        if cfg.attn_logit_softcap:
+            c = cfg.attn_logit_softcap
+            sc = c * torch.tanh(sc / c)
+        msk = make_mask(pq, pk, causal=causal, window=window)
+        sc = torch.where(msk[:, None, None], sc, sc.new_full((), NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.where(sc <= NEG_INF / 2, sc.new_zeros(()),
+                        torch.exp(sc - m_new[..., None]))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vb)
+        return acc, m_new, l
+
+    remat = torch.is_grad_enabled()
     out = torch.empty(b, s, h, hd, dtype=torch.float32, device=q.device)
     for q0 in range(0, s, q_block):
         qb = q[:, q0:q0 + q_block].float()
@@ -290,22 +311,11 @@ def blockwise_attention(cfg, q, k, v, positions_q, positions_kv, *, causal,
         m = torch.full((b, kh, g, nq), NEG_INF, device=q.device)
         l = torch.zeros(b, kh, g, nq, device=q.device)
         for t0 in range(0, t, kv_block):
-            sc = torch.einsum("bqkgd,btkd->bkgqt", qb,
-                              kf[:, t0:t0 + kv_block]) * scale
-            if cfg.attn_logit_softcap:
-                c = cfg.attn_logit_softcap
-                sc = c * torch.tanh(sc / c)
-            msk = make_mask(pq, positions_kv[:, t0:t0 + kv_block],
-                            causal=causal, window=window)
-            sc = torch.where(msk[:, None, None], sc, sc.new_tensor(NEG_INF))
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            p = torch.where(sc <= NEG_INF / 2, sc.new_zeros(()),
-                            torch.exp(sc - m_new[..., None]))
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqt,btkd->bkgqd", p, vf[:, t0:t0 + kv_block])
-            m = m_new
+            args = (acc, m, l, qb, kf[:, t0:t0 + kv_block],
+                    vf[:, t0:t0 + kv_block], pq,
+                    positions_kv[:, t0:t0 + kv_block])
+            acc, m, l = (checkpointed(kv_step, *args) if remat
+                         else kv_step(*args))
         o = acc / l.clamp_min(1e-30)[..., None]
         out[:, q0:q0 + nq] = o.permute(0, 3, 1, 2, 4).reshape(b, nq, h, hd)
     return out.to(q.dtype)

@@ -6,10 +6,34 @@ tanh-approximated GELU of ``jax.nn.gelu(approximate=True)``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.kernels.dispatch import lora_linear
+from repro_torch.kernels.dispatch import lora_linear, tier_now
+
+
+def checkpointed(fn, *args, policy=None):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``, as
+    ``jax.checkpoint`` runs a function: the backward recomputes what ``fn``
+    would have saved, and keeps only its inputs.  The recompute re-enters
+    the forward's tier (:func:`~repro_torch.kernels.dispatch.tier_now`).
+    ``policy``: a selective-checkpoint policy (ops it marks to save are
+    kept, the rest recomputed)."""
+    def contexts():
+        fwd, rec = (create_selective_checkpoint_contexts(policy) if policy
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _both(rec, tier_now())
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

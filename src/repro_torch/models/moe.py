@@ -124,8 +124,13 @@ def moe_apply(cfg, params, x, adapters=None, *, top_i=None):
     then routes and runs the whole batch's tokens through its experts:
     the buffers split only their expert dim over "model", the layout JAX
     constrains them to (``ex_in`` / ``ex_out`` on ``("model", None,
-    None)``), so the MoE work does not shrink with the batch axes."""
+    None)``), so the MoE work does not shrink with the batch axes.  Under
+    ``moe_grouped`` nothing is gathered: each device dispatches its own
+    rows (:func:`_grouped_on_rows`), as JAX splits the grouped buffers
+    over the batch axes."""
     rows = _batch_rows(x)
+    if rows is not None and opts.enabled("moe_grouped"):
+        return _grouped_on_rows(cfg, params, x, top_i)
     if rows is not None:
         out, aux = moe_apply(cfg, params, x.redistribute(x.device_mesh, rows),
                              adapters, top_i=top_i)
@@ -196,16 +201,28 @@ def moe_apply_grouped(cfg, params, x, *, top_i=None):
     aux)."""
     m = cfg.moe
     b, s, d = x.shape
+    out, assign, probs = _grouped_experts(cfg, params, x, top_i)
+    frac = assign.float().mean((0, 1))
+    aux = m.num_experts * torch.sum(frac * probs.mean((0, 1))) \
+        * m.router_aux_coef
+    out = _with_shared(cfg, params, x.reshape(b * s, d), out)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _grouped_experts(cfg, params, x, top_i, experts=None):
+    """The routed half of :func:`moe_apply_grouped`: (out (b s, d) fp32,
+    assign (b, s, e), probs (b, s, e)).  ``experts`` (lo, hi): the expert
+    stacks in ``params`` hold only experts lo..hi-1 (a device's share), and
+    ``out`` sums only their contributions."""
+    m = cfg.moe
+    b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     ep = padded_experts(m)
     xf = x.reshape(b * s, d)
     probs, top_p, top_i = route(cfg, params, xf, top_i)
     probs = probs.reshape(b, s, e)
     top_p, top_i = top_p.reshape(b, s, k), top_i.reshape(b, s, k)
-
     assign = F.one_hot(top_i, e).sum(2)                       # (b, s, e)
-    frac = assign.float().mean((0, 1))
-    aux = e * torch.sum(frac * probs.mean((0, 1))) * m.router_aux_coef
 
     cap = capacity(cfg, s)
     pos = torch.cumsum(assign, dim=1) - 1                     # per group
@@ -223,13 +240,17 @@ def moe_apply_grouped(cfg, params, x, *, top_i=None):
     buf = torch.zeros((b * slots, d), dtype=x.dtype, device=x.device)
     buf = buf.index_add(0, (flat_idx + rows).reshape(-1), src)
     ex_in = buf.reshape(b, slots, d)[:, :-1].reshape(b, ep, cap, d)
+    lo, hi = experts or (0, ep)
+    ex_in = ex_in[:, lo:hi]
 
-    # expert FFN (swiglu), batched over the padded experts
-    xe = ex_in.transpose(0, 1).reshape(ep, b * cap, d)
+    # expert FFN (swiglu), batched over the (held) padded experts
+    xe = ex_in.transpose(0, 1).reshape(hi - lo, b * cap, d)
     g = F.silu(torch.bmm(xe, params["w_gate"]))
     u = torch.bmm(xe, params["w_up"])
     ex_out = torch.bmm(g * u, params["w_down"])
-    ex_out = ex_out.reshape(ep, b, cap, d).transpose(0, 1)   # (b, ep, cap, d)
+    ex_out = ex_out.reshape(hi - lo, b, cap, d).transpose(0, 1)
+    if experts is not None:                  # the other devices' experts
+        ex_out = F.pad(ex_out, (0, 0, 0, 0, lo, ep - hi))
 
     flat_out = torch.cat([ex_out.reshape(b, ep * cap, d),
                           ex_out.new_zeros((b, 1, d))], 1)
@@ -237,5 +258,55 @@ def moe_apply_grouped(cfg, params, x, *, top_i=None):
         b, s * k, d)).reshape(b * s, k, d)
     out = torch.einsum("tkd,tk->td", tok_out.float(),
                        w.reshape(b * s, k).float())
-    out = _with_shared(cfg, params, xf, out)
+    return out, assign, probs
+
+
+def _grouped_on_rows(cfg, params, x, top_i):
+    """:func:`moe_apply_grouped` on a DTensor x whose batch rows split over
+    batch axes, on each device's rows: a row is its own routing group, so
+    no row leaves its device.  Each device runs the experts it holds (the
+    expert stacks keep their placement over "model"), and the routed
+    outputs are summed across the devices that split the experts.  The aux
+    loss reduces both of its means over the batch axes before their
+    product."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if top_i is not None:
+        raise ValueError("moe_grouped on batch-split rows routes by its own "
+                         "router: top_i= is not taken here")
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    keys = ["router", "w_gate", "w_up", "w_down"]
+    ws = [params[k] for k in keys]
+    split = [i for i, p in enumerate(ws[1].placements) if p == Shard(0)]
+    if len(split) > 1 or any(p.is_shard() and p != Shard(0)
+                             for p in ws[1].placements):
+        raise NotImplementedError("expert stacks split other than by "
+                                  "expert over one mesh dim")
+    n_held = ws[1].to_local().shape[0]
+    lo = mesh.get_local_rank(split[0]) * n_held if split else 0
+    rows = tuple(x.placements)
+    out_pl = tuple(Partial() if i in split else p
+                   for i, p in enumerate(rows))
+    sums_pl = tuple(Partial() if p == Shard(0) else Replicate()
+                    for p in rows)
+
+    def local(xl, router, wg, wu, wd):
+        out, assign, probs = _grouped_experts(
+            cfg, {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd},
+            xl, None, (lo, lo + n_held))
+        return (out.reshape(xl.shape), assign.float().sum((0, 1)),
+                probs.sum((0, 1)))
+
+    out, n_tok, p_sum = local_map(
+        local, out_placements=(out_pl, sums_pl, sums_pl),
+        in_placements=(rows,) + tuple(tuple(w.placements) for w in ws),
+        device_mesh=mesh)(x, *ws)
+    out = out.redistribute(mesh, rows)
+    n_tok, p_sum = (t.redistribute(mesh, [Replicate()] * mesh.ndim)
+                    for t in (n_tok, p_sum))
+    m = cfg.moe
+    aux = m.num_experts * torch.sum((n_tok / (b * s)) * (p_sum / (b * s))) \
+        * m.router_aux_coef
+    out = _with_shared(cfg, params, x.reshape(b * s, d), out.reshape(b * s, d))
     return out.reshape(b, s, d).to(x.dtype), aux

@@ -25,8 +25,7 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -39,8 +38,8 @@ from repro_torch.models.attention import (attention_core,
                                           attn_params, init_kv_cache,
                                           init_paged_kv_cache,
                                           paged_decode_index)
-from repro_torch.models.layers import (apply_norm, linear, mlp_apply,
-                                       mlp_params, norm_params)
+from repro_torch.models.layers import (apply_norm, checkpointed, linear,
+                                       mlp_apply, mlp_params, norm_params)
 from repro_torch.models.moe import moe_apply, moe_params
 from repro_torch.sharding import opts
 from repro_torch.sharding.specs import constrain, merge_heads, split_heads
@@ -406,8 +405,10 @@ def reset_paged_blocks(cache, blocks):
     place; returns ``cache``."""
     def pool(c, v, axis):
         pp = c["pos_pool"]                    # (P, bs) or (repeats, P, bs)
-        pp[..., torch.as_tensor(blocks, dtype=torch.long,
-                                device=pp.device), :] = -1
+        # index_fill_ takes -1 as a scalar argument: no host tensor to
+        # upload (an indexed assignment would copy one, waiting for it)
+        pp.index_fill_(-2, torch.as_tensor(blocks, dtype=torch.long,
+                                           device=pp.device), -1)
         return c
     return _map_paged_cache(cache, None, pool, lambda c, v, axis: c)
 
@@ -456,45 +457,51 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _checkpointed(fn, x):
-    """``fn(x)`` under a non-reentrant checkpoint with the
-    :func:`_dots_saveable` policy."""
-    return checkpoint(fn, x, use_reentrant=False,
-                      context_fn=lambda: create_selective_checkpoint_contexts(
-                          _dots_saveable))
-
-
 def apply_stack(cfg, stack_params, x, *, adapters=None, positions=None,
-                causal=True, pattern=None, enc_out=None):
+                causal=True, pattern=None, remat=True, enc_out=None):
     """Full-sequence forward.  Returns (x, aux_sum).  ``adapters`` is the
     prepared "stack" subtree of an AdapterSet; banked per-request trees
     must be in scan layout (:func:`batched_scan_layout`).  ``enc_out``:
     the encoder output the ``"xattn"`` blocks cross-attend.
 
-    By default every activation is kept for the backward: the port has no
-    counterpart of JAX's whole-block remat of the layer scan.  Two
-    sharding switches act here: ``seq_parallel_residual`` constrains the
-    residual stream's sequence dim onto `model` at the start of every
-    repeat unit (off a mesh, the identity); ``remat_dots`` runs each layer
-    under a selective checkpoint while autograd records
-    (:func:`_dots_saveable`).  The recompute runs in the backward's
-    context, so a backward taken outside ``dispatch.plain_tier()`` would
-    recompute on the kernel tier: keep the backward inside the block the
-    forward ran in."""
+    ``remat`` (JAX's default, which every caller keeps): while autograd
+    records, each repeat unit (one pass of ``pattern``) runs under one
+    non-reentrant checkpoint, so the backward keeps the unit's input and
+    recomputes the rest (``layers.checkpointed``, on the forward's tier);
+    the sharding switch ``remat_dots`` gives that checkpoint the selective
+    policy :func:`_dots_saveable`.  The tail layers and every forward
+    without grad run unwrapped.  ``remat=False`` keeps every activation
+    (for tests and comparisons).  The other switch that acts here,
+    ``seq_parallel_residual``, constrains the residual stream's sequence
+    dim onto `model` at the start of every repeat unit (off a mesh, the
+    identity)."""
     pattern = pattern or cfg.block_pattern
+    layers = list(_layers(cfg, pattern, stack_params, adapters))
     n_rep = (len(pattern) * tree_leaves(stack_params["repeat"])[0].shape[0]
              if stack_params.get("repeat") else 0)
-    remat = opts.enabled("remat_dots") and torch.is_grad_enabled()
+
+    def block(kind, p, lo, h):
+        return apply_block(cfg, kind, p, h, adapters=lo, positions=positions,
+                           causal=causal, enc_out=enc_out)
+
+    def unit(unit_layers, h):
+        if opts.enabled("seq_parallel_residual"):
+            h = constrain(h, (None, "model", None))
+        aux = 0.0
+        for kind, p, lo, _ in unit_layers:
+            h, a = block(kind, p, lo, h)
+            aux = aux + a
+        return h, aux
+
+    policy = _dots_saveable if opts.enabled("remat_dots") else None
+    wrap = remat and torch.is_grad_enabled()
     aux_total = 0.0
-    for i, (kind, p, lo, _) in enumerate(
-            _layers(cfg, pattern, stack_params, adapters)):
-        if i < n_rep and i % len(pattern) == 0 and \
-                opts.enabled("seq_parallel_residual"):
-            x = constrain(x, (None, "model", None))
-        block = functools.partial(apply_block, cfg, kind, p, adapters=lo,
-                                  positions=positions, causal=causal,
-                                  enc_out=enc_out)
-        x, aux = _checkpointed(block, x) if remat else block(x)
+    for i in range(0, n_rep, len(pattern)):
+        fn = functools.partial(unit, layers[i:i + len(pattern)])
+        x, aux = checkpointed(fn, x, policy=policy) if wrap else fn(x)
+        aux_total = aux_total + aux
+    for kind, p, lo, _ in layers[n_rep:]:
+        x, aux = block(kind, p, lo, x)
         aux_total = aux_total + aux
     return x, aux_total
 

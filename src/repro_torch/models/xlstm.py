@@ -108,7 +108,7 @@ def _chunk_step(carry, qb, kb, vb, li, lf, band):
     m_intra = torch.amax(dmat, dim=2)                    # (b, c, h)
     m_inter = m_st[:, None, :] + bacc                    # (b, c, h)
     m_t = torch.maximum(torch.maximum(m_intra, m_inter),
-                        m_intra.new_tensor(_NEG))
+                        m_intra.new_full((), _NEG))
     w = torch.where(band, torch.exp(dmat - m_t[:, :, None, :]), 0.0)
     sc = torch.einsum("bthd,buhd->btuh", qb, kb) * w
     num = torch.einsum("btuh,buhd->bthd", sc, vb)
@@ -311,7 +311,7 @@ def _slstm_scan(cfg, params, gi, carry):
     rec_w = torch.cat([full_local(params[f"r_{g}"]).float() for g in GATES],
                       dim=-1)
     b_f = full_local(params["b_f"]).float().reshape(nh, 1, hd)
-    floor = gi.new_tensor(1e-6)
+    floor = gi.new_full((), 1e-6)
     pre_all = gi.reshape(b, s, 4, nh, hd).permute(1, 3, 0, 2, 4)
     h, c, n, m = (heads(full_local(t)) for t in carry)
     hs = []

@@ -15,10 +15,11 @@ port:
   chunked_ce         compute the CE loss in sequence chunks so the (b, s, V)
                      logits tensor never materializes (``Model.loss``; a
                      memory-term fix).
-  remat_dots         checkpoint each layer in training, saving the outputs
-                     of matmuls without batch dims and recomputing the rest
-                     (``models/transformer.apply_stack``); the port's
-                     default keeps every activation.
+  remat_dots         give the checkpoint of each repeat unit in training the
+                     selective policy: save the outputs of matmuls without
+                     batch dims and recompute the rest
+                     (``models/transformer.apply_stack``, whose default
+                     recomputes the whole unit, as JAX's does).
   moe_grouped        per-batch-row MoE dispatch groups: router cumsum and
                      capacity are group-local (``models/moe.py``); this
                      changes which tokens a full expert drops, so it is the

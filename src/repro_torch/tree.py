@@ -10,6 +10,8 @@ slicing one layer off a repeat-stacked packed weight slices both) and
 ``tree_leaves`` lists both."""
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.core.quant import QuantizedLinear
 
 
@@ -59,3 +61,34 @@ def tree_unflatten(tree, leaves):
         return next(it)
 
     return walk(tree)
+
+
+def tree_flatten(tree):
+    """(leaves, treedef), as ``jax.tree_util.tree_flatten`` returns them
+    for a call's arguments: dicts (in sorted-key order), tuples, lists and
+    dataclass instances are nodes, a packed leaf is a node with its two
+    children, None is an empty node, anything else a leaf.  ``treedef`` is
+    a hashable description of the structure: two trees with one treedef
+    differ only in their leaves."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return ("dict", tuple((k, walk(node[k])) for k in sorted(node)))
+        if isinstance(node, (tuple, list)):
+            return (type(node).__name__, tuple(walk(x) for x in node))
+        if node is None:
+            return ("none",)
+        if isinstance(node, QuantizedLinear):
+            leaves.extend([node.data, node.scales])
+            return ("packed", node.bits, node.group_size, node.k,
+                    str(node.out_dtype))
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return (type(node).__name__, tuple(
+                (f.name, walk(getattr(node, f.name)))
+                for f in dataclasses.fields(node)))
+        leaves.append(node)
+        return ("leaf",)
+
+    treedef = walk(tree)
+    return leaves, treedef

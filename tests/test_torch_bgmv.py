@@ -13,6 +13,18 @@ from repro.kernels import bgmv as jbgmv                      # noqa: E402
 from repro.kernels import dispatch as jdispatch              # noqa: E402
 from repro_torch.kernels import bgmv, common, dispatch       # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)     # the JAX BGMV tests' own bound
 NO_LAUNCHES = {"bgmv_matmul": 0, "bgmv_gemv": 0, "bgmv_matmul_quant": 0,
                "bgmv_gemv_quant": 0}

@@ -35,6 +35,18 @@ from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves                        # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ("llama2-7b", "qwen3-8b", "mistral-nemo-12b", "stablelm-1.6b")
 # the small model of each: dataclasses.replace on the full config, so the

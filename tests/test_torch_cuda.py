@@ -189,9 +189,11 @@ def test_loss_gradients_reach_adapters(card):
             loss, _ = model.loss(params, {"tokens": toks},
                                  adapters=AdapterSet(lora=leaves, gamma=2.0))
             grads[plain] = torch.autograd.grad(loss, tree_leaves(leaves))
+        # the forward runs twice: once, and in the backward's recompute
+        # of each repeat unit
         n = 0 if plain else 2 * cfg.num_layers
         assert lora_matmul.launches == _launches(
-            lora_fwd=n, lora_bwd_dx=n, lora_bwd_da=n, lora_bwd_db=n)
+            lora_fwd=2 * n, lora_bwd_dx=n, lora_bwd_da=n, lora_bwd_db=n)
     for got, want in zip(grads[False], grads[True]):
         assert float(got.abs().max()) > 0
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-5)
@@ -645,11 +647,15 @@ def test_loss_gradients_over_packed_base_reach_adapters(card, mode):
             loss, _ = model.loss(base, {"tokens": toks},
                                  adapters=AdapterSet(lora=leaves, gamma=2.0))
             grads[plain] = torch.autograd.grad(loss, tree_leaves(leaves))
+        # the forwards run again in the backward's recompute of each
+        # repeat unit (one layer), which stops before the unit's last
+        # projection (w_down: nothing the backward needs comes after it)
         n = 0 if plain else 2 * cfg.num_layers
         u = 0 if plain else 5 * cfg.num_layers
         assert lora_matmul.launches == _launches(
-            lora_fwd_quant=n, lora_bwd_dx_quant=n, lora_bwd_da=n,
-            lora_bwd_db=n, quant_matmul=u, quant_matmul_dx=max(0, u - 1))
+            lora_fwd_quant=2 * n, lora_bwd_dx_quant=n, lora_bwd_da=n,
+            lora_bwd_db=n, quant_matmul=u + u * 4 // 5,
+            quant_matmul_dx=max(0, u - 1))
     for got, want in zip(grads[False], grads[True]):
         assert float(got.abs().max()) > 0
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-5)
@@ -1407,9 +1413,10 @@ def test_xlstm_serving_kernel_tier_matches_plain(card):
 
 @pytest.mark.cuda
 def test_xlstm_lora_gradient_step_kernel_tier_matches_plain(card):
-    """One LoRA gradient step (4 x 128 tokens, rank 64): #5-#8 launch twice
-    each (q and v of the mLSTM) on the kernel tier, never on the plain
-    tier; loss and the q / v gradients within 1e-3 of the plain tier's."""
+    """One LoRA gradient step (4 x 128 tokens, rank 64): #6-#8 launch twice
+    each (q and v of the mLSTM) on the kernel tier, #5 four times (the
+    backward recomputes the repeat unit), never on the plain tier; loss
+    and the q / v gradients within 1e-3 of the plain tier's."""
     from repro_torch.core.lora import AdapterSet
     from repro_torch.tree import tree_leaves, tree_map
     model, params, sets = _xlstm_card(rank=64)
@@ -1427,7 +1434,7 @@ def test_xlstm_lora_gradient_step_kernel_tier_matches_plain(card):
             grads = torch.autograd.grad(loss, tree_leaves(leaves))
         torch.cuda.synchronize()
         assert lora_matmul.launches == _launches(
-            **({} if plain else dict(lora_fwd=2, lora_bwd_dx=2,
+            **({} if plain else dict(lora_fwd=4, lora_bwd_dx=2,
                                      lora_bwd_da=2, lora_bwd_db=2)))
         assert all(bool(torch.isfinite(g).all()) for g in grads)
         out[plain] = (loss.detach(), grads)
@@ -1584,7 +1591,8 @@ def test_whisper_serving_kernel_tier_matches_plain(card):
 @pytest.mark.cuda
 def test_whisper_lora_gradient_step_kernel_tier_matches_plain(card):
     """One LoRA gradient step over 4 x 128 tokens and 4 x 1500 frames
-    (rank 64): #5-#8 launch 6 times each (attn q, attn v, cross q of 2
+    (rank 64): #6-#8 launch 6 times each, #5 12 (the backward recomputes
+    each repeat unit) (attn q, attn v, cross q of 2
     layers) on the kernel tier, never on the plain tier; loss and the
     read leaves' gradients within 1e-4 of the plain tier's, the encoder's
     and cross v's none on either tier."""
@@ -1607,7 +1615,7 @@ def test_whisper_lora_gradient_step_kernel_tier_matches_plain(card):
                                         allow_unused=True)
         torch.cuda.synchronize()
         assert lora_matmul.launches == _launches(
-            **({} if plain else dict(lora_fwd=6, lora_bwd_dx=6,
+            **({} if plain else dict(lora_fwd=12, lora_bwd_dx=6,
                                      lora_bwd_da=6, lora_bwd_db=6)))
         out[plain] = (loss.detach(), grads)
     (lk, gk), (lp, gp) = out[False], out[True]
@@ -1691,7 +1699,8 @@ def test_paligemma_lora_gradient_step_kernel_tier_matches_plain(card,
     """One LoRA gradient step (rank 64) over 4 x (256 patches + 600
     tokens) at paligemma-3b's widths (2 layers), with the chunked CE off
     or on (599 predicting positions: chunks of 512 and a ragged 87):
-    #5-#8 launch 4 times each on the kernel tier, never on the plain
+    #6-#8 launch 4 times each on the kernel tier, #5 8 (the backward
+    recomputes each repeat unit), never on the plain
     tier; loss and gradients within 1e-4 of the plain tier's, and of the
     unchunked kernel tier's."""
     from repro_torch.sharding import opts
@@ -1714,7 +1723,7 @@ def test_paligemma_lora_gradient_step_kernel_tier_matches_plain(card,
             opts.reset()
         torch.cuda.synchronize()
         assert lora_matmul.launches == _launches(
-            **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+            **({} if plain else dict(lora_fwd=8, lora_bwd_dx=4,
                                      lora_bwd_da=4, lora_bwd_db=4)))
     for got, want in ((out[False], out[True]), (out[False], ref)):
         _assert_close(got[0], want[0])
@@ -1727,8 +1736,9 @@ def test_paligemma_lora_gradient_step_kernel_tier_matches_plain(card,
 def test_roberta_mlm_step_kernel_tier_matches_plain_and_is_bidirectional(
         card):
     """roberta-large's widths (2 layers): one MLM LoRA gradient step (rank
-    64) over 4 x 128 tokens launches #5-#8 4 times each on the kernel
-    tier, never on the plain tier, loss and gradients within 1e-4 of the
+    64) over 4 x 128 tokens launches #6-#8 4 times each on the kernel
+    tier and #5 8 times (the backward recomputes each repeat unit), never
+    on the plain tier, loss and gradients within 1e-4 of the
     plain tier's; on the kernel tier, changing the last token moves
     position 0's logits."""
     model, params, sets, gen = _card_model("roberta-large", 64)
@@ -1741,7 +1751,7 @@ def test_roberta_mlm_step_kernel_tier_matches_plain_and_is_bidirectional(
                                     sets[0])
         torch.cuda.synchronize()
         assert lora_matmul.launches == _launches(
-            **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+            **({} if plain else dict(lora_fwd=8, lora_bwd_dx=4,
                                      lora_bwd_da=4, lora_bwd_db=4)))
     _assert_close(out[False][0], out[True][0])
     for g, w in zip(out[False][1], out[True][1]):
@@ -1820,7 +1830,7 @@ def test_trainer_on_a_one_device_mesh_equals_no_mesh_on_card(card):
     finally:
         dist.destroy_process_group()
     assert launches == ref_launches == _launches(
-        lora_fwd=64, lora_bwd_dx=64, lora_bwd_da=64, lora_bwd_db=64)
+        lora_fwd=128, lora_bwd_dx=64, lora_bwd_da=64, lora_bwd_db=64)
     assert tr.history == ref.history
     for a, b in zip(tree_leaves({"l": tr.lora, "o": tr.opt_state}),
                     tree_leaves({"l": ref.lora, "o": ref.opt_state})):
@@ -1830,8 +1840,9 @@ def test_trainer_on_a_one_device_mesh_equals_no_mesh_on_card(card):
 @pytest.mark.cuda
 def test_grouped_moe_step_kernel_tier_matches_plain(card):
     """granite-moe's widths (2 layers) with the ``moe_grouped`` switch:
-    one LoRA gradient step over 4 x 128 tokens launches #5-#8 4 times
-    each on the kernel tier, none on the plain tier, and gives the plain
+    one LoRA gradient step over 4 x 128 tokens launches #6-#8 4 times
+    each on the kernel tier and #5 8 times (the backward recomputes each
+    repeat unit), none on the plain tier, and gives the plain
     tier's loss and gradients within 1e-4 (the two tiers' routers pick
     the same experts at this seed; a flip would show as a large
     difference)."""
@@ -1848,10 +1859,35 @@ def test_grouped_moe_step_kernel_tier_matches_plain(card):
                                         sets[0])
             torch.cuda.synchronize()
             assert lora_matmul.launches == _launches(
-                **({} if plain else dict(lora_fwd=4, lora_bwd_dx=4,
+                **({} if plain else dict(lora_fwd=8, lora_bwd_dx=4,
                                          lora_bwd_da=4, lora_bwd_db=4)))
     finally:
         opts.reset()
     _assert_close(out[False][0], out[True][0])
     for g, w in zip(out[False][1], out[True][1]):
         _assert_close(g, w)
+
+
+# ------------------------------------------------------- the transfer guard
+
+@pytest.mark.cuda
+def test_no_implicit_transfers_raises_on_a_sync_and_restores_the_mode(card):
+    """``no_implicit_transfers`` runs its region under
+    ``set_sync_debug_mode("error")``: an ``.item()`` inside raises
+    TransferGuardError, work that stays on the device passes, and the
+    previous mode comes back after either."""
+    from repro_torch.analysis.sanitizers import (TransferGuardError,
+                                                 no_implicit_transfers)
+    x = torch.arange(8.0, device="cuda")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with no_implicit_transfers():
+            y = (x * 2).sum()                  # stays on the device
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with pytest.raises(TransferGuardError, match="synchroniz"):
+            with no_implicit_transfers():
+                (x * 2).sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 1
+        assert float(y) == 56.0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -339,6 +339,49 @@ def test_trace_flops_equal_a_real_run(name, shape):
     assert rec["flops"] == fc.get_total_flops() > 0
 
 
+def _grouped_moe_flops(spec):
+    """The per-device FLOPs of one reduced qwen2-moe layer under
+    ``moe_grouped`` on a fake ``spec`` mesh: the expert stacks placed by
+    the port's rules, x's 4 batch rows split over the batch axes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import moe as tmoe
+    from repro_torch.sharding import opts, rules
+    mesh = _fake_mesh(spec)
+    cfg = tconfigs.get_config("qwen2-moe-a2.7b").reduced(d_model=64,
+                                                         vocab_size=256)
+    p = tmoe.moe_params(cfg, torch.Generator().manual_seed(0))
+    tree = {"stack": {"repeat": {"p0": {"moe": {
+        k: v[None] for k, v in p.items()}}}}}
+    pl = rules.params_sharding(tree, mesh)["stack"]["repeat"]["p0"]["moe"]
+
+    def placed(shape, placements):
+        local = list(shape)
+        for i, q in enumerate(placements):
+            if q.is_shard():
+                local[q.dim] //= mesh.size(i)
+        return _dt(mesh, tuple(local), placements)
+    params = {k: placed(v.shape, [Shard(q.dim - 1) if q.is_shard() else q
+                                  for q in pl[k]]) for k, v in p.items()}
+    x = placed((4, 16, 64), [Shard(0) if n in ("pod", "data")
+                             else Replicate() for n in mesh.mesh_dim_names])
+    opts.set_opts(["moe_grouped"])
+    try:
+        return dryrun.trace(lambda pp, xx: tmoe.moe_apply(cfg, pp, xx),
+                            (params, x), "decode", mesh)["flops"]
+    finally:
+        opts.reset()
+
+
+def test_grouped_moe_flops_halve_with_the_batch_axis():
+    """Under ``moe_grouped`` each device dispatches only its own batch
+    rows (JAX splits the grouped buffers over the batch axes), so doubling
+    "data" from 1x2 to 2x2 halves a device's MoE FLOPs exactly."""
+    one = _grouped_moe_flops("1x2")
+    two = _grouped_moe_flops("2x2")
+    assert one > 0 and one == 2 * two
+
+
 # ------------------------------------------------------------------ families
 
 @pytest.mark.parametrize("spec", ["2x2", "1x4"])
@@ -360,28 +403,41 @@ def test_every_family_traces(spec):
             assert set(rec["collective_bytes"]) == set(dryrun.COLLECTIVES)
 
 
-def test_switches_trace_on_a_model_axis():
+def test_switches_trace_on_a_model_axis(monkeypatch):
     """The hillclimb's variants: a reduced round on 1x4 traces under
     ``expand_kv`` with the chunked CE (whose chunk sums are plain tensors
-    on a model axis) and under ``remat_dots``."""
+    on a model axis) and under ``remat_dots``.  The default round remats
+    each repeat unit whole, so its backward recomputes the unit's every
+    FLOP; ``remat_dots`` keeps the projections' products and recomputes
+    fewer; with no remat nothing is recomputed."""
+    import functools
+
+    from repro_torch.models import transformer as ttransformer
     from repro_torch.sharding import opts
     cfg = tconfigs.get_config("gemma-2b").reduced(num_layers=1, d_model=64,
                                                   vocab_size=256)
-    base = dryrun.run_one("gemma-2b", "train_4k", multi_pod=False,
-                          verbose=False, mesh="1x4", config=cfg, rank=8,
-                          shape=InputShape("t", 16, 1, "train"))
+
+    def record():
+        return dryrun.run_one("gemma-2b", "train_4k", multi_pod=False,
+                              verbose=False, mesh="1x4", config=cfg, rank=8,
+                              shape=InputShape("t", 16, 1, "train"))
+    base = record()
     for names in (("expand_kv", "chunked_ce"), ("remat_dots",)):
         opts.set_opts(names)
         try:
-            rec = dryrun.run_one("gemma-2b", "train_4k", multi_pod=False,
-                                 verbose=False, mesh="1x4", config=cfg,
-                                 rank=8, shape=InputShape("t", 16, 1,
-                                                          "train"))
+            rec = record()
         finally:
             opts.reset()
         assert rec["argument_size_in_bytes"] == \
             base["argument_size_in_bytes"], names
-        assert rec["flops"] >= base["flops"] > 0, names
+        if names == ("remat_dots",):
+            dots = rec["flops"]
+        else:
+            assert rec["flops"] >= base["flops"] > 0, names
+    monkeypatch.setattr(tapi, "apply_stack", functools.partial(
+        ttransformer.apply_stack, remat=False))
+    kept = record()
+    assert 0 < kept["flops"] < dots < base["flops"]
 
 
 # ----------------------------------------------------------------------- CLI

@@ -60,6 +60,18 @@ from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.models import rglru as trglru                 # noqa: E402
 from repro_torch.tree import tree_leaves                       # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 LOOP_TOL = dict(rtol=1e-6, atol=1e-6)
 BF16_STEP = 2 ** -7
@@ -436,8 +448,9 @@ def test_hybrid_trainer_trajectory_matches_jax(hybrid, case):
     ttr.run(ROUNDS)
     # every adapted projection of every local step took the LoRA Function
     # (on the dequantized W over a packed base): q, v in the 1 attention
-    # layer, wx, wy in the 4 RG-LRU layers
-    assert dispatch.stats["lora_matmul"] == 2 * 5 * 2 * 2 * ROUNDS
+    # layer, wx, wy in the 4 RG-LRU layers; the backward recomputes the
+    # repeat unit's 3 layers (the 2 tail layers run once)
+    assert dispatch.stats["lora_matmul"] == 2 * (5 + 3) * 2 * 2 * ROUNDS
     assert dispatch.stats["quant"] == 0
     _assert_same_run(jtr, ttr)
     b_max = max(float(t.abs().max()) for t in tree_leaves(

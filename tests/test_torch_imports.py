@@ -27,7 +27,9 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 new = {"repro_torch.core.faults", "repro_torch.core.stability",
        "repro_torch.analysis.stability_check", "repro_torch.launch.dryrun",
-       "repro_torch.launch.hillclimb"}
+       "repro_torch.launch.hillclimb", "repro_torch.analysis.sanitizers",
+       "repro_torch.analysis.astutil", "repro_torch.analysis.lint",
+       "repro_torch.analysis.rules", "repro_torch.analysis.__main__"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
@@ -40,7 +42,7 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 46
+    assert n_modules >= 51
 
 
 def _imports(path):

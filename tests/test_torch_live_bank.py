@@ -43,6 +43,18 @@ from repro_torch.data import synthetic as tsyn                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves                       # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(name="live", family="dense", num_layers=2, d_model=32,
            num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64, vocab_size=64)
 

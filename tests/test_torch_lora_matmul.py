@@ -20,6 +20,18 @@ from repro.kernels import lora_matmul as jlm                   # noqa: E402
 from repro_torch.kernels import bgmv, common, dispatch         # noqa: E402
 from repro_torch.kernels import lora_matmul                    # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FWD_TOL = dict(rtol=2e-5, atol=2e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 NO_LORA_LAUNCHES = {"lora_fwd": 0, "lora_bwd_dx": 0, "lora_bwd_da": 0,

@@ -51,6 +51,18 @@ from repro_torch.models import moe as tmoe                     # noqa: E402
 from repro_torch.models import transformer as ttransformer     # noqa: E402
 from repro_torch.tree import tree_leaves                        # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 TRAJ_RTOL = 1e-4
 VOCAB = 256

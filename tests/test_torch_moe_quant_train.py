@@ -34,6 +34,18 @@ from repro_torch.data import synthetic as tsyn                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves                        # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRAJ_RTOL = 1e-4
 VOCAB = 256
 GROUP = 32

@@ -29,6 +29,18 @@ from repro_torch.kernels import ops as tops                     # noqa: E402
 from repro_torch.kernels import rglru_scan as tscan             # noqa: E402
 from repro_torch.models import rglru as trglru                  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -50,6 +50,18 @@ from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.models import attention as tattn              # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 2e-5      # plain version vs the JAX oracle and interpret kernel: fp32
 
 

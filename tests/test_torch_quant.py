@@ -41,6 +41,18 @@ from repro_torch.launch import serve as tserve                 # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
 from repro_torch.tree import tree_leaves                       # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5       # plain versions vs the JAX kernels and reference: fp32 sums
 
 CFG = dict(name="quant", family="dense", num_layers=2, d_model=64,

@@ -45,6 +45,18 @@ from repro_torch.models import rglru as trglru                 # noqa: E402
 from repro_torch.models import transformer as ttf              # noqa: E402
 from repro_torch.tree import tree_leaves                       # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 TRIPLE = (("rglru", "rglru", "attn"), 5)   # one repeat + (rglru, rglru) tail
 PAIR = (("attn", "rglru"), 4)              # two repeats, no tail

@@ -9,6 +9,8 @@ Every leaf of every arch's full-size parameter tree (JAX's
 cache (with and without ``cache_seq_shard``) and input specs are compared
 the same way on reduced trees.  Exact equality: a spec is names, not
 numbers."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -29,6 +31,7 @@ from repro_torch.core.lora import init_lora                    # noqa: E402
 from repro_torch.configs.base import LoRAConfig                # noqa: E402
 from repro_torch.launch import mesh as tmesh                   # noqa: E402
 from repro_torch.models import api as tapi                     # noqa: E402
+from repro_torch.models import transformer as ttransformer     # noqa: E402
 from repro_torch.sharding import opts as topts                 # noqa: E402
 from repro_torch.sharding import rules as trules               # noqa: E402
 from repro_torch.sharding import specs as tspecs               # noqa: E402
@@ -270,7 +273,7 @@ def test_set_opts_accepts_every_switch(name):
     assert not any(topts.OPTS.values())
 
 
-def _loss_and_grads(arch, gen_seed=0):
+def _loss_and_grads(arch, gen_seed=0, remat=True):
     from repro_torch.core.lora import AdapterSet
     from repro_torch.kernels import dispatch
     from repro_torch.tree import tree_leaves, tree_map
@@ -284,32 +287,37 @@ def _loss_and_grads(arch, gen_seed=0):
     toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
     leaves = tree_map(lambda x: x.requires_grad_(True), lora)
     dispatch.reset_stats()
-    loss, _ = m.loss(params, {"tokens": toks},
-                     adapters=AdapterSet(lora=leaves, gamma=2.0))
-    fwd = dispatch.stats["lora_matmul"]
-    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tapi, "apply_stack", functools.partial(
+            ttransformer.apply_stack, remat=remat))
+        loss, _ = m.loss(params, {"tokens": toks},
+                         adapters=AdapterSet(lora=leaves, gamma=2.0))
+        fwd = dispatch.stats["lora_matmul"]
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
     return loss.detach(), grads, fwd, dispatch.stats["lora_matmul"]
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "llama2-7b", "roberta-large"])
 def test_switches_leave_results_unchanged_off_a_mesh(arch):
-    """Off a mesh: ``remat_dots`` recomputes every layer's projections in
-    the backward (the adapted projections run twice) and gives the same
-    loss and gradients bit for bit; ``seq_parallel_residual`` and
+    """Off a mesh: with no remat (``apply_stack(remat=False)``) each
+    adapted projection runs once; the default remat of every repeat unit
+    and ``remat_dots`` recompute every unit's projections in the backward
+    (the adapted projections run twice) and give the same loss and
+    gradients bit for bit; ``seq_parallel_residual`` and
     ``seq_parallel_attn`` are the identity; ``expand_kv`` gives the same
     loss bit for bit and the same gradients but for the order in which
     the repeated heads' K/V gradients are summed (gemma-2b's MQA: one KV
     head for four; within 1e-6 x max |grad|)."""
-    loss, grads, fwd, total = _loss_and_grads(arch)
+    loss, grads, fwd, total = _loss_and_grads(arch, remat=False)
     assert total == fwd
-    for name in ("remat_dots", "seq_parallel_residual", "seq_parallel_attn",
-                 "expand_kv"):
-        topts.set_opts([name])
+    for name in (None, "remat_dots", "seq_parallel_residual",
+                 "seq_parallel_attn", "expand_kv"):
+        topts.set_opts([name] if name else [])
         got_loss, got, got_fwd, got_total = _loss_and_grads(arch)
         topts.reset()
         assert torch.equal(got_loss, loss), name
         assert got_fwd == fwd
-        assert got_total == (2 * fwd if name == "remat_dots" else fwd)
+        assert got_total == 2 * fwd, name
         for a, b in zip(got, grads, strict=True):
             if name == "expand_kv":
                 torch.testing.assert_close(

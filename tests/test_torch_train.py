@@ -49,6 +49,18 @@ from repro_torch.optim import schedules as tsched              # noqa: E402
 from repro_torch.sharding import opts as topts                 # noqa: E402
 from repro_torch.tree import tree_leaves                        # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its small ops gain nothing
+    from more, and the suite's parallel workers share the machine's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRAJ_RTOL = 1e-4
 # the paper's fig2 methods: (strategy, scaling), benchmarks/common.py
 METHODS = {"RoLoRA": ("rolora", "lora"), "FedSA-LoRA": ("fedsa", "lora"),
@@ -307,10 +319,11 @@ def test_trainer_trajectory_matches_jax(small, method):
     lora_matmul.reset_launches()
     dispatch.reset_stats()
     ttr.run(ROUNDS)
-    # every adapted projection of every local step took the Function
+    # every adapted projection of every local step took the Function,
+    # twice: the forward, and the backward's recompute of its repeat unit
     n_proj = 2 * small[1].num_layers
     assert dispatch.stats == {"bgmv": 0, "plain": 0, "lora_matmul":
-                              n_proj * N_CLIENTS * 2 * ROUNDS, "quant": 0,
+                              2 * n_proj * N_CLIENTS * 2 * ROUNDS, "quant": 0,
                               "paged": 0}
     _assert_same_run(jtr, ttr)
     b_max = max(float(t.abs().max()) for t in tree_leaves(

@@ -128,9 +128,49 @@ def decode_steps(sc, mesh=None):
     return {"logits": np.stack(logits_all), "tokens": np.stack(tokens)}
 
 
+def grouped_moe(sc, mesh=None):
+    """One MoE layer of a reduced ``sc["arch"]`` under ``moe_grouped`` on
+    ``sc["params"]`` and ``sc["x"]`` (numpy).  On a mesh the expert stacks
+    are placed by ``params_sharding`` and x's batch rows split over the
+    batch axes, so each rank dispatches its own rows.  Returns the output
+    (gathered) and the aux loss as numpy."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.io import params_from_numpy
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.sharding import opts, rules
+    from repro_torch.sharding.specs import BATCH_AXES
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config(sc["arch"]).reduced(d_model=64, vocab_size=256)
+    params = params_from_numpy(sc["params"], "cpu")
+    x = torch.from_numpy(sc["x"])
+    if mesh is not None:
+        tree = {"stack": {"repeat": {"p0": {"moe": tree_map(
+            lambda t: t[None], params)}}}}
+        pl = rules.params_sharding(tree, mesh)["stack"]["repeat"]["p0"]["moe"]
+        params = tree_map(lambda t, p: distribute_tensor(t, mesh, [
+            Shard(q.dim - 1) if q.is_shard() else q for q in p]), params, pl)
+        x = distribute_tensor(x, mesh, [
+            Shard(0) if n in BATCH_AXES else Replicate()
+            for n in mesh.mesh_dim_names])
+    opts.set_opts(["moe_grouped"])
+    try:
+        with torch.no_grad():
+            out, aux = moe_apply(cfg, params, x)
+    finally:
+        opts.reset()
+    full = (lambda t: t.full_tensor()) if mesh is not None else (
+        lambda t: t)
+    return {"out": full(out).numpy().copy(), "aux": full(aux).numpy().copy()}
+
+
 def run_scenario(sc, mesh):
     if sc.get("decode"):
         return decode_steps(sc, mesh)
+    if sc.get("moe"):
+        return grouped_moe(sc, mesh)
     tr = make_trainer(sc, mesh)
     if sc.get("batches") is not None:
         return round_steps(tr, sc["batches"])
